@@ -5,6 +5,8 @@
 // reached through banded_call_dkw (epilogue _emit_row).  Forms ported:
 //   y = L @ x                 (x0 == nullptr)
 //   y = 2 (L @ x) - x0        (x0 != nullptr)
+//   y = 2 (L @ x) - x0 + c    (x0, c != nullptr; float only: the backward
+//                              adjoint chain's hop, band_cheby_hop_c)
 // in float32 (FMA, f32 accumulation), bfloat16 (tensor cores, f32
 // accumulation) and int8 (tensor cores, int32 accumulation, requant
 // clip(rint(band_scale * acc [*2 - x0]), +-127) at emission).
@@ -29,7 +31,9 @@
 // used here: the band re-read and the unpipelined shared-memory staging
 // bound it long before the tensor cores do.  Left for later: TMA loads
 // into a multi-stage ring, wgmma, a column tile as wide as C so the band
-// is read once, and the 2L@x - x0 + c and in-place forms.
+// is read once, and the in-place form (output over x0).  The + c form
+// adds one read of c per output element to the emission; the band
+// re-read still dominates its bytes.
 //
 // Build without --use_fast_math: the int8 path is bit-exact with the
 // PyTorch reference only with IEEE rounding of every float operation.
@@ -58,6 +62,7 @@ struct Args {
   int G;
   const void* x;   // [mp, C]
   const void* x0;  // [mp, C] or nullptr
+  const void* c;   // [mp, C] or nullptr (needs x0)
   void* y;         // [mp, C]
   int mp;
   int C;
@@ -97,7 +102,8 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-// Float emission: y = acc, or 2 acc - x0 in f32, rounded once to T.
+// Float emission: y = acc, 2 acc - x0, or (2 acc - x0) + c in f32, in
+// that order with IEEE rounding and no contraction, rounded once to T.
 template <typename T>
 __device__ __forceinline__ void emit_float(const Args& a, size_t i,
                                            float acc) {
@@ -105,6 +111,9 @@ __device__ __forceinline__ void emit_float(const Args& a, size_t i,
   if (a.x0 != nullptr) {
     y = __fsub_rn(__fmul_rn(2.0f, acc),
                   to_float(static_cast<const T*>(a.x0)[i]));
+    if (a.c != nullptr) {
+      y = __fadd_rn(y, to_float(static_cast<const T*>(a.c)[i]));
+    }
   }
   store(static_cast<T*>(a.y) + i, y);
 }
@@ -300,14 +309,18 @@ __global__ void __launch_bounds__(kThreads) dkw_tc_kernel(Args a) {
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16, 2 int8.  Unused level slots take a null
-// band and width 0.  Launches on `stream` and returns cudaGetLastError().
+// band and width 0.  c needs x0 and a float dtype.  Launches on `stream`
+// and returns cudaGetLastError().
 extern "C" int band_dkw_launch(const void* band0, const void* band1,
                                const void* band2, const void* band3,
                                int w0, int w1, int w2, int w3,
                                const void* base, const void* sched, int nsb,
-                               int G, const void* x, const void* x0, void* y,
-                               int mp, int C, float band_scale, int dtype,
-                               void* stream) {
+                               int G, const void* x, const void* x0,
+                               const void* c, void* y, int mp, int C,
+                               float band_scale, int dtype, void* stream) {
+  if (c != nullptr && (x0 == nullptr || dtype == 2)) {
+    return (int)cudaErrorInvalidValue;
+  }
   Args a;
   a.band[0] = band0;
   a.band[1] = band1;
@@ -323,6 +336,7 @@ extern "C" int band_dkw_launch(const void* band0, const void* band1,
   a.G = G;
   a.x = x;
   a.x0 = x0;
+  a.c = c;
   a.y = y;
   a.mp = mp;
   a.C = C;

@@ -8,11 +8,8 @@ graph is one sample: features ``[M, Fin]`` become activations
 Parameters use the JAX package's layout, ``{"convs": [{"w": [K, Fin,
 Fout], "b": [Fout]}, ...]}``; ``apply(params, features)`` runs on any
 such tree (``convert.node_classifier_params_from_jax`` makes one from
-JAX weights) and ``forward(features)`` on the module's own parameters.
-Forward only so far: the banded backward is a later port, and the band
-kernels raise if a gradient is requested through them; dropout, which
-only acts in training, is left out with it, and so is the residual
-option, which no caller of the port uses yet.
+JAX weights) and ``forward(features)`` on the module's own parameters,
+in eval mode.  ``train.train_node_classifier`` trains it with adam.
 """
 
 from __future__ import annotations
@@ -29,14 +26,24 @@ __all__ = ["NodeClassifier"]
 class NodeClassifier(nn.Module):
     """Per-node softmax classifier over a Chebyshev conv stack.
 
-    ``hidden``: list of hidden widths; ``K``: polynomial order per layer.
-    Weights are drawn from ``generator`` (truncated normal, std 0.1),
-    biases start at zero.  Note that ``apply`` here is the JAX-style
-    functional forward and shadows ``nn.Module.apply``.
+    ``hidden``: list of hidden widths; ``K``: polynomial order per layer;
+    ``dropout``: keep probability after each hidden layer in training;
+    ``residual``: add a hidden layer's input to its output where the
+    widths match.  Weights are drawn from ``generator`` (truncated normal,
+    std 0.1), biases start at zero.  Note that ``apply`` here is the
+    JAX-style functional forward and shadows ``nn.Module.apply``.
+
+    ``input_grad`` (default False): layer 0 declares that no gradient
+    with respect to the input features is consumed, so on banded
+    operators its backward skips the adjoint chain.  Then ``features``
+    gets no gradient at all (``features.grad`` stays ``None``; the JAX
+    model returns zeros there).  Pass ``input_grad=True`` for saliency
+    maps or a differentiable front end feeding the features.
     """
 
     def __init__(self, operator, input_features: int, num_classes: int,
-                 hidden=(64,), K: int = 3, *,
+                 hidden=(64,), K: int = 3, dropout: float = 1.0,
+                 residual: bool = False, input_grad: bool = False, *,
                  generator: torch.Generator | None = None, device=None):
         super().__init__()
         self.op = operator
@@ -44,6 +51,9 @@ class NodeClassifier(nn.Module):
         self.C = num_classes
         self.hidden = list(hidden)
         self.K = K
+        self.dropout = dropout
+        self.residual = residual
+        self.input_grad = input_grad
         widths = [self.Fin] + self.hidden + [self.C]
         self.weights = nn.ParameterList()
         self.biases = nn.ParameterList()
@@ -58,22 +68,34 @@ class NodeClassifier(nn.Module):
         return {"convs": [{"w": w, "b": b}
                           for w, b in zip(self.weights, self.biases)]}
 
-    def apply(self, params, features: torch.Tensor) -> torch.Tensor:
-        """``features``: ``[M, Fin]`` -> logits ``[M, classes]``."""
+    def apply(self, params, features: torch.Tensor, *, train: bool = False,
+              generator: torch.Generator | None = None) -> torch.Tensor:
+        """``features``: ``[M, Fin]`` -> logits ``[M, classes]``.
+        ``train`` turns dropout on, drawing from ``generator``."""
         x = features[None]
         n = len(params["convs"])
         for i, layer in enumerate(params["convs"]):
-            h = cheby_conv(x, self.op, layer["w"]) + layer["b"]
-            x = torch.relu(h) if i < n - 1 else h
+            h = cheby_conv(x, self.op, layer["w"],
+                           input_grad=(i > 0 or self.input_grad)) + layer["b"]
+            if i < n - 1:
+                h = torch.relu(h)
+                if self.residual and h.shape[-1] == x.shape[-1]:
+                    h = h + x
+                h = common.dropout(h, self.dropout, train, generator)
+            x = h
         return x[0]
 
     def forward(self, features: torch.Tensor) -> torch.Tensor:
         return self.apply(self.param_tree(), features)
 
-    def loss(self, params, features, labels, mask=None) -> torch.Tensor:
-        """Masked mean cross-entropy, forward only: ``labels`` ``[M]``
-        int, ``mask`` ``[M]`` bool selects the labeled nodes (None: all)."""
-        logp = torch.log_softmax(self.apply(params, features), dim=1)
+    def loss(self, params, features, labels, mask=None, *,
+             train: bool = False,
+             generator: torch.Generator | None = None) -> torch.Tensor:
+        """Masked mean cross-entropy: ``labels`` ``[M]`` int, ``mask``
+        ``[M]`` bool selects the labeled nodes (None: all)."""
+        logp = torch.log_softmax(
+            self.apply(params, features, train=train, generator=generator),
+            dim=1)
         picked = logp.gather(1, labels[:, None].long())[:, 0]
         if mask is None:
             return -picked.mean()

@@ -2,6 +2,7 @@
 
 from cnn_graph_tpu_torch.ops.band import (
     band_cheby_hop,
+    band_cheby_hop_c,
     band_spmm,
     banded_dkw,
     banded_dkw_reference,
@@ -21,6 +22,7 @@ from cnn_graph_tpu_torch.ops.laplacian import (
 
 __all__ = [
     "band_cheby_hop",
+    "band_cheby_hop_c",
     "band_spmm",
     "banded_dkw",
     "banded_dkw_reference",

@@ -1,22 +1,23 @@
-"""Chebyshev spectral graph convolution, forward pass.
+"""Chebyshev spectral graph convolution.
 
 Counterpart of ``cnn_graph_tpu/ops/filters.py``: ``cheby_conv`` (:323)
-with the same dispatch (:344-378), the banded streaming forward of
-``cheby_conv_banded`` (:222-246), the int8 streaming conv
-``_cheby_conv_quant_stream`` (:74) and the stacked ``cheby_basis``
+with the same dispatch (:344-378), ``cheby_conv_banded`` (:180-320) with
+its streaming forward and fused adjoint backward, the int8 streaming
+conv ``_cheby_conv_quant_stream`` (:74) and the stacked ``cheby_basis``
 (:138) of the dense path.  Activations are ``[B, M, F]``, weights
 ``[K, Fin, Fout]``.
 
-The per-tap products ``T_k x W_k`` are plain ``torch.matmul``s on
-f32-upcast operands, accumulated in f32 across the taps, as the JAX
-package's taps accumulate in f32.  The banded backward (the adjoint
-recurrence, :256-317) is not ported yet; the band kernels raise if asked
-for a gradient.
+The per-tap products ``T_k x W_k`` and dW are plain ``torch.matmul``s on
+f32-upcast operands, accumulated in f32, as the JAX package's taps
+accumulate in f32; the backward's injections ``g W_k^T`` run in the
+operator's compute dtype, as in JAX.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
+from torch.profiler import record_function
 
 from cnn_graph_tpu_torch.ops.band import full_f32_matmul
 from cnn_graph_tpu_torch.ops.laplacian import BandedLaplacian
@@ -60,12 +61,11 @@ def _cheby_conv_quant_stream(x: torch.Tensor, L, w: torch.Tensor):
     return y.to(x.dtype)
 
 
-def cheby_conv_banded(x: torch.Tensor, L: BandedLaplacian,
-                      w: torch.Tensor) -> torch.Tensor:
-    """Chebyshev conv on a banded operator, forward only.  Keeps the
-    kernel's batch-major ``[Mp, B*F]`` columns and streams the taps
-    ``y += T_k x W_k`` with two rolling carries, never holding the
-    K-deep basis."""
+def _ccb_forward(x: torch.Tensor, L, w: torch.Tensor, keep: bool):
+    """Streaming taps ``y += T_k x W_k`` over the recurrence, in the
+    kernel's batch-major ``[Mp, B*F]`` columns.  ``keep``: also return
+    the K carries as a list (for the backward; a ``torch.stack`` would
+    copy them all), else only two rolling carries stay live."""
     K, Fin, Fout = w.shape
     B, M, F = x.shape
     if F != Fin:
@@ -74,16 +74,107 @@ def cheby_conv_banded(x: torch.Tensor, L: BandedLaplacian,
                     L.m_padded).to(L.compute_dtype)
     wc = w.to(torch.float32)
     y = torch.zeros((B, M, Fout), dtype=torch.float32, device=x.device)
+    carries = []
     prev, cur = None, xt
-    with full_f32_matmul():
-        for k in range(K):
-            if k == 1:
-                prev, cur = cur, L.matmul(cur)
-            elif k >= 2:
-                prev, cur = cur, L.cheby_hop(cur, prev)
-            tap = cur[:M].reshape(M, B, F).to(torch.float32)
+    for k in range(K):
+        if k == 1:
+            prev, cur = cur, L.matmul(cur)
+        elif k >= 2:
+            prev, cur = cur, L.cheby_hop(cur, prev)
+        if keep:
+            carries.append(cur)
+        tap = cur[:M].reshape(M, B, F).to(torch.float32)
+        with full_f32_matmul(), record_function("cheby_conv_banded.taps"):
             y = y + torch.einsum("mbf,fo->bmo", tap, wc[k])
-    return y.to(x.dtype)
+    return y.to(x.dtype), carries
+
+
+class _ChebyConvBanded(torch.autograd.Function):
+    """The banded conv with the fused three-term adjoint backward
+    (filters.py:180-320).  The operator and ``input_grad`` ride on ctx."""
+
+    @staticmethod
+    def forward(ctx, x, L, w, input_grad):
+        y, carries = _ccb_forward(x, L, w, keep=True)
+        ctx.save_for_backward(w, *carries)
+        ctx.L, ctx.input_grad, ctx.x_dtype = L, input_grad, x.dtype
+        return y
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        w, *S = ctx.saved_tensors
+        K, Fin, _ = w.shape
+        B, M, _ = g.shape
+        dx = dw = None
+        if ctx.needs_input_grad[2]:
+            # dW[k, f, o] = sum_{b, m} S[k, m, b, f] g[b, m, o], per hop.
+            gc = g.to(torch.float32)
+            dws = []
+            for k in range(K):
+                tap = S[k][:M].reshape(M, B, Fin).to(torch.float32)
+                with full_f32_matmul(), record_function(
+                        "cheby_conv_banded.dW"):
+                    dws.append(torch.einsum("mbf,bmo->fo", tap, gc))
+            dw = torch.stack(dws).to(w.dtype)
+        if ctx.input_grad and ctx.needs_input_grad[0]:
+            dx = _ccb_adjoint(ctx.L, g, w).reshape(M, B, Fin).permute(
+                1, 0, 2).to(ctx.x_dtype)
+        return dx, None, dw, None
+
+
+def _ccb_adjoint(L, g, w):
+    """``dx`` in the kernel layout ``[M, B*Fin]`` by the adjoint recurrence
+
+        s_{K-1} = c_{K-1},  s_{K-2} = 2 L s_{K-1} + c_{K-2},
+        s_k     = 2 L s_{k+1} - s_{k+2} + c_k,      c_k = g W_k^T
+        dx      = s_0 = c_0 + L s_1 - s_2
+
+    with one fused ``cheby_hop_c`` kernel pass per hop (filters.py
+    :288-312)."""
+    K, Fin, _ = w.shape
+    B, M, _ = g.shape
+    cdt = L.compute_dtype
+    gcd, wcd = g.to(cdt), w.to(cdt)
+
+    def c_inj(k):
+        with full_f32_matmul(), record_function(
+                "cheby_conv_banded.injections"):
+            ck = torch.einsum("bmo,fo->mbf", gcd, wcd[k]).reshape(M, B * Fin)
+        return _pad_nodes(ck, L.m_padded)
+
+    C = [c_inj(k) for k in range(K)]
+    if K == 1:
+        s0 = C[0]
+    elif K == 2:
+        s0 = C[0] + L.matmul(C[1])
+    else:
+        # s_{K-2} = 2 L s_{K-1} + c_{K-2}: a hop against a zero x0.
+        s_next = L.cheby_hop_c(C[K - 1], torch.zeros_like(C[K - 1]),
+                               C[K - 2])
+        s_next2 = C[K - 1]
+        for k in range(K - 3, 0, -1):
+            s_next, s_next2 = L.cheby_hop_c(s_next, s_next2, C[k]), s_next
+        s0 = C[0] + L.matmul(s_next) - s_next2
+    return s0[:M]
+
+
+def cheby_conv_banded(x: torch.Tensor, L: BandedLaplacian, w: torch.Tensor,
+                      input_grad: bool = True) -> torch.Tensor:
+    """Chebyshev conv on a banded operator: the streaming forward and,
+    when a gradient is needed, a ``torch.autograd.Function`` whose
+    backward is the fused adjoint recurrence (``_ccb_adjoint``) plus dW
+    streamed per hop in f32.  The forward then keeps the K carries in
+    the compute dtype; otherwise only two rolling carries stay live.
+
+    The dx contract: with ``input_grad=False`` (a first-layer conv over
+    raw data) the backward skips the adjoint chain and returns no
+    gradient for ``x`` (``None``, never zeros): ``x.grad`` stays ``None``
+    and the K-1 hops are never run.  The JAX package returns exact zeros
+    there instead (node_classifier.py:36-46)."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _ChebyConvBanded.apply(x, L, w, input_grad)
+    return _ccb_forward(x, L, w, keep=False)[0]
 
 
 def cheby_basis(x: torch.Tensor, L, K: int) -> torch.Tensor:
@@ -101,20 +192,23 @@ def cheby_basis(x: torch.Tensor, L, K: int) -> torch.Tensor:
     return stacked.permute(0, 3, 1, 2)
 
 
-def cheby_conv(x: torch.Tensor, L, w: torch.Tensor) -> torch.Tensor:
+def cheby_conv(x: torch.Tensor, L, w: torch.Tensor,
+               input_grad: bool = True) -> torch.Tensor:
     """Chebyshev spectral graph convolution ``y = sum_k T_k(L) x W_k``.
 
     ``x``: ``[B, M, Fin]``, ``w``: ``[K, Fin, Fout]`` -> ``[B, M, Fout]``.
-    Banded operators take the streaming banded forward; single-chip
-    quantized operators the int8 streaming conv; everything else the
-    stacked basis and one tap contraction.
+    Banded operators take ``cheby_conv_banded``; single-chip quantized
+    operators the int8 streaming conv (inference only); everything else
+    the stacked basis and one tap contraction, differentiated by torch.
+    ``input_grad=False`` declares that no gradient for ``x`` is consumed;
+    only the banded path uses it (see ``cheby_conv_banded``).
     """
     K, Fin, Fout = w.shape
     B, M, F = x.shape
     if F != Fin:
         raise ValueError(f"feature mismatch: x has {F}, w expects {Fin}")
     if isinstance(L, BandedLaplacian):
-        return cheby_conv_banded(x, L, w)
+        return cheby_conv_banded(x, L, w, input_grad)
     if hasattr(L, "cheby_hop_q") and not hasattr(L, "cheby_chain_q"):
         return _cheby_conv_quant_stream(x, L, w)
     if getattr(L, "use_fused", False):

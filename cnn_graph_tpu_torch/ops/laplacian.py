@@ -28,7 +28,12 @@ import torch
 from cnn_graph_tpu_torch.graphs import rescale_laplacian
 from cnn_graph_tpu_torch.ops import packing
 from cnn_graph_tpu_torch.ops.packing import _round_up
-from cnn_graph_tpu_torch.ops.band import band_cheby_hop, band_spmm, banded_dkw
+from cnn_graph_tpu_torch.ops.band import (
+    band_cheby_hop,
+    band_cheby_hop_c,
+    band_spmm,
+    banded_dkw,
+)
 
 __all__ = [
     "DENSE_THRESHOLD",
@@ -100,6 +105,11 @@ class BandedLaplacian:
     def cheby_hop(self, x1: torch.Tensor, x0: torch.Tensor) -> torch.Tensor:
         return band_cheby_hop(self, x1, x0)
 
+    def cheby_hop_c(self, x1: torch.Tensor, x0: torch.Tensor,
+                    c: torch.Tensor) -> torch.Tensor:
+        """The adjoint chain's hop ``2 (L @ x1) - x0 + c``, no backward."""
+        return band_cheby_hop_c(self, x1, x0, c)
+
     def to(self, device) -> BandedLaplacian:
         return dataclasses.replace(
             self, bands_dkw=tuple(b.to(device) for b in self.bands_dkw),
@@ -115,7 +125,8 @@ class QuantBandedLaplacian:
     ride one scale across the recurrence, and the kernel's emission works
     in input-scale units, so that scale never enters the kernel: callers
     may pass a run-time scale to ``quantize``/``dequantize``.  Inference
-    only."""
+    only, as the JAX int8 operators are: ``quantize`` raises when a
+    gradient would be needed through it."""
 
     bands_dkw: tuple
     base: torch.Tensor
@@ -134,6 +145,10 @@ class QuantBandedLaplacian:
         return torch.int8
 
     def quantize(self, x: torch.Tensor, scale=None) -> torch.Tensor:
+        if torch.is_grad_enabled() and x.requires_grad:
+            raise RuntimeError(
+                "QuantBandedLaplacian is inference-only (no backward through "
+                "int8): run under torch.no_grad()/inference_mode()")
         s = self.act_scale if scale is None else scale
         return torch.clamp(torch.round(x / s), -127, 127).to(torch.int8)
 

@@ -20,6 +20,7 @@ from cnn_graph_tpu_torch.ops import (
     band_spmm,
     banded_dkw,
     banded_dkw_reference,
+    cheby_conv_banded,
     device_laplacian,
     quantize_banded,
 )
@@ -74,6 +75,61 @@ def test_kernel_matches_reference(city96, cuda_device, dtype, hop, C):
         torch.testing.assert_close(
             got.float(), want.float(), atol=1e-4,
             rtol=2**-7 if dtype == "bfloat16" else 1e-5)
+
+
+@pytest.mark.parametrize("C", [48, 300])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_adjoint_hop_matches_reference(city96, cuda_device, dtype, C):
+    """The + c form, 2 L@x - x0 + c, against the plain version."""
+    op = _operator(city96, dtype, cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(C)
+    x, x0, c = (torch.randn(op.m_padded, C, generator=g, device=cuda_device)
+                .to(op.compute_dtype) for _ in range(3))
+    args = (op.bands_dkw, op.base, op.sched_dkw, x, x0, c)
+    kw = dict(levels=op.levels, G=op.rows_per_step)
+    before = banded_dkw.form_launches["hop_c"]
+    got = banded_dkw(*args, **kw)
+    torch.cuda.synchronize()
+    assert banded_dkw.form_launches["hop_c"] == before + 1
+    want = banded_dkw_reference(*args, **kw)
+    torch.testing.assert_close(
+        got.float(), want.float(), atol=1e-4,
+        rtol=2**-7 if dtype == "bfloat16" else 1e-5)
+
+
+def test_adjoint_hop_refuses_int8(city96, cuda_device):
+    q = _operator(city96, "int8", cuda_device)
+    x = torch.zeros(q.m_padded, 16, dtype=torch.int8, device=cuda_device)
+    with pytest.raises(ValueError):
+        banded_dkw(q.bands_dkw, q.base, q.sched_dkw, x, x, x,
+                   levels=q.levels, G=q.rows_per_step,
+                   band_scale=q.band_scale)
+
+
+@pytest.mark.parametrize("K", [2, 7])
+def test_conv_gradients_through_kernel_match_plain_version(city96,
+                                                           cuda_device, K):
+    """cheby_conv_banded's dx and dW on the card (every band product a
+    kernel launch) against the same operator on the CPU (plain version);
+    f32, so only the summation order differs."""
+    op = _operator(city96, "float32", cuda_device)
+    rng = np.random.default_rng(K)
+    x = rng.normal(size=(2, op.m, 8)).astype(np.float32)
+    w = (rng.normal(size=(K, 8, 3)) * 0.3).astype(np.float32)
+    t = rng.normal(size=(2, op.m, 3)).astype(np.float32)
+    grads = []
+    for o, dev in ((op, cuda_device), (op.to("cpu"), "cpu")):
+        xt, wt = (torch.from_numpy(a).to(dev).requires_grad_() for a in (x, w))
+        before = banded_dkw.launches
+        y = cheby_conv_banded(xt, o, wt)
+        (y * torch.from_numpy(t).to(dev)).sum().backward()
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            # Forward K-1, backward K-1 (K-2 adjoint hops and one L@x).
+            assert banded_dkw.launches == before + 2 * (K - 1)
+        grads.append((xt.grad.cpu(), wt.grad.cpu()))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, atol=2e-3, rtol=1e-4)
 
 
 def test_kernel_rejects_bad_arguments(city96, cuda_device):

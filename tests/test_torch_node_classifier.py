@@ -182,7 +182,8 @@ class TestGuards:
             "import sys, cnn_graph_tpu_torch, cnn_graph_tpu_torch.graphs, "
             "cnn_graph_tpu_torch.ops, cnn_graph_tpu_torch.models, "
             "cnn_graph_tpu_torch.serve, cnn_graph_tpu_torch.convert, "
-            "cnn_graph_tpu_torch._build, chip_smoke\n"
+            "cnn_graph_tpu_torch.train, cnn_graph_tpu_torch._build, "
+            "chip_smoke\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'cnn_graph_tpu')]\n"
             "assert not bad, bad\n"
