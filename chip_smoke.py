@@ -5,8 +5,10 @@
 Phases, each fatal on failure (no CPU path, no fallback):
 
 1. require a CUDA device; print the card's name and power limit;
-2. build the banded kernel (csrc/band_dkw.cu) from source with nvcc;
-3. hold the kernel against its plain PyTorch version on the real
+2. build the banded kernel (csrc/band_dkw.cu) and the fused Chebyshev
+   kernels (csrc/cheby_fused.cu) from source, one nvcc each, started
+   together; print each kernel's registers and shared memory;
+3. hold the banded kernel against its plain PyTorch version on the real
    50,176-node serving operator at C = 512, for L@x and the hop 2L@x - x0,
    in int8 (bit-identical), bf16 (one bf16 ulp: both round an f32
    accumulation of exact bf16 products, summed in another order) and f32
@@ -28,13 +30,32 @@ Phases, each fatal on failure (no CPU path, no fallback):
 6. time per-request latency, ms per training step (kernel and plain
    version) and the kernel's ms per form beside the plain version's,
    with CUDA events after a warm-up;
-7. with ``--profile-dir DIR`` only: trace 3 requests per serving mode
-   after 2 warm-ups, and 2 bf16 training steps after one, with
-   ``torch.profiler`` (CPU and CUDA activities); print the device time
-   per request or step, its share of the measured time, the largest
-   device kernels and aten ops, and for training the device time by
-   part (K1 by form, taps, dW, injections, casts, adam); write each
-   ``key_averages()`` table to ``DIR/profile_<mode>.txt``.
+7. hold the fused kernels K2 (the conv) and K3 (its weight gradient)
+   against their plain versions at the bench's dense_fused shape (x and
+   g [100, 976, 32], w [25, 32, 32] on the 976-node level-0 operator) in
+   f32 and bf16, and K2 at ChebNet layer 1's dx shape (g [100, 244, 64],
+   W^T [25, 64, 32]) in f32, and time both;
+8. serve the paper's ChebNet (MNIST grid, F=[32, 64], K=[25, 25], p=[4,
+   4], M=[512, 10]; nips2016/mnist.ipynb cells 14-17) on its coarsened
+   operators through compile_serving: 4 requests of 100 synthetic digits,
+   with f32 operators (the paper's) and with bf16 ones; check 1 K2 and
+   0 K3 launches per request (layer 0, Fin = 1, takes the stacked path),
+   finite [100, 10] logits, and the logits against the same requests
+   through operators whose fused conv runs the plain versions;
+9. train that ChebNet (dropout 0.5, L2 5e-4) for 4 adam steps through
+   train_classifier on one fixed batch of 100, with f32 and bf16
+   operators; check 2 K2 and 1 K3 launches per step, a finite loss that
+   falls, and one step's loss and gradients against the plain twin with
+   the same dropout seed; time requests and steps beside the twin's;
+10. with ``--profile-dir DIR`` only: trace 3 requests per serving mode
+   after 2 warm-ups, 2 bf16 NodeClassifier training steps after one, and
+   2 f32 ChebNet training steps after one, with ``torch.profiler`` (CPU
+   and CUDA activities); print the device time per request or step, its
+   share of the measured time, the largest device kernels and aten ops,
+   and for training the device time by part (K1 by form, taps, dW,
+   injections, casts, adam; K2 forward, K2 dx, K3, the stacked basis of
+   ChebNet's layer 0, fc, adam); write each ``key_averages()`` table to
+   ``DIR/profile_<mode>.txt``.
 
 The line before the last is the kernel record as one JSON object; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -50,6 +71,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -59,18 +81,36 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from cnn_graph_tpu_torch import _build, graphs  # noqa: E402
-from cnn_graph_tpu_torch.models import NodeClassifier  # noqa: E402
+from cnn_graph_tpu_torch.data import (  # noqa: E402
+    mnist_graph_data,
+    synthetic_mnist,
+)
+from cnn_graph_tpu_torch.models import ChebNet, NodeClassifier  # noqa: E402
+from cnn_graph_tpu_torch.models.common import (  # noqa: E402
+    map_operators,
+    tree_leaves,
+    tree_map,
+)
 from cnn_graph_tpu_torch.ops import (  # noqa: E402
     BandedLaplacian,
+    DenseLaplacian,
     QuantBandedLaplacian,
     banded_dkw,
     banded_dkw_reference,
     cheby_conv,
+    cheby_conv_fused,
+    cheby_conv_fused_reference,
+    cheby_dw_fused,
+    cheby_dw_fused_reference,
     device_laplacian,
+    fused_filter,
     quantize_banded,
 )
 from cnn_graph_tpu_torch.serve import compile_serving  # noqa: E402
-from cnn_graph_tpu_torch.train import train_node_classifier  # noqa: E402
+from cnn_graph_tpu_torch.train import (  # noqa: E402
+    train_classifier,
+    train_node_classifier,
+)
 
 SIDE, KNN, FIN, CLASSES, K = 224, 8, 512, 16, 25
 N_REQUESTS = 4  # per serving mode
@@ -81,6 +121,15 @@ TRAIN_STEPS, LEARNING_RATE = 4, 1e-3  # per training mode; bench.py:268
 STEP_FORMS = {"spmm": 3, "hop": 2 * (K - 2), "hop_c": K - 2}
 SOURCE = "cnn_graph_tpu_torch/csrc/band_dkw.cu"
 REPLACES = "cnn_graph_tpu/ops/pallas_band.py:448"  # _kernel_dkw
+# The paper's MNIST ChebNet (nips2016/mnist.ipynb cells 14-17,
+# experiments/mnist.py:66-75): 4 coarsening levels from seed 2017.
+CHEB = dict(F=[32, 64], K=[25, 25], p=[4, 4], M=[512, 10], dropout=0.5,
+            regularization=5e-4)
+CHEB_B, CHEB_SEED = 100, 2017
+CHEB_SOURCE = "cnn_graph_tpu_torch/csrc/cheby_fused.cu"
+CHEB_REPLACES = {"K2": "cnn_graph_tpu/ops/pallas_cheby.py:61",    # _kernel
+                 "K3": "cnn_graph_tpu/ops/pallas_cheby.py:210"}  # _dw_kernel
+DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 
 def check(ok: bool, what: str):
@@ -225,7 +274,7 @@ def _trace(fn, n: int, out_dir: str, mode: str):
     avg = prof.key_averages()
     with open(os.path.join(out_dir, f"profile_{mode}.txt"), "w") as f:
         f.write(avg.table(sort_by="cuda_time_total", row_limit=40))
-    return avg
+    return avg, prof
 
 
 def _pct(ms: float, total: float) -> float:
@@ -251,7 +300,7 @@ def profile_phase(served: dict, x: torch.Tensor, lat: dict, out_dir: str,
     for mode, serving in served.items():
         for _ in range(2):
             serving(x)
-        avg = _trace(lambda s=serving: s(x), n, out_dir, mode)
+        avg, _ = _trace(lambda s=serving: s(x), n, out_dir, mode)
         busy = _busy_ms(avg, n)
         print(f"profile {mode}: device {busy:.3f} ms per request, "
               f"{100 * busy / lat[mode]:.1f}% of the {lat[mode]:.3f} ms "
@@ -277,7 +326,7 @@ def train_profile_phase(run, step_ms: float, out_dir: str, gpu: str,
     """Device-time breakdown of ``n`` bf16 training steps."""
     os.makedirs(out_dir, exist_ok=True)
     run(1)
-    avg = _trace(lambda: run(1), n, out_dir, "train_bf16")
+    avg, _ = _trace(lambda: run(1), n, out_dir, "train_bf16")
     busy = _busy_ms(avg, n)
     print(f"profile train bf16: device {busy:.3f} ms per step, "
           f"{100 * busy / step_ms:.1f}% of the {step_ms:.3f} ms step [{gpu}]")
@@ -296,21 +345,92 @@ def train_profile_phase(run, step_ms: float, out_dir: str, gpu: str,
     _print_top(avg, busy, n)
 
 
+def _spans_ms(prof, name: str) -> list:
+    """Device-side spans of the ``record_function`` ranges called
+    ``name``, in launch order, in ms: each holds one ctypes kernel."""
+    spans = sorted((e for e in prof.events()
+                    if e.device_type == DeviceType.CUDA
+                    and e.is_user_annotation and e.name == name),
+                   key=lambda e: e.time_range.start)
+    return [e.time_range.elapsed_us() / 1e3 for e in spans]
+
+
+def chebnet_profile_phase(run, step_ms: float, out_dir: str, gpu: str,
+                          n: int = 2):
+    """Device-time breakdown of ``n`` f32 ChebNet training steps.  Each
+    step launches K2 for the forward, then K2 for dx, then K3, so the
+    K2 spans alternate forward and dx.  The fused conv's layout copies
+    are its ranges' aten kernels, to which the ctypes kernels are not
+    linked."""
+    os.makedirs(out_dir, exist_ok=True)
+    run(1)
+    avg, prof = _trace(lambda: run(1), n, out_dir, "chebnet_train_f32")
+    busy = _busy_ms(avg, n)
+    print(f"profile chebnet train f32: device {busy:.3f} ms per step, "
+          f"{100 * busy / step_ms:.1f}% of the {step_ms:.3f} ms step [{gpu}]")
+    k2 = _spans_ms(prof, "cheby_fused.K2")
+    events = {e.key: e for e in avg if e.device_type == DeviceType.CPU}
+
+    def cpu_ms(*keys):
+        return sum(events[k].device_time_total for k in keys
+                   if k in events) / n / 1e3
+
+    parts = (
+        ("K2 forward", sum(k2[0::2]) / n),
+        ("K2 dx", sum(k2[1::2]) / n),
+        ("K3 dW", sum(_spans_ms(prof, "cheby_fused.K3")) / n),
+        ("K2/K3 layout copies", cpu_ms("cheby_conv_fused.forward",
+                                       "cheby_conv_fused.dx",
+                                       "cheby_conv_fused.dW")),
+        ("layer 0 stacked basis", cpu_ms("cheby_conv.stacked")),
+        ("fc forward", cpu_ms("fc")),
+        ("adam", cpu_ms("Optimizer.step#Adam.step")),
+    )
+    for label, ms in parts:
+        print(f"  part {label}: {ms:.3f} ms ({_pct(ms, busy):.1f}%)")
+    print(f"  part rest (backward of layer 0 and fc, loss): "
+          f"{busy - sum(ms for _, ms in parts):.3f} ms")
+    _print_top(avg, busy, n)
+
+
 def _on(params, dev):
-    return {"convs": [{k: v.detach().to(dev) for k, v in layer.items()}
-                      for layer in params["convs"]]}
+    return tree_map(lambda t: t.detach().to(dev), params)
 
 
 def loss_and_grads(model, params, data, seed: int):
     """One step's loss and parameter gradients, dropout drawn from a
     generator seeded with ``seed``."""
-    p = {"convs": [{k: v.detach().clone().requires_grad_()
-                    for k, v in layer.items()} for layer in params["convs"]]}
+    p = tree_map(lambda t: t.detach().clone().requires_grad_(), params)
     gen = torch.Generator(device=data[0].device).manual_seed(seed)
     loss = model.loss(p, *data, train=True, generator=gen)
     loss.backward()
-    return loss.detach(), [t.grad for layer in p["convs"]
-                           for t in layer.values()]
+    return loss.detach(), [t.grad for t in tree_leaves(p)]
+
+
+def check_step(model, twin, params, data, tol: float, what: str, launches):
+    """One step's loss and every gradient through ``model`` against the
+    same step through ``twin``, the same dropout seed, and no kernel
+    launch (``launches()``: the count) in the twin's step.  Returns the
+    loss's relative error and the largest gradient error relative to its
+    max."""
+    loss, grads = loss_and_grads(model, params, data, seed=1)
+    torch.cuda.synchronize()
+    before = launches()
+    loss_p, grads_p = loss_and_grads(twin, params, data, seed=1)
+    torch.cuda.synchronize()
+    check(launches() == before, f"{what}: the plain twin launched "
+          f"{launches() - before} kernels")
+    loss_err = abs(float(loss) - float(loss_p)) / abs(float(loss_p))
+    check(loss_err <= tol, f"{what}: loss {float(loss)} vs plain "
+          f"{float(loss_p)}")
+    grad_err = 0.0
+    for g, gp in zip(grads, grads_p):
+        check(bool(torch.isfinite(g).all()), f"{what}: gradient")
+        err = float((g - gp).abs().max() / gp.abs().max())
+        check(err <= tol, f"{what}: gradient {tuple(g.shape)} off the "
+              f"plain version by {err:.3g} of its max (limit {tol})")
+        grad_err = max(grad_err, err)
+    return loss_err, grad_err
 
 
 def train_phase(op, dropout: float, data, mode: str) -> dict:
@@ -347,27 +467,12 @@ def train_phase(op, dropout: float, data, mode: str) -> dict:
     # One step through the kernel and through the plain version.
     twin = copy.copy(model)
     twin.op = _plain_twin(op)
-    loss, grads = loss_and_grads(model, params, data, seed=1)
-    torch.cuda.synchronize()
-    banded_dkw.launches = 0
-    loss_p, grads_p = loss_and_grads(twin, params, data, seed=1)
-    torch.cuda.synchronize()
-    check(banded_dkw.launches == 0, f"train {mode}: the plain twin launched "
-          f"{banded_dkw.launches} kernels")
     # f32: the same arithmetic summed in another order, through 48 hops;
     # bf16: carries rounded after sums in another order may land an ulp
     # apart and travel along the chains, as in serving.
-    tol = 1e-3 if mode == "f32" else 2e-2
-    loss_err = abs(float(loss) - float(loss_p)) / abs(float(loss_p))
-    check(loss_err <= tol, f"train {mode}: loss {float(loss)} vs plain "
-          f"{float(loss_p)}")
-    grad_err = 0.0
-    for g, gp in zip(grads, grads_p):
-        check(bool(torch.isfinite(g).all()), f"train {mode}: gradient")
-        err = float((g - gp).abs().max() / gp.abs().max())
-        check(err <= tol, f"train {mode}: gradient {tuple(g.shape)} off the "
-              f"plain version by {err:.3g} of its max (limit {tol})")
-        grad_err = max(grad_err, err)
+    loss_err, grad_err = check_step(
+        model, twin, params, data, 1e-3 if mode == "f32" else 2e-2,
+        f"train {mode}", lambda: banded_dkw.launches)
 
     step_ms = cuda_ms(lambda: run(TRAIN_STEPS), 1) / TRAIN_STEPS
     plain_step_ms = cuda_ms(lambda: run(1, m=twin), 1)
@@ -375,6 +480,156 @@ def train_phase(op, dropout: float, data, mode: str) -> dict:
             "peak_gb": peak_gb,
             "loss_rel_err": loss_err, "grad_rel_err": grad_err,
             "ms": step_ms, "plain_ms": plain_step_ms, "run": run}
+
+
+# ------------------------------------------------------------- ChebNet, K2, K3
+
+
+class _PlainDense(DenseLaplacian):
+    """A dense operator whose fused conv runs the plain versions."""
+
+    def fused_filter(self, x, w):
+        return cheby_conv_fused_reference(x, self, w)
+
+    def fused_dw(self, x, g, K):
+        return cheby_dw_fused_reference(x, self, g, K)
+
+
+def _plain_dense(op):
+    return _PlainDense(**{f.name: getattr(op, f.name)
+                          for f in dataclasses.fields(op)})
+
+
+def cheby_launches() -> tuple:
+    return cheby_conv_fused.launches, cheby_dw_fused.launches
+
+
+def reset_cheby_launches():
+    torch.cuda.synchronize()
+    cheby_conv_fused.launches = cheby_dw_fused.launches = 0
+
+
+def _kernel_vs_plain(kernel, plain, tol: float, what: str) -> dict:
+    """One kernel call against its plain version on the same inputs,
+    within ``tol`` of the plain result's largest entry, and both timed."""
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{what}: shape/dtype")
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    check(bool(torch.isfinite(got).all()) and err <= tol * scale,
+          f"{what}: max |kernel - plain| {err:.3g} over limit "
+          f"{tol * scale:.3g}")
+    return {"max_abs_err": err, "scale": scale, "ms": cuda_ms(kernel, 10),
+            "plain_ms": cuda_ms(plain, 3)}
+
+
+def cheby_kernel_phase(Ls, dev, gen: torch.Generator) -> dict:
+    """K2 and K3 against their plain versions at the bench's dense_fused
+    shape (bench.py:926-936) in f32 and bf16, and K2 at ChebNet layer 1's
+    dx shape in f32.  Tolerances, of the largest plain entry: f32 1e-4,
+    the same f32 products summed in another order through 24 hops; bf16
+    1e-2, a carry next to a bf16 rounding boundary may round one ulp
+    (2^-8) apart and later hops carry that along."""
+    rec = {}
+    for lab, dt in DTYPES.items():
+        op = device_laplacian(Ls[0], fmt="dense", dtype=dt, device=dev,
+                              use_pallas=True)
+        x, g = (torch.randn(CHEB_B, op.m, 32, generator=gen, device=dev)
+                for _ in range(2))
+        w = 0.05 * torch.randn(CHEB["K"][0], 32, 32, generator=gen,
+                               device=dev)
+        tol = 1e-4 if lab == "f32" else 1e-2
+        rec[lab] = {
+            "K2": _kernel_vs_plain(
+                lambda: fused_filter(x, op, w),
+                lambda: cheby_conv_fused_reference(x, op, w), tol,
+                f"K2 {lab}"),
+            "K3": _kernel_vs_plain(
+                lambda: cheby_dw_fused(x, op, g, w.shape[0]),
+                lambda: cheby_dw_fused_reference(x, op, g, w.shape[0]), tol,
+                f"K3 {lab}"),
+        }
+    op = device_laplacian(Ls[2], fmt="dense", device=dev, use_pallas=True)
+    g = torch.randn(CHEB_B, op.m, 64, generator=gen, device=dev)
+    wt = 0.05 * torch.randn(CHEB["K"][1], 64, 32, generator=gen, device=dev)
+    rec["dx"] = _kernel_vs_plain(
+        lambda: fused_filter(g, op, wt),
+        lambda: cheby_conv_fused_reference(g, op, wt), 1e-4, "K2 dx f32")
+    return rec
+
+
+def chebnet_model(Ls, dt, dev):
+    ops = [device_laplacian(L, fmt="dense", dtype=dt, device=dev,
+                            use_pallas=True) for L in Ls]
+    model = ChebNet(ops, **CHEB, generator=torch.Generator().manual_seed(0))
+    return model, _on(model.param_tree(), dev)
+
+
+def chebnet_serve_phase(model, params, reqs, mode: str) -> dict:
+    """Serve ``reqs`` through compile_serving: 1 K2 and 0 K3 launches per
+    request, finite logits, the same logits as the plain twin's."""
+    serving = compile_serving(model, params, reqs[0], int8=False)
+    twin = compile_serving(map_operators(model, _plain_dense), params,
+                           reqs[0], int8=False)
+    reset_cheby_launches()
+    logits = [serving(x) for x in reqs]
+    torch.cuda.synchronize()
+    launches = cheby_launches()
+    check(launches == (len(reqs), 0), f"chebnet serve {mode}: launches "
+          f"{launches} for {len(reqs)} requests, want ({len(reqs)}, 0)")
+    reset_cheby_launches()
+    want = [twin(x) for x in reqs]
+    torch.cuda.synchronize()
+    check(cheby_launches() == (0, 0), f"chebnet serve {mode}: the plain "
+          "twin launched kernels")
+    # f32: only layer 1's sums run in another order; bf16: as the kernel
+    # checks, an operand may round one ulp apart and travel along.
+    tol = 1e-3 if mode == "f32" else 2e-2
+    err = 0.0
+    for y, yp in zip(logits, want):
+        check(tuple(y.shape) == (CHEB_B, CHEB["M"][-1])
+              and bool(torch.isfinite(y).all()),
+              f"chebnet serve {mode}: bad logits")
+        e = float((y - yp).abs().max())
+        check(e <= tol * float(yp.abs().max()), f"chebnet serve {mode}: "
+              f"logits off the plain twin's by {e:.3g}")
+        err = max(err, e)
+    return {"launches": launches, "max_abs_err": err, "serving": serving,
+            "ms": cuda_ms(lambda: serving(reqs[0]), 5),
+            "plain_ms": cuda_ms(lambda: twin(reqs[0]), 3)}
+
+
+def chebnet_train_phase(model, params, batch, mode: str) -> dict:
+    """4 adam steps on one fixed batch: 2 K2 and 1 K3 launches per step,
+    a finite loss that falls, one step against the plain twin."""
+    dev = batch[0].device
+
+    def run(steps, m=model, seed=0):
+        return train_classifier(
+            m, params, *batch, batch_size=CHEB_B, steps=steps,
+            learning_rate=LEARNING_RATE,
+            generator=torch.Generator(device=dev).manual_seed(seed))
+
+    reset_cheby_launches()
+    _, losses = run(TRAIN_STEPS)
+    torch.cuda.synchronize()
+    launches = cheby_launches()
+    check(launches == (2 * TRAIN_STEPS, TRAIN_STEPS),
+          f"chebnet train {mode}: launches {launches} for {TRAIN_STEPS} "
+          "steps")
+    losses = losses.tolist()
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"chebnet train {mode}: losses {losses} not finite and falling")
+    twin = map_operators(model, _plain_dense)
+    loss_err, grad_err = check_step(
+        model, twin, params, batch, 1e-3 if mode == "f32" else 2e-2,
+        f"chebnet train {mode}", lambda: sum(cheby_launches()))
+    return {"launches": launches, "losses": losses, "loss_rel_err": loss_err,
+            "grad_rel_err": grad_err, "run": run,
+            "ms": cuda_ms(lambda: run(TRAIN_STEPS), 1) / TRAIN_STEPS,
+            "plain_ms": cuda_ms(lambda: run(1, m=twin), 1)}
 
 
 def main() -> int:
@@ -390,13 +645,18 @@ def main() -> int:
     gpu = card()
     print(f"card: {gpu}", flush=True)
 
+    # Phase 2: one nvcc per source, all started together.
     t0 = time.perf_counter()
-    _, log = _build.build("band_dkw")
-    build_s = time.perf_counter() - t0
-    print(f"build: band_dkw.cu in {build_s:.1f} s", flush=True)
-    for line in log.splitlines():
-        if "registers" in line or "Compiling entry" in line:
-            print(f"  ptxas: {line.strip()}")
+    sources = ("band_dkw", "cheby_fused")
+    with ThreadPoolExecutor(len(sources)) as pool:
+        logs = dict(zip(sources, pool.map(_build.build, sources)))
+    print(f"build: {', '.join(f'{n}.cu' for n in sources)} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for name, (_, log) in logs.items():
+        for line in log.splitlines():
+            if ("registers" in line or "Compiling entry" in line
+                    or "spill" in line):
+                print(f"  ptxas {name}: {line.strip()}")
 
     t0 = time.perf_counter()
     L, positions = graphs.city_graph(SIDE, k=KNN, seed=0)
@@ -493,10 +753,60 @@ def main() -> int:
     for mode, ms in lat.items():
         print(f"request latency {mode}: {ms:.3f} ms "
               f"({K - 1} SpMMs, {op.m} nodes, Fin {FIN}) [{gpu}]")
+
+    # Phase 7: K2 and K3 against their plain versions, and timed.
+    t0 = time.perf_counter()
+    splits = synthetic_mnist(n_train=CHEB_B, n_val=0,
+                             n_test=N_REQUESTS * CHEB_B, seed=CHEB_SEED)
+    data, Ls, _ = mnist_graph_data(splits, seed=CHEB_SEED)
+    print(f"mnist graph: levels {[L.shape[0] for L in Ls]} nodes, set-up "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    kchecks = cheby_kernel_phase(Ls, dev, gen)
+    for lab in DTYPES:
+        for kern in ("K2", "K3"):
+            r = kchecks[lab][kern]
+            print(f"kernel {kern} {lab} [100, 976, 32] K=25: max_abs_err "
+                  f"{r['max_abs_err']:.3g} (of max {r['scale']:.3g}), "
+                  f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms) [{gpu}]",
+                  flush=True)
+    r = kchecks["dx"]
+    print(f"kernel K2 dx f32 [100, 244, 64] W^T [25, 64, 32]: max_abs_err "
+          f"{r['max_abs_err']:.3g} (of max {r['scale']:.3g}), {r['ms']:.4f} "
+          f"ms (plain {r['plain_ms']:.4f} ms) [{gpu}]", flush=True)
+
+    # Phases 8 and 9: the paper's ChebNet served and trained, its
+    # operators in f32 (the paper's) and in bf16.
+    xs = torch.from_numpy(data["test_data"]).to(dev)
+    creqs = list(xs.split(CHEB_B))
+    batch = (torch.from_numpy(data["train_data"]).to(dev),
+             torch.from_numpy(data["train_labels"]).to(dev))
+    cheb = {}
+    for lab, dt in DTYPES.items():
+        model, cparams = chebnet_model(Ls, dt, dev)
+        srv = chebnet_serve_phase(model, cparams, creqs, lab)
+        trn = chebnet_train_phase(model, cparams, batch, lab)
+        cheb[lab] = {"serve": srv, "train": trn}
+        print(f"chebnet serve {lab}: {N_REQUESTS} requests of {CHEB_B}, "
+              f"launches (K2, K3) {srv['launches']}, max |served - plain| "
+              f"{srv['max_abs_err']:.3g}; {srv['ms']:.3f} ms per request "
+              f"(plain {srv['plain_ms']:.3f} ms) [{gpu}]", flush=True)
+        print(f"chebnet train {lab}: {TRAIN_STEPS} adam steps, launches "
+              f"(K2, K3) {trn['launches']}, losses "
+              f"{[round(v, 4) for v in trn['losses']]}; one step vs plain: "
+              f"loss rel err {trn['loss_rel_err']:.3g}, gradient err "
+              f"{trn['grad_rel_err']:.3g} of max; {trn['ms']:.3f} ms per "
+              f"step (plain {trn['plain_ms']:.3f} ms) [{gpu}]", flush=True)
+
     if args.profile_dir:
         profile_phase(served, reqs[0], lat, args.profile_dir, gpu)
         train_profile_phase(trains["bf16"]["run"], trains["bf16"]["ms"],
                             args.profile_dir, gpu)
+        profile_phase({"chebnet_f32": cheb["f32"]["serve"]["serving"]},
+                      creqs[0], {"chebnet_f32": cheb["f32"]["serve"]["ms"]},
+                      args.profile_dir, gpu)
+        chebnet_profile_phase(cheb["f32"]["train"]["run"],
+                              cheb["f32"]["train"]["ms"], args.profile_dir,
+                              gpu)
 
     record = {"kernels": [
         {"name": f"band_dkw_{lab}", "route": "cuda", "source": SOURCE,
@@ -516,6 +826,31 @@ def main() -> int:
          "train_ms_per_step": trains[lab]["ms"],
          "train_plain_ms_per_step": trains[lab]["plain_ms"]}
         for lab in ("bf16", "f32")
+    ] + [
+        {"name": f"cheby_conv_fused_{lab}", "route": "cuda",
+         "source": CHEB_SOURCE, "replaces": CHEB_REPLACES["K2"],
+         "launches": (cheb[lab]["serve"]["launches"][0]
+                      + cheb[lab]["train"]["launches"][0]),
+         "max_abs_err": kchecks[lab]["K2"]["max_abs_err"],
+         "ms": kchecks[lab]["K2"]["ms"],
+         "plain_ms": kchecks[lab]["K2"]["plain_ms"],
+         "request_ms": cheb[lab]["serve"]["ms"],
+         "request_plain_ms": cheb[lab]["serve"]["plain_ms"],
+         "train_ms_per_step": cheb[lab]["train"]["ms"],
+         "train_plain_ms_per_step": cheb[lab]["train"]["plain_ms"],
+         **({"dx_ms": kchecks["dx"]["ms"],
+             "dx_plain_ms": kchecks["dx"]["plain_ms"],
+             "dx_max_abs_err": kchecks["dx"]["max_abs_err"]}
+            if lab == "f32" else {})}
+        for lab in DTYPES
+    ] + [
+        {"name": f"cheby_dw_fused_{lab}", "route": "cuda",
+         "source": CHEB_SOURCE, "replaces": CHEB_REPLACES["K3"],
+         "launches": cheb[lab]["train"]["launches"][1],
+         "max_abs_err": kchecks[lab]["K3"]["max_abs_err"],
+         "ms": kchecks[lab]["K3"]["ms"],
+         "plain_ms": kchecks[lab]["K3"]["plain_ms"]}
+        for lab in DTYPES
     ]}
     print(json.dumps(record))
     print(gpu)

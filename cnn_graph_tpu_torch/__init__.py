@@ -4,11 +4,12 @@ Runs the spectral graph convolution framework on an NVIDIA H100.  The
 JAX package ``cnn_graph_tpu`` beside it is the reference each part is
 tested against; this package imports ``torch`` and never ``jax``.
 
-Ported so far (the banded serving slice): ``graphs.city_graph``, the
-dense and banded operators and their int8 twin (``ops``), the
-Chebyshev conv forward, ``models.NodeClassifier``, ``serve.
-compile_serving`` and the CUDA kernel ``csrc/band_dkw.cu``.  ROADMAP.md
-lists what is still to come.
+Ported so far: the banded NodeClassifier, served (bf16, int8) and
+trained, on the CUDA kernel ``csrc/band_dkw.cu``; the paper's ChebNet on
+the coarsened MNIST grid graph (``graphs``, ``data``), served and
+trained, its fused dense Chebyshev conv and weight gradient on the CUDA
+kernels of ``csrc/cheby_fused.cu``; ``serve.compile_serving`` and the
+adam loops of ``train``.  ROADMAP.md lists what is still to come.
 """
 
 __version__ = "0.1.0"

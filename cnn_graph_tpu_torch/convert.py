@@ -9,13 +9,22 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["node_classifier_params_from_jax"]
+__all__ = ["chebnet_params_from_jax", "node_classifier_params_from_jax"]
+
+
+def _layers(params, groups) -> dict:
+    return {group: [{k: torch.from_numpy(np.array(layer[k]))
+                     for k in ("w", "b")} for layer in params[group]]
+            for group in groups}
 
 
 def node_classifier_params_from_jax(params) -> dict:
     """``{"convs": [{"w": [K, Fin, Fout], "b": [Fout]}, ...]}`` of array-likes
     (NumPy, or anything ``np.asarray`` reads) -> the same tree of tensors."""
-    return {"convs": [
-        {k: torch.from_numpy(np.array(layer[k])) for k in ("w", "b")}
-        for layer in params["convs"]
-    ]}
+    return _layers(params, ("convs",))
+
+
+def chebnet_params_from_jax(params) -> dict:
+    """ChebNet's ``{"gconv": [{"w", "b"}], "fc": [{"w", "b"}]}`` of
+    array-likes -> the same tree of tensors."""
+    return _layers(params, ("gconv", "fc"))

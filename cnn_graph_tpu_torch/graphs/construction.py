@@ -1,16 +1,20 @@
-"""Host-side graph construction for the port: kNN, adjacency, Laplacian,
-RCM ordering, and the planar city graph of the serving benchmark.
+"""Host-side graph construction for the port: grids, kNN, adjacency,
+Laplacian, RCM ordering, and the planar city graph of the serving
+benchmark.
 
 NumPy/SciPy copies of the counterparts in ``cnn_graph_tpu/graphs/
-construction.py`` (``knn`` :48, ``adjacency`` :77, ``laplacian`` :148,
-``rescale_laplacian`` :197, ``bandwidth_reducing_permutation`` :264)
-and ``cnn_graph_tpu/data/synthetic.py:89 city_graph``.  The port carries
-its own copies so that it runs where the JAX package is not installed;
-``tests/test_torch_graphs.py`` holds them equal to the originals.
+construction.py`` (``grid`` :36, ``knn`` :48, ``adjacency`` :77,
+``knn_graph`` :108, ``laplacian`` :148, ``rescale_laplacian`` :197,
+``bandwidth_reducing_permutation`` :264) and ``cnn_graph_tpu/data/
+synthetic.py:89 city_graph``.  The port carries its own copies so that it
+runs where the JAX package is not installed; ``tests/test_torch_graphs.py``
+and ``tests/test_torch_chebnet.py`` hold them equal to the originals.
 
-``knn`` takes one route, ``scipy.spatial.cKDTree``, where the JAX
-package's ``algorithm="auto"`` goes through scikit-learn: on the city
-graphs both give the same neighbours, distances and RCM order.
+``knn`` defaults to the JAX package's exact ``algorithm="dense"`` route
+(``pdist`` and ``argsort``), whose tie-breaking the MNIST grid graph
+depends on.  Any other ``algorithm`` takes ``scipy.spatial.cKDTree``
+where the JAX package goes through scikit-learn: on the city graphs both
+give the same neighbours, distances and RCM order.
 """
 
 from __future__ import annotations
@@ -19,9 +23,12 @@ import numpy as np
 import scipy.sparse
 import scipy.sparse.csgraph
 import scipy.spatial
+import scipy.spatial.distance
 
 __all__ = [
+    "grid",
     "knn",
+    "knn_graph",
     "adjacency",
     "laplacian",
     "rescale_laplacian",
@@ -30,10 +37,26 @@ __all__ = [
 ]
 
 
-def knn(z: np.ndarray, k: int = 4):
+def grid(m: int, dtype=np.float32) -> np.ndarray:
+    """Coordinates ``(m*m, 2)`` of an ``m x m`` grid in ``[0, 1]^2``; row
+    ``i*m + j`` is the point ``(j/(m-1), i/(m-1))``."""
+    ticks = np.linspace(0, 1, m, dtype=dtype)
+    cols, rows = np.meshgrid(ticks, ticks)
+    return np.stack([cols.ravel(), rows.ravel()], axis=1).astype(dtype)
+
+
+def knn(z: np.ndarray, k: int = 4, algorithm: str = "dense"):
     """Exact Euclidean k-nearest neighbours of every point, self excluded.
 
+    ``algorithm="dense"`` builds the full distance matrix and argsorts it
+    (O(M^2) memory), exactly as the JAX package does, ties included; any
+    other value queries a ``cKDTree`` and scales to millions of points.
     Returns ``(dist, idx)`` of shape ``(M, k)``, nearest first."""
+    if algorithm == "dense":
+        d = scipy.spatial.distance.squareform(
+            scipy.spatial.distance.pdist(z, metric="euclidean"))
+        order = np.argsort(d, axis=1)[:, 1:k + 1]
+        return np.take_along_axis(d, order, axis=1), order
     dist, idx = scipy.spatial.cKDTree(z).query(z, k=k + 1)
     return dist[:, 1:], idx[:, 1:]
 
@@ -55,6 +78,11 @@ def adjacency(dist: np.ndarray, idx: np.ndarray) -> scipy.sparse.csr_matrix:
     W = W.maximum(W.T)
     W.eliminate_zeros()
     return W
+
+
+def knn_graph(z: np.ndarray, k: int = 8) -> scipy.sparse.csr_matrix:
+    """Points -> Gaussian kNN adjacency through the dense ``knn``."""
+    return adjacency(*knn(z, k=k))
 
 
 def laplacian(W: scipy.sparse.spmatrix,
@@ -101,7 +129,7 @@ def city_graph(side: int, k: int = 8, seed: int = 0, jitter: float = 0.3,
     xs, ys = np.meshgrid(np.arange(side), np.arange(side))
     z = np.stack([xs.ravel(), ys.ravel()], 1).astype(np.float32)
     z += rng.normal(0, jitter, z.shape).astype(np.float32)
-    dist, idx = knn(z, k=k)
+    dist, idx = knn(z, k=k, algorithm="auto")
     W = adjacency(dist, idx)
     perm = bandwidth_reducing_permutation(W)
     W = W[perm][:, perm].tocsr()

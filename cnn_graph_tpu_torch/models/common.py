@@ -1,8 +1,12 @@
-"""Shared model building blocks: the weight initializer, dropout and the
-one-call int8 conversion of a model's graph operators.
+"""Shared model building blocks: initializers, bias+activation variants,
+fully-connected layers, dropout, the one-call int8 conversion of a
+model's graph operators, and maps over parameter trees.
 
 Counterpart of ``cnn_graph_tpu/models/common.py`` (``trunc_normal`` :125,
-``dropout`` :176, ``quantize_model_operators`` :63).
+``bias_init`` :136, ``bias_act_init`` :140, ``bias_act`` :155,
+``fc_init`` :163, ``fc_apply`` :171, ``dropout`` :176,
+``quantize_model_operators`` :63).  Parameter trees are the JAX
+package's: nested dicts and lists with tensors at the leaves.
 """
 
 from __future__ import annotations
@@ -10,8 +14,39 @@ from __future__ import annotations
 import copy
 
 import torch
+from torch.profiler import record_function
 
-__all__ = ["trunc_normal", "dropout", "quantize_model_operators"]
+from cnn_graph_tpu_torch.ops.band import full_f32_matmul
+
+__all__ = [
+    "trunc_normal",
+    "bias_init",
+    "bias_act_init",
+    "bias_act",
+    "fc_init",
+    "fc_apply",
+    "dropout",
+    "map_operators",
+    "quantize_model_operators",
+    "tree_map",
+    "tree_leaves",
+]
+
+
+def tree_map(fn, tree):
+    """``fn`` applied to every leaf of a tree of dicts and lists."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a tree of dicts and lists, in ``tree_map`` order."""
+    out = []
+    tree_map(out.append, tree)
+    return out
 
 
 def trunc_normal(shape, std: float = 0.1, *, generator=None,
@@ -21,6 +56,42 @@ def trunc_normal(shape, std: float = 0.1, *, generator=None,
     t = torch.empty(shape, dtype=torch.float32, device=device)
     return torch.nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std,
                                        generator=generator)
+
+
+def bias_init(shape, value: float = 0.1, *, device=None) -> torch.Tensor:
+    """A constant bias, 0.1 like every reference bias."""
+    return torch.full(shape, value, dtype=torch.float32, device=device)
+
+
+def bias_act_init(variant: str, m: int, f: int, *, device=None) -> dict:
+    """``b1relu``/``b1tanh``: one bias per filter; ``b2relu``: one per
+    vertex per filter."""
+    if variant in ("b1relu", "b1tanh"):
+        return {"b": bias_init((1, 1, f), device=device)}
+    if variant == "b2relu":
+        return {"b": bias_init((1, m, f), device=device)}
+    raise ValueError(f"unknown bias/activation variant {variant!r}")
+
+
+def bias_act(params, x: torch.Tensor, variant: str) -> torch.Tensor:
+    if variant in ("b1relu", "b2relu"):
+        return torch.relu(x + params["b"])
+    if variant == "b1tanh":
+        return torch.tanh(x + params["b"])
+    raise ValueError(f"unknown bias/activation variant {variant!r}")
+
+
+def fc_init(m_in: int, m_out: int, *, generator=None, device=None) -> dict:
+    """Dense layer: truncated-normal ``[m_in, m_out]`` weights, 0.1 bias."""
+    return {"w": trunc_normal((m_in, m_out), generator=generator,
+                              device=device),
+            "b": bias_init((m_out,), device=device)}
+
+
+def fc_apply(params, x: torch.Tensor, relu: bool = True) -> torch.Tensor:
+    with full_f32_matmul(), record_function("fc"):
+        y = torch.matmul(x, params["w"]) + params["b"]
+    return torch.relu(y) if relu else y
 
 
 def dropout(x: torch.Tensor, keep_prob: float, train: bool,
@@ -38,10 +109,22 @@ def dropout(x: torch.Tensor, keep_prob: float, train: bool,
     return torch.where(keep, x / keep_prob, 0.0)
 
 
+def map_operators(model, fn):
+    """A shallow copy of ``model`` with ``fn`` applied to each graph
+    operator, whether it sits in ``op`` or in an ``operators`` list."""
+    clone = copy.copy(model)
+    for field in ("op", "operators"):
+        v = getattr(model, field, None)
+        if v is not None:
+            setattr(clone, field,
+                    [fn(o) for o in v] if isinstance(v, list) else fn(v))
+    return clone
+
+
 def quantize_model_operators(model, sample_x: float = 1.0,
                              headroom: float = 2.0):
-    """A shallow copy of ``model`` whose graph operator ``op`` is replaced
-    by its int8 twin.  Only the banded operator has a twin in the port so
+    """A shallow copy of ``model`` whose graph operators are replaced by
+    their int8 twins.  Only the banded operator has a twin in the port so
     far; an already quantized operator passes through, and any other
     format raises rather than serving unquantized."""
     from cnn_graph_tpu_torch.ops.laplacian import (
@@ -50,14 +133,14 @@ def quantize_model_operators(model, sample_x: float = 1.0,
         quantize_banded,
     )
 
-    op = model.op
-    if isinstance(op, BandedLaplacian):
-        op = quantize_banded(op, headroom=headroom, sample_x=sample_x)
-    elif not isinstance(op, QuantBandedLaplacian):
+    def q(op):
+        if isinstance(op, BandedLaplacian):
+            return quantize_banded(op, headroom=headroom, sample_x=sample_x)
+        if isinstance(op, QuantBandedLaplacian):
+            return op
         raise NotImplementedError(
             f"no int8 twin for {type(op).__name__} in cnn_graph_tpu_torch yet "
             "(quantize_dense / quantize_block_sparse: ROADMAP queue 1 item 8)"
         )
-    clone = copy.copy(model)
-    clone.op = op
-    return clone
+
+    return map_operators(model, q)

@@ -1,7 +1,8 @@
 """Chebyshev spectral graph convolution.
 
 Counterpart of ``cnn_graph_tpu/ops/filters.py``: ``cheby_conv`` (:323)
-with the same dispatch (:344-378), ``cheby_conv_banded`` (:180-320) with
+with the same dispatch (:344-378) and fused-kernel eligibility rule
+``_fused_eligible`` (:47), ``cheby_conv_banded`` (:180-320) with
 its streaming forward and fused adjoint backward, the int8 streaming
 conv ``_cheby_conv_quant_stream`` (:74) and the stacked ``cheby_basis``
 (:138) of the dense path.  Activations are ``[B, M, F]``, weights
@@ -20,9 +21,27 @@ from torch.autograd.function import once_differentiable
 from torch.profiler import record_function
 
 from cnn_graph_tpu_torch.ops.band import full_f32_matmul
+from cnn_graph_tpu_torch.ops.cheby import cheby_conv_fused, fused_vmem_ok
 from cnn_graph_tpu_torch.ops.laplacian import BandedLaplacian
 
 __all__ = ["cheby_basis", "cheby_conv", "cheby_conv_banded"]
+
+
+def _fused_eligible(L, fin: int, fout: int, col_tile: int = 512) -> bool:
+    """Whether a conv takes the fused kernels: the JAX package's rule word
+    for word (whole samples per 128-lane-aligned tile, both directions
+    since dx runs K2 with the taps transposed, and the VMEM budget).  It
+    was tuned on a TPU and is kept for parity: to be re-tuned on Hopper,
+    where the kernel picks its own tile."""
+    for a, b in ((fin, fout), (fout, fin)):
+        if a > col_tile:
+            return False
+        s = max(col_tile // a, 1)
+        if (s * a) % 128 != 0 or (s * b) % 128 != 0 or s * b > 2048:
+            return False
+        if not fused_vmem_ok(L.m_padded, L.compute_dtype, col_tile=s * a):
+            return False
+    return True
 
 
 def _pad_nodes(x: torch.Tensor, m_padded: int) -> torch.Tensor:
@@ -198,8 +217,11 @@ def cheby_conv(x: torch.Tensor, L, w: torch.Tensor,
 
     ``x``: ``[B, M, Fin]``, ``w``: ``[K, Fin, Fout]`` -> ``[B, M, Fout]``.
     Banded operators take ``cheby_conv_banded``; single-chip quantized
-    operators the int8 streaming conv (inference only); everything else
-    the stacked basis and one tap contraction, differentiated by torch.
+    operators the int8 streaming conv (inference only); dense operators
+    built with ``use_fused`` the fused kernels where ``_fused_eligible``
+    holds (tile 512 for f32 operators, 256 otherwise, as in JAX);
+    everything else the stacked basis and one tap contraction,
+    differentiated by torch.
     ``input_grad=False`` declares that no gradient for ``x`` is consumed;
     only the banded path uses it (see ``cheby_conv_banded``).
     """
@@ -211,11 +233,12 @@ def cheby_conv(x: torch.Tensor, L, w: torch.Tensor,
         return cheby_conv_banded(x, L, w, input_grad)
     if hasattr(L, "cheby_hop_q") and not hasattr(L, "cheby_chain_q"):
         return _cheby_conv_quant_stream(x, L, w)
-    if getattr(L, "use_fused", False):
-        raise NotImplementedError(
-            "the fused dense conv kernel (K2) is not ported yet "
-            "(ROADMAP queue 2)")
-    basis = cheby_basis(x, L, K)
-    with full_f32_matmul():
-        y = torch.einsum("kbmf,kfo->bmo", basis, w.to(basis.dtype))
+    fused_tile = 512 if L.compute_dtype == torch.float32 else 256
+    if getattr(L, "use_fused", False) and _fused_eligible(
+            L, Fin, Fout, col_tile=fused_tile):
+        return cheby_conv_fused(x, L, w)
+    with record_function("cheby_conv.stacked"):
+        basis = cheby_basis(x, L, K)
+        with full_f32_matmul():
+            y = torch.einsum("kbmf,kfo->bmo", basis, w.to(basis.dtype))
     return y.to(x.dtype)

@@ -3,8 +3,8 @@
 Counterpart of ``cnn_graph_tpu/ops/laplacian.py``.  Ported so far:
 
 * ``DenseLaplacian`` (:130): zero-padded ``[Mp, Mp]`` matrix, plain
-  ``torch.matmul``; its fused conv kernel (K2) is not ported, so
-  ``use_fused`` stays False.
+  ``torch.matmul`` for the stacked path; with ``use_fused`` the conv
+  takes the fused kernels K2 and K3 (``ops/cheby.py``).
 * ``BandedLaplacian`` (:291): the ragged band in its deep-K-window
   layout, multiplied by the ``band_dkw`` kernel (``ops/band.py``).
 * ``QuantBandedLaplacian`` (:409, with ``QuantOpMixin`` :95 folded in)
@@ -34,6 +34,7 @@ from cnn_graph_tpu_torch.ops.band import (
     band_spmm,
     banded_dkw,
 )
+from cnn_graph_tpu_torch.ops.cheby import cheby_dw_fused, fused_filter
 
 __all__ = [
     "DENSE_THRESHOLD",
@@ -59,11 +60,20 @@ class DenseLaplacian:
     m: int
     m_padded: int
     nnz: int
-    use_fused: bool = False  # fused conv kernel K2 is not ported yet
+    use_fused: bool = False  # cheby_conv takes K2/K3 where eligible
 
     @property
     def compute_dtype(self):
         return self.mat.dtype
+
+    def fused_filter(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """``sum_k T_k(L) x W_k`` by the fused kernel K2, no backward."""
+        return fused_filter(x, self, w)
+
+    def fused_dw(self, x: torch.Tensor, g: torch.Tensor,
+                 K: int) -> torch.Tensor:
+        """K2's weight gradient by the fused kernel K3."""
+        return cheby_dw_fused(x, self, g, K)
 
     def matmul(self, x: torch.Tensor) -> torch.Tensor:
         """``L @ x`` for ``x`` of shape ``[Mp, C]``."""
@@ -205,7 +215,8 @@ def quantize_banded(op: BandedLaplacian, headroom: float = 2.0,
 def device_laplacian(L: scipy.sparse.spmatrix, lmax: float = 2.0,
                      fmt: str = "auto", dtype=torch.float32, device=None,
                      rows_per_step: int | None = None,
-                     dense_budget: int = 2 << 30):
+                     dense_budget: int = 2 << 30,
+                     use_pallas: bool | None = None):
     """Build a device operator for the rescaled Laplacian ``2 L / lmax - I``.
 
     ``fmt`` is ``dense``, ``banded`` or ``auto``: dense up to
@@ -215,7 +226,9 @@ def device_laplacian(L: scipy.sparse.spmatrix, lmax: float = 2.0,
     These thresholds are the JAX package's, tuned on a TPU v5e; they are
     kept word for word for parity and are to be re-tuned on Hopper.
     ``rows_per_step`` is the banded layout's G (default ``min(8, block
-    rows)``).
+    rows)``).  ``use_pallas`` keeps the JAX name: a dense operator built
+    with it true takes the fused conv kernels (``use_fused``); the banded
+    operator always runs its kernel.
     """
     L = rescale_laplacian(L, lmax=lmax).tocsr()
     L.eliminate_zeros()
@@ -245,7 +258,7 @@ def device_laplacian(L: scipy.sparse.spmatrix, lmax: float = 2.0,
         dense[:m, :m] = L.toarray()
         return DenseLaplacian(
             mat=torch.from_numpy(dense).to(device=device, dtype=dtype),
-            m=m, m_padded=mp, nnz=nnz,
+            m=m, m_padded=mp, nnz=nnz, use_fused=bool(use_pallas),
         )
 
     if fmt == "banded":

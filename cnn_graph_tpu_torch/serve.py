@@ -2,7 +2,9 @@
 
 Counterpart of ``cnn_graph_tpu/serve.py:114 compile_serving``.  Building
 the handle quantizes the model's graph operators (``int8=True``) and
-places the operators and parameters on the example input's device; a
+places the operators (in ``op`` or an ``operators`` list, as
+``_model_operators`` :54-62 finds them) and the whole parameter tree on
+the example input's device; a
 call checks its input against ``input_spec`` and runs the forward pass
 under ``torch.inference_mode()``.  The JAX package's AOT compile has no
 counterpart: PyTorch runs eagerly.  ``export_serving``/``load_serving``
@@ -11,7 +13,6 @@ come later, with ``torch.export`` and the kernels as custom ops.
 
 from __future__ import annotations
 
-import copy
 import dataclasses
 
 import torch
@@ -59,11 +60,10 @@ def compile_serving(model, params, example_x: torch.Tensor, int8: bool = True,
     device = example_x.device
     if sample_x is None:
         sample_x = float(example_x.abs().max()) or 1.0
-    served = (common.quantize_model_operators(model, sample_x=sample_x,
-                                              headroom=headroom)
-              if int8 else copy.copy(model))
-    served.op = served.op.to(device)
-    params = {"convs": [{k: v.detach().to(device) for k, v in layer.items()}
-                        for layer in params["convs"]]}
+    if int8:
+        model = common.quantize_model_operators(model, sample_x=sample_x,
+                                                headroom=headroom)
+    served = common.map_operators(model, lambda op: op.to(device))
+    params = common.tree_map(lambda t: t.detach().to(device), params)
     spec = InputSpec(tuple(example_x.shape), example_x.dtype, device)
     return CompiledServing(served, params, spec)

@@ -1,4 +1,4 @@
-"""The CUDA kernel against its plain PyTorch version on the card.
+"""The CUDA kernels against their plain PyTorch versions on the card.
 
 Imports only torch and the port, so it runs on a GPU machine without JAX:
 ``python -m pytest --noconftest tests/test_torch_gpu.py`` (the shared
@@ -10,6 +10,8 @@ bf16 ulp (``rtol=2**-7``) of the plain version, which rounds the same
 f32 accumulation once.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -20,8 +22,14 @@ from cnn_graph_tpu_torch.ops import (
     band_spmm,
     banded_dkw,
     banded_dkw_reference,
+    cheby_conv,
     cheby_conv_banded,
+    cheby_conv_fused,
+    cheby_conv_fused_reference,
+    cheby_dw_fused,
+    cheby_dw_fused_reference,
     device_laplacian,
+    fused_filter,
     quantize_banded,
 )
 from cnn_graph_tpu_torch.serve import compile_serving
@@ -175,3 +183,87 @@ def test_serving_through_kernel_matches_plain_version(city96, cuda_device,
     # one bf16 ulp away, and the later hops carry that difference along.
     tol = 1e-4 if int8 else 2**-6
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+# ------------------------------------------------------------------ K2, K3
+# Tolerances: f32 ``atol=1e-4`` (the same f32 products summed in another
+# order); bf16 1e-2 of the largest value: a carry that lands next to a
+# bf16 rounding boundary may round one ulp (2^-8) apart in the two
+# versions, and later hops carry that difference along.
+
+
+@pytest.fixture(scope="module")
+def knn203():
+    z = np.random.default_rng(3).uniform(size=(203, 2))
+    return graphs.laplacian(graphs.knn_graph(z, k=6))
+
+
+def _dense(L, dtype, device):
+    return device_laplacian(L, fmt="dense", dtype=dtype, device=device,
+                            use_pallas=True)
+
+
+def _close(got, want, dtype):
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
+    else:
+        err = float((got - want).abs().max())
+        assert err <= 1e-2 * float(want.abs().max()), err
+
+
+@pytest.mark.parametrize("F,O,B", [(32, 64, 3), (64, 32, 2), (8, 12, 5)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cheby_kernels_match_reference(knn203, cuda_device, dtype, F, O, B):
+    """K2 and K3 against their plain versions on the card; (8, 12, 5)
+    packs 4 samples per CTA and leaves the last CTA partial."""
+    op = _dense(knn203, dtype, cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(F + O)
+    x = torch.randn(B, op.m, F, generator=g, device=cuda_device)
+    w = 0.1 * torch.randn(7, F, O, generator=g, device=cuda_device)
+    gy = torch.randn(B, op.m, O, generator=g, device=cuda_device)
+    before = (cheby_conv_fused.launches, cheby_dw_fused.launches)
+    y = fused_filter(x, op, w)
+    dw = cheby_dw_fused(x, op, gy, 7)
+    torch.cuda.synchronize()
+    assert (cheby_conv_fused.launches, cheby_dw_fused.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert y.shape == (B, op.m, O) and dw.shape == (7, F, O)
+    _close(y, cheby_conv_fused_reference(x, op, w), dtype)
+    _close(dw, cheby_dw_fused_reference(x, op, gy, 7), dtype)
+
+
+def test_cheby_conv_fused_gradients_through_kernels(knn203, cuda_device):
+    """dx (K2 with W^T) and dW (K3) on the card against the same conv on
+    the CPU (plain versions); f32, so only the summation order differs.
+    One training pass is 2 K2 launches and 1 K3 launch."""
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(3, 203, 32)).astype(np.float32)
+    w = (rng.normal(size=(5, 32, 64)) * 0.1).astype(np.float32)
+    t = rng.normal(size=(3, 203, 64)).astype(np.float32)
+    grads = []
+    for dev in (cuda_device, "cpu"):
+        op = _dense(knn203, torch.float32, dev)
+        xt, wt = (torch.from_numpy(a).to(dev).requires_grad_() for a in (x, w))
+        before = (cheby_conv_fused.launches, cheby_dw_fused.launches)
+        y = cheby_conv(xt, op, wt)
+        (y * torch.from_numpy(t).to(dev)).sum().backward()
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert (cheby_conv_fused.launches - before[0],
+                    cheby_dw_fused.launches - before[1]) == (2, 1)
+        grads.append((y.detach().cpu(), xt.grad.cpu(), wt.grad.cpu()))
+    for got, want, atol in zip(*grads, (1e-4, 1e-4, 1e-3)):
+        torch.testing.assert_close(got, want, atol=atol, rtol=1e-5)
+
+
+def test_cheby_kernel_rejects_bad_arguments(knn203, cuda_device):
+    op = _dense(knn203, torch.float32, cuda_device)
+    x = torch.zeros(2, op.m, 32, device=cuda_device)
+    with pytest.raises(ValueError):
+        fused_filter(x, op, torch.zeros(3, 32, 32))
+    with pytest.raises(ValueError):
+        fused_filter(x, op.to("cpu"), torch.zeros(3, 32, 32,
+                                                  device=cuda_device))
+    with pytest.raises(TypeError):
+        fused_filter(x, dataclasses.replace(op, mat=op.mat.half()),
+                     torch.zeros(3, 32, 32, device=cuda_device))

@@ -41,7 +41,7 @@ class TestGraphConstruction:
 
     def test_knn_matches_sklearn(self):
         z = np.random.default_rng(5).uniform(size=(500, 2))
-        dist, idx = graphs.knn(z, k=6)
+        dist, idx = graphs.knn(z, k=6, algorithm="auto")
         dist_j, idx_j = gc.knn(z, k=6, algorithm="auto")
         np.testing.assert_array_equal(idx, idx_j)
         np.testing.assert_allclose(dist, dist_j, rtol=1e-12, atol=1e-12)

@@ -180,10 +180,16 @@ class TestGuards:
         package: the card's machine has neither."""
         code = (
             "import sys, cnn_graph_tpu_torch, cnn_graph_tpu_torch.graphs, "
-            "cnn_graph_tpu_torch.ops, cnn_graph_tpu_torch.models, "
+            "cnn_graph_tpu_torch.graphs.construction, "
+            "cnn_graph_tpu_torch.graphs.coarsening, "
+            "cnn_graph_tpu_torch.data, cnn_graph_tpu_torch.data.mnist, "
+            "cnn_graph_tpu_torch.ops, cnn_graph_tpu_torch.ops.cheby, "
+            "cnn_graph_tpu_torch.ops.pooling, cnn_graph_tpu_torch.models, "
+            "cnn_graph_tpu_torch.models.chebnet, "
             "cnn_graph_tpu_torch.serve, cnn_graph_tpu_torch.convert, "
-            "cnn_graph_tpu_torch.train, cnn_graph_tpu_torch._build, "
-            "chip_smoke\n"
+            "cnn_graph_tpu_torch.train, "
+            "cnn_graph_tpu_torch.train.classification, "
+            "cnn_graph_tpu_torch._build, chip_smoke\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'cnn_graph_tpu')]\n"
             "assert not bad, bad\n"
@@ -204,7 +210,8 @@ class TestGuards:
         the dense budget: JAX picks BSR, the port raises instead of falling
         back to another format."""
         z = np.random.default_rng(13).uniform(size=(5000, 2))
-        L = graphs.laplacian(graphs.adjacency(*graphs.knn(z, k=8)))
+        L = graphs.laplacian(graphs.adjacency(
+            *graphs.knn(z, k=8, algorithm="auto")))
         assert isinstance(
             jax_device_laplacian(L, use_pallas=False, dense_budget=1 << 20),
             BlockSparseLaplacian)
