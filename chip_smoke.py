@@ -5,9 +5,10 @@
 Phases, each fatal on failure (no CPU path, no fallback):
 
 1. require a CUDA device; print the card's name and power limit;
-2. build the banded kernel (csrc/band_dkw.cu) and the fused Chebyshev
-   kernels (csrc/cheby_fused.cu) from source, one nvcc each, started
-   together; print each kernel's registers and shared memory;
+2. build the banded kernel (csrc/band_dkw.cu), the fused Chebyshev
+   kernels (csrc/cheby_fused.cu) and the BSR kernels (csrc/bsr.cu) from
+   source, one nvcc each, started together; print each kernel's
+   registers and shared memory;
 3. hold the banded kernel against its plain PyTorch version on the real
    50,176-node serving operator at C = 512, for L@x and the hop 2L@x - x0,
    in int8 (bit-identical), bf16 (one bf16 ulp: both round an f32
@@ -47,15 +48,40 @@ Phases, each fatal on failure (no CPU path, no fallback):
    operators; check 2 K2 and 1 K3 launches per step, a finite loss that
    falls, and one step's loss and gradients against the plain twin with
    the same dropout seed; time requests and steps beside the twin's;
-10. with ``--profile-dir DIR`` only: trace 3 requests per serving mode
-   after 2 warm-ups, 2 bf16 NodeClassifier training steps after one, and
-   2 f32 ChebNet training steps after one, with ``torch.profiler`` (CPU
-   and CUDA activities); print the device time per request or step, its
+10. on the bench's 50k scattered kNN graph (bench.py:763-787: 50,000
+   Gaussian points in 8-D, seed 0, k=10, RCM, normalized Laplacian),
+   built by ``device_laplacian(fmt="auto")``, which must give the
+   column-streamed BSR operator: hold K4 (``bsr_colstream``, csrc/bsr.cu)
+   against its plain version at C = 512 for L@x and the hop in f32
+   (atol 1e-4 of the max), bf16 (one bf16 ulp) and int8 (bit-identical),
+   and time both;
+11. serve the bench's NodeClassifier on it (4 requests in bf16, 4 in
+   int8, features labelled by node index as bench.py:699-704 makes
+   them): 24 K4 launches per request, finite [50000, 16] logits, the
+   logits against the plain twin's; train the deep one (hidden=[512]) on
+   the bf16 operator for 4 adam steps: 72 K4 launches per step (26 L@x,
+   46 hops), a falling loss, one step against the plain twin; time
+   requests and steps beside the twin's;
+12. hold ``bsr_csr`` (csrc/bsr.cu) against its plain version through each
+   route it ports: K8 on the scattered graph's ``col_stream=False``
+   operator (f32 and bf16 L@x), K7 int8 on that operator's int8 twin
+   (G = 1, L@x and hop), K9 on its ``chunked_rows=True`` operator (f32
+   and bf16 L@x) and K7 float with G > 1 on the 50k city graph's
+   ``fmt="bsr", col_stream=False`` bf16 operator (L@x and hop); then serve
+   one request through each route's operator: 24 launches of that route
+   each, logits against the plain twin's;
+13. with ``--profile-dir DIR`` only: trace 3 requests per serving mode
+   after 2 warm-ups (banded, scattered BSR, ChebNet), 2 bf16 training
+   steps after one (banded and scattered NodeClassifier), and 2 f32
+   ChebNet training steps after one, with ``torch.profiler`` (CPU and
+   CUDA activities); print the device time per request or step, its
    share of the measured time, the largest device kernels and aten ops,
-   and for training the device time by part (K1 by form, taps, dW,
+   and for training the device time by part (K1 or K4 by form, taps, dW,
    injections, casts, adam; K2 forward, K2 dx, K3, the stacked basis of
    ChebNet's layer 0, fc, adam); write each ``key_averages()`` table to
    ``DIR/profile_<mode>.txt``.
+
+Each 50k scattered operator is freed after its phase.
 
 The line before the last is the kernel record as one JSON object; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -93,10 +119,16 @@ from cnn_graph_tpu_torch.models.common import (  # noqa: E402
 )
 from cnn_graph_tpu_torch.ops import (  # noqa: E402
     BandedLaplacian,
+    BlockSparseLaplacian,
     DenseLaplacian,
     QuantBandedLaplacian,
+    QuantBlockSparseLaplacian,
     banded_dkw,
     banded_dkw_reference,
+    bsr_colstream,
+    bsr_colstream_reference,
+    bsr_csr,
+    bsr_csr_reference,
     cheby_conv,
     cheby_conv_fused,
     cheby_conv_fused_reference,
@@ -105,6 +137,7 @@ from cnn_graph_tpu_torch.ops import (  # noqa: E402
     device_laplacian,
     fused_filter,
     quantize_banded,
+    quantize_block_sparse,
 )
 from cnn_graph_tpu_torch.serve import compile_serving  # noqa: E402
 from cnn_graph_tpu_torch.train import (  # noqa: E402
@@ -130,6 +163,17 @@ CHEB_SOURCE = "cnn_graph_tpu_torch/csrc/cheby_fused.cu"
 CHEB_REPLACES = {"K2": "cnn_graph_tpu/ops/pallas_cheby.py:61",    # _kernel
                  "K3": "cnn_graph_tpu/ops/pallas_cheby.py:210"}  # _dw_kernel
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+# The bench's 50k scattered kNN graph (bench.py:763-787) and its kernels.
+SCAT_N, SCAT_DIMS, SCAT_K = 50000, 8, 10
+BSR_SOURCE = "cnn_graph_tpu_torch/csrc/bsr.cu"
+BSR_REPLACES = {"K4": "cnn_graph_tpu/ops/pallas_spmm.py:129",  # colstream
+                "K7": "cnn_graph_tpu/ops/pallas_spmm.py:35",   # grouped
+                "K8": "cnn_graph_tpu/ops/pallas_spmm.py:450",  # _kernel
+                "K9": "cnn_graph_tpu/ops/pallas_spmm.py:502"}  # chunked
+# K4 launches per step of the deep model on BSR: each layer's forward
+# 1 L@x and K-2 hops; layer 1's backward K-1 L@x (one per hop and one
+# for its L@x); layer 0's features need no gradient.
+BSR_STEP_FORMS = {"spmm": 2 + (K - 1), "hop": 2 * (K - 2)}
 
 
 def check(ok: bool, what: str):
@@ -244,10 +288,38 @@ class _PlainQuantBanded(QuantBandedLaplacian):
             band_scale=self.band_scale)
 
 
+class _PlainBsrMixin:
+    """Every BSR kernel call on the plain version (float and int8)."""
+
+    def kernel_call(self, x, x0, route, block_scale=None):
+        if route == "K4":
+            return bsr_colstream_reference(
+                self.blocks, self.cs_meta, self.cs_gcols, self.cs_gcolptr,
+                self.cs_groupptr, x, x0, G=self.rows_per_step,
+                block_scale=block_scale)
+        return bsr_csr_reference(self.blocks, self.block_rowptr,
+                                 self.block_cols, x, x0,
+                                 block_scale=block_scale)
+
+
+class _PlainBsr(_PlainBsrMixin, BlockSparseLaplacian):
+    pass
+
+
+class _PlainQuantBsr(_PlainBsrMixin, QuantBlockSparseLaplacian):
+    pass
+
+
+_PLAIN = {BandedLaplacian: _PlainBanded,
+          QuantBandedLaplacian: _PlainQuantBanded,
+          BlockSparseLaplacian: _PlainBsr,
+          QuantBlockSparseLaplacian: _PlainQuantBsr}
+
+
 def _plain_twin(op):
-    cls = _PlainQuantBanded if isinstance(op, QuantBandedLaplacian) \
-        else _PlainBanded
-    return cls(**{f.name: getattr(op, f.name) for f in dataclasses.fields(op)})
+    """The operator with every kernel call on its plain version."""
+    return _PLAIN[type(op)](**{f.name: getattr(op, f.name)
+                               for f in dataclasses.fields(op)})
 
 
 def _device_kernels(avg):
@@ -321,20 +393,31 @@ TRAIN_PARTS = (
 )
 
 
+# The same for the scattered graph's BSR training step.
+BSR_TRAIN_PARTS = (
+    ("K4 L@x", "bsr_colstream.spmm"), ("K4 hop", "bsr_colstream.hop"),
+    ("taps (forward)", "cheby_conv.taps"),
+    ("casts", "aten::_to_copy"), ("adam", "Optimizer.step#Adam.step"),
+)
+
+
 def train_profile_phase(run, step_ms: float, out_dir: str, gpu: str,
-                        n: int = 2):
-    """Device-time breakdown of ``n`` bf16 training steps."""
+                        n: int = 2, mode: str = "train_bf16",
+                        parts_of=TRAIN_PARTS):
+    """Device-time breakdown of ``n`` bf16 training steps by the parts
+    ``parts_of`` names."""
     os.makedirs(out_dir, exist_ok=True)
     run(1)
-    avg, _ = _trace(lambda: run(1), n, out_dir, "train_bf16")
+    avg, _ = _trace(lambda: run(1), n, out_dir, mode)
     busy = _busy_ms(avg, n)
-    print(f"profile train bf16: device {busy:.3f} ms per step, "
+    print(f"profile {mode}: device {busy:.3f} ms per step, "
           f"{100 * busy / step_ms:.1f}% of the {step_ms:.3f} ms step [{gpu}]")
     events = {e.key: e for e in avg if e.device_type == DeviceType.CPU}
     events.update({e.key: e for e in avg if e.device_type == DeviceType.CUDA
-                   and e.is_user_annotation and e.key.startswith("band_dkw")})
+                   and e.is_user_annotation
+                   and e.key.startswith(("band_dkw", "bsr_"))})
     parts = 0.0
-    for label, key in TRAIN_PARTS:
+    for label, key in parts_of:
         e = events.get(key)
         ms = 0.0 if e is None else e.device_time_total / n / 1e3
         parts += ms
@@ -632,6 +715,171 @@ def chebnet_train_phase(model, params, batch, mode: str) -> dict:
             "plain_ms": cuda_ms(lambda: run(1, m=twin), 1)}
 
 
+# ------------------------------------------------ scattered BSR, K4, K7-K9
+
+
+def scattered_graph():
+    """The bench's 50k scattered kNN graph (bench.py:776-782)."""
+    z = np.random.default_rng(0).normal(size=(SCAT_N, SCAT_DIMS)).astype(
+        np.float32)
+    W = graphs.adjacency(*graphs.knn(z, k=SCAT_K, algorithm="auto"))
+    perm = graphs.bandwidth_reducing_permutation(W)
+    return graphs.laplacian(W[perm][:, perm].tocsr())
+
+
+def scattered_features(m: int, n: int, seed: int = 2):
+    """Labels [m] by node index in RCM order and ``n`` feature matrices
+    [m, FIN], a class signature plus unit noise each, as bench.py:699-704
+    makes them (the graph has no grid positions)."""
+    rng = np.random.default_rng(seed)
+    labels = (np.arange(m) * CLASSES // m).astype(np.int64)
+    signatures = rng.normal(0, 1, (CLASSES, FIN)).astype(np.float32)
+    return torch.from_numpy(labels), [torch.from_numpy(
+        signatures[labels] + rng.normal(0, 1.0, (m, FIN)).astype(np.float32))
+        for _ in range(n)]
+
+
+def bsr_launches() -> dict:
+    """Launches by kernel: K4 and each bsr_csr route."""
+    return {"K4": bsr_colstream.launches, **bsr_csr.route_launches}
+
+
+def reset_bsr_launches():
+    torch.cuda.synchronize()
+    bsr_colstream.launches = bsr_csr.launches = 0
+    for c in (bsr_colstream.form_launches, bsr_csr.form_launches,
+              bsr_csr.route_launches):
+        c.clear()
+
+
+def bsr_kernel_phase(op, route: str, forms, gen, what: str) -> dict:
+    """``route``'s kernel on ``op`` against its plain version at C = FIN,
+    for each form in ``forms``, and both timed.  Tolerances: int8
+    bit-identical; f32 1e-4 of the largest plain entry (another summation
+    order); bf16 one bf16 ulp (both round one f32 accumulation)."""
+    dev = op.blocks.device
+    x, x0 = (torch.randn(op.m_padded, FIN, generator=gen, device=dev)
+             for _ in range(2))
+    dt = op.compute_dtype
+    if dt == torch.int8:
+        x, x0, scale = op.quantize(x), op.quantize(x0), op.block_scale
+    else:
+        x, x0, scale = x.to(dt), x0.to(dt), None
+    plain = _plain_twin(op)
+    rec = {"max_abs_err": 0.0}
+    for form in forms:
+        xx0 = None if form == "spmm" else x0
+
+        def kern():
+            return op.kernel_call(x, xx0, route, scale)
+
+        def ref():
+            return plain.kernel_call(x, xx0, route, scale)
+
+        got, want = kern(), ref()
+        torch.cuda.synchronize()
+        check(got.dtype == want.dtype == dt and got.shape == want.shape,
+              f"{what} {form}: dtype/shape")
+        if dt == torch.int8:
+            check(torch.equal(got, want), f"{what} {form} not bit-identical")
+            err = float((got.int() - want.int()).abs().max())
+        else:
+            err = float((got.float() - want.float()).abs().max())
+            torch.testing.assert_close(
+                got.float(), want.float(),
+                rtol=2**-7 if dt == torch.bfloat16 else 0.0,
+                atol=1e-4 * float(want.float().abs().max()))
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        pre = "" if form == "spmm" else form + "_"
+        rec[pre + "ms"] = cuda_ms(kern, 5)
+        rec[pre + "plain_ms"] = cuda_ms(ref, 2)
+    return rec
+
+
+def print_bsr_kernel(what: str, rec: dict, gpu: str):
+    hop = (f", hop {rec['hop_ms']:.4f} ms (plain {rec['hop_plain_ms']:.4f}"
+           " ms)" if "hop_ms" in rec else "")
+    print(f"kernel {what} C={FIN}: max_abs_err {rec['max_abs_err']:.3g}, "
+          f"L@x {rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f} ms){hop} "
+          f"[{gpu}]", flush=True)
+
+
+def bsr_serve_phase(serving, reqs, kernel: str, what: str,
+                    timed: bool) -> dict:
+    """Serve ``reqs``: K-1 launches of ``kernel`` (K4 or a bsr_csr route)
+    per request and no other BSR launch, finite [m, 16] logits, and the
+    logits of the same requests through the plain twin (no launch).
+    Tolerances as phase 4: 1e-4 int8, 2e-2 of the max bf16."""
+    reset_bsr_launches()
+    logits = [serving(x) for x in reqs]
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in bsr_launches().items() if v}
+    check(launches == {kernel: len(reqs) * (K - 1)},
+          f"{what}: launches {launches} for {len(reqs)} requests")
+    twin = compile_serving(map_operators(serving.model, _plain_twin),
+                           serving.params, reqs[0], int8=False)
+    reset_bsr_launches()
+    want = [twin(x) for x in reqs]
+    torch.cuda.synchronize()
+    check(not any(bsr_launches().values()), f"{what}: the plain twin "
+          "launched kernels")
+    int8 = isinstance(serving.model.op, QuantBlockSparseLaplacian)
+    err = 0.0
+    for y, yp in zip(logits, want):
+        check(tuple(y.shape) == (reqs[0].shape[0], CLASSES)
+              and bool(torch.isfinite(y).all()), f"{what}: bad logits")
+        e = float((y - yp).abs().max())
+        tol = 1e-4 if int8 else 2e-2 * float(yp.abs().max())
+        check(e <= tol, f"{what}: served logits off the plain twin's by "
+              f"{e:.3g} (limit {tol:.3g})")
+        err = max(err, e)
+    rec = {"launches": launches[kernel], "max_abs_err": err,
+           "serving": serving, "logits": logits}
+    if timed:
+        rec["ms"] = cuda_ms(lambda: serving(reqs[0]), 3)
+        rec["plain_ms"] = cuda_ms(lambda: twin(reqs[0]), 1)
+    return rec
+
+
+def bsr_train_phase(op, data) -> dict:
+    """The deep model on the bf16 colstream operator: 4 adam steps with
+    72 K4 launches each, a falling loss, one step against the plain twin,
+    ms per step for both."""
+    dev = op.blocks.device
+    model = NodeClassifier(op, FIN, CLASSES, hidden=[FIN], K=K,
+                           generator=torch.Generator().manual_seed(0))
+    params = _on(model.param_tree(), dev)
+
+    def run(steps, m=model):
+        return train_node_classifier(m, params, *data, steps=steps,
+                                     learning_rate=LEARNING_RATE)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_bsr_launches()
+    _, losses = run(TRAIN_STEPS)
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    counted = bsr_launches()
+    forms = dict(bsr_colstream.form_launches)
+    want = {f: TRAIN_STEPS * n for f, n in BSR_STEP_FORMS.items()}
+    check(counted == {"K4": TRAIN_STEPS * 3 * (K - 1)}
+          and forms == want, f"bsr train: launches {counted} "
+          f"{forms} for {TRAIN_STEPS} steps, want {want}")
+    losses = losses.tolist()
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"bsr train: losses {losses} not finite and falling")
+    twin = copy.copy(model)
+    twin.op = _plain_twin(op)
+    loss_err, grad_err = check_step(model, twin, params, data, 2e-2,
+                                    "bsr train bf16",
+                                    lambda: bsr_colstream.launches)
+    return {"launches": counted["K4"], "forms": forms,
+            "losses": losses, "peak_gb": peak_gb, "loss_rel_err": loss_err,
+            "grad_rel_err": grad_err, "run": run,
+            "ms": cuda_ms(lambda: run(TRAIN_STEPS), 1) / TRAIN_STEPS,
+            "plain_ms": cuda_ms(lambda: run(1, m=twin), 1)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile-dir", help="also trace requests and training "
@@ -647,7 +895,7 @@ def main() -> int:
 
     # Phase 2: one nvcc per source, all started together.
     t0 = time.perf_counter()
-    sources = ("band_dkw", "cheby_fused")
+    sources = ("band_dkw", "cheby_fused", "bsr")
     with ThreadPoolExecutor(len(sources)) as pool:
         logs = dict(zip(sources, pool.map(_build.build, sources)))
     print(f"build: {', '.join(f'{n}.cu' for n in sources)} in "
@@ -797,6 +1045,117 @@ def main() -> int:
               f"{trn['grad_rel_err']:.3g} of max; {trn['ms']:.3f} ms per "
               f"step (plain {trn['plain_ms']:.3f} ms) [{gpu}]", flush=True)
 
+    # Phase 10: the bench's 50k scattered graph, K4 against its plain
+    # version.  fmt="auto" must give the column-streamed BSR operator.
+    t0 = time.perf_counter()
+    L_s = scattered_graph()
+    op32 = device_laplacian(L_s, fmt="auto", device=dev)
+    check(isinstance(op32, BlockSparseLaplacian) and op32.col_stream
+          and op32.block_shape == (128, 128), "auto format on the scattered "
+          f"graph gave {type(op32).__name__} "
+          f"(col_stream {getattr(op32, 'col_stream', None)})")
+    print(f"scattered graph: {op32.m} nodes, nnz {op32.nnz}, "
+          f"{int(op32.cs_groupptr[-1])} blocks of 128x128 with pads, G "
+          f"{op32.rows_per_step}, {op32.cs_gcols.numel()} group "
+          f"columns, set-up {time.perf_counter() - t0:.1f} s", flush=True)
+    s_labels, s_feats = scattered_features(op32.m, 2 * N_REQUESTS + 1)
+    s_reqs = [f.to(dev) for f in s_feats[:2 * N_REQUESTS]]
+    s_max = float(max(f.abs().max() for f in s_feats[:2 * N_REQUESTS]))
+    k4 = {"f32": bsr_kernel_phase(op32, "K4", ("spmm", "hop"), gen,
+                                  "K4 f32")}
+    s_bf16 = dataclasses.replace(op32, blocks=op32.blocks.to(torch.bfloat16))
+    del op32  # f32 blocks: 3.55 GB
+    torch.cuda.empty_cache()
+    k4["bf16"] = bsr_kernel_phase(s_bf16, "K4", ("spmm", "hop"), gen,
+                                  "K4 bf16")
+    k4["int8"] = bsr_kernel_phase(
+        quantize_block_sparse(s_bf16, sample_x=s_max), "K4", ("spmm", "hop"),
+        gen, "K4 int8")
+    for lab, rec in k4.items():
+        print_bsr_kernel(f"bsr_colstream (K4) {lab}", rec, gpu)
+
+    # Phase 11: the scattered graph's NodeClassifier served and trained.
+    s_model = NodeClassifier(s_bf16, FIN, CLASSES, hidden=[], K=K,
+                             generator=torch.Generator().manual_seed(0))
+    s_served = {}
+    for i, mode in enumerate(("bf16", "int8")):
+        serving = compile_serving(s_model, s_model.param_tree(), s_reqs[0],
+                                  int8=mode == "int8")
+        rec = s_served[mode] = bsr_serve_phase(
+            serving, s_reqs[i * N_REQUESTS:(i + 1) * N_REQUESTS], "K4",
+            f"scattered serve {mode}", timed=True)
+        print(f"scattered serve {mode}: {N_REQUESTS} requests, "
+              f"{rec['launches']} K4 launches, logits "
+              f"{tuple(rec['logits'][0].shape)}, max |served - plain| "
+              f"{rec['max_abs_err']:.3g}; {rec['ms']:.3f} ms per request "
+              f"(plain {rec['plain_ms']:.3f} ms) [{gpu}]", flush=True)
+    s_data = (s_feats[-1].to(dev), s_labels.to(dev),
+              torch.ones(s_bf16.m, dtype=torch.bool, device=dev))
+    s_train = bsr_train_phase(s_bf16, s_data)
+    print(f"scattered train bf16: {TRAIN_STEPS} adam steps, "
+          f"{s_train['launches']} K4 launches {s_train['forms']}, losses "
+          f"{[round(v, 4) for v in s_train['losses']]}; one step vs plain: "
+          f"loss rel err {s_train['loss_rel_err']:.3g}, gradient err "
+          f"{s_train['grad_rel_err']:.3g} of max; {s_train['ms']:.3f} ms per "
+          f"step (plain {s_train['plain_ms']:.3f} ms), peak memory "
+          f"{s_train['peak_gb']:.2f} GiB [{gpu}]", flush=True)
+
+    # Phase 12: bsr_csr through each route it ports, then one request
+    # through each route's operator.
+    t0 = time.perf_counter()
+    op8 = device_laplacian(L_s, fmt="bsr", col_stream=False, device=dev)
+    check(not op8.col_stream and op8.rows_per_step == 1
+          and op8.group_max > 0 and op8.row_max == 0,
+          f"col_stream=False layout: G {op8.rows_per_step}, group_max "
+          f"{op8.group_max}, row_max {op8.row_max}")
+    csr = {"K8 f32": bsr_kernel_phase(op8, "K8", ("spmm",), gen, "K8 f32")}
+    bf8 = dataclasses.replace(op8, blocks=op8.blocks.to(torch.bfloat16))
+    del op8
+    torch.cuda.empty_cache()
+    csr["K8 bf16"] = bsr_kernel_phase(bf8, "K8", ("spmm",), gen, "K8 bf16")
+    q8 = quantize_block_sparse(bf8, sample_x=s_max)
+    csr["K7 int8"] = bsr_kernel_phase(q8, "K7", ("spmm", "hop"), gen,
+                                      "K7 int8")
+    del q8
+    op9 = device_laplacian(L_s, fmt="bsr", chunked_rows=True, device=dev)
+    check(op9.row_max > 0 and op9.rows_per_step == 1 and op9.group_max == 0,
+          f"chunked_rows layout: row_max {op9.row_max}")
+    csr["K9 f32"] = bsr_kernel_phase(op9, "K9", ("spmm",), gen, "K9 f32")
+    bf9 = dataclasses.replace(op9, blocks=op9.blocks.to(torch.bfloat16))
+    del op9
+    torch.cuda.empty_cache()
+    csr["K9 bf16"] = bsr_kernel_phase(bf9, "K9", ("spmm",), gen, "K9 bf16")
+    op_city = device_laplacian(L, fmt="bsr", col_stream=False,
+                               dtype=torch.bfloat16, device=dev)
+    check(op_city.rows_per_step > 1, "the city graph's block-CSR layout has "
+          f"G = {op_city.rows_per_step}, want more than 1")
+    csr["K7 bf16"] = bsr_kernel_phase(op_city, "K7", ("spmm", "hop"), gen,
+                                      "K7 bf16")
+    print(f"block-CSR layouts: scattered G 1, group_max {bf8.group_max}; "
+          f"chunked row_max {bf9.row_max}; city graph "
+          f"{op_city.block_cols.numel()} blocks, G {op_city.rows_per_step}, "
+          f"group_max {op_city.group_max}; set-up and checks "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for what, rec in csr.items():
+        print_bsr_kernel(f"bsr_csr ({what})", rec, gpu)
+    routes = {}
+    for key, kernel, rop, req, int8 in (
+            ("K8 bf16", "K8", bf8, s_reqs[0], False),
+            ("K7 int8", "K7", bf8, s_reqs[0], True),
+            ("K9 bf16", "K9", bf9, s_reqs[0], False),
+            ("K7 bf16", "K7", op_city, reqs[0], False)):
+        model = NodeClassifier(rop, FIN, CLASSES, hidden=[], K=K,
+                               generator=torch.Generator().manual_seed(0))
+        rec = routes[key] = bsr_serve_phase(
+            compile_serving(model, model.param_tree(), req, int8=int8),
+            [req], kernel, f"serve through {key}", timed=False)
+        print(f"serve through {key}: {rec['launches']} launches, max "
+              f"|served - plain| {rec['max_abs_err']:.3g}", flush=True)
+    route_launches = {key: {"launches": r["launches"]}
+                      for key, r in routes.items()}
+    del bf8, bf9, op_city, routes, model
+    torch.cuda.empty_cache()
+
     if args.profile_dir:
         profile_phase(served, reqs[0], lat, args.profile_dir, gpu)
         train_profile_phase(trains["bf16"]["run"], trains["bf16"]["ms"],
@@ -807,6 +1166,13 @@ def main() -> int:
         chebnet_profile_phase(cheb["f32"]["train"]["run"],
                               cheb["f32"]["train"]["ms"], args.profile_dir,
                               gpu)
+        profile_phase({f"scattered_{m}": r["serving"]
+                       for m, r in s_served.items()}, s_reqs[0],
+                      {f"scattered_{m}": r["ms"] for m, r in s_served.items()},
+                      args.profile_dir, gpu)
+        train_profile_phase(s_train["run"], s_train["ms"], args.profile_dir,
+                            gpu, mode="scattered_train_bf16",
+                            parts_of=BSR_TRAIN_PARTS)
 
     record = {"kernels": [
         {"name": f"band_dkw_{lab}", "route": "cuda", "source": SOURCE,
@@ -851,6 +1217,38 @@ def main() -> int:
          "ms": kchecks[lab]["K3"]["ms"],
          "plain_ms": kchecks[lab]["K3"]["plain_ms"]}
         for lab in DTYPES
+    ] + [
+        {"name": f"bsr_colstream_{lab}", "route": "cuda",
+         "source": BSR_SOURCE, "replaces": BSR_REPLACES["K4"],
+         "launches": (s_served[lab]["launches"]
+                      + (s_train["launches"] if lab == "bf16" else 0)),
+         "max_abs_err": k4[lab]["max_abs_err"], "ms": k4[lab]["ms"],
+         "plain_ms": k4[lab]["plain_ms"], "hop_ms": k4[lab]["hop_ms"],
+         "hop_plain_ms": k4[lab]["hop_plain_ms"],
+         "request_ms": s_served[lab]["ms"],
+         "request_plain_ms": s_served[lab]["plain_ms"],
+         **({"train_ms_per_step": s_train["ms"],
+             "train_plain_ms_per_step": s_train["plain_ms"],
+             "f32_ms": k4["f32"]["ms"], "f32_plain_ms": k4["f32"]["plain_ms"],
+             "f32_hop_ms": k4["f32"]["hop_ms"],
+             "f32_hop_plain_ms": k4["f32"]["hop_plain_ms"],
+             "f32_max_abs_err": k4["f32"]["max_abs_err"]}
+            if lab == "bf16" else {})}
+        for lab in ("bf16", "int8")
+    ] + [
+        {"name": f"bsr_csr_{key.replace(' ', '_')}", "route": "cuda",
+         "source": BSR_SOURCE, "replaces": BSR_REPLACES[key[:2]],
+         "launches": rec["launches"],
+         "max_abs_err": csr[key]["max_abs_err"], "ms": csr[key]["ms"],
+         "plain_ms": csr[key]["plain_ms"],
+         **({"hop_ms": csr[key]["hop_ms"],
+             "hop_plain_ms": csr[key]["hop_plain_ms"]}
+            if "hop_ms" in csr[key] else {}),
+         **({"f32_ms": csr[f"{key[:2]} f32"]["ms"],
+             "f32_plain_ms": csr[f"{key[:2]} f32"]["plain_ms"],
+             "f32_max_abs_err": csr[f"{key[:2]} f32"]["max_abs_err"]}
+            if f"{key[:2]} f32" in csr else {})}
+        for key, rec in route_launches.items()
     ]}
     print(json.dumps(record))
     print(gpu)

@@ -124,23 +124,30 @@ def map_operators(model, fn):
 def quantize_model_operators(model, sample_x: float = 1.0,
                              headroom: float = 2.0):
     """A shallow copy of ``model`` whose graph operators are replaced by
-    their int8 twins.  Only the banded operator has a twin in the port so
-    far; an already quantized operator passes through, and any other
-    format raises rather than serving unquantized."""
+    their int8 twins: banded and block-sparse operators are quantized, an
+    already quantized operator passes through, and any other format (the
+    dense one: ``quantize_dense`` is not ported yet) raises rather than
+    serving unquantized."""
     from cnn_graph_tpu_torch.ops.laplacian import (
         BandedLaplacian,
+        BlockSparseLaplacian,
         QuantBandedLaplacian,
+        QuantBlockSparseLaplacian,
         quantize_banded,
+        quantize_block_sparse,
     )
 
     def q(op):
         if isinstance(op, BandedLaplacian):
             return quantize_banded(op, headroom=headroom, sample_x=sample_x)
-        if isinstance(op, QuantBandedLaplacian):
+        if isinstance(op, BlockSparseLaplacian):
+            return quantize_block_sparse(op, headroom=headroom,
+                                         sample_x=sample_x)
+        if isinstance(op, (QuantBandedLaplacian, QuantBlockSparseLaplacian)):
             return op
         raise NotImplementedError(
             f"no int8 twin for {type(op).__name__} in cnn_graph_tpu_torch yet "
-            "(quantize_dense / quantize_block_sparse: ROADMAP queue 1 item 8)"
+            "(quantize_dense: ROADMAP queue 1 item 8)"
         )
 
     return map_operators(model, q)

@@ -38,7 +38,9 @@ class NodeClassifier(nn.Module):
     operators its backward skips the adjoint chain.  Then ``features``
     gets no gradient at all (``features.grad`` stays ``None``; the JAX
     model returns zeros there).  Pass ``input_grad=True`` for saliency
-    maps or a differentiable front end feeding the features.
+    maps or a differentiable front end feeding the features.  Other
+    formats ignore it, as in JAX: there autograd runs no backward hop for
+    features that need no gradient.
     """
 
     def __init__(self, operator, input_features: int, num_classes: int,

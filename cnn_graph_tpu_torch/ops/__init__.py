@@ -8,6 +8,15 @@ from cnn_graph_tpu_torch.ops.band import (
     banded_dkw,
     banded_dkw_reference,
 )
+from cnn_graph_tpu_torch.ops.bsr import (
+    bsr_call_quant,
+    bsr_cheby_hop,
+    bsr_colstream,
+    bsr_colstream_reference,
+    bsr_csr,
+    bsr_csr_reference,
+    bsr_spmm,
+)
 from cnn_graph_tpu_torch.ops.cheby import (
     cheby_conv_fused,
     cheby_conv_fused_reference,
@@ -22,10 +31,13 @@ from cnn_graph_tpu_torch.ops.filters import (
 )
 from cnn_graph_tpu_torch.ops.laplacian import (
     BandedLaplacian,
+    BlockSparseLaplacian,
     DenseLaplacian,
     QuantBandedLaplacian,
+    QuantBlockSparseLaplacian,
     device_laplacian,
     quantize_banded,
+    quantize_block_sparse,
 )
 from cnn_graph_tpu_torch.ops.pooling import avg_pool, max_pool
 
@@ -35,6 +47,13 @@ __all__ = [
     "band_spmm",
     "banded_dkw",
     "banded_dkw_reference",
+    "bsr_call_quant",
+    "bsr_cheby_hop",
+    "bsr_colstream",
+    "bsr_colstream_reference",
+    "bsr_csr",
+    "bsr_csr_reference",
+    "bsr_spmm",
     "cheby_basis",
     "cheby_conv_fused",
     "cheby_conv_fused_reference",
@@ -44,10 +63,13 @@ __all__ = [
     "cheby_conv",
     "cheby_conv_banded",
     "BandedLaplacian",
+    "BlockSparseLaplacian",
     "DenseLaplacian",
     "QuantBandedLaplacian",
+    "QuantBlockSparseLaplacian",
     "device_laplacian",
     "quantize_banded",
+    "quantize_block_sparse",
     "avg_pool",
     "max_pool",
 ]

@@ -1,0 +1,384 @@
+"""Block-sparse (BSR) SpMM and fused Chebyshev hop.
+
+Counterpart of ``cnn_graph_tpu/ops/pallas_spmm.py``.  Two kernels in
+``csrc/bsr.cu``, each with its plain PyTorch version beside it:
+
+* ``bsr_colstream`` (K4, ``_kernel_colstream`` :129 via ``_colstream_call``
+  :269) reads the column-streamed layout; ``bsr_colstream_reference``.
+* ``bsr_csr`` computes what K7 (``_kernel_grouped`` :35), K8 (``_kernel``
+  :450) and K9 (``_kernel_chunked`` :502) compute over block-CSR: the TPU
+  kernels differ only in how blocks reach VMEM.  ``route`` names which of
+  the three a call stands for, for the launch counts; ``bsr_csr_reference``.
+
+Each wrapper launches its CUDA kernel for CUDA tensors and runs its plain
+version for CPU tensors; the device of ``x`` is the only thing that
+chooses.  ``launches`` counts kernel launches, ``form_launches`` the same
+by form (``spmm``, ``hop``) and, on ``bsr_csr``, ``route_launches`` by
+route (``K7``, ``K8``, ``K9``).  The kernels take 128x128 blocks; other
+block shapes run on the CPU only.
+
+The operator-level wrappers route as the JAX package does: ``bsr_spmm``
+(:580, backward ``dx = L g``) takes K4 for a column-streamed layout, K7
+with ``rows_per_step > 1``, else K9 with ``row_max > 0``, else K8;
+``bsr_cheby_hop`` (:411, backward ``dx1 = 2 L g``, ``dx0 = -g``) and the
+int8 ``bsr_call_quant`` (:436, inference only) take K4 or K7.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import functools
+
+import torch
+from torch.autograd.function import once_differentiable
+from torch.profiler import record_function
+
+from cnn_graph_tpu_torch import _build
+from cnn_graph_tpu_torch.ops.band import _emit, full_f32_matmul
+from cnn_graph_tpu_torch.ops.packing import BLOCK
+
+__all__ = [
+    "bsr_colstream",
+    "bsr_colstream_reference",
+    "bsr_csr",
+    "bsr_csr_reference",
+    "block_products",
+    "kernel_call",
+    "bsr_spmm",
+    "bsr_cheby_hop",
+    "bsr_call_quant",
+]
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_ROUTES = ("K7", "K8", "K9")
+# The plain versions multiply blocks in chunks whose gathered x tiles take
+# about this many bytes: one gather of every block's tile at the 50k
+# scattered graph and C = 512 would take 7.1 GB in bf16.
+_CHUNK_BYTES = 1 << 28
+
+
+def block_products(blocks, brow, bcol, x, n_rb: int, block_shape,
+                   compute_dtype, acc_dtype) -> torch.Tensor:
+    """``acc[brow[b]] += blocks[b] @ x_tile[bcol[b]]`` over the blocks
+    listed, as ``[n_rb, br, C]`` in ``acc_dtype``.  Each block's product
+    is taken in ``compute_dtype`` (f32 products in full f32) and cast to
+    ``acc_dtype`` before it is added."""
+    br, bc = block_shape
+    mp, C = x.shape
+    xb = x.reshape(mp // bc, bc, C)
+    acc = torch.zeros(n_rb, br, C, dtype=acc_dtype, device=x.device)
+    size = torch.empty(0, dtype=compute_dtype).element_size()
+    step = max(1, _CHUNK_BYTES // (bc * max(C, 1) * size))
+    with full_f32_matmul():
+        for lo in range(0, brow.numel(), step):
+            hi = lo + step
+            prod = torch.bmm(blocks[lo:hi].to(compute_dtype),
+                             xb.index_select(0, bcol[lo:hi]).to(compute_dtype))
+            acc.index_add_(0, brow[lo:hi], prod.to(acc_dtype))
+    return acc
+
+
+def _acc_dtype(block_scale):
+    # Int8 accumulates in float64, exact here (|acc| <= 127^2 * 128 *
+    # blocks per row << 2^53) on every device, unlike f32 (inexact above
+    # 2^24) or an int8 product (wraps).
+    return torch.float64 if block_scale is not None else torch.float32
+
+
+def bsr_colstream_reference(blocks, meta, gcols, gcolptr, groupptr, x,
+                            x0=None, *, G, block_shape=(BLOCK, BLOCK),
+                            block_scale=None) -> torch.Tensor:
+    """Plain PyTorch version of ``bsr_colstream``, written from the TPU
+    kernel: every block of group s's run ``groupptr[s]:groupptr[s+1]``
+    (pads included) adds ``blocks[b] @ x[tile gcols[gcolptr[s] +
+    (meta[b] & 0xFFFF)]]`` to block-row ``s*G + (meta[b] >> 16)``; f32
+    accumulation over a row's blocks (exact for int8), then the emission,
+    rounded once."""
+    nsb = groupptr.numel() - 1
+    dev = x.device
+    groupptr = groupptr.to(torch.int64)
+    nb = int(groupptr[-1])
+    grp = torch.repeat_interleave(torch.arange(nsb, device=dev),
+                                  groupptr.diff())
+    meta = meta[:nb].to(torch.int64)
+    brow = grp * G + (meta >> 16)
+    bcol = gcols.to(torch.int64)[gcolptr.to(torch.int64)[grp]
+                                 + (meta & 0xFFFF)]
+    acc_dt = _acc_dtype(block_scale)
+    acc = block_products(blocks[:nb], brow, bcol, x, nsb * G, block_shape,
+                         acc_dt, acc_dt)
+    return _emit(acc.reshape(x.shape), x0, None, block_scale, x.dtype)
+
+
+def bsr_csr_reference(blocks, rowptr, cols, x, x0=None, *,
+                      block_shape=(BLOCK, BLOCK),
+                      block_scale=None) -> torch.Tensor:
+    """Plain PyTorch version of ``bsr_csr``: block-row i sums ``blocks[b]
+    @ x[tile cols[b]]`` over ``rowptr[i]:rowptr[i+1]`` in f32 (exact for
+    int8), then the emission, rounded once.  Never reads past
+    ``rowptr[-1]``."""
+    n_rb = rowptr.numel() - 1
+    rowptr = rowptr.to(torch.int64)
+    nb = int(rowptr[-1])
+    brow = torch.repeat_interleave(torch.arange(n_rb, device=x.device),
+                                   rowptr.diff())
+    acc_dt = _acc_dtype(block_scale)
+    acc = block_products(blocks[:nb], brow, cols[:nb].to(torch.int64), x,
+                         n_rb, block_shape, acc_dt, acc_dt)
+    return _emit(acc.reshape(x.shape), x0, None, block_scale, x.dtype)
+
+
+# ------------------------------------------------------------------ kernels
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    lib = _build.load("bsr")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.bsr_csr_launch.argtypes = [p, p, p, i, p, p, p, i, ctypes.c_float,
+                                   i, p]
+    lib.bsr_colstream_launch.argtypes = [p, p, p, p, p, i, i, p, p, p, i,
+                                         ctypes.c_float, i, p]
+    for fn in (lib.bsr_csr_launch, lib.bsr_colstream_launch):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _check_no_grad(name, *ts):
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in ts):
+        raise RuntimeError(
+            f"{name} has no backward: differentiate through bsr_spmm / "
+            "bsr_cheby_hop, or run under torch.no_grad()")
+
+
+def _check_common(name, blocks, index, x, x0, block_shape, block_scale):
+    """Checks both kernels share; ``index``: the int32 metadata."""
+    dev = x.device
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{name}: unsupported dtype {x.dtype}")
+    if (x.dtype == torch.int8) != (block_scale is not None):
+        raise ValueError(f"{name}: block_scale is required for int8 and "
+                         "only for int8")
+    if tuple(block_shape) != (BLOCK, BLOCK) or blocks.dim() != 3 or tuple(
+            blocks.shape[1:]) != (BLOCK, BLOCK):
+        raise ValueError(f"{name}: the CUDA kernel takes {BLOCK}x{BLOCK} "
+                         f"blocks, got {tuple(blocks.shape[1:])}")
+    if blocks.dtype != x.dtype:
+        raise TypeError(f"{name}: blocks {blocks.dtype} vs x {x.dtype}")
+    mp, C = x.shape
+    if mp % BLOCK or C < 1:
+        raise ValueError(f"{name}: x rows {mp} not a multiple of {BLOCK}")
+    if x0 is not None and (x0.dtype != x.dtype or x0.shape != x.shape):
+        raise ValueError(f"{name}: x0 must match x's shape and dtype")
+    for t in index:
+        if t.dtype != torch.int32 or t.dim() != 1:
+            raise TypeError(f"{name}: block metadata must be 1-D int32")
+    for t in [blocks, x] + list(index) + ([] if x0 is None else [x0]):
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name}: every tensor must be contiguous on "
+                             f"{dev}")
+    # The kernels load blocks and x in 16-byte vectors.
+    for t in (blocks, x):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: blocks and x must start on a 16-byte "
+                             "boundary (a view with a storage offset may "
+                             "not)")
+
+
+def _finish(rc: int, name: str):
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
+def bsr_colstream(blocks, meta, gcols, gcolptr, groupptr, x, x0=None, *, G,
+                  block_shape=(BLOCK, BLOCK), block_scale=None):
+    """``L @ x`` (``x0`` None) or the hop ``2 (L @ x) - x0`` on the
+    column-streamed layout (``ops.packing.colstream_pack``): ``blocks``
+    ``[nb + pads, br, bc]``, ``meta``/``gcols``/``gcolptr``/``groupptr``
+    int32, ``x`` and ``x0`` ``[Mp, C]`` in the blocks' dtype with ``Mp =
+    (len(groupptr) - 1) * G * br``.  ``block_scale`` (int8 only) is the
+    blocks' dequant scale; the result is then requantized int8 in x's
+    scale.  Returns ``[Mp, C]`` in x's dtype."""
+    _check_no_grad("bsr_colstream", x, x0)
+    if x.device.type == "cpu":
+        return bsr_colstream_reference(
+            blocks, meta, gcols, gcolptr, groupptr, x, x0, G=G,
+            block_shape=block_shape, block_scale=block_scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"bsr_colstream: no kernel for device {x.device}")
+    _check_common("bsr_colstream", blocks, (meta, gcols, gcolptr, groupptr),
+                  x, x0, block_shape, block_scale)
+    mp, C = x.shape
+    nsb = groupptr.numel() - 1
+    if gcolptr.numel() != nsb + 1 or mp != nsb * G * BLOCK:
+        raise ValueError("bsr_colstream: groupptr/gcolptr do not match x's "
+                         f"{mp} rows at G = {G}")
+    if G < 1 or nsb * G > 65535:
+        raise ValueError(f"bsr_colstream: {nsb * G} block-rows at G = {G}: "
+                         "the kernel takes 1 to 65535")
+    y = torch.empty_like(x)
+    form = "spmm" if x0 is None else "hop"
+    with torch.cuda.device(x.device), record_function(f"bsr_colstream.{form}"):
+        rc = _lib().bsr_colstream_launch(
+            blocks.data_ptr(), meta.data_ptr(), gcols.data_ptr(),
+            gcolptr.data_ptr(), groupptr.data_ptr(), nsb, G, x.data_ptr(),
+            None if x0 is None else x0.data_ptr(), y.data_ptr(), C,
+            0.0 if block_scale is None else float(block_scale),
+            _DTYPE_CODE[x.dtype], torch.cuda.current_stream().cuda_stream)
+    _finish(rc, "bsr_colstream")
+    bsr_colstream.launches += 1
+    bsr_colstream.form_launches[form] += 1
+    return y
+
+
+bsr_colstream.launches = 0
+bsr_colstream.form_launches = collections.Counter()
+
+
+def bsr_csr(blocks, rowptr, cols, x, x0=None, *, block_shape=(BLOCK, BLOCK),
+            block_scale=None, route="K8"):
+    """``L @ x`` or ``2 (L @ x) - x0`` over block-CSR: block-row i owns
+    blocks ``rowptr[i]:rowptr[i+1]`` (``rowptr`` and ``cols`` int32; the
+    zero tails past ``rowptr[-1]`` are not read); ``x``/``x0`` ``[Mp, C]``
+    with ``Mp = (len(rowptr) - 1) * br``.  ``route`` (``K7``, ``K8`` or
+    ``K9``) names the TPU kernel the call stands for, for the counts."""
+    _check_no_grad("bsr_csr", x, x0)
+    if route not in _ROUTES:
+        raise ValueError(f"bsr_csr: route {route!r} not in {_ROUTES}")
+    if x.device.type == "cpu":
+        return bsr_csr_reference(blocks, rowptr, cols, x, x0,
+                                 block_shape=block_shape,
+                                 block_scale=block_scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"bsr_csr: no kernel for device {x.device}")
+    _check_common("bsr_csr", blocks, (rowptr, cols), x, x0, block_shape,
+                  block_scale)
+    mp, C = x.shape
+    n_rb = rowptr.numel() - 1
+    if mp != n_rb * BLOCK or n_rb > 65535:
+        raise ValueError(f"bsr_csr: rowptr of {n_rb} rows does not match x's "
+                         f"{mp} rows (or exceeds 65535 block-rows)")
+    y = torch.empty_like(x)
+    form = "spmm" if x0 is None else "hop"
+    with torch.cuda.device(x.device), record_function(
+            f"bsr_csr.{route}.{form}"):
+        rc = _lib().bsr_csr_launch(
+            blocks.data_ptr(), rowptr.data_ptr(), cols.data_ptr(), n_rb,
+            x.data_ptr(), None if x0 is None else x0.data_ptr(),
+            y.data_ptr(), C,
+            0.0 if block_scale is None else float(block_scale),
+            _DTYPE_CODE[x.dtype], torch.cuda.current_stream().cuda_stream)
+    _finish(rc, "bsr_csr")
+    bsr_csr.launches += 1
+    bsr_csr.form_launches[form] += 1
+    bsr_csr.route_launches[route] += 1
+    return y
+
+
+bsr_csr.launches = 0
+bsr_csr.form_launches = collections.Counter()
+bsr_csr.route_launches = collections.Counter()
+
+
+# ------------------------------------------------------- operator wrappers
+
+
+def kernel_call(L, x, x0, route, block_scale=None):
+    """One kernel launch on a (Quant)BlockSparseLaplacian's layout:
+    ``bsr_colstream`` for ``route == "K4"``, else ``bsr_csr`` as that
+    route.  The operators' ``kernel_call`` method lands here; every
+    product of the operator-level wrappers below goes through that
+    method."""
+    if route == "K4":
+        return bsr_colstream(
+            L.blocks, L.cs_meta, L.cs_gcols, L.cs_gcolptr, L.cs_groupptr, x,
+            x0, G=L.rows_per_step, block_shape=L.block_shape,
+            block_scale=block_scale)
+    return bsr_csr(L.blocks, L.block_rowptr, L.block_cols, x, x0,
+                   block_shape=L.block_shape, block_scale=block_scale,
+                   route=route)
+
+
+def _grouped_route(L) -> str:
+    # The hop and int8 kernels of JAX are K4 and K7 only; K7 reads the
+    # layout's group_max slab (_grouped_call asserts it).
+    if L.col_stream:
+        return "K4"
+    if L.group_max <= 0:
+        raise ValueError("the hop and int8 BSR kernels need the grouped "
+                         "layout (group_max > 0): build the operator with "
+                         "use_pallas and without chunked_rows")
+    return "K7"
+
+
+def _spmm_route(L) -> str:
+    if L.col_stream:
+        return "K4"
+    if L.rows_per_step > 1:
+        return "K7"
+    return "K9" if L.row_max > 0 else "K8"
+
+
+def _float_call(L, x, x0=None):
+    # The kernel boundary casts x and x0 to the blocks' dtype; the result
+    # comes back in x's dtype.
+    cdt = L.compute_dtype
+    route = _spmm_route(L) if x0 is None else _grouped_route(L)
+    y = L.kernel_call(x.to(cdt).contiguous(),
+                      None if x0 is None else x0.to(cdt).contiguous(), route)
+    return y.to(x.dtype)
+
+
+class _BsrSpmm(torch.autograd.Function):
+    """``L @ x``; L is symmetric, so ``dx = L g`` (pallas_spmm :594-601).
+    The operator is a non-tensor argument with no gradient."""
+
+    @staticmethod
+    def forward(ctx, L, x):
+        ctx.L = L
+        return _float_call(L, x)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        dx = _float_call(ctx.L, g) if ctx.needs_input_grad[1] else None
+        return None, dx
+
+
+class _BsrChebyHop(torch.autograd.Function):
+    """``2 (L @ x1) - x0``; ``dx1 = 2 (L g)``, ``dx0 = -g`` (:422-430)."""
+
+    @staticmethod
+    def forward(ctx, L, x1, x0):
+        ctx.L, ctx.x0_dtype = L, x0.dtype
+        return _float_call(L, x1, x0)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        _, need_x1, need_x0 = ctx.needs_input_grad
+        dx1 = 2.0 * _float_call(ctx.L, g) if need_x1 else None
+        dx0 = (-g).to(ctx.x0_dtype) if need_x0 else None
+        return None, dx1, dx0
+
+
+def bsr_spmm(L, x: torch.Tensor) -> torch.Tensor:
+    """``L @ x`` for a BlockSparseLaplacian; ``x``: ``[Mp, C]``.
+    Differentiable in ``x``."""
+    return _BsrSpmm.apply(L, x)
+
+
+def bsr_cheby_hop(L, x1: torch.Tensor, x0: torch.Tensor) -> torch.Tensor:
+    """Fused Chebyshev hop ``2 (L @ x1) - x0`` in one kernel pass, through
+    K4 or K7.  Differentiable in ``x1`` and ``x0``."""
+    return _BsrChebyHop.apply(L, x1, x0)
+
+
+def bsr_call_quant(L, x_q: torch.Tensor,
+                   x0_q: torch.Tensor | None = None) -> torch.Tensor:
+    """Int8 SpMM or fused hop for a QuantBlockSparseLaplacian through K4
+    or K7: int8 blocks times int8 activations, int32 accumulation,
+    requantized in input-scale units.  Inference only."""
+    return L.kernel_call(x_q, x0_q, _grouped_route(L), L.block_scale)

@@ -220,8 +220,8 @@ def cheby_conv(x: torch.Tensor, L, w: torch.Tensor,
     operators the int8 streaming conv (inference only); dense operators
     built with ``use_fused`` the fused kernels where ``_fused_eligible``
     holds (tile 512 for f32 operators, 256 otherwise, as in JAX);
-    everything else the stacked basis and one tap contraction,
-    differentiated by torch.
+    everything else (block-sparse operators included) the stacked basis
+    and one tap contraction, differentiated by torch.
     ``input_grad=False`` declares that no gradient for ``x`` is consumed;
     only the banded path uses it (see ``cheby_conv_banded``).
     """
@@ -239,6 +239,6 @@ def cheby_conv(x: torch.Tensor, L, w: torch.Tensor,
         return cheby_conv_fused(x, L, w)
     with record_function("cheby_conv.stacked"):
         basis = cheby_basis(x, L, K)
-        with full_f32_matmul():
+        with full_f32_matmul(), record_function("cheby_conv.taps"):
             y = torch.einsum("kbmf,kfo->bmo", basis, w.to(basis.dtype))
     return y.to(x.dtype)

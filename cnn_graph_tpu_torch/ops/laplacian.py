@@ -10,11 +10,19 @@ Counterpart of ``cnn_graph_tpu/ops/laplacian.py``.  Ported so far:
 * ``QuantBandedLaplacian`` (:409, with ``QuantOpMixin`` :95 folded in)
   and ``quantize_banded`` (:745): the int8 serving twin, same kernel in
   its int8 form.
-* ``device_laplacian`` (:1200) with the JAX package's format choice.
+* ``BlockSparseLaplacian`` (:162): dense 128x128 blocks at the nonzero
+  block positions, in block-CSR order or the column-streamed layout,
+  multiplied by the ``bsr_colstream`` and ``bsr_csr`` kernels
+  (``ops/bsr.py``) when built with ``use_pallas``, else by the JAX
+  package's gather and segment-sum route in plain torch.
+* ``QuantBlockSparseLaplacian`` (:642) and ``quantize_block_sparse``
+  (:713): its int8 serving twin.
+* ``device_laplacian`` (:1200) with the JAX package's format choice and
+  BSR layouts.
 
 Operators are frozen dataclasses of tensors; ``.to(device)`` returns a
-copy on another device.  The BSR and BCOO formats raise
-``NotImplementedError``: they are ROADMAP queue 1 item 8.
+copy on another device.  The BCOO format and the dense int8 twin
+(``quantize_dense``) are not ported: ROADMAP queue 1 item 8.
 """
 
 from __future__ import annotations
@@ -29,10 +37,18 @@ from cnn_graph_tpu_torch.graphs import rescale_laplacian
 from cnn_graph_tpu_torch.ops import packing
 from cnn_graph_tpu_torch.ops.packing import _round_up
 from cnn_graph_tpu_torch.ops.band import (
+    _emit,
     band_cheby_hop,
     band_cheby_hop_c,
     band_spmm,
     banded_dkw,
+)
+from cnn_graph_tpu_torch.ops.bsr import (
+    block_products,
+    bsr_call_quant,
+    bsr_cheby_hop,
+    bsr_spmm,
+    kernel_call,
 )
 from cnn_graph_tpu_torch.ops.cheby import cheby_dw_fused, fused_filter
 
@@ -42,6 +58,9 @@ __all__ = [
     "BandedLaplacian",
     "QuantBandedLaplacian",
     "quantize_banded",
+    "BlockSparseLaplacian",
+    "QuantBlockSparseLaplacian",
+    "quantize_block_sparse",
     "device_laplacian",
 ]
 
@@ -127,16 +146,52 @@ class BandedLaplacian:
         )
 
 
+class QuantOpMixin:
+    """The int8 serving protocol of the JAX package's ``QuantOpMixin``
+    (:95-121).  The operator carries one global scale ``max|L| / 127``;
+    activations ride one scale across the recurrence, and the kernels'
+    emission works in input-scale units, so that scale never enters a
+    kernel: callers may pass a run-time scale to ``quantize``/
+    ``dequantize``.  Inference only, as the JAX int8 operators are:
+    ``quantize`` raises when a gradient would be needed through it.
+    Subclasses carry ``act_scale`` and implement ``_call(x_q, x0_q)``."""
+
+    @property
+    def compute_dtype(self):
+        return torch.int8
+
+    def quantize(self, x: torch.Tensor, scale=None) -> torch.Tensor:
+        if torch.is_grad_enabled() and x.requires_grad:
+            raise RuntimeError(
+                f"{type(self).__name__} is inference-only (no backward "
+                "through int8): run under torch.no_grad()/inference_mode()")
+        s = self.act_scale if scale is None else scale
+        return torch.clamp(torch.round(x / s), -127, 127).to(torch.int8)
+
+    def dequantize(self, q: torch.Tensor, dtype=torch.float32,
+                   scale=None) -> torch.Tensor:
+        s = self.act_scale if scale is None else scale
+        return (q.to(torch.float32) * s).to(dtype)
+
+    def matmul(self, x: torch.Tensor) -> torch.Tensor:
+        """Float view: quantize -> int8 SpMM -> dequantize."""
+        return self.dequantize(self.spmm_q(self.quantize(x)), x.dtype)
+
+    def spmm_q(self, x_q: torch.Tensor) -> torch.Tensor:
+        """``quantize(L @ dequantize(x_q))`` in one int8 pass."""
+        return self._call(x_q, None)
+
+    def cheby_hop_q(self, x1_q: torch.Tensor,
+                    x0_q: torch.Tensor) -> torch.Tensor:
+        """Quantized fused recurrence hop ``2 (L @ x1) - x0``."""
+        return self._call(x1_q, x0_q)
+
+
 @dataclasses.dataclass(frozen=True)
-class QuantBandedLaplacian:
-    """Int8 banded Laplacian for serving (the int8 protocol of the JAX
-    package's ``QuantOpMixin``, :95-121, plus its banded twin).  The band
-    carries one global scale ``band_scale = max|L| / 127``; activations
-    ride one scale across the recurrence, and the kernel's emission works
-    in input-scale units, so that scale never enters the kernel: callers
-    may pass a run-time scale to ``quantize``/``dequantize``.  Inference
-    only, as the JAX int8 operators are: ``quantize`` raises when a
-    gradient would be needed through it."""
+class QuantBandedLaplacian(QuantOpMixin):
+    """Int8 banded Laplacian for serving, the JAX package's banded twin
+    (:409): the band in int8 with ``band_scale = max|L| / 127``, every
+    product one int8 launch of the banded kernel."""
 
     bands_dkw: tuple
     base: torch.Tensor
@@ -150,40 +205,10 @@ class QuantBandedLaplacian:
     act_scale: float
     headroom: float = 2.0
 
-    @property
-    def compute_dtype(self):
-        return torch.int8
-
-    def quantize(self, x: torch.Tensor, scale=None) -> torch.Tensor:
-        if torch.is_grad_enabled() and x.requires_grad:
-            raise RuntimeError(
-                "QuantBandedLaplacian is inference-only (no backward through "
-                "int8): run under torch.no_grad()/inference_mode()")
-        s = self.act_scale if scale is None else scale
-        return torch.clamp(torch.round(x / s), -127, 127).to(torch.int8)
-
-    def dequantize(self, q: torch.Tensor, dtype=torch.float32,
-                   scale=None) -> torch.Tensor:
-        s = self.act_scale if scale is None else scale
-        return (q.to(torch.float32) * s).to(dtype)
-
-    def matmul(self, x: torch.Tensor) -> torch.Tensor:
-        """Float view: quantize -> int8 SpMM -> dequantize."""
-        return self.dequantize(self.spmm_q(self.quantize(x)), x.dtype)
-
     def _call(self, x_q, x0_q):
         return banded_dkw(self.bands_dkw, self.base, self.sched_dkw, x_q,
                           x0_q, levels=self.levels, G=self.rows_per_step,
                           band_scale=self.band_scale)
-
-    def spmm_q(self, x_q: torch.Tensor) -> torch.Tensor:
-        """``quantize(L @ dequantize(x_q))`` in one int8 kernel pass."""
-        return self._call(x_q, None)
-
-    def cheby_hop_q(self, x1_q: torch.Tensor,
-                    x0_q: torch.Tensor) -> torch.Tensor:
-        """Quantized fused recurrence hop ``2 (L @ x1) - x0``."""
-        return self._call(x1_q, x0_q)
 
     def to(self, device) -> QuantBandedLaplacian:
         return dataclasses.replace(
@@ -212,23 +237,211 @@ def quantize_banded(op: BandedLaplacian, headroom: float = 2.0,
     )
 
 
+def _gather_products(op, x, compute_dtype, acc_dtype) -> torch.Tensor:
+    """The JAX package's gather and segment-sum route (:240-255,
+    :676-691): every real block's product with its gathered x tile in
+    ``compute_dtype``, cast to ``acc_dtype`` and summed into its row.
+    ``[Mp, C]`` in ``acc_dtype``."""
+    nb = op.block_cols.numel()
+    acc = block_products(op.blocks[:nb], op.block_rows.to(torch.int64),
+                         op.block_cols.to(torch.int64), x,
+                         op.m_padded // op.block_shape[0], op.block_shape,
+                         compute_dtype, acc_dtype)
+    return acc.reshape(x.shape)
+
+
+class _BsrMixin:
+    """What the float and int8 BSR operators share."""
+
+    @property
+    def block_size(self):  # square-block accessor, as in JAX
+        return self.block_shape[0]
+
+    def kernel_call(self, x, x0, route, block_scale=None):
+        """One BSR kernel launch by ``route`` (``ops.bsr.kernel_call``)."""
+        return kernel_call(self, x, x0, route, block_scale)
+
+    def to(self, device):
+        moved = {f: getattr(self, f).to(device) for f in (
+            "blocks", "block_rows", "block_cols", "block_rowptr", "cs_meta",
+            "cs_gcols", "cs_gcolptr", "cs_groupptr")
+            if getattr(self, f) is not None}
+        return dataclasses.replace(self, **moved)
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockSparseLaplacian(_BsrMixin):
+    """Rescaled Laplacian as dense ``br x bc`` blocks at the nonzero block
+    positions: ``blocks[i]`` sits at block coordinates ``(block_rows[i],
+    block_cols[i])``, in block-CSR order with row extents
+    ``block_rowptr``.
+
+    Layouts, as the JAX package builds them: ``row_max > 0`` (chunked
+    rows) and ``group_max > 0`` (row groups of ``rows_per_step``) give
+    ``blocks`` a zero tail of that many blocks; ``col_stream`` reorders
+    each group of ``rows_per_step`` block-rows by (column, row), pads it
+    to whole 8-block bundles, adds a 64-block zero tail and the kernel
+    metadata ``cs_*`` (``ops.packing.colstream_pack``); ``block_rows`` is
+    then not sorted within a group and ``block_rowptr`` holds at group
+    boundaries only.
+
+    With ``use_pallas`` the products run through the BSR kernels
+    (``ops.bsr``); without, through the gather and segment-sum route,
+    whose bf16 products round per block before the sum, as in JAX."""
+
+    blocks: torch.Tensor
+    block_rows: torch.Tensor
+    block_cols: torch.Tensor
+    block_rowptr: torch.Tensor
+    m: int
+    m_padded: int
+    nnz: int
+    block_shape: tuple
+    use_pallas: bool
+    row_max: int = 0
+    rows_per_step: int = 1
+    group_max: int = 0
+    col_stream: bool = False
+    cs_meta: torch.Tensor | None = None
+    cs_gcols: torch.Tensor | None = None
+    cs_gcolptr: torch.Tensor | None = None
+    cs_groupptr: torch.Tensor | None = None
+
+    @property
+    def compute_dtype(self):
+        return self.blocks.dtype
+
+    def matmul(self, x: torch.Tensor) -> torch.Tensor:
+        """``L @ x`` for ``x`` of shape ``[Mp, C]``."""
+        if self.use_pallas:
+            return bsr_spmm(self, x)
+        dt = torch.promote_types(self.blocks.dtype, x.dtype)
+        return _gather_products(self, x, dt, x.dtype)
+
+    def cheby_hop(self, x1: torch.Tensor, x0: torch.Tensor) -> torch.Tensor:
+        """``2 (L @ x1) - x0``: one fused kernel pass where JAX has one
+        (column-streamed or grouped rows), else from ``matmul``."""
+        if self.use_pallas and (self.rows_per_step > 1 or self.col_stream):
+            return bsr_cheby_hop(self, x1, x0)
+        return (2.0 * self.matmul(x1) - x0).to(x1.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantBlockSparseLaplacian(_BsrMixin, QuantOpMixin):
+    """Int8 BSR Laplacian for serving, the JAX package's twin (:642): the
+    float operator's layout with int8 blocks and ``block_scale = max|L| /
+    127``.  With ``use_pallas``, ``group_max > 0`` or ``col_stream``
+    products run through the BSR kernel in its int8 form; otherwise
+    through the int32 gather route."""
+
+    blocks: torch.Tensor
+    block_rows: torch.Tensor
+    block_cols: torch.Tensor
+    block_rowptr: torch.Tensor
+    m: int
+    m_padded: int
+    nnz: int
+    block_shape: tuple
+    use_pallas: bool
+    block_scale: float
+    act_scale: float
+    headroom: float = 2.0
+    row_max: int = 0
+    rows_per_step: int = 1
+    group_max: int = 0
+    col_stream: bool = False
+    cs_meta: torch.Tensor | None = None
+    cs_gcols: torch.Tensor | None = None
+    cs_gcolptr: torch.Tensor | None = None
+    cs_groupptr: torch.Tensor | None = None
+
+    def _acc(self, x_q: torch.Tensor) -> torch.Tensor:
+        """The exact accumulator ``(L / block_scale) @ x_q`` (int32 in
+        JAX; float64 here, exact at these magnitudes on every device)."""
+        return _gather_products(self, x_q, torch.float64, torch.float64)
+
+    def _call(self, x_q, x0_q):
+        if self.use_pallas and (self.group_max > 0 or self.col_stream):
+            return bsr_call_quant(self, x_q, x0_q)
+        return _emit(self._acc(x_q), x0_q, None, self.block_scale,
+                     torch.int8)
+
+
+def quantize_block_sparse(op: BlockSparseLaplacian, headroom: float = 2.0,
+                          sample_x: float = 1.0) -> QuantBlockSparseLaplacian:
+    """Quantize a BlockSparseLaplacian for int8 inference: blocks
+    ``clip(round(blocks / s), +-127)`` in float32 with ``s = max|blocks| /
+    127``, on the blocks' device, byte-equal to the JAX package's NumPy
+    quantizer.  ``sample_x`` and ``headroom`` as in ``quantize_banded``."""
+    s = float(op.blocks.abs().max().float()) / 127.0 if op.blocks.numel() \
+        else 0.0
+    if s == 0.0:
+        s = 1.0
+    s32 = torch.tensor(s, dtype=torch.float32, device=op.blocks.device)
+    q = torch.empty(op.blocks.shape, dtype=torch.int8,
+                    device=op.blocks.device)
+    for lo in range(0, op.blocks.shape[0], 4096):  # bounds the f32 copy
+        chunk = op.blocks[lo:lo + 4096].to(torch.float32)
+        q[lo:lo + 4096] = torch.clamp(torch.round(chunk / s32), -127, 127)
+    fields = {f.name: getattr(op, f.name) for f in dataclasses.fields(op)}
+    fields.update(blocks=q, block_scale=s,
+                  act_scale=float(sample_x) * headroom / 127.0,
+                  headroom=headroom)
+    return QuantBlockSparseLaplacian(**fields)
+
+
+def _tensor(a: np.ndarray, device, dtype=None) -> torch.Tensor:
+    """A host array on ``device``, converted to ``dtype`` there (a large
+    block array crosses once, in its host dtype)."""
+    t = torch.from_numpy(a).to(device)
+    return t if dtype is None else t.to(dtype)
+
+
+def _pad_rowptr(rowptr: np.ndarray, n_rb: int) -> np.ndarray:
+    """Extend a block-CSR row pointer with empty rows up to ``n_rb``."""
+    return np.concatenate(
+        [rowptr, np.full(n_rb + 1 - len(rowptr), rowptr[-1], rowptr.dtype)])
+
+
+def _zero_tail(blocks: np.ndarray, n: int) -> np.ndarray:
+    return np.concatenate(
+        [blocks, np.zeros((n,) + blocks.shape[1:], blocks.dtype)])
+
+
 def device_laplacian(L: scipy.sparse.spmatrix, lmax: float = 2.0,
                      fmt: str = "auto", dtype=torch.float32, device=None,
                      rows_per_step: int | None = None,
                      dense_budget: int = 2 << 30,
-                     use_pallas: bool | None = None):
+                     use_pallas: bool | None = None,
+                     block_size: int | tuple | str = "auto",
+                     chunked_rows: bool = False,
+                     col_stream: bool | None = None):
     """Build a device operator for the rescaled Laplacian ``2 L / lmax - I``.
 
-    ``fmt`` is ``dense``, ``banded`` or ``auto``: dense up to
+    ``fmt`` is ``dense``, ``banded``, ``bsr`` or ``auto``: dense up to
     ``DENSE_THRESHOLD`` nodes, banded for narrow, reasonably full bands,
-    and otherwise dense again above 1/3 block occupancy within
-    ``dense_budget`` bytes, else BSR, which is not ported and raises.
-    These thresholds are the JAX package's, tuned on a TPU v5e; they are
-    kept word for word for parity and are to be re-tuned on Hopper.
-    ``rows_per_step`` is the banded layout's G (default ``min(8, block
-    rows)``).  ``use_pallas`` keeps the JAX name: a dense operator built
-    with it true takes the fused conv kernels (``use_fused``); the banded
-    operator always runs its kernel.
+    dense again above 1/3 block occupancy within ``dense_budget`` bytes,
+    else BSR; with a ``block_size`` other than ``"auto"`` or 128, ``auto``
+    goes to BSR straight away (laplacian.py:1240-1277).  These thresholds
+    are the JAX package's, tuned on a TPU v5e; they are kept word for word
+    for parity and are to be re-tuned on Hopper.  ``rows_per_step`` is the
+    banded layout's G (default ``min(8, block rows)``).
+
+    ``use_pallas`` keeps the JAX name.  A dense operator built with it
+    true takes the fused conv kernels (``use_fused``); the banded operator
+    always runs its kernel; a BSR operator runs the BSR kernels with it
+    and the gather and segment-sum route without; for BSR, ``None`` means
+    true wherever CUDA is available, whatever ``device`` is, as JAX's
+    default is true on any backend but the CPU.  BSR only: ``block_size``
+    is an int (square blocks), ``(rows, cols)`` or ``"auto"``
+    (``choose_block_shape``);
+    ``col_stream`` (default: ``use_pallas`` and not ``chunked_rows``)
+    builds the column-streamed layout with groups of ``min(8, block
+    rows)``; otherwise ``chunked_rows`` adds the ``row_max`` tail of the
+    chunked-row kernel where a row's blocks stay within 4x the mean, and
+    with ``use_pallas`` the block-CSR layout gets its row group and
+    ``group_max`` tail (``choose_bsr_row_group``).  The layouts, paddings
+    and tails are the JAX package's, byte for byte.
     """
     L = rescale_laplacian(L, lmax=lmax).tocsr()
     L.eliminate_zeros()
@@ -239,7 +452,8 @@ def device_laplacian(L: scipy.sparse.spmatrix, lmax: float = 2.0,
     if fmt == "auto":
         if m <= DENSE_THRESHOLD:
             fmt = "dense"
-        else:
+        elif block_size == "auto" or (isinstance(block_size, int)
+                                      and block_size == packing.BLOCK):
             stats = packing.band_stats(L)
             base, W, n_blocks, _ = stats
             n_rb = len(base)
@@ -251,6 +465,8 @@ def device_laplacian(L: scipy.sparse.spmatrix, lmax: float = 2.0,
                 dense_bytes = mp8 * mp8 * itemsize
                 if density >= 1 / 3 and dense_bytes <= dense_budget:
                     fmt = "dense"
+        else:
+            fmt = "bsr"
 
     if fmt == "dense":
         mp = _round_up(m, 8)
@@ -274,6 +490,75 @@ def device_laplacian(L: scipy.sparse.spmatrix, lmax: float = 2.0,
             levels=levels, rows_per_step=G, m=m, m_padded=mp, nnz=nnz,
         )
 
-    if fmt in ("bsr", "bcoo"):
+    if fmt == "bsr":
+        return _bsr_laplacian(L, m, nnz, dtype, device, use_pallas,
+                              block_size, chunked_rows, col_stream)
+    if fmt == "bcoo":
         raise NotImplementedError(_UNPORTED.format(fmt))
     raise ValueError(f"unknown Laplacian format {fmt!r}")
+
+
+def _bsr_laplacian(L, m, nnz, dtype, device, use_pallas, block_size,
+                   chunked_rows, col_stream) -> BlockSparseLaplacian:
+    """The ``fmt="bsr"`` branch of ``device_laplacian`` (JAX :1341-1461)."""
+    if use_pallas is None:
+        # The platform decides, as in JAX: an operator built on the host
+        # keeps its kernel layouts when .to() moves it to the card.
+        use_pallas = torch.cuda.is_available()
+    if block_size == "auto":
+        block_shape = packing.choose_block_shape(L)
+    elif isinstance(block_size, int):
+        block_shape = (block_size, block_size)
+    else:
+        block_shape = tuple(block_size)
+    br, bc = block_shape
+    blocks, brows, bcols, rowptr, mp = packing.pack_block_sparse(
+        L, block_shape)
+    counts = np.diff(rowptr)
+    row_max = int(counts.max()) if len(counts) else 0
+    mean_cnt = float(counts.mean()) if len(counts) else 0.0
+    if col_stream is None:
+        col_stream = bool(use_pallas) and not chunked_rows
+    common = dict(m=m, nnz=nnz, block_shape=block_shape,
+                  use_pallas=use_pallas)
+
+    if col_stream and use_pallas and len(counts):
+        G = min(packing.ROWS_PER_STEP, max(len(counts), 1))
+        mp = _round_up(mp, int(np.lcm(G * br, bc)))
+        rowptr = _pad_rowptr(rowptr, mp // br)
+        (blocks, brows, bcols, meta, gcols, gcolptr,
+         groupptr) = packing.colstream_pack(blocks, brows, bcols, rowptr, G)
+        blocks = _zero_tail(blocks, packing.COLSTREAM_CHUNK)
+        meta = np.concatenate(
+            [meta, np.zeros(packing.COLSTREAM_CHUNK, meta.dtype)])
+        return BlockSparseLaplacian(
+            blocks=_tensor(blocks, device, dtype),
+            block_rows=_tensor(brows, device),
+            block_cols=_tensor(bcols, device),
+            block_rowptr=_tensor(rowptr, device), m_padded=mp,
+            rows_per_step=G, col_stream=True,
+            cs_meta=_tensor(meta, device), cs_gcols=_tensor(gcols, device),
+            cs_gcolptr=_tensor(gcolptr, device),
+            cs_groupptr=_tensor(groupptr, device), **common)
+
+    if chunked_rows and row_max > 0 and row_max <= max(4.0 * mean_cnt, 8.0):
+        blocks = _zero_tail(blocks, row_max)
+    else:
+        row_max = 0
+    G, Lg = 1, 0
+    if row_max == 0 and use_pallas:
+        itemsize = torch.empty(0, dtype=dtype).element_size()
+        G, Lg = packing.choose_bsr_row_group(rowptr, br, bc, itemsize)
+        if G == 1 and len(counts):
+            # The slab tail even at G = 1, so that the int8 twin's grouped
+            # kernel can always run.
+            Lg = int(counts.max())
+    if Lg > 0:
+        mp = _round_up(mp, int(np.lcm(G * br, bc)))
+        rowptr = _pad_rowptr(rowptr, mp // br)
+        blocks = _zero_tail(blocks, Lg)
+    return BlockSparseLaplacian(
+        blocks=_tensor(blocks, device, dtype),
+        block_rows=_tensor(brows, device), block_cols=_tensor(bcols, device),
+        block_rowptr=_tensor(rowptr, device), m_padded=mp, row_max=row_max,
+        rows_per_step=G, group_max=Lg, **common)

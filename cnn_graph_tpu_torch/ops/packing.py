@@ -1,12 +1,19 @@
-"""NumPy packers for the banded operator: the ragged band, the deep-K-window
-("dkw") layout the kernel reads, and the int8 band quantizer.
+"""NumPy packers: for the banded operator the ragged band, the
+deep-K-window ("dkw") layout the kernel reads, and the int8 band
+quantizer; for the block-sparse (BSR) operator the block tiling, its
+column-streamed layout and the choice of block shape and row group.
 
 Copies of ``cnn_graph_tpu/ops/laplacian.py`` (``band_stats`` :796,
 ``choose_band_levels`` :924, ``pack_banded_ragged`` :944, the quantizer
-of ``quantize_banded`` :756-760) and ``cnn_graph_tpu/ops/pallas_band.py:405
+of ``quantize_banded`` :756-760, ``choose_block_shape`` :1022,
+``pack_block_sparse`` :1048, ``colstream_pack`` :1093,
+``choose_bsr_row_group`` :1167) and ``cnn_graph_tpu/ops/pallas_band.py:405
 pack_dkw_from_ragged``, which the port cannot import because those
-modules import JAX.  ``tests/test_torch_graphs.py`` holds every output
-byte-equal to the JAX packers' at the same G.
+modules import JAX.  ``tests/test_torch_graphs.py`` and
+``tests/test_torch_bsr.py`` hold every output byte-equal to the JAX
+packers' for the same arguments.  One difference: ``colstream_pack``
+checks that each block's row in its group and column slot fit the 16-bit
+fields of its ``meta`` word, where the original packs them unchecked.
 
 Left out: the TPU VMEM models (``auto_rows_per_step``, ``ring_span``)
 that size G and the x ring.  G defaults to ``min(8, block rows)``, which
@@ -33,6 +40,12 @@ __all__ = [
     "pack_dkw_from_ragged",
     "band_scale_of",
     "quantize_band",
+    "COLSTREAM_CHUNK",
+    "COLSTREAM_UNROLL",
+    "choose_block_shape",
+    "pack_block_sparse",
+    "colstream_pack",
+    "choose_bsr_row_group",
 ]
 
 # The layout's geometry, fixed by the kernel (csrc/band_dkw.cu kBlock,
@@ -183,3 +196,173 @@ def quantize_band(band: np.ndarray, scale: float) -> np.ndarray:
     NumPy's float32 arithmetic and half-to-even rounding."""
     band = np.asarray(band, np.float32)
     return np.clip(np.round(band / scale), -127, 127).astype(np.int8)
+
+
+# ------------------------------------------------------------ block sparse
+
+
+def choose_block_shape(
+    L: scipy.sparse.spmatrix,
+    candidates=((8, 128), (16, 128), (32, 128), (64, 128), (128, 128)),
+    dma_overhead: int = 11000,
+) -> tuple:
+    """The block shape minimising ``blocks * (br*bc + dma_overhead)``: the
+    padded entries plus a fixed cost per block.  ``dma_overhead`` is the
+    JAX package's, fitted on a TPU v5e (a per-block DMA cost); it is kept
+    for parity and is to be re-fitted on Hopper."""
+    coo = L.tocoo()
+    best, best_cost = None, None
+    for br, bc in candidates:
+        mp = _round_up(L.shape[0], int(np.lcm(br, bc)))
+        n_cb = mp // bc
+        nb = len(np.unique((coo.row // br).astype(np.int64) * n_cb
+                           + coo.col // bc))
+        cost = nb * (br * bc + dma_overhead)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = (br, bc), cost
+    return best
+
+
+def pack_block_sparse(L: scipy.sparse.spmatrix,
+                      block_shape: tuple = (BLOCK, BLOCK)):
+    """Tile a sparse matrix into dense ``br x bc`` float32 blocks, keeping
+    the nonzero tiles only, sorted by (row, column).  Returns ``(blocks,
+    block_rows, block_cols, block_rowptr, m_padded)``.  A square matrix
+    pads both sides to ``lcm(br, bc)``; a rectangular one pads each side
+    on its own, and ``m_padded`` is then the padded row count."""
+    br_sz, bc_sz = block_shape
+    rows, cols = L.shape
+    if rows == cols:
+        mp = _round_up(rows, int(np.lcm(br_sz, bc_sz)))
+        mp_r = mp_c = mp
+    else:
+        mp_r = _round_up(rows, br_sz)
+        mp_c = _round_up(cols, bc_sz)
+    n_rb = mp_r // br_sz
+    n_cb = mp_c // bc_sz
+    coo = L.tocoo()
+    br = coo.row // br_sz
+    bc = coo.col // bc_sz
+    block_ids = br.astype(np.int64) * n_cb + bc
+    unique_ids = np.unique(block_ids)
+
+    blocks = np.zeros((len(unique_ids), br_sz, bc_sz), dtype=np.float32)
+    slot = np.searchsorted(unique_ids, block_ids)
+    blocks[slot, coo.row % br_sz, coo.col % bc_sz] = coo.data
+
+    brows = (unique_ids // n_cb).astype(np.int32)
+    rowptr = np.searchsorted(brows, np.arange(n_rb + 1)).astype(np.int32)
+    return blocks, brows, (unique_ids % n_cb).astype(np.int32), rowptr, mp_r
+
+
+# The column-streamed layout's padding: each group's block run is padded
+# to a multiple of COLSTREAM_UNROLL blocks and the block array carries a
+# COLSTREAM_CHUNK-block zero tail.  Both sizes come from the TPU kernel
+# (an 8-block unrolled walk over 64-block DMA chunks); the GPU kernel
+# reads the layout as it is and needs neither, but the layout stays the
+# JAX package's byte for byte.
+COLSTREAM_CHUNK = 64
+COLSTREAM_UNROLL = 8
+_META_FIELD = 1 << 16  # meta = (row in group << 16) | column slot
+
+
+def colstream_pack(blocks: np.ndarray, brows: np.ndarray,
+                   bcols: np.ndarray, rowptr: np.ndarray, G: int,
+                   unroll: int = COLSTREAM_UNROLL):
+    """The column-streamed layout of a block-CSR matrix, with its kernel
+    metadata.
+
+    Each group of G block-rows has its blocks reordered by (column, row),
+    so that each distinct column's x tile is read once per group, and
+    padded with zero blocks to a multiple of ``unroll``.  Returns
+    ``(blocks2, brows2, bcols2, meta, gcols, gcolptr, groupptr)``:
+    ``meta[b] = (row of b in its group << 16) | (slot of b's column in
+    the group's list)``, ``gcols[gcolptr[s]:gcolptr[s+1]]`` lists group
+    s's distinct columns and ``groupptr[s]:groupptr[s+1]`` its padded run
+    of blocks.  Pad blocks are zero, sit in the group's row 0 and carry
+    its last column and column slot.  Raises ``ValueError`` when a row in
+    a group or a column slot does not fit its 16-bit field."""
+    n_rb = len(rowptr) - 1
+    nsb = n_rb // G
+    if n_rb % G or COLSTREAM_CHUNK % unroll:
+        raise ValueError(f"colstream_pack: {n_rb} block-rows are not whole "
+                         f"groups of G = {G}, or the unroll {unroll} does "
+                         f"not divide {COLSTREAM_CHUNK}")
+    if G > _META_FIELD:
+        raise ValueError(f"colstream_pack: G = {G} rows per group does not "
+                         "fit meta's 16-bit row field")
+    bshape = blocks.shape[1:]
+    out_blocks, out_rows, out_cols = [], [], []
+    meta_parts, gcols_parts = [], []
+    gcolptr = np.zeros(nsb + 1, np.int64)
+    groupptr = np.zeros(nsb + 1, np.int64)
+    for s in range(nsb):
+        lo, hi = int(rowptr[s * G]), int(rowptr[(s + 1) * G])
+        idx = np.arange(lo, hi)
+        order = np.lexsort((brows[idx], bcols[idx]))
+        p = idx[order]
+        cols = bcols[p]
+        uniq, local = np.unique(cols, return_inverse=True)
+        if len(uniq) > _META_FIELD:
+            raise ValueError(
+                f"colstream_pack: group {s} has {len(uniq)} distinct "
+                f"columns; meta's 16-bit column slot holds {_META_FIELD}")
+        mt = ((brows[p] - s * G) << 16) | local
+        pad = (-len(p)) % unroll
+        out_blocks.append(blocks[p])
+        if pad:
+            out_blocks.append(np.zeros((pad,) + bshape, blocks.dtype))
+        out_rows.append(np.concatenate(
+            [brows[p], np.full(pad, s * G, brows.dtype)]))
+        out_cols.append(np.concatenate(
+            [cols, np.full(pad, uniq[-1] if len(uniq) else 0,
+                           bcols.dtype)]))
+        pad_slot = int(local[-1]) if len(local) else 0
+        meta_parts.append(np.concatenate(
+            [mt, np.full(pad, pad_slot, np.int64)]))
+        gcols_parts.append(uniq)
+        gcolptr[s + 1] = gcolptr[s] + len(uniq)
+        groupptr[s + 1] = groupptr[s] + len(p) + pad
+    blocks2 = (np.concatenate(out_blocks) if out_blocks
+               else blocks[:0])
+    return (
+        blocks2,
+        np.concatenate(out_rows) if out_rows else brows[:0],
+        np.concatenate(out_cols) if out_cols else bcols[:0],
+        (np.concatenate(meta_parts) if meta_parts
+         else np.zeros(0)).astype(np.int32),
+        (np.concatenate(gcols_parts) if gcols_parts
+         else np.zeros(0)).astype(np.int32),
+        gcolptr.astype(np.int32),
+        groupptr.astype(np.int32),
+    )
+
+
+def choose_bsr_row_group(rowptr: np.ndarray, br: int, bc: int,
+                         elem_bytes: int, budget: int = 6 << 20,
+                         max_overfetch: float = 1.35,
+                         max_g: int = 16) -> tuple:
+    """The block-CSR layout's rows per group G and its static group
+    extent ``Lg`` (the most blocks in any group of G rows): the largest G
+    whose two slabs of ``Lg`` blocks fit ``budget`` bytes and whose
+    ``Lg``-long slabs read at most ``max_overfetch`` times the real
+    blocks.  Returns ``(1, 0)`` when no G > 1 qualifies.  The budget is a
+    TPU VMEM size, kept for parity: the GPU kernel reads no slab."""
+    counts = np.diff(rowptr)
+    n_rb = len(counts)
+    nb = int(rowptr[-1])
+    if nb == 0 or n_rb == 0:
+        return 1, 0
+    for G in (16, 12, 8, 4, 2):
+        if G > max_g or G > n_rb:
+            continue
+        nsb = -(-n_rb // G)
+        pad = np.full(nsb * G - n_rb, 0, counts.dtype)
+        ext = np.concatenate([counts, pad]).reshape(nsb, G).sum(axis=1)
+        Lg = int(ext.max())
+        if 2 * Lg * br * bc * elem_bytes > budget:
+            continue
+        if nsb * Lg > max_overfetch * nb:
+            continue
+        return G, Lg
+    return 1, 0

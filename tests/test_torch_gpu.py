@@ -11,6 +11,7 @@ f32 accumulation once.
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -22,6 +23,11 @@ from cnn_graph_tpu_torch.ops import (
     band_spmm,
     banded_dkw,
     banded_dkw_reference,
+    bsr_colstream,
+    bsr_colstream_reference,
+    bsr_csr,
+    bsr_csr_reference,
+    bsr_spmm,
     cheby_conv,
     cheby_conv_banded,
     cheby_conv_fused,
@@ -31,6 +37,7 @@ from cnn_graph_tpu_torch.ops import (
     device_laplacian,
     fused_filter,
     quantize_banded,
+    quantize_block_sparse,
 )
 from cnn_graph_tpu_torch.serve import compile_serving
 
@@ -267,3 +274,190 @@ def test_cheby_kernel_rejects_bad_arguments(knn203, cuda_device):
     with pytest.raises(TypeError):
         fused_filter(x, dataclasses.replace(op, mat=op.mat.half()),
                      torch.zeros(3, 32, 32, device=cuda_device))
+
+
+# ----------------------------------------------------- BSR: K4, K7, K8, K9
+# Tolerances as for K1: int8 bit-exact; f32 atol 1e-4 (sums in another
+# order); bf16 one bf16 ulp of the plain version's single rounding.
+
+
+@pytest.fixture(scope="module")
+def city48():
+    """2,304 nodes: three column-streamed groups of 8 block-rows."""
+    return graphs.city_graph(48, k=8, seed=0)[0]
+
+
+_LAYOUTS = {  # layout -> (device_laplacian arguments, bsr_csr route)
+    "colstream": (dict(), None),
+    "grouped": (dict(col_stream=False), "K7"),
+    "csr": (dict(col_stream=False), "K8"),
+    "chunked": (dict(chunked_rows=True), "K9"),
+}
+
+
+def _bsr(L, layout, dtype, device):
+    kw, route = _LAYOUTS[layout]
+    dt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    op = device_laplacian(L, fmt="bsr", block_size=128, dtype=dt,
+                          device=device, **kw)
+    assert op.use_pallas and op.col_stream == (layout == "colstream")
+    if layout == "csr":  # the one-row-per-step route of the same layout
+        op = dataclasses.replace(op, rows_per_step=1)
+    assert (op.row_max > 0) == (layout == "chunked")
+    return (quantize_block_sparse(op, sample_x=3.0) if dtype == "int8"
+            else op), route
+
+
+def _bsr_args(op, route):
+    """The kernel, its plain version, the layout arguments and the
+    keywords both take."""
+    if route is None:
+        return (bsr_colstream, bsr_colstream_reference,
+                (op.blocks, op.cs_meta, op.cs_gcols, op.cs_gcolptr,
+                 op.cs_groupptr), dict(G=op.rows_per_step))
+    return (functools.partial(bsr_csr, route=route), bsr_csr_reference,
+            (op.blocks, op.block_rowptr, op.block_cols), {})
+
+
+@pytest.mark.parametrize("C", [48, 37, 300])
+@pytest.mark.parametrize("hop", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("layout", list(_LAYOUTS))
+def test_bsr_kernels_match_reference(city48, cuda_device, layout, dtype,
+                                     hop, C):
+    op, route = _bsr(city48, layout, dtype, cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(C)
+    x, x0 = (torch.randn(op.m_padded, C, generator=g, device=cuda_device)
+             for _ in range(2))
+    if dtype == "int8":
+        x, x0, scale = op.quantize(x), op.quantize(x0), op.block_scale
+    else:
+        x, x0, scale = x.to(op.compute_dtype), x0.to(op.compute_dtype), None
+    kernel, plain, lay, kw = _bsr_args(op, route)
+    counted = bsr_colstream if route is None else bsr_csr
+    args = lay + (x, x0 if hop else None)
+    before = counted.launches
+    got = kernel(*args, block_scale=scale, **kw)
+    torch.cuda.synchronize()
+    assert counted.launches == before + 1
+    want = plain(*args, block_scale=scale, **kw)
+    assert got.dtype == want.dtype == x.dtype and got.shape == x.shape
+    if dtype == "int8":
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(
+            got.float(), want.float(), atol=1e-4,
+            rtol=2**-7 if dtype == "bfloat16" else 1e-5)
+
+
+@pytest.mark.parametrize("layout", ["colstream", "grouped", "csr",
+                                    "chunked"])
+def test_bsr_operator_routes_and_counts(city48, cuda_device, layout):
+    """The operator's matmul and hop take the JAX package's route, one
+    launch each, counted by form (and by route on bsr_csr)."""
+    op, route = _bsr(city48, layout, "float32", cuda_device)
+    x = torch.randn(op.m_padded, 40, device=cuda_device)
+    kernel = bsr_colstream if route is None else bsr_csr
+    forms = dict(kernel.form_launches)
+    routes = dict(bsr_csr.route_launches)
+    op.matmul(x)
+    fused_hop = layout in ("colstream", "grouped")
+    op.cheby_hop(x, x)  # fused where JAX fuses it, else L@x and an update
+    torch.cuda.synchronize()
+    assert kernel.form_launches["spmm"] == forms.get("spmm", 0) + (
+        1 if fused_hop else 2)
+    assert kernel.form_launches["hop"] == forms.get("hop", 0) + fused_hop
+    if route is not None:
+        assert bsr_csr.route_launches[route] == routes.get(route, 0) + 2
+
+
+@pytest.mark.parametrize("layout", ["colstream", "grouped"])
+def test_bsr_conv_gradients_through_kernel_match_plain_version(
+        city48, cuda_device, layout):
+    """cheby_conv on BSR: y, dx and dW on the card (every product a kernel
+    launch) against the same operator on the CPU (plain version); f32,
+    so only the summation order differs.  K=5: the forward runs 1 L@x
+    and 3 hops, the backward 4 L@x."""
+    op, route = _bsr(city48, layout, "float32", cuda_device)
+    kernel = bsr_colstream if route is None else bsr_csr
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(2, op.m, 8)).astype(np.float32)
+    w = (rng.normal(size=(5, 8, 3)) * 0.3).astype(np.float32)
+    t = rng.normal(size=(2, op.m, 3)).astype(np.float32)
+    out = []
+    for o, dev in ((op, cuda_device), (op.to("cpu"), "cpu")):
+        xt, wt = (torch.from_numpy(a).to(dev).requires_grad_() for a in (x, w))
+        before = dict(kernel.form_launches)
+        y = cheby_conv(xt, o, wt)
+        (y * torch.from_numpy(t).to(dev)).sum().backward()
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert kernel.form_launches["spmm"] == before.get("spmm", 0) + 5
+            assert kernel.form_launches["hop"] == before.get("hop", 0) + 3
+        out.append((y.detach().cpu(), xt.grad.cpu(), wt.grad.cpu()))
+    for got, want in zip(*out):
+        torch.testing.assert_close(got, want, atol=2e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_bsr_serving_through_kernel_matches_plain_version(city48,
+                                                          cuda_device, int8):
+    """Served logits on a column-streamed operator: through K4 on the
+    card (4 launches for K=5), and on the CPU through the plain version."""
+    op = device_laplacian(city48, fmt="bsr", dtype=torch.bfloat16,
+                          device=cuda_device)
+    model = NodeClassifier(op, 32, 8, hidden=[], K=5,
+                           generator=torch.Generator().manual_seed(0))
+    feats = torch.from_numpy(
+        np.random.default_rng(0).normal(size=(op.m, 32)).astype(np.float32))
+    serving = compile_serving(model, model.param_tree(),
+                              feats.to(cuda_device), int8=int8)
+    before = bsr_colstream.launches
+    got = serving(feats.to(cuda_device)).cpu()
+    assert bsr_colstream.launches == before + 4
+    want = compile_serving(serving.model, model.param_tree(), feats,
+                           int8=False)(feats)
+    assert got.shape == (op.m, 8) and torch.isfinite(got).all()
+    tol = 1e-4 if int8 else 2**-6
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_bsr_host_built_operator_serves_through_kernel(city48, cuda_device,
+                                                       int8):
+    """An operator built on the host with the default use_pallas and
+    moved to the card by compile_serving keeps the kernel route: 4 K4
+    launches for K=5, no plain path on the card."""
+    op = device_laplacian(city48, fmt="bsr", dtype=torch.bfloat16)
+    assert op.blocks.device.type == "cpu" and op.use_pallas
+    assert op.col_stream
+    model = NodeClassifier(op, 16, 4, hidden=[], K=5,
+                           generator=torch.Generator().manual_seed(0))
+    feats = torch.from_numpy(
+        np.random.default_rng(1).normal(size=(op.m, 16)).astype(np.float32))
+    serving = compile_serving(model, model.param_tree(),
+                              feats.to(cuda_device), int8=int8)
+    before = bsr_colstream.launches
+    got = serving(feats.to(cuda_device))
+    torch.cuda.synchronize()
+    assert bsr_colstream.launches == before + 4
+    assert got.shape == (op.m, 4) and torch.isfinite(got).all()
+
+
+def test_bsr_kernels_reject_bad_arguments(city48, cuda_device):
+    op, _ = _bsr(city48, "grouped", "float32", cuda_device)
+    x = torch.zeros(op.m_padded, 16, device=cuda_device)
+    lay = (op.blocks, op.block_rowptr, op.block_cols)
+    with pytest.raises(TypeError):
+        bsr_csr(*lay, x.to(torch.bfloat16))
+    with pytest.raises(ValueError):
+        bsr_csr(*lay, x[:, ::2])
+    with pytest.raises(ValueError):
+        bsr_csr(op.blocks, op.block_rowptr.cpu(), op.block_cols, x)
+    flat = torch.zeros(op.m_padded * 16 + 3, device=cuda_device)
+    with pytest.raises(ValueError, match="16-byte"):
+        bsr_spmm(op, flat[3:].view(op.m_padded, 16))
+    narrow = device_laplacian(city48, fmt="bsr", block_size=(8, 128),
+                              device=cuda_device, col_stream=False)
+    with pytest.raises(ValueError, match="128x128"):
+        narrow.matmul(torch.zeros(narrow.m_padded, 16, device=cuda_device))

@@ -184,6 +184,7 @@ class TestGuards:
             "cnn_graph_tpu_torch.graphs.coarsening, "
             "cnn_graph_tpu_torch.data, cnn_graph_tpu_torch.data.mnist, "
             "cnn_graph_tpu_torch.ops, cnn_graph_tpu_torch.ops.cheby, "
+            "cnn_graph_tpu_torch.ops.bsr, cnn_graph_tpu_torch.ops.packing, "
             "cnn_graph_tpu_torch.ops.pooling, cnn_graph_tpu_torch.models, "
             "cnn_graph_tpu_torch.models.chebnet, "
             "cnn_graph_tpu_torch.serve, cnn_graph_tpu_torch.convert, "
@@ -199,24 +200,24 @@ class TestGuards:
                               capture_output=True, text=True, timeout=120)
         assert proc.returncode == 0, proc.stderr
 
-    @pytest.mark.parametrize("fmt", ["bsr", "bcoo"])
+    @pytest.mark.parametrize("fmt", ["bcoo"])
     def test_unported_formats_raise(self, fmt):
         L, _ = graphs.city_graph(20, k=4, seed=0)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             device_laplacian(L, fmt=fmt)
 
-    def test_auto_landing_on_bsr_raises(self):
+    def test_auto_landing_on_bsr_builds_bsr(self):
         """A scattered (un-reordered) graph too wide for the band and over
-        the dense budget: JAX picks BSR, the port raises instead of falling
-        back to another format."""
+        the dense budget: both packages pick BSR (tests/test_torch_bsr.py
+        compares the layouts)."""
         z = np.random.default_rng(13).uniform(size=(5000, 2))
         L = graphs.laplacian(graphs.adjacency(
             *graphs.knn(z, k=8, algorithm="auto")))
         assert isinstance(
             jax_device_laplacian(L, use_pallas=False, dense_budget=1 << 20),
             BlockSparseLaplacian)
-        with pytest.raises(NotImplementedError, match="bsr"):
-            device_laplacian(L, dense_budget=1 << 20)
+        op = device_laplacian(L, dense_budget=1 << 20)
+        assert type(op).__name__ == "BlockSparseLaplacian"
 
     def test_quantize_unported_format_raises(self):
         L, _ = graphs.city_graph(20, k=4, seed=0)
