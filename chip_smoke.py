@@ -5,11 +5,12 @@
 Phases, each fatal on failure (no CPU path, no fallback):
 
 1. require a CUDA device; print the card's name and power limit;
-2. build the banded kernel (csrc/band_dkw.cu), the fused Chebyshev
-   kernels (csrc/cheby_fused.cu) and the BSR kernels (csrc/bsr.cu) from
-   source, one nvcc each, started together; print each kernel's
-   registers and shared memory;
-3. hold the banded kernel against its plain PyTorch version on the real
+2. build the banded kernels (csrc/band.cu: K1 on the deep-K-window
+   layout, K5 on the uniform band, K6 on the flat ragged band), the
+   fused Chebyshev kernels (csrc/cheby_fused.cu) and the BSR kernels
+   (csrc/bsr.cu) from source, one nvcc each, started together; print
+   each kernel's registers and shared memory;
+3. hold the banded kernel K1 against its plain PyTorch version on the real
    50,176-node serving operator at C = 512, for L@x and the hop 2L@x - x0,
    in int8 (bit-identical), bf16 (one bf16 ulp: both round an f32
    accumulation of exact bf16 products, summed in another order) and f32
@@ -70,21 +71,50 @@ Phases, each fatal on failure (no CPU path, no fallback):
    ``fmt="bsr", col_stream=False`` bf16 operator (L@x and hop); then serve
    one request through each route's operator: 24 launches of that route
    each, logits against the plain twin's;
-13. with ``--profile-dir DIR`` only: trace 3 requests per serving mode
-   after 2 warm-ups (banded, scattered BSR, ChebNet), 2 bf16 training
-   steps after one (banded and scattered NodeClassifier), and 2 f32
-   ChebNet training steps after one, with ``torch.profiler`` (CPU and
-   CUDA activities); print the device time per request or step, its
-   share of the measured time, the largest device kernels and aten ops,
-   and for training the device time by part (K1 or K4 by form, taps, dW,
-   injections, casts, adam; K2 forward, K2 dx, K3, the stacked basis of
-   ChebNet's layer 0, fc, adam); write each ``key_averages()`` table to
-   ``DIR/profile_<mode>.txt``.
+13. on the 50k city graph at C = 512, hold K5 (the ``ragged=False``
+   operator) and K6 (the ragged operator built with ``use_pallas=False``
+   and then given it, quantized before for int8) against their plain
+   versions for L@x, the hop and (float) the adjoint hop in f32, bf16
+   and int8, tolerances as phase 3, and time both; check the in-place
+   hop (``donate``) of K1, K5 and K6 bit-identical to the out-of-place
+   one and written into x0's storage, and time the two;
+14. run bench.py's K=25 chains (bench.py:423-612): ``cheby_finals`` in a
+   loop of K-blocks with the bf16 renormalisation, and int8 carries on
+   the quantized operator, timed by ``utils.profiling.slope_time``, on
+   the 50k graph in each layout (dkw -> K1, ragged -> K6, uniform ->
+   K5) and on ``city_graph(316, k=8)`` (~100k nodes) in the default
+   layout; check K-1 launches per K-block, the int8 chain bit-identical
+   to the plain chain's and bf16 within 2e-2 of its max; print us per
+   SpMM, Gedges/s, the roofline and the plain chain's time; the 100k
+   operator is freed after;
+15. serve the bench's NodeClassifier on the uniform operator in bf16 and
+   int8 (4 requests each, 24 K5 launches per request, logits against
+   the plain twin's), train the deep one on it in bf16 (4 adam steps, 72
+   K5 launches per step, one step against the plain twin), and serve one
+   bf16 and one int8 request through the ragged operator (24 K6
+   launches each);
+16. time the library call for each sparse product: one
+   ``torch.sparse.mm`` of the same matrix in CSR at C = 512 on the card
+   (50k city graph and 50k scattered graph; f32 and bf16, int8 tried and
+   its refusal printed), beside the kernels' bounds;
+17. with ``--profile-dir DIR`` only: trace 3 requests per serving mode
+   after 2 warm-ups (banded, scattered BSR, ChebNet, uniform, ragged),
+   2 bf16 training steps after one (banded, scattered and uniform
+   NodeClassifier), 2 f32 ChebNet training steps after one, and 3
+   library calls after one, with ``torch.profiler`` (CPU and CUDA
+   activities); print the device time per request or step, its share
+   of the measured time, the largest device kernels and aten ops, and
+   for training the device time by part (K1, K5 or K4 by form, taps,
+   dW, injections, casts, adam; K2 forward, K2 dx, K3, the stacked basis
+   of ChebNet's layer 0, fc, adam); write each ``key_averages()`` table
+   to ``DIR/profile_<mode>.txt``.
 
 Each 50k scattered operator is freed after its phase.
 
-The line before the last is the kernel record as one JSON object; the
-last line is ``{"ok": true, "device": {...}}``.
+The last three lines are the kernel record as one JSON object (each
+kernel with its launches on the main path, its time and its plain
+version's, its bound on the card and the library call's time), the
+card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -97,6 +127,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -125,6 +156,8 @@ from cnn_graph_tpu_torch.ops import (  # noqa: E402
     QuantBlockSparseLaplacian,
     banded_dkw,
     banded_dkw_reference,
+    banded_ragged,
+    banded_uniform,
     bsr_colstream,
     bsr_colstream_reference,
     bsr_csr,
@@ -134,15 +167,22 @@ from cnn_graph_tpu_torch.ops import (  # noqa: E402
     cheby_conv_fused_reference,
     cheby_dw_fused,
     cheby_dw_fused_reference,
+    cheby_finals,
     device_laplacian,
     fused_filter,
     quantize_banded,
     quantize_block_sparse,
 )
+from cnn_graph_tpu_torch.ops.band import layout_call  # noqa: E402
 from cnn_graph_tpu_torch.serve import compile_serving  # noqa: E402
 from cnn_graph_tpu_torch.train import (  # noqa: E402
     train_classifier,
     train_node_classifier,
+)
+from cnn_graph_tpu_torch.utils import (  # noqa: E402
+    roofline,
+    slope_time,
+    spmm_roofline,
 )
 
 SIDE, KNN, FIN, CLASSES, K = 224, 8, 512, 16, 25
@@ -152,8 +192,18 @@ TRAIN_STEPS, LEARNING_RATE = 4, 1e-3  # per training mode; bench.py:268
 # forward runs 1 L@x and K-2 hops; layer 1's backward (layer 0 has no
 # input gradient) K-2 adjoint hops and 1 L@x.
 STEP_FORMS = {"spmm": 3, "hop": 2 * (K - 2), "hop_c": K - 2}
-SOURCE = "cnn_graph_tpu_torch/csrc/band_dkw.cu"
-REPLACES = "cnn_graph_tpu/ops/pallas_band.py:448"  # _kernel_dkw
+SOURCE = "cnn_graph_tpu_torch/csrc/band.cu"
+# The banded kernels by layout, and the TPU kernel each replaces.
+LAYOUT_KERNELS = {"dkw": banded_dkw, "uniform": banded_uniform,
+                  "ragged": banded_ragged}
+REPLACES = {"dkw": "cnn_graph_tpu/ops/pallas_band.py:448",      # K1
+            "uniform": "cnn_graph_tpu/ops/pallas_band.py:70",   # K5
+            "ragged": "cnn_graph_tpu/ops/pallas_band.py:202"}   # K6
+KERNEL_ID = {"dkw": "K1", "uniform": "K5", "ragged": "K6"}
+# bench.py's chains: the 100k city graph (bench.py:555) and the K-blocks
+# slope_time differences (bench.py:401).
+SIDE_100K, CHAIN_UNITS = 316, (2, 8)
+PLAIN_CHAIN_UNITS = (1, 3)  # the plain chain's K-blocks take ~0.1-0.2 s
 # The paper's MNIST ChebNet (nips2016/mnist.ipynb cells 14-17,
 # experiments/mnist.py:66-75): 4 coarsening levels from seed 2017.
 CHEB = dict(F=[32, 64], K=[25, 25], p=[4, 4], M=[512, 10], dropout=0.5,
@@ -243,7 +293,295 @@ def kernel_phase(ops, C: int, gen: torch.Generator, label: str) -> dict:
         rec[pre + "ms"] = cuda_ms(lambda: banded_dkw(*args, **kw), 20)
         rec[pre + "plain_ms"] = cuda_ms(
             lambda: banded_dkw_reference(*args, **kw), 3)
+        rec[pre + "roofline"] = spmm_roofline(
+            op, rec[pre + "ms"] / 1e3, C,
+            extra_inputs=(xx0 is not None) + (cc is not None))
     return rec
+
+
+# ------------------------------------- K5, K6, in place, bench's chains
+
+
+def to_f32(op):
+    """A float banded operator's f32 copy, every band array converted."""
+    return dataclasses.replace(
+        op, band=op.band.float(),
+        bands_dkw=None if op.bands_dkw is None else tuple(
+            b.float() for b in op.bands_dkw))
+
+
+def band_launches() -> dict:
+    return {lay: f.launches for lay, f in LAYOUT_KERNELS.items()}
+
+
+def reset_band_launches():
+    torch.cuda.synchronize()
+    for f in LAYOUT_KERNELS.values():
+        f.launches = 0
+        f.form_launches.clear()
+
+
+def layout_of(op) -> str:
+    """The layout whose kernel an operator's products run."""
+    if op.bands_dkw is not None:
+        return "dkw"
+    return "ragged" if op.levels else "uniform"
+
+
+def _check_close(got, want, what: str) -> float:
+    """Tolerances of phase 3: int8 bit-identical; bf16 one bf16 ulp (both
+    round an f32 accumulation of exact bf16 products, summed in another
+    order); f32 atol 1e-4 (another summation order).  Returns the
+    largest absolute difference."""
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          f"{what}: dtype/shape")
+    if got.dtype == torch.int8:
+        check(torch.equal(got, want), f"{what} not bit-identical")
+        return float((got.int() - want.int()).abs().max())
+    torch.testing.assert_close(
+        got.float(), want.float(), atol=1e-4,
+        rtol=2**-7 if got.dtype == torch.bfloat16 else 0.0)
+    return float((got.float() - want.float()).abs().max())
+
+
+def _layout_inputs(op, gen):
+    """x, x0, c at C = FIN in the operator's compute dtype (c None for
+    int8) and the band scale."""
+    x, x0, c = (torch.randn(op.m_padded, FIN, generator=gen,
+                            device=op.base.device) for _ in range(3))
+    if op.compute_dtype == torch.int8:
+        return op.quantize(x), op.quantize(x0), None, op.band_scale
+    return (*(t.to(op.compute_dtype) for t in (x, x0, c)), None)
+
+
+def layout_kernel_phase(op, gen, what: str) -> dict:
+    """``op``'s layout kernel (K5 or K6) against its plain version on the
+    same inputs, for every form it has, both timed."""
+    x, x0, c, scale = _layout_inputs(op, gen)
+    forms = {"spmm": (x, None, None), "hop": (x, x0, None)}
+    if c is not None:
+        forms["hop_c"] = (x, x0, c)
+    plain = _plain_banded(op)
+    rec = {"max_abs_err": 0.0}
+    for form, args in forms.items():
+        def kern(a=args):
+            return layout_call(op, *a, band_scale=scale)
+
+        def ref(a=args):
+            return layout_call(plain, *a, band_scale=scale)
+
+        got, want = kern(), ref()
+        torch.cuda.synchronize()
+        err = _check_close(got, want, f"{what} {form}")
+        pre = "" if form == "spmm" else form + "_"
+        rec[pre + "max_abs_err"] = err
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        rec[pre + "ms"] = cuda_ms(kern, 20)
+        rec[pre + "plain_ms"] = cuda_ms(ref, 3)
+        rec[pre + "roofline"] = spmm_roofline(
+            op, rec[pre + "ms"] / 1e3, FIN,
+            extra_inputs=sum(a is not None for a in args[1:]))
+    rec.update(inplace_phase(op, gen, what))
+    return rec
+
+
+def inplace_phase(op, gen, what: str) -> dict:
+    """The in-place hop (``donate``): bit-identical to the out-of-place
+    launch and written into x0's storage; both timed in turns."""
+    x, x0, _, scale = _layout_inputs(op, gen)
+    want = layout_call(op, x, x0, band_scale=scale)
+    buf = x0.clone()
+    ptr = buf.data_ptr()
+    got = layout_call(op, x, buf, band_scale=scale, donate=True)
+    torch.cuda.synchronize()
+    check(got is buf and got.data_ptr() == ptr,
+          f"{what}: the in-place hop did not return x0's storage")
+    check(torch.equal(got, want), f"{what}: the in-place hop is not "
+          "bit-identical to the out-of-place one")
+
+    def outplace():
+        return layout_call(op, x, x0, band_scale=scale)
+
+    def inplace():
+        return layout_call(op, x, buf, band_scale=scale, donate=True)
+
+    t = [cuda_ms(f, 20) for f in (outplace, inplace, inplace, outplace)]
+    return {"hop_outofplace_ms": (t[0] + t[3]) / 2,
+            "hop_inplace_ms": (t[1] + t[2]) / 2}
+
+
+def print_layout_kernel(what: str, rec: dict, gpu: str):
+    c = (f", +c {rec['hop_c_ms']:.4f} ms (plain {rec['hop_c_plain_ms']:.4f}"
+         " ms)" if "hop_c_ms" in rec else "")
+    print(f"kernel {what} C={FIN}: max_abs_err {rec['max_abs_err']:.3g}, "
+          f"L@x {rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f} ms), hop "
+          f"{rec['hop_ms']:.4f} ms (plain {rec['hop_plain_ms']:.4f} ms){c}; "
+          f"in place {rec['hop_inplace_ms']:.4f} ms vs out of place "
+          f"{rec['hop_outofplace_ms']:.4f} ms [{gpu}]", flush=True)
+
+
+def make_chain(op, u: int):
+    """bench.py's chain (:461-474, :497-506): ``u`` K-blocks of
+    ``cheby_finals(op, ., K)``; float carries renormalised to unit RMS
+    after each block, int8 carries kept (one quantize in, one dequantize
+    out).  Returns the final carry in float."""
+    quant = op.compute_dtype == torch.int8
+
+    def chain(x):
+        with torch.no_grad():
+            if quant:
+                q = op.quantize(x.float())
+                for _ in range(u):
+                    q = cheby_finals(op, q, K)
+                return op.dequantize(q)
+            for _ in range(u):
+                y = cheby_finals(op, x, K).float()
+                x = (y * torch.rsqrt(y.pow(2).mean() + 1e-6)).to(x.dtype)
+            return x
+
+    return chain
+
+
+def chain_phase(op, X, what: str, gpu: str) -> dict:
+    """One bench chain on ``op``: K-1 launches of its layout's kernel per
+    K-block and no other, the int8 chain bit-identical to the plain
+    chain's and bf16 within 2e-2 of its max (one K-block), then us per
+    SpMM by slope fit for both chains, Gedges/s and the roofline of the
+    hop (23 of the 24 products).  ``launches`` is the one checked
+    K-block's count, read before the timing runs."""
+    kernel = LAYOUT_KERNELS[layout_of(op)]
+    plain = _plain_banded(op)
+    reset_band_launches()
+    got = make_chain(op, 1)(X)
+    torch.cuda.synchronize()
+    launches = band_launches()
+    n_launches = kernel.launches
+    check(n_launches == K - 1 and sum(launches.values()) == K - 1,
+          f"chain {what}: launches {launches}, want {K - 1} of "
+          f"{layout_of(op)}")
+    want = make_chain(plain, 1)(X)
+    torch.cuda.synchronize()
+    check(sum(band_launches().values()) == K - 1,
+          f"chain {what}: the plain chain launched kernels")
+    err = float((got - want).abs().max())
+    if op.compute_dtype == torch.int8:
+        check(torch.equal(got, want), f"chain {what}: int8 chain not "
+              "bit-identical to the plain chain")
+    else:
+        check(err <= 2e-2 * float(want.abs().max()), f"chain {what}: off "
+              f"the plain chain by {err:.3g} of max "
+              f"{float(want.abs().max()):.3g}")
+    per, fixed = slope_time(lambda u: make_chain(op, u), (X,),
+                            units=CHAIN_UNITS)
+    t = per / (K - 1)
+    plain_per, _ = slope_time(lambda u: make_chain(plain, u), (X,),
+                              units=PLAIN_CHAIN_UNITS, reps=1)
+    plain_t = plain_per / (K - 1)
+    roof = spmm_roofline(op, t, X.shape[1], extra_inputs=1)
+    rec = {"layout": layout_of(op), "launches": n_launches,
+           "us_per_spmm": t * 1e6, "gedges_per_s": op.nnz / t / 1e9,
+           "fixed_ms": fixed * 1e3, "plain_us_per_spmm": plain_t * 1e6,
+           "max_abs_err": err, "roofline": roof}
+    print(f"chain {what} ({KERNEL_ID[rec['layout']]}) K={K} C={X.shape[1]}: "
+          f"{rec['us_per_spmm']:.2f} us per SpMM, {rec['gedges_per_s']:.4f} "
+          f"Gedges/s, {roof['achieved_frac_of_bound']:.3f} of the "
+          f"{roof['bound_by']} bound {roof['bound_us']:.2f} us; plain "
+          f"chain {rec['plain_us_per_spmm']:.2f} us per SpMM; max |kernel - "
+          f"plain| {err:.3g} [{gpu}]", flush=True)
+    return rec
+
+
+def banded_serve_phase(served: dict, reqs: list, kernel, what: str,
+                       gpu: str) -> dict:
+    """Serve ``reqs`` through each handle of ``served``: K-1 launches of
+    ``kernel`` per request and no other banded kernel, finite [m, 16]
+    logits, and each request's logits against the same request through
+    the plain version on the card (phase 4's checks)."""
+    launches, logits = {}, {}
+    for mode, serving in served.items():
+        op = serving.model.op
+        reset_band_launches()
+        logits[mode] = [serving(x) for x in reqs[mode]]
+        torch.cuda.synchronize()
+        launches[mode] = kernel.launches
+        n = len(reqs[mode])
+        check(launches[mode] == n * (K - 1)
+              and sum(band_launches().values()) == launches[mode],
+              f"{what} {mode}: {band_launches()} launches for {n} requests")
+        for y in logits[mode]:
+            check(tuple(y.shape) == (op.m, CLASSES) and bool(
+                torch.isfinite(y).all()), f"{what} {mode}: bad logits")
+        # The same requests through the plain version on the card.
+        twin = _plain_twin(op)
+        p = serving.params["convs"][0]
+        err = 0.0
+        for x, y in zip(reqs[mode], logits[mode]):
+            with torch.inference_mode():
+                want = cheby_conv(x[None], twin, p["w"])[0] + p["b"]
+            e = float((y - want).abs().max())
+            err = max(err, e)
+            # int8: identical carries, the same taps -> equal up to 1e-4.
+            # bf16: carries rounded to bf16 after sums in another order
+            # may differ by an ulp and travel along 24 hops.
+            tol = 1e-4 if op.compute_dtype == torch.int8 else \
+                2e-2 * float(want.abs().max())
+            check(e <= tol, f"{what} {mode}: served logits off the plain "
+                  f"version by {e:.3g} (limit {tol:.3g})")
+        print(f"{what} {mode}: {n} requests, {launches[mode]} "
+              f"{KERNEL_ID[layout_of(op)]} launches, logits "
+              f"{tuple(logits[mode][0].shape)}, max |served - plain| "
+              f"{err:.3g}", flush=True)
+    return {"launches": launches, "logits": logits}
+
+
+def csr_operand(L, m_padded: int, dev):
+    """The rescaled Laplacian that ``device_laplacian`` packs, as one
+    padded ``[m_padded, m_padded]`` CSR matrix on the card (f32 values),
+    for the library call."""
+    A = graphs.rescale_laplacian(L).tocsr()
+    A.eliminate_zeros()
+    m = A.shape[0]
+    crow = np.concatenate([A.indptr, np.full(m_padded - m, A.indptr[-1])])
+    return (torch.from_numpy(crow.astype(np.int64)).to(dev),
+            torch.from_numpy(A.indices.astype(np.int64)).to(dev),
+            torch.from_numpy(A.data.astype(np.float32)).to(dev), m_padded)
+
+
+def library_phase(csr, gen, what: str, gpu: str) -> dict:
+    """One ``torch.sparse.mm`` of the same matrix in CSR at C = FIN, by
+    dtype, timed: the library yardstick for ``L @ x``, used nowhere in
+    the port.  torch refuses int8 ("spmm not implemented for 'Char'"),
+    so int8 has none.  ``calls`` holds each timed call, for the
+    profile."""
+    crow, col, val, mp = csr
+    out = {"calls": {}, "int8": None}
+    for lab, dt in DTYPES.items():
+        x = torch.randn(mp, FIN, generator=gen, device=crow.device).to(dt)
+        with warnings.catch_warnings():  # "sparse CSR support is beta"
+            warnings.simplefilter("ignore", UserWarning)
+            A = torch.sparse_csr_tensor(crow, col, val.to(dt), size=(mp, mp))
+        out["calls"][lab] = lambda _=None, A=A, x=x: torch.sparse.mm(A, x)
+        out[lab] = cuda_ms(out["calls"][lab], 10)
+        print(f"library {what} {lab}: torch.sparse.mm (CSR) C={FIN} "
+              f"{out[lab]:.4f} ms [{gpu}]", flush=True)
+    return out
+
+
+def dense_cheby_bound(op, B: int, F: int, O: int, K_: int) -> dict:
+    """The bound of one K2 call (or K3, whose operands have the same
+    sizes) from its shapes: K-1 dense products ``[Mp, Mp] @ [Mp, B*F]``
+    plus K taps ``[Mp*B, F] @ [F, O]``; L read once in its dtype, x and
+    w (g for K3) read and y (dW) written once in f32."""
+    mp = op.m_padded
+    ops = (K_ - 1) * 2 * mp * mp * B * F + K_ * 2 * mp * B * F * O
+    e = op.mat.element_size()
+    nbytes = mp * mp * e + 4 * (B * mp * F + K_ * F * O + B * mp * O)
+    return roofline(ops, nbytes, op.compute_dtype)
+
+
+def bound_keys(r: dict) -> dict:
+    """A roofline's bound as the kernel record's keys."""
+    return {"bound_ms": r["bound_us"] / 1e3, "bound_by": r["bound_by"]}
 
 
 def request_features(positions, n: int, seed: int = 1):
@@ -261,31 +599,10 @@ def request_features(positions, n: int, seed: int = 1):
             np.float32)) for _ in range(n)]
 
 
-class _PlainBanded(BandedLaplacian):
-    """The bf16 operator with every band product on the plain version."""
-
-    def matmul(self, x):
-        return self.cheby_hop(x, None)
-
-    def cheby_hop(self, x1, x0):
-        return self.cheby_hop_c(x1, x0, None)
-
-    def cheby_hop_c(self, x1, x0, c):
-        cdt = self.compute_dtype
-        return banded_dkw_reference(
-            self.bands_dkw, self.base, self.sched_dkw, x1.to(cdt),
-            *(None if t is None else t.to(cdt) for t in (x0, c)),
-            levels=self.levels, G=self.rows_per_step).to(x1.dtype)
-
-
-class _PlainQuantBanded(QuantBandedLaplacian):
-    """The int8 operator with every band product on the plain version."""
-
-    def _call(self, x_q, x0_q):
-        return banded_dkw_reference(
-            self.bands_dkw, self.base, self.sched_dkw, x_q, x0_q,
-            levels=self.levels, G=self.rows_per_step,
-            band_scale=self.band_scale)
+def _plain_banded(op):
+    """A banded operator (float or int8, any layout) whose products run
+    its layout kernel's plain version."""
+    return dataclasses.replace(op, use_pallas=False)
 
 
 class _PlainBsrMixin:
@@ -310,14 +627,14 @@ class _PlainQuantBsr(_PlainBsrMixin, QuantBlockSparseLaplacian):
     pass
 
 
-_PLAIN = {BandedLaplacian: _PlainBanded,
-          QuantBandedLaplacian: _PlainQuantBanded,
-          BlockSparseLaplacian: _PlainBsr,
+_PLAIN = {BlockSparseLaplacian: _PlainBsr,
           QuantBlockSparseLaplacian: _PlainQuantBsr}
 
 
 def _plain_twin(op):
     """The operator with every kernel call on its plain version."""
+    if isinstance(op, (BandedLaplacian, QuantBandedLaplacian)):
+        return _plain_banded(op)
     return _PLAIN[type(op)](**{f.name: getattr(op, f.name)
                                for f in dataclasses.fields(op)})
 
@@ -380,17 +697,21 @@ def profile_phase(served: dict, x: torch.Tensor, lat: dict, out_dir: str,
         _print_top(avg, busy, n)
 
 
-# Parts of a training step by the profiler range that holds them; casts
-# are the aten conversions, which sit outside every other range.  K1's
-# ranges are read from their device-side spans (one kernel each): a
-# kernel launched through ctypes is not linked to the host-side event.
-TRAIN_PARTS = (
-    ("K1 L@x", "band_dkw.spmm"), ("K1 hop", "band_dkw.hop"),
-    ("K1 +c", "band_dkw.hop_c"), ("taps", "cheby_conv_banded.taps"),
-    ("dW", "cheby_conv_banded.dW"),
-    ("injections", "cheby_conv_banded.injections"),
-    ("casts", "aten::_to_copy"), ("adam", "Optimizer.step#Adam.step"),
-)
+def train_parts(layout: str = "dkw") -> tuple:
+    """Parts of a banded training step by the profiler range that holds
+    them; casts are the aten conversions, which sit outside every other
+    range.  The kernel's ranges are read from their device-side spans
+    (one kernel each): a kernel launched through ctypes is not linked to
+    the host-side event."""
+    k = KERNEL_ID[layout]
+    return (
+        (f"{k} L@x", f"band_{layout}.spmm"),
+        (f"{k} hop", f"band_{layout}.hop"),
+        (f"{k} +c", f"band_{layout}.hop_c"),
+        ("taps", "cheby_conv_banded.taps"), ("dW", "cheby_conv_banded.dW"),
+        ("injections", "cheby_conv_banded.injections"),
+        ("casts", "aten::_to_copy"), ("adam", "Optimizer.step#Adam.step"),
+    )
 
 
 # The same for the scattered graph's BSR training step.
@@ -403,7 +724,7 @@ BSR_TRAIN_PARTS = (
 
 def train_profile_phase(run, step_ms: float, out_dir: str, gpu: str,
                         n: int = 2, mode: str = "train_bf16",
-                        parts_of=TRAIN_PARTS):
+                        parts_of=train_parts()):
     """Device-time breakdown of ``n`` bf16 training steps by the parts
     ``parts_of`` names."""
     os.makedirs(out_dir, exist_ok=True)
@@ -415,7 +736,7 @@ def train_profile_phase(run, step_ms: float, out_dir: str, gpu: str,
     events = {e.key: e for e in avg if e.device_type == DeviceType.CPU}
     events.update({e.key: e for e in avg if e.device_type == DeviceType.CUDA
                    and e.is_user_annotation
-                   and e.key.startswith(("band_dkw", "bsr_"))})
+                   and e.key.startswith(("band_", "bsr_"))})
     parts = 0.0
     for label, key in parts_of:
         e = events.get(key)
@@ -516,9 +837,11 @@ def check_step(model, twin, params, data, tol: float, what: str, launches):
     return loss_err, grad_err
 
 
-def train_phase(op, dropout: float, data, mode: str) -> dict:
-    """The deep model's training run on one operator: launches, loss,
-    one step against the plain version, ms per step for both."""
+def train_phase(op, dropout: float, data, mode: str,
+                kernel=banded_dkw) -> dict:
+    """The deep model's training run on one operator: launches of
+    ``kernel`` (its layout's banded kernel), loss, one step against the
+    plain version, ms per step for both."""
     dev = op.base.device
     model = NodeClassifier(op, FIN, CLASSES, hidden=[FIN], K=K,
                            dropout=dropout,
@@ -530,15 +853,15 @@ def train_phase(op, dropout: float, data, mode: str) -> dict:
             m, params, *data, steps=steps, learning_rate=LEARNING_RATE,
             generator=torch.Generator(device=dev).manual_seed(seed))
 
-    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    banded_dkw.launches = 0
-    banded_dkw.form_launches.clear()
+    reset_band_launches()
     _, losses = run(TRAIN_STEPS)
     torch.cuda.synchronize()
-    launches = banded_dkw.launches
+    launches = kernel.launches
+    check(sum(band_launches().values()) == launches, f"train {mode}: "
+          f"another banded kernel launched: {band_launches()}")
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    forms = dict(banded_dkw.form_launches)
+    forms = dict(kernel.form_launches)
     want = {f: TRAIN_STEPS * n for f, n in STEP_FORMS.items()}
     check(launches == TRAIN_STEPS * 3 * (K - 1) and forms == want,
           f"train {mode}: {launches} launches {forms} for {TRAIN_STEPS} "
@@ -555,7 +878,7 @@ def train_phase(op, dropout: float, data, mode: str) -> dict:
     # apart and travel along the chains, as in serving.
     loss_err, grad_err = check_step(
         model, twin, params, data, 1e-3 if mode == "f32" else 2e-2,
-        f"train {mode}", lambda: banded_dkw.launches)
+        f"train {mode}", lambda: kernel.launches)
 
     step_ms = cuda_ms(lambda: run(TRAIN_STEPS), 1) / TRAIN_STEPS
     plain_step_ms = cuda_ms(lambda: run(1, m=twin), 1)
@@ -624,6 +947,9 @@ def cheby_kernel_phase(Ls, dev, gen: torch.Generator) -> dict:
         w = 0.05 * torch.randn(CHEB["K"][0], 32, 32, generator=gen,
                                device=dev)
         tol = 1e-4 if lab == "f32" else 1e-2
+        # K3's operands (x, g; dW) have K2's sizes (x, w; y).
+        rec[lab + "_bound"] = dense_cheby_bound(op, CHEB_B, 32, 32,
+                                                w.shape[0])
         rec[lab] = {
             "K2": _kernel_vs_plain(
                 lambda: fused_filter(x, op, w),
@@ -793,6 +1119,8 @@ def bsr_kernel_phase(op, route: str, forms, gen, what: str) -> dict:
         pre = "" if form == "spmm" else form + "_"
         rec[pre + "ms"] = cuda_ms(kern, 5)
         rec[pre + "plain_ms"] = cuda_ms(ref, 2)
+        rec[pre + "roofline"] = spmm_roofline(
+            op, rec[pre + "ms"] / 1e3, FIN, extra_inputs=int(xx0 is not None))
     return rec
 
 
@@ -895,7 +1223,7 @@ def main() -> int:
 
     # Phase 2: one nvcc per source, all started together.
     t0 = time.perf_counter()
-    sources = ("band_dkw", "cheby_fused", "bsr")
+    sources = ("band", "cheby_fused", "bsr")
     with ThreadPoolExecutor(len(sources)) as pool:
         logs = dict(zip(sources, pool.map(_build.build, sources)))
     print(f"build: {', '.join(f'{n}.cu' for n in sources)} in "
@@ -914,8 +1242,7 @@ def main() -> int:
     labels, feats = request_features(positions, 2 * N_REQUESTS + 1)
     sample = float(max(f.abs().max() for f in feats[:2 * N_REQUESTS]))
     ops = {"bf16": op, "int8": quantize_banded(op, sample_x=sample),
-           "f32": dataclasses.replace(
-               op, bands_dkw=tuple(b.float() for b in op.bands_dkw))}
+           "f32": to_f32(op)}
     n_blocks = sum(b.shape[0] * b.shape[2] // 128 for b in op.bands_dkw)
     print(f"graph: {op.m} nodes, nnz {op.nnz}, levels {op.levels}, "
           f"G {op.rows_per_step}, {n_blocks} band blocks, "
@@ -944,48 +1271,20 @@ def main() -> int:
         "bf16": compile_serving(model, params, reqs[0], int8=False),
         "int8": compile_serving(model, params, reqs[0], int8=True),
     }
-    launches, logits = {}, {}
-    for i, (mode, serving) in enumerate(served.items()):
-        batch = reqs[i * N_REQUESTS:(i + 1) * N_REQUESTS]
-        torch.cuda.synchronize()
-        banded_dkw.launches = 0
-        logits[mode] = [serving(x) for x in batch]
-        torch.cuda.synchronize()
-        launches[mode] = banded_dkw.launches
-        check(launches[mode] == N_REQUESTS * (K - 1),
-              f"{mode}: {launches[mode]} launches for {N_REQUESTS} requests")
-        for y in logits[mode]:
-            check(tuple(y.shape) == (op.m, CLASSES) and bool(
-                torch.isfinite(y).all()), f"{mode}: bad logits")
-        # The same requests through the plain version on the card.
-        twin = _plain_twin(serving.model.op)
-        p = serving.params["convs"][0]
-        err = 0.0
-        for x, y in zip(batch, logits[mode]):
-            with torch.inference_mode():
-                want = cheby_conv(x[None], twin, p["w"])[0] + p["b"]
-            err = max(err, float((y - want).abs().max()))
-            scale = float(want.abs().max())
-            # int8: identical carries, the same taps -> equal up to 1e-4.
-            # bf16: carries rounded to bf16 after sums in another order
-            # may differ by an ulp and travel along 24 hops.
-            tol = 1e-4 if mode == "int8" else 2e-2 * scale
-            check(float((y - want).abs().max()) <= tol,
-                  f"{mode}: served logits off the plain version by "
-                  f"{float((y - want).abs().max()):.3g} (limit {tol:.3g})")
-        print(f"serve {mode}: {N_REQUESTS} requests, {launches[mode]} kernel "
-              f"launches, logits {tuple(logits[mode][0].shape)}, max |served"
-              f" - plain| {err:.3g}", flush=True)
+    served_k1 = banded_serve_phase(
+        served, {"bf16": reqs[:N_REQUESTS], "int8": reqs[N_REQUESTS:]},
+        banded_dkw, "serve", gpu)
+    launches, logits = served_k1["launches"], served_k1["logits"]
     agree = float((logits["int8"][0].argmax(1) == served["bf16"](
         reqs[N_REQUESTS]).argmax(1)).float().mean())
     print(f"int8 vs bf16 predicted class agreement, one request: "
           f"{agree:.4f}")
 
     # Phase 5: training, the deep model on the same graph.
-    data = (feats[-1].to(dev), labels.to(dev),
-            torch.ones(op.m, dtype=torch.bool, device=dev))
-    trains = {"bf16": train_phase(ops["bf16"], 1.0, data, "bf16"),
-              "f32": train_phase(ops["f32"], 0.8, data, "f32")}
+    nc_data = (feats[-1].to(dev), labels.to(dev),
+               torch.ones(op.m, dtype=torch.bool, device=dev))
+    trains = {"bf16": train_phase(ops["bf16"], 1.0, nc_data, "bf16"),
+              "f32": train_phase(ops["f32"], 0.8, nc_data, "f32")}
     for mode, rec in trains.items():
         print(f"train {mode}: {TRAIN_STEPS} adam steps, {rec['launches']} "
               f"kernel launches {rec['forms']}, losses "
@@ -1156,6 +1455,128 @@ def main() -> int:
     del bf8, bf9, op_city, routes, model
     torch.cuda.empty_cache()
 
+    # Phase 13: K5 and K6 against their plain versions on the 50k city
+    # graph, and the in-place hop of K1, K5 and K6.
+    t0 = time.perf_counter()
+    uni = device_laplacian(L, fmt="banded", ragged=False,
+                           dtype=torch.bfloat16, device=dev)
+    rag = device_laplacian(L, fmt="banded", use_pallas=False,
+                           dtype=torch.bfloat16, device=dev)
+    check(uni.use_pallas and not rag.use_pallas and rag.bands_dkw is None,
+          "the layouts' operators")
+    # The ragged operator reaches K6 as in JAX: built without use_pallas
+    # (so without the dkw twin), then given it; int8 quantized first.
+    lay_ops = {
+        "uniform": {"int8": quantize_banded(uni, sample_x=sample),
+                    "bf16": uni, "f32": to_f32(uni)},
+        "ragged": {lab: dataclasses.replace(o, use_pallas=True) for lab, o in
+                   (("int8", quantize_banded(rag, sample_x=sample)),
+                    ("bf16", rag), ("f32", to_f32(rag)))},
+    }
+    for lay, by in lay_ops.items():
+        for lab, o in by.items():
+            check(layout_of(o) == lay, f"{lay} {lab}: layout {layout_of(o)}")
+    print(f"layouts: uniform W {uni.band_width}, {uni.band.shape[0]} x "
+          f"{uni.band.shape[1]} = {uni.band.shape[0] * uni.band.shape[1]} "
+          f"blocks; ragged levels {rag.levels}, {rag.band.shape[0]} blocks; "
+          f"set-up {time.perf_counter() - t0:.1f} s", flush=True)
+    lay_checks = {lay: {lab: layout_kernel_phase(
+        o, gen, f"{KERNEL_ID[lay]} {lab}") for lab, o in by.items()}
+        for lay, by in lay_ops.items()}
+    for lay, by in lay_checks.items():
+        for lab, rec in by.items():
+            print_layout_kernel(f"band_{lay} ({KERNEL_ID[lay]}) {lab}", rec,
+                                gpu)
+    k1_inplace = {lab: inplace_phase(ops[lab], gen, f"K1 {lab}")
+                  for lab in ("int8", "bf16", "f32")}
+    for lab, rec in k1_inplace.items():
+        print(f"kernel band_dkw (K1) {lab} C={FIN}: in place "
+              f"{rec['hop_inplace_ms']:.4f} ms vs out of place "
+              f"{rec['hop_outofplace_ms']:.4f} ms, bit-identical [{gpu}]",
+              flush=True)
+
+    # Phase 14: bench.py's K=25 chains, each layout at 50k, the default
+    # layout at 100k.
+    X = torch.randn(op.m_padded, FIN, generator=gen,
+                    device=dev).to(torch.bfloat16)
+    x_max = float(X.abs().max())
+    chains = {}
+    for lay, o in (("dkw", op), ("ragged", lay_ops["ragged"]["bf16"]),
+                   ("uniform", uni)):
+        q = quantize_banded(_plain_banded(o) if lay == "ragged" else o,
+                            sample_x=x_max)
+        chains[lay] = {
+            "bf16": chain_phase(o, X, f"50k {lay} bf16", gpu),
+            "int8": chain_phase(dataclasses.replace(q, use_pallas=True), X,
+                                f"50k {lay} int8", gpu)}
+    del X, q
+    t0 = time.perf_counter()
+    L100, _ = graphs.city_graph(SIDE_100K, k=KNN, seed=0)
+    op100 = device_laplacian(L100, fmt="auto", dtype=torch.bfloat16,
+                             device=dev)
+    check(isinstance(op100, BandedLaplacian) and layout_of(op100) == "dkw",
+          f"100k auto format gave {type(op100).__name__}")
+    print(f"graph 100k: {op100.m} nodes, nnz {op100.nnz}, levels "
+          f"{op100.levels}, {op100.band.shape[0]} band blocks, set-up "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    X = torch.randn(op100.m_padded, FIN, generator=gen,
+                    device=dev).to(torch.bfloat16)
+    chains["100k"] = {
+        "bf16": chain_phase(op100, X, "100k dkw bf16", gpu),
+        "int8": chain_phase(quantize_banded(
+            op100, sample_x=float(X.abs().max())), X, "100k dkw int8", gpu)}
+    del op100, X, L100
+    torch.cuda.empty_cache()
+
+    # Phase 15: the NodeClassifier on the uniform operator (K5), served
+    # and trained, and requests through the ragged one (K6).
+    u_model = NodeClassifier(uni, FIN, CLASSES, hidden=[], K=K,
+                             generator=torch.Generator().manual_seed(0))
+    u_served = {mode: compile_serving(u_model, u_model.param_tree(), reqs[0],
+                                      int8=mode == "int8")
+                for mode in ("bf16", "int8")}
+    u_serve = banded_serve_phase(
+        u_served, {"bf16": reqs[:N_REQUESTS], "int8": reqs[N_REQUESTS:]},
+        banded_uniform, "uniform serve", gpu)
+    u_lat = {}
+    for mode, srv in u_served.items():
+        twin = compile_serving(map_operators(srv.model, _plain_twin),
+                               srv.params, reqs[0], int8=False)
+        u_lat[mode] = {"ms": cuda_ms(lambda s=srv: s(reqs[0]), 5),
+                       "plain_ms": cuda_ms(lambda t=twin: t(reqs[0]), 2)}
+        print(f"uniform request latency {mode}: {u_lat[mode]['ms']:.3f} ms "
+              f"(plain twin {u_lat[mode]['plain_ms']:.3f} ms) [{gpu}]",
+              flush=True)
+    u_train = train_phase(uni, 1.0, nc_data, "uniform bf16",
+                          kernel=banded_uniform)
+    print(f"train uniform bf16: {TRAIN_STEPS} adam steps, "
+          f"{u_train['launches']} K5 launches {u_train['forms']}, losses "
+          f"{[round(v, 4) for v in u_train['losses']]}; one step vs plain: "
+          f"loss rel err {u_train['loss_rel_err']:.3g}, gradient err "
+          f"{u_train['grad_rel_err']:.3g} of max; {u_train['ms']:.3f} ms per "
+          f"step (plain {u_train['plain_ms']:.3f} ms), peak memory "
+          f"{u_train['peak_gb']:.2f} GiB [{gpu}]", flush=True)
+    r_model = NodeClassifier(lay_ops["ragged"]["bf16"], FIN, CLASSES,
+                             hidden=[], K=K,
+                             generator=torch.Generator().manual_seed(0))
+    r_served = {mode: compile_serving(
+        map_operators(r_model, lambda _, o=lay_ops["ragged"][mode]: o),
+        r_model.param_tree(), reqs[0], int8=False)
+        for mode in ("bf16", "int8")}
+    r_serve = banded_serve_phase(
+        r_served, {"bf16": reqs[:1], "int8": reqs[N_REQUESTS:N_REQUESTS + 1]},
+        banded_ragged, "ragged serve", gpu)
+    r_lat = {mode: cuda_ms(lambda s=srv: s(reqs[0]), 5)
+             for mode, srv in r_served.items()}
+    for mode, ms in r_lat.items():
+        print(f"ragged request latency {mode}: {ms:.3f} ms [{gpu}]")
+
+    # Phase 16: the library call for each sparse product.
+    lib = {"city": library_phase(csr_operand(L, op.m_padded, dev), gen,
+                                 "50k city", gpu),
+           "scattered": library_phase(csr_operand(L_s, s_bf16.m_padded, dev),
+                                      gen, "50k scattered", gpu)}
+
     if args.profile_dir:
         profile_phase(served, reqs[0], lat, args.profile_dir, gpu)
         train_profile_phase(trains["bf16"]["run"], trains["bf16"]["ms"],
@@ -1173,25 +1594,92 @@ def main() -> int:
         train_profile_phase(s_train["run"], s_train["ms"], args.profile_dir,
                             gpu, mode="scattered_train_bf16",
                             parts_of=BSR_TRAIN_PARTS)
+        profile_phase({f"uniform_{m}": srv for m, srv in u_served.items()},
+                      reqs[0], {f"uniform_{m}": r["ms"]
+                                for m, r in u_lat.items()},
+                      args.profile_dir, gpu)
+        profile_phase({f"ragged_{m}": srv for m, srv in r_served.items()},
+                      reqs[0], {f"ragged_{m}": ms for m, ms in r_lat.items()},
+                      args.profile_dir, gpu)
+        train_profile_phase(u_train["run"], u_train["ms"], args.profile_dir,
+                            gpu, mode="uniform_train_bf16",
+                            parts_of=train_parts("uniform"))
+        for graph, rec in lib.items():
+            for lab, call in rec["calls"].items():
+                profile_phase({f"library_{graph}_{lab}": call}, None,
+                              {f"library_{graph}_{lab}": rec[lab]},
+                              args.profile_dir, gpu)
+
+    def band_row(name, lay, lab, rec, launches, **extra):
+        return {"name": name, "route": "cuda", "source": SOURCE,
+                "replaces": REPLACES[lay], "launches": launches,
+                "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+                "plain_ms": rec["plain_ms"], **bound_keys(rec["roofline"]),
+                "library_ms": lib["city"][lab], "hop_ms": rec["hop_ms"],
+                "hop_plain_ms": rec["hop_plain_ms"], **extra}
+
+    def chain_keys(lay, lab):
+        c = chains[lay][lab]
+        return {"chain_launches_per_block": c["launches"],
+                "chain_us_per_spmm": c["us_per_spmm"],
+                "chain_plain_us_per_spmm": c["plain_us_per_spmm"],
+                "chain_gedges_per_s": c["gedges_per_s"]}
+
+    def f32_keys(rec, graph="city"):
+        return {"f32_ms": rec["ms"], "f32_plain_ms": rec["plain_ms"],
+                "f32_max_abs_err": rec["max_abs_err"],
+                "f32_bound_ms": rec["roofline"]["bound_us"] / 1e3,
+                "f32_library_ms": lib[graph]["f32"]}
 
     record = {"kernels": [
-        {"name": f"band_dkw_{lab}", "route": "cuda", "source": SOURCE,
-         "replaces": REPLACES, "launches": launches[lab],
-         "max_abs_err": checks[lab]["max_abs_err"], "ms": checks[lab]["ms"],
-         "plain_ms": checks[lab]["plain_ms"],
-         "hop_ms": checks[lab]["hop_ms"],
-         "hop_plain_ms": checks[lab]["hop_plain_ms"],
-         "request_ms": lat[lab]}
+        band_row(f"band_dkw_{lab}", "dkw", lab, checks[lab], launches[lab],
+                 request_ms=lat[lab], **chain_keys("dkw", lab),
+                 chain_100k_launches_per_block=chains["100k"][lab][
+                     "launches"],
+                 chain_100k_us_per_spmm=chains["100k"][lab]["us_per_spmm"],
+                 **k1_inplace[lab],
+                 **({"train_launches_per_step":
+                     trains["bf16"]["launches"] // TRAIN_STEPS,
+                     **f32_keys(checks["f32"])} if lab == "bf16" else {}))
         for lab in ("int8", "bf16")
     ] + [
         {"name": f"band_dkw_hop_c_{lab}", "route": "cuda", "source": SOURCE,
-         "replaces": REPLACES, "launches": trains[lab]["forms"]["hop_c"],
+         "replaces": REPLACES["dkw"],
+         "launches": trains[lab]["forms"]["hop_c"],
          "max_abs_err": checks[lab]["hop_c_max_abs_err"],
          "ms": checks[lab]["hop_c_ms"],
          "plain_ms": checks[lab]["hop_c_plain_ms"],
+         **bound_keys(checks[lab]["hop_c_roofline"]), "library_ms": None,
          "train_ms_per_step": trains[lab]["ms"],
          "train_plain_ms_per_step": trains[lab]["plain_ms"]}
         for lab in ("bf16", "f32")
+    ] + [
+        band_row(f"band_uniform_{lab}", "uniform", lab,
+                 lay_checks["uniform"][lab],
+                 u_serve["launches"][lab],
+                 request_ms=u_lat[lab]["ms"],
+                 request_plain_ms=u_lat[lab]["plain_ms"],
+                 hop_inplace_ms=lay_checks["uniform"][lab]["hop_inplace_ms"],
+                 **chain_keys("uniform", lab),
+                 **({"hop_c_ms": lay_checks["uniform"][lab]["hop_c_ms"],
+                     "train_launches_per_step":
+                         u_train["launches"] // TRAIN_STEPS,
+                     "train_ms_per_step": u_train["ms"],
+                     "train_plain_ms_per_step": u_train["plain_ms"],
+                     **f32_keys(lay_checks["uniform"]["f32"])}
+                    if lab == "bf16" else {}))
+        for lab in ("int8", "bf16")
+    ] + [
+        band_row(f"band_ragged_{lab}", "ragged", lab,
+                 lay_checks["ragged"][lab],
+                 r_serve["launches"][lab],
+                 request_ms=r_lat[lab],
+                 hop_inplace_ms=lay_checks["ragged"][lab]["hop_inplace_ms"],
+                 **chain_keys("ragged", lab),
+                 **({"hop_c_ms": lay_checks["ragged"][lab]["hop_c_ms"],
+                     **f32_keys(lay_checks["ragged"]["f32"])}
+                    if lab == "bf16" else {}))
+        for lab in ("int8", "bf16")
     ] + [
         {"name": f"cheby_conv_fused_{lab}", "route": "cuda",
          "source": CHEB_SOURCE, "replaces": CHEB_REPLACES["K2"],
@@ -1200,6 +1688,7 @@ def main() -> int:
          "max_abs_err": kchecks[lab]["K2"]["max_abs_err"],
          "ms": kchecks[lab]["K2"]["ms"],
          "plain_ms": kchecks[lab]["K2"]["plain_ms"],
+         **bound_keys(kchecks[lab + "_bound"]), "library_ms": None,
          "request_ms": cheb[lab]["serve"]["ms"],
          "request_plain_ms": cheb[lab]["serve"]["plain_ms"],
          "train_ms_per_step": cheb[lab]["train"]["ms"],
@@ -1215,7 +1704,8 @@ def main() -> int:
          "launches": cheb[lab]["train"]["launches"][1],
          "max_abs_err": kchecks[lab]["K3"]["max_abs_err"],
          "ms": kchecks[lab]["K3"]["ms"],
-         "plain_ms": kchecks[lab]["K3"]["plain_ms"]}
+         "plain_ms": kchecks[lab]["K3"]["plain_ms"],
+         **bound_keys(kchecks[lab + "_bound"]), "library_ms": None}
         for lab in DTYPES
     ] + [
         {"name": f"bsr_colstream_{lab}", "route": "cuda",
@@ -1223,16 +1713,16 @@ def main() -> int:
          "launches": (s_served[lab]["launches"]
                       + (s_train["launches"] if lab == "bf16" else 0)),
          "max_abs_err": k4[lab]["max_abs_err"], "ms": k4[lab]["ms"],
-         "plain_ms": k4[lab]["plain_ms"], "hop_ms": k4[lab]["hop_ms"],
+         "plain_ms": k4[lab]["plain_ms"], **bound_keys(k4[lab]["roofline"]),
+         "library_ms": lib["scattered"][lab], "hop_ms": k4[lab]["hop_ms"],
          "hop_plain_ms": k4[lab]["hop_plain_ms"],
          "request_ms": s_served[lab]["ms"],
          "request_plain_ms": s_served[lab]["plain_ms"],
          **({"train_ms_per_step": s_train["ms"],
              "train_plain_ms_per_step": s_train["plain_ms"],
-             "f32_ms": k4["f32"]["ms"], "f32_plain_ms": k4["f32"]["plain_ms"],
              "f32_hop_ms": k4["f32"]["hop_ms"],
              "f32_hop_plain_ms": k4["f32"]["hop_plain_ms"],
-             "f32_max_abs_err": k4["f32"]["max_abs_err"]}
+             **f32_keys(k4["f32"], "scattered")}
             if lab == "bf16" else {})}
         for lab in ("bf16", "int8")
     ] + [
@@ -1240,16 +1730,18 @@ def main() -> int:
          "source": BSR_SOURCE, "replaces": BSR_REPLACES[key[:2]],
          "launches": rec["launches"],
          "max_abs_err": csr[key]["max_abs_err"], "ms": csr[key]["ms"],
-         "plain_ms": csr[key]["plain_ms"],
+         "plain_ms": csr[key]["plain_ms"], **bound_keys(csr[key]["roofline"]),
+         "library_ms": lib["city" if key == "K7 bf16" else "scattered"][
+             key.split()[1]],
          **({"hop_ms": csr[key]["hop_ms"],
              "hop_plain_ms": csr[key]["hop_plain_ms"]}
             if "hop_ms" in csr[key] else {}),
-         **({"f32_ms": csr[f"{key[:2]} f32"]["ms"],
-             "f32_plain_ms": csr[f"{key[:2]} f32"]["plain_ms"],
-             "f32_max_abs_err": csr[f"{key[:2]} f32"]["max_abs_err"]}
+         **(f32_keys(csr[f"{key[:2]} f32"], "scattered")
             if f"{key[:2]} f32" in csr else {})}
         for key, rec in route_launches.items()
     ]}
+    for row in record["kernels"]:
+        check(row["launches"] > 0, f"{row['name']}: no launch on its path")
     print(json.dumps(record))
     print(gpu)
     print(json.dumps({"ok": True, "device": {

@@ -5,11 +5,14 @@ JAX package ``cnn_graph_tpu`` beside it is the reference each part is
 tested against; this package imports ``torch`` and never ``jax``.
 
 Ported so far: the banded NodeClassifier, served (bf16, int8) and
-trained, on the CUDA kernel ``csrc/band_dkw.cu``; the paper's ChebNet on
+trained, in the banded operator's three layouts on the CUDA kernels of
+``csrc/band.cu``, and the ``cheby_finals`` chain; the paper's ChebNet on
 the coarsened MNIST grid graph (``graphs``, ``data``), served and
 trained, its fused dense Chebyshev conv and weight gradient on the CUDA
-kernels of ``csrc/cheby_fused.cu``; ``serve.compile_serving`` and the
-adam loops of ``train``.  ROADMAP.md lists what is still to come.
+kernels of ``csrc/cheby_fused.cu``; the NodeClassifier on scattered
+graphs through the BSR kernels of ``csrc/bsr.cu``;
+``serve.compile_serving``, the adam loops of ``train``, and the timers
+of ``utils.profiling``.  ROADMAP.md lists what is still to come.
 """
 
 __version__ = "0.1.0"

@@ -1,39 +1,53 @@
-// Ragged banded SpMM and fused Chebyshev hop on the deep-K-window layout,
-// for Hopper (sm_90a).
+// Banded SpMM and fused Chebyshev hop for Hopper (sm_90a), in the three
+// band layouts of the banded operator.
 //
-// Replaces the TPU kernel cnn_graph_tpu/ops/pallas_band.py:_kernel_dkw,
-// reached through banded_call_dkw (epilogue _emit_row).  Forms ported:
+// Replaces the TPU kernels of cnn_graph_tpu/ops/pallas_band.py:
+//   layout 0, deep-K window  _kernel_dkw     (banded_call_dkw)     K1
+//   layout 1, uniform        _kernel         (banded_call)         K5
+//   layout 2, ragged         _kernel_ragged  (banded_call_ragged)  K6
+// all with the epilogue _emit_row.  Forms:
 //   y = L @ x                 (x0 == nullptr)
 //   y = 2 (L @ x) - x0        (x0 != nullptr)
 //   y = 2 (L @ x) - x0 + c    (x0, c != nullptr; float only: the backward
-//                              adjoint chain's hop, band_cheby_hop_c)
+//                              adjoint chain's hop)
 // in float32 (FMA, f32 accumulation), bfloat16 (tensor cores, f32
 // accumulation) and int8 (tensor cores, int32 accumulation, requant
-// clip(rint(band_scale * acc [*2 - x0]), +-127) at emission).
+// clip(rint(band_scale * acc [*2 - x0]), +-127) at emission).  y may be
+// x0 itself (the in-place form): each output element is written by the
+// thread that read its x0 element just before, and no CTA reads another
+// CTA's rows of x0.  x must not overlap x0 or y.
 //
-// Layout.  Block-row r (128 rows of L) belongs to schedule step
-// s = r / G; its level is li = sched[1][s], its row in that level's
-// array bands[li] ([n_rows, 128, W_l*128]) is sched[0][s] + r % G, and
-// its band multiplies the contiguous x window rows
-// [base[r]*128, (base[r] + W_l)*128).  The TPU kernel's VMEM x ring, its
-// mirror copies, prefetch-ahead and DMA semaphores exist only because x
-// arrives there in column blocks; here the window is contiguous in
-// device memory, so none of them has a counterpart.  Rows of the
-// window past the end of x are read as zeros (the band is zero there).
+// Layouts.  Block-row r (128 rows of L) multiplies a [128, W*128] band
+// operand by the contiguous x window rows [base[r]*128, (base[r]+W)*128).
+//   dkw:     step s = r / G has level li = sched[1][s]; the operand is
+//            row sched[0][s] + r % G of bands[li] ([n_rows, 128, W_l*128]),
+//            its blocks side by side along the contraction axis.
+//   uniform: band [n_rows, W, 128, 128]; the operand is band[r], W taps.
+//   ragged:  one flat band [total, 128, 128]; step s has width
+//            W_s = levels[sched[1][s]] and row r = s*G + g takes the W_s
+//            blocks from sched[0][s] + g*W_s on.
+// For the two tap layouts element (i, k) of the operand is at block
+// k / 128, row i, column k % 128.  x may have more rows than the output
+// (x_rows): base indexes x's block rows, as the sharded halo operators
+// feed [left halo | local | right halo].  Window rows past x_rows read as
+// zero (the band is zero there).  The TPU kernels' VMEM x ring, its
+// mirror copies, prefetch-ahead, DMA semaphores and the high-water row of
+// sched exist only because x arrives there in column blocks; here the
+// window is contiguous in device memory, so none has a counterpart.
 //
 // Design.  One CTA per (block-row, column tile) computes
-// [128, W_l*128] @ [W_l*128, tile], staging 32-deep K chunks of band and x
-// through shared memory, with no pipelining across chunks.
+// [128, W*128] @ [W*128, tile], staging 32-deep (16 for f32) K chunks of
+// band and x through shared memory, with no pipelining across chunks.  A
+// chunk never straddles two 128-blocks, so the tap layouts differ from
+// dkw only in the band chunk's address.
 //
 // Bounds.  At the 50,176-node serving graph and C = 512 one call is
-// 2 * 2856 blocks * 128^2 * 512 ~ 48 GFLOP and reads the band (47 MB
-// int8, 94 MB bf16) once per column tile, i.e. 4x at the 128-wide tiles
-// used here: the band re-read and the unpipelined shared-memory staging
-// bound it long before the tensor cores do.  Left for later: TMA loads
-// into a multi-stage ring, wgmma, a column tile as wide as C so the band
-// is read once, and the in-place form (output over x0).  The + c form
-// adds one read of c per output element to the emission; the band
-// re-read still dominates its bytes.
+// 2 * blocks * 128^2 * 512 FLOP (2,856 blocks ragged or dkw: 48 GFLOP;
+// 3,528 uniform: 59 GFLOP) and reads the band once per column tile, i.e.
+// 4x at the 128-wide tiles used here: the band re-read and the
+// unpipelined shared-memory staging bound it long before the tensor
+// cores do.  Left for later: TMA loads into a multi-stage ring, wgmma,
+// and a column tile as wide as C so the band is read once.
 //
 // Build without --use_fast_math: the int8 path is bit-exact with the
 // PyTorch reference only with IEEE rounding of every float operation.
@@ -53,38 +67,64 @@ constexpr int kBlock = 128;   // ops/packing.py BLOCK: band block edge
 constexpr int kThreads = 256;
 constexpr int kMaxLevels = 4;  // ops/packing.py MAX_LEVELS
 
+// ops/band.py _LAYOUT_CODE
+constexpr int kDkw = 0;
+constexpr int kUniform = 1;
+constexpr int kRagged = 2;
+
 struct Args {
-  const void* band[kMaxLevels];  // per level [n_rows_l, 128, W_l*128]
-  int width[kMaxLevels];         // W_l, in blocks
+  const void* band[kMaxLevels];  // dkw: one per level; else band[0] only
+  int width[kMaxLevels];         // dkw, ragged: W per level; uniform: W
   const int* base;               // [n_block_rows]
-  const int* sched;              // [3, nsb]: row offset, level, (unused)
+  const int* sched;              // [3, nsb]: row or block offset, level
   int nsb;
   int G;
-  const void* x;   // [mp, C]
-  const void* x0;  // [mp, C] or nullptr
-  const void* c;   // [mp, C] or nullptr (needs x0)
-  void* y;         // [mp, C]
-  int mp;
+  const void* x;   // [x_rows, C]
+  const void* x0;  // [n_block_rows*128, C] or nullptr
+  const void* c;   // [n_block_rows*128, C] or nullptr (needs x0)
+  void* y;         // [n_block_rows*128, C], may be x0
+  int x_rows;
   int C;
   float band_scale;  // int8 only
 };
 
-// Band row, contraction depth and first x row of block-row r.
-template <typename T>
+// Offset of operand element (row, k) from the block-row's band pointer.
+template <int L>
+__device__ __forceinline__ size_t band_off(int row, int k, int K) {
+  if constexpr (L == kDkw) {
+    return (size_t)row * K + k;
+  } else {
+    return (size_t)(k / kBlock) * (kBlock * kBlock) + (size_t)row * kBlock +
+           (k % kBlock);
+  }
+}
+
+// Band operand, contraction depth and first x row of block-row r.
+template <int L, typename T>
 __device__ __forceinline__ void row_setup(const Args& a, int r,
                                           const T*& band, int& K,
                                           int& xrow0) {
-  const int s = r / a.G;
-  const int li = a.sched[a.nsb + s];
-  const int off = a.sched[s] + r % a.G;
-  int w = a.width[0];
-  const void* b = a.band[0];
-  if (li == 1) { w = a.width[1]; b = a.band[1]; }
-  if (li == 2) { w = a.width[2]; b = a.band[2]; }
-  if (li == 3) { w = a.width[3]; b = a.band[3]; }
-  K = w * kBlock;
-  band = static_cast<const T*>(b) + (size_t)off * kBlock * K;
   xrow0 = a.base[r] * kBlock;
+  if constexpr (L == kUniform) {
+    K = a.width[0] * kBlock;
+    band = static_cast<const T*>(a.band[0]) + (size_t)r * kBlock * K;
+  } else {
+    const int s = r / a.G;
+    const int li = a.sched[a.nsb + s];
+    int w = a.width[0];
+    const void* b = a.band[0];
+    if (li == 1) { w = a.width[1]; b = a.band[1]; }
+    if (li == 2) { w = a.width[2]; b = a.band[2]; }
+    if (li == 3) { w = a.width[3]; b = a.band[3]; }
+    K = w * kBlock;
+    if constexpr (L == kDkw) {
+      band = static_cast<const T*>(b) +
+             (size_t)(a.sched[s] + r % a.G) * kBlock * K;
+    } else {
+      band = static_cast<const T*>(a.band[0]) +
+             (size_t)(a.sched[s] + (r % a.G) * w) * kBlock * kBlock;
+    }
+  }
 }
 
 template <typename T> __device__ __forceinline__ T zero();
@@ -135,14 +175,15 @@ __device__ __forceinline__ void emit_quant(const Args& a, size_t i,
 constexpr int kF32Cols = 64;
 constexpr int kF32Depth = 16;
 
-__global__ void __launch_bounds__(kThreads) dkw_f32_kernel(Args a) {
+template <int L>
+__global__ void __launch_bounds__(kThreads) band_f32_kernel(Args a) {
   __shared__ float As[kF32Depth][kBlock + 4];  // band chunk, [k][row]
   __shared__ float Bs[kF32Depth][kF32Cols + 4];  // x chunk, [k][col]
   const int r = blockIdx.y;
   const int n0 = blockIdx.x * kF32Cols;
   const float* band;
   int K, xrow0;
-  row_setup(a, r, band, K, xrow0);
+  row_setup<L>(a, r, band, K, xrow0);
   const float* x = static_cast<const float*>(a.x);
   const int tid = threadIdx.x;
   const int tx = tid % 16;  // columns tx*4 .. +3
@@ -154,20 +195,26 @@ __global__ void __launch_bounds__(kThreads) dkw_f32_kernel(Args a) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
 
+  // Each thread loads column tid % 16 of band rows tid / 16 + 16 t, from
+  // one pointer per chunk: nvcc schedules this form faster, in every
+  // layout, than an address computed per element (measured on the card).
+  const int row_stride = L == kDkw ? K : kBlock;
+  const float* bthr = band + (size_t)(tid / kF32Depth) * row_stride +
+                      tid % kF32Depth;
   for (int k0 = 0; k0 < K; k0 += kF32Depth) {
+    const float* chunk = bthr + band_off<L>(0, k0, K);
 #pragma unroll
     for (int t = 0; t < kBlock * kF32Depth / kThreads; ++t) {
-      const int e = tid + t * kThreads;
-      const int row = e / kF32Depth, kk = e % kF32Depth;
-      As[kk][row] = band[(size_t)row * K + k0 + kk];
+      As[tid % kF32Depth][tid / kF32Depth + t * (kThreads / kF32Depth)] =
+          chunk[(size_t)t * (kThreads / kF32Depth) * row_stride];
     }
 #pragma unroll
     for (int t = 0; t < kF32Depth * kF32Cols / kThreads; ++t) {
       const int e = tid + t * kThreads;
       const int kr = e / kF32Cols, c = e % kF32Cols;
       const int xr = xrow0 + k0 + kr, col = n0 + c;
-      Bs[kr][c] = (xr < a.mp && col < a.C) ? x[(size_t)xr * a.C + col]
-                                            : 0.0f;
+      Bs[kr][c] = (xr < a.x_rows && col < a.C) ? x[(size_t)xr * a.C + col]
+                                                : 0.0f;
     }
     __syncthreads();
 #pragma unroll
@@ -213,8 +260,8 @@ template <> struct Tc<int8_t> {
   static constexpr int kLd = 32;
 };
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) dkw_tc_kernel(Args a) {
+template <int L, typename T>
+__global__ void __launch_bounds__(kThreads) band_tc_kernel(Args a) {
   using Acc = typename Tc<T>::Acc;
   constexpr int kLd = Tc<T>::kLd;
   constexpr int kVec = 16 / sizeof(T);  // elements per 16-byte load
@@ -226,7 +273,7 @@ __global__ void __launch_bounds__(kThreads) dkw_tc_kernel(Args a) {
   const int n0 = blockIdx.x * kTcCols;
   const T* band;
   int K, xrow0;
-  row_setup(a, r, band, K, xrow0);
+  row_setup<L>(a, r, band, K, xrow0);
   const T* x = static_cast<const T*>(a.x);
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
@@ -244,7 +291,8 @@ __global__ void __launch_bounds__(kThreads) dkw_tc_kernel(Args a) {
     for (int v = tid; v < kBlock * kVa; v += kThreads) {
       const int row = v / kVa, kv = (v % kVa) * kVec;
       *reinterpret_cast<uint4*>(&As[kv / 16][row * kLd + kv % 16]) =
-          *reinterpret_cast<const uint4*>(band + (size_t)row * K + k0 + kv);
+          *reinterpret_cast<const uint4*>(band +
+                                          band_off<L>(row, k0 + kv, K));
     }
     constexpr int kVb = kTcCols / kVec;  // 16-byte vectors per x row
     for (int v = tid; v < kTcDepth * kVb; v += kThreads) {
@@ -254,11 +302,13 @@ __global__ void __launch_bounds__(kThreads) dkw_tc_kernel(Args a) {
       const T* src = x + (size_t)xr * a.C + col;
       if (x_vec) {
         uint4 val = make_uint4(0, 0, 0, 0);
-        if (xr < a.mp && col < a.C) val = *reinterpret_cast<const uint4*>(src);
+        if (xr < a.x_rows && col < a.C) {
+          val = *reinterpret_cast<const uint4*>(src);
+        }
         *reinterpret_cast<uint4*>(dst) = val;
       } else {
         for (int e = 0; e < kVec; ++e) {
-          dst[e] = (xr < a.mp && col + e < a.C) ? src[e] : zero<T>();
+          dst[e] = (xr < a.x_rows && col + e < a.C) ? src[e] : zero<T>();
         }
       }
     }
@@ -306,18 +356,44 @@ __global__ void __launch_bounds__(kThreads) dkw_tc_kernel(Args a) {
   }
 }
 
+template <int L>
+int launch(const Args& a, int n_block_rows, int dtype, cudaStream_t s) {
+  switch (dtype) {
+    case 0: {
+      dim3 grid((a.C + kF32Cols - 1) / kF32Cols, n_block_rows);
+      band_f32_kernel<L><<<grid, kThreads, 0, s>>>(a);
+      break;
+    }
+    case 1: {
+      dim3 grid((a.C + kTcCols - 1) / kTcCols, n_block_rows);
+      band_tc_kernel<L, __nv_bfloat16><<<grid, kThreads, 0, s>>>(a);
+      break;
+    }
+    case 2: {
+      dim3 grid((a.C + kTcCols - 1) / kTcCols, n_block_rows);
+      band_tc_kernel<L, int8_t><<<grid, kThreads, 0, s>>>(a);
+      break;
+    }
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16, 2 int8.  Unused level slots take a null
-// band and width 0.  c needs x0 and a float dtype.  Launches on `stream`
-// and returns cudaGetLastError().
-extern "C" int band_dkw_launch(const void* band0, const void* band1,
-                               const void* band2, const void* band3,
-                               int w0, int w1, int w2, int w3,
-                               const void* base, const void* sched, int nsb,
-                               int G, const void* x, const void* x0,
-                               const void* c, void* y, int mp, int C,
-                               float band_scale, int dtype, void* stream) {
+// layout: 0 dkw, 1 uniform, 2 ragged.  dtype: 0 float32, 1 bfloat16,
+// 2 int8.  Unused band slots take a null pointer and width 0 (uniform and
+// ragged pass one band; uniform one width, W).  The output has
+// n_block_rows * 128 rows; y may equal x0.  c needs x0 and a float dtype.
+// Launches on `stream` and returns cudaGetLastError().
+extern "C" int band_launch(int layout, const void* band0, const void* band1,
+                           const void* band2, const void* band3, int w0,
+                           int w1, int w2, int w3, const void* base,
+                           const void* sched, int n_block_rows, int nsb,
+                           int G, const void* x, int x_rows, const void* x0,
+                           const void* c, void* y, int C, float band_scale,
+                           int dtype, void* stream) {
   if (c != nullptr && (x0 == nullptr || dtype == 2)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -338,29 +414,18 @@ extern "C" int band_dkw_launch(const void* band0, const void* band1,
   a.x0 = x0;
   a.c = c;
   a.y = y;
-  a.mp = mp;
+  a.x_rows = x_rows;
   a.C = C;
   a.band_scale = band_scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n_block_rows = mp / kBlock;
-  switch (dtype) {
-    case 0: {
-      dim3 grid((C + kF32Cols - 1) / kF32Cols, n_block_rows);
-      dkw_f32_kernel<<<grid, kThreads, 0, s>>>(a);
-      break;
-    }
-    case 1: {
-      dim3 grid((C + kTcCols - 1) / kTcCols, n_block_rows);
-      dkw_tc_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(a);
-      break;
-    }
-    case 2: {
-      dim3 grid((C + kTcCols - 1) / kTcCols, n_block_rows);
-      dkw_tc_kernel<int8_t><<<grid, kThreads, 0, s>>>(a);
-      break;
-    }
+  switch (layout) {
+    case kDkw:
+      return launch<kDkw>(a, n_block_rows, dtype, s);
+    case kUniform:
+      return launch<kUniform>(a, n_block_rows, dtype, s);
+    case kRagged:
+      return launch<kRagged>(a, n_block_rows, dtype, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }

@@ -25,7 +25,7 @@
 // block_rowptr[i+1]; the zero tails that the TPU layouts carry past the
 // last block are never read.
 //
-// Design.  Both are the banded kernel's design (band_dkw.cu) with an
+// Design.  Both are the banded kernel's design (band.cu) with an
 // indexed x tile per block in place of a contiguous window: one CTA per
 // (block-row, column tile) walks its blocks, staging 32-deep (16 in f32)
 // chunks of block and x tile through shared memory, the accumulators in

@@ -7,6 +7,10 @@ from cnn_graph_tpu_torch.ops.band import (
     band_spmm,
     banded_dkw,
     banded_dkw_reference,
+    banded_ragged,
+    banded_ragged_reference,
+    banded_uniform,
+    banded_uniform_reference,
 )
 from cnn_graph_tpu_torch.ops.bsr import (
     bsr_call_quant,
@@ -35,6 +39,7 @@ from cnn_graph_tpu_torch.ops.laplacian import (
     DenseLaplacian,
     QuantBandedLaplacian,
     QuantBlockSparseLaplacian,
+    cheby_finals,
     device_laplacian,
     quantize_banded,
     quantize_block_sparse,
@@ -47,6 +52,10 @@ __all__ = [
     "band_spmm",
     "banded_dkw",
     "banded_dkw_reference",
+    "banded_ragged",
+    "banded_ragged_reference",
+    "banded_uniform",
+    "banded_uniform_reference",
     "bsr_call_quant",
     "bsr_cheby_hop",
     "bsr_colstream",
@@ -67,6 +76,7 @@ __all__ = [
     "DenseLaplacian",
     "QuantBandedLaplacian",
     "QuantBlockSparseLaplacian",
+    "cheby_finals",
     "device_laplacian",
     "quantize_banded",
     "quantize_block_sparse",

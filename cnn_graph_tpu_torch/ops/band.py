@@ -1,21 +1,34 @@
-"""Banded SpMM and fused Chebyshev hop on the deep-K-window layout.
+"""Banded SpMM and fused Chebyshev hop in the banded operator's three
+layouts.
 
-Counterpart of ``cnn_graph_tpu/ops/pallas_band.py``: ``banded_dkw`` is
-``banded_call_dkw`` (:568), ``band_spmm`` / ``band_cheby_hop`` are the
-operator-level wrappers (:653, :833) and ``_band_call`` keeps the
-boundary casts of the JAX one (:674-711).
+Counterpart of ``cnn_graph_tpu/ops/pallas_band.py``.  One CUDA source,
+``csrc/band.cu``, serves the three TPU kernels; each keeps its own
+wrapper, plain PyTorch version and launch counts:
 
-``banded_dkw`` launches the CUDA kernel ``csrc/band_dkw.cu`` for CUDA
-tensors and runs the plain PyTorch version ``banded_dkw_reference`` for
-CPU tensors; the device of ``x`` is the only thing that chooses.  Its
-``launches`` attribute counts kernel launches, ``form_launches`` the same
-launches by form (``spmm``, ``hop``, ``hop_c``).
+* ``banded_dkw`` (K1, ``banded_call_dkw`` :568): the deep-K-window
+  layout, one array ``[n_rows_l, 128, W_l*128]`` per width level;
+* ``banded_uniform`` (K5, ``banded_call`` :730): the uniform band
+  ``[n_rows, W, 128, 128]``, W taps per block-row;
+* ``banded_ragged`` (K6, ``banded_call_ragged`` :314): the flat ragged
+  band ``[total, 128, 128]``, ``W_s`` taps per G-row step.
+
+Each launches its kernel for CUDA tensors and runs its plain version
+(``*_reference``) for CPU tensors; the device of ``x`` is the only thing
+that chooses.  ``launches`` counts kernel launches, ``form_launches`` the
+same launches by form (``spmm``, ``hop``, ``hop_c``).  ``x`` may have
+more rows than the output (the sharded halo operators' extended
+columns): the output has ``128 * len(base)`` rows and ``base`` indexes
+x's block rows.  ``donate_x0`` writes the hop's output over ``x0`` and
+returns ``x0``: the in-place form that ``cheby_finals`` uses.  It is
+inference-only, like the raw calls themselves.
 
 ``band_spmm`` and ``band_cheby_hop`` are ``torch.autograd.Function``s
 with the symmetric adjoints of :664-671 and :850-858, each backward one
-kernel launch.  ``band_cheby_hop_c`` (:714), the adjoint chain's hop, has
-no backward, like ``banded_dkw`` itself: both raise when a gradient would
-be needed rather than return a result with no gradient path.
+kernel launch; ``_band_call`` is the JAX one's dispatch by layout with
+its boundary casts (:674-711).  ``band_cheby_hop_c`` (:714), the adjoint
+chain's hop, has no backward, like the raw calls: they raise when a
+gradient would be needed rather than return a result with no gradient
+path.
 """
 
 from __future__ import annotations
@@ -32,10 +45,14 @@ from torch.profiler import record_function
 from cnn_graph_tpu_torch import _build
 from cnn_graph_tpu_torch.ops.packing import BLOCK, MAX_LEVELS
 
-__all__ = ["banded_dkw", "banded_dkw_reference", "band_spmm",
-           "band_cheby_hop", "band_cheby_hop_c", "full_f32_matmul"]
+__all__ = ["banded_dkw", "banded_dkw_reference", "banded_uniform",
+           "banded_uniform_reference", "banded_ragged",
+           "banded_ragged_reference", "layout_call", "band_spmm",
+           "band_cheby_hop", "band_cheby_hop_c", "check_band_tables",
+           "full_f32_matmul"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_LAYOUT_CODE = {"dkw": 0, "uniform": 1, "ragged": 2}  # csrc/band.cu
 
 
 @contextlib.contextmanager
@@ -71,155 +88,355 @@ def _check_c(x0, c, band_scale):
     if c is None:
         return
     if x0 is None:
-        raise ValueError("banded_dkw: c requires x0 (the hop form)")
+        raise ValueError("banded kernel: c requires x0 (the hop form)")
     if band_scale is not None:
-        raise ValueError("banded_dkw: no c form for int8 (inference only)")
+        raise ValueError("banded kernel: no c form for int8 (inference "
+                         "only)")
 
 
-def banded_dkw_reference(bands, base, sched, x, x0=None, c=None, *, levels,
-                         G, band_scale=None) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: per width level, gather each
-    block-row's x window (rows past the end of x read as zero), one
-    batched product, scatter to the output rows, then the emission.
-
-    Float bands accumulate in f32.  Int8 accumulates in float64, which is
-    exact here (|acc| <= 127^2 * W*128 << 2^53) on every device, unlike
-    int8 ``matmul`` (wraps) or f32 (inexact above 2^24)."""
-    _check_c(x0, c, band_scale)
-    mp, C = x.shape
-    nbr = mp // BLOCK
-    quant = band_scale is not None
-    acc_dtype = torch.float64 if quant else torch.float32
-    rows = torch.arange(nbr, device=x.device)
-    step = rows // G
-    sched = sched.to(torch.int64)
-    lvl = sched[1][step]
-    local = sched[0][step] + rows % G
-    acc = torch.zeros(nbr, BLOCK, C, dtype=acc_dtype, device=x.device)
-    xa = x.to(acc_dtype)
-    with full_f32_matmul():
-        for li, w in enumerate(levels):
-            sel = torch.nonzero(lvl == li).flatten()
-            if sel.numel() == 0:
-                continue
-            idx = (base[sel].to(torch.int64)[:, None] * BLOCK
-                   + torch.arange(w * BLOCK, device=x.device)[None, :])
-            inside = (idx < mp).to(acc_dtype)[..., None]
-            win = xa[idx.clamp(max=mp - 1)] * inside   # [n, w*128, C]
-            blk = bands[li][local[sel]].to(acc_dtype)  # [n, 128, w*128]
-            acc[sel] = torch.bmm(blk, win)
-    return _emit(acc.reshape(mp, C), x0, c, band_scale, x.dtype)
+def _overlap(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether two contiguous tensors share any byte."""
+    a0, b0 = a.data_ptr(), b.data_ptr()
+    return (a0 < b0 + b.numel() * b.element_size()
+            and b0 < a0 + a.numel() * a.element_size())
 
 
-@functools.lru_cache(maxsize=None)
-def _launcher():
-    fn = _build.load("band_dkw").band_dkw_launch
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = ([p] * MAX_LEVELS + [i] * MAX_LEVELS
-                   + [p, p, i, i, p, p, p, p, i, i, ctypes.c_float, i, p])
-    fn.restype = ctypes.c_int
-    return fn
+def _check_donate(x, x0, c):
+    if x0 is None:
+        raise ValueError("donate_x0 needs the hop form (x0)")
+    if _overlap(x, x0) or (c is not None and _overlap(c, x0)):
+        raise ValueError("donate_x0: x and c must not alias x0, whose "
+                         "storage the output overwrites")
 
 
 def _check_no_grad(*ts):
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in ts):
         raise RuntimeError(
-            "banded_dkw has no backward: differentiate through band_spmm / "
-            "band_cheby_hop, or run under torch.no_grad()"
+            "the banded kernel calls have no backward: differentiate "
+            "through band_spmm / band_cheby_hop, or run under "
+            "torch.no_grad()"
         )
 
 
-def _check_kernel_args(bands, base, sched, x, x0, c, levels, G, band_scale):
+def _windows_reference(x, base, parts, x0, c, band_scale, donate_x0):
+    """The plain version shared by the three layouts.  ``parts`` yields
+    ``(rows, operand, W)``: block-rows ``rows`` multiply their ``[n, 128,
+    W*128]`` band operands by their x windows (rows past the end of x
+    read as zero) in one batched product; then the emission.
+
+    Float bands accumulate in f32.  Int8 accumulates in float64, which is
+    exact here (|acc| <= 127^2 * W*128 << 2^53) on every device, unlike
+    int8 ``matmul`` (wraps) or f32 (inexact above 2^24)."""
+    _check_c(x0, c, band_scale)
+    if donate_x0:
+        _check_donate(x, x0, c)
+    x_rows, C = x.shape
+    nbr = base.numel()
+    acc_dtype = torch.float64 if band_scale is not None else torch.float32
+    acc = torch.zeros(nbr, BLOCK, C, dtype=acc_dtype, device=x.device)
+    xa = x.to(acc_dtype)
+    with full_f32_matmul():
+        for rows, operand, w in parts:
+            if rows.numel() == 0:
+                continue
+            idx = (base[rows].to(torch.int64)[:, None] * BLOCK
+                   + torch.arange(w * BLOCK, device=x.device)[None, :])
+            inside = (idx < x_rows).to(acc_dtype)[..., None]
+            win = xa[idx.clamp(max=x_rows - 1)] * inside  # [n, w*128, C]
+            acc[rows] = torch.bmm(operand.to(acc_dtype), win)
+    y = _emit(acc.reshape(nbr * BLOCK, C), x0, c, band_scale, x.dtype)
+    if donate_x0:
+        return x0.copy_(y)
+    return y
+
+
+def _step_rows(sched, nbr, G, device):
+    """Each block-row's step and, from ``sched``, its level index and
+    offset."""
+    rows = torch.arange(nbr, device=device)
+    step = rows // G
+    sched = sched.to(torch.int64)
+    return rows, sched[1][step], sched[0][step]
+
+
+def _taps(blocks: torch.Tensor) -> torch.Tensor:
+    """``[n, W, 128, 128]`` taps side by side: ``[n, 128, W*128]``."""
+    n, w = blocks.shape[:2]
+    return blocks.permute(0, 2, 1, 3).reshape(n, BLOCK, w * BLOCK)
+
+
+def banded_dkw_reference(bands, base, sched, x, x0=None, c=None, *, levels,
+                         G, band_scale=None,
+                         donate_x0=False) -> torch.Tensor:
+    """Plain PyTorch version of ``banded_dkw``: per width level, gather
+    each block-row's x window, one batched product, scatter to the output
+    rows, then the emission (``_windows_reference``)."""
+    rows, lvl, off = _step_rows(sched, base.numel(), G, x.device)
+    local = off + rows % G
+    parts = []
+    for li, w in enumerate(levels):
+        sel = torch.nonzero(lvl == li).flatten()
+        parts.append((sel, bands[li][local[sel]], w))
+    return _windows_reference(x, base, parts, x0, c, band_scale, donate_x0)
+
+
+def banded_uniform_reference(band, base, x, x0=None, c=None, *,
+                             band_scale=None,
+                             donate_x0=False) -> torch.Tensor:
+    """Plain PyTorch version of ``banded_uniform``: every block-row's W
+    taps as one ``[128, W*128]`` operand against its window."""
+    rows = torch.arange(base.numel(), device=x.device)
+    return _windows_reference(x, base, [(rows, _taps(band), band.shape[1])],
+                              x0, c, band_scale, donate_x0)
+
+
+def banded_ragged_reference(band, base, sched, x, x0=None, c=None, *,
+                            levels, G, band_scale=None,
+                            donate_x0=False) -> torch.Tensor:
+    """Plain PyTorch version of ``banded_ragged``: per width level, each
+    block-row's ``W_s`` blocks from the flat band as one operand."""
+    rows, lvl, off = _step_rows(sched, base.numel(), G, x.device)
+    parts = []
+    for li, w in enumerate(levels):
+        sel = torch.nonzero(lvl == li).flatten()
+        first = off[sel] + (sel % G) * w
+        idx = first[:, None] + torch.arange(w, device=x.device)[None, :]
+        parts.append((sel, _taps(band[idx]), w))
+    return _windows_reference(x, base, parts, x0, c, band_scale, donate_x0)
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher():
+    fn = _build.load("band").band_launch
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = ([i] + [p] * MAX_LEVELS + [i] * MAX_LEVELS
+                   + [p, p, i, i, i, p, i, p, p, p, i, ctypes.c_float, i, p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check_band_tables(bands, base, sched, levels, G, layout="dkw"):
+    """The table values the kernel takes on trust: ``base`` non-negative
+    and, for the stepped layouts, each step's level index in range and
+    its rows (dkw) or blocks (flat ragged) inside its band array.  Reads
+    the tables on the host, one device sync, so the banded operators run
+    it once where they are built rather than before every launch.  Meta
+    tensors hold no values and pass."""
+    if base.is_meta:
+        return
+    if base.numel() and int(base.min()) < 0:
+        raise ValueError("banded layout: a negative window base")
+    if layout == "uniform" or sched.shape[1] == 0:
+        return
+    off, lvl = sched[0].long().cpu(), sched[1].long().cpu()
+    if int(lvl.min()) < 0 or int(lvl.max()) >= len(levels):
+        raise ValueError("banded layout: a step's level index is out of "
+                         f"range for {len(levels)} levels")
+    if layout == "dkw":
+        end, size = off + G, torch.tensor([b.shape[0] for b in bands])[lvl]
+    else:
+        end, size = off + G * torch.tensor(levels)[lvl], bands[0].shape[0]
+    if int(off.min()) < 0 or bool((end > size).any()):
+        raise ValueError("banded layout: a step's offset reaches outside "
+                         "its band array")
+
+
+def _check_kernel_args(bands, base, sched, x, x0, c, levels, G, band_scale,
+                       layout="dkw"):
+    """The shapes, dtypes, devices and alignment the kernel takes on
+    trust, checked before a launch (the table values are
+    ``check_band_tables``'s).  ``bands``: the dkw layout's arrays, or
+    ``(band,)`` for the tap layouts; ``levels``: the uniform layout's
+    ``(W,)``.  Returns the number of G-row steps (the block rows for the
+    uniform layout)."""
     dev = x.device
-    mp, C = x.shape
+    x_rows, C = x.shape
     if x.dtype not in _DTYPE_CODE:
-        raise TypeError(f"banded_dkw: unsupported dtype {x.dtype}")
+        raise TypeError(f"banded kernel: unsupported dtype {x.dtype}")
     if (x.dtype == torch.int8) != (band_scale is not None):
-        raise ValueError("banded_dkw: band_scale is required for int8 and "
-                         "only for int8")
-    if not 1 <= len(bands) == len(levels) <= MAX_LEVELS:
-        raise ValueError(f"banded_dkw: 1..{MAX_LEVELS} levels, one band each")
-    if mp % (G * BLOCK) or C < 1:
-        raise ValueError(f"banded_dkw: x rows {mp} not a multiple of G*128")
-    nsb = mp // (G * BLOCK)
-    for b, w in zip(bands, levels):
-        if b.dim() != 3 or b.shape[1:] != (BLOCK, w * BLOCK):
-            raise ValueError(f"banded_dkw: band {tuple(b.shape)} does not "
-                             f"match level width {w}")
-    if tuple(base.shape) != (mp // BLOCK,) or tuple(sched.shape) != (3, nsb):
-        raise ValueError("banded_dkw: base/sched do not match x's rows")
-    if base.dtype != torch.int32 or sched.dtype != torch.int32:
-        raise TypeError("banded_dkw: base and sched must be int32")
+        raise ValueError("banded kernel: band_scale is required for int8 "
+                         "and only for int8")
+    if not 1 <= len(levels) <= MAX_LEVELS:
+        raise ValueError(f"banded kernel: 1..{MAX_LEVELS} width levels")
+    nbr = base.numel()
+    if base.dim() != 1 or nbr < 1 or x_rows % BLOCK or C < 1:
+        raise ValueError(f"banded kernel: base {tuple(base.shape)} or x "
+                         f"rows {x_rows} (a multiple of 128 wanted)")
+    if layout == "uniform":
+        (band,) = bands
+        if band.dim() != 4 or band.shape[0] != nbr or band.shape[2:] != (
+                BLOCK, BLOCK) or (band.shape[1],) != tuple(levels):
+            raise ValueError(f"banded kernel: uniform band "
+                             f"{tuple(band.shape)} for {nbr} block rows")
+        nsb, tables = nbr, [base]
+    else:
+        if nbr % G:
+            raise ValueError(f"banded kernel: {nbr} block rows are not "
+                             f"whole steps of G = {G}")
+        nsb = nbr // G
+        if layout == "dkw":
+            if len(bands) != len(levels):
+                raise ValueError("banded kernel: one dkw band per level")
+            for b, w in zip(bands, levels):
+                if b.dim() != 3 or b.shape[1:] != (BLOCK, w * BLOCK):
+                    raise ValueError(f"banded kernel: band {tuple(b.shape)}"
+                                     f" does not match level width {w}")
+        else:
+            (band,) = bands
+            if band.dim() != 3 or band.shape[1:] != (BLOCK, BLOCK):
+                raise ValueError(f"banded kernel: flat ragged band "
+                                 f"{tuple(band.shape)}")
+        if tuple(sched.shape) != (3, nsb):
+            raise ValueError("banded kernel: sched does not match base")
+        tables = [base, sched]
+    if any(t.dtype != torch.int32 for t in tables):
+        raise TypeError("banded kernel: base and sched must be int32")
     _check_c(x0, c, band_scale)
     rows = [t for t in (x, x0, c) if t is not None]
-    for t in list(bands) + [base, sched] + rows:
+    for t in list(bands) + tables + rows:
         if t.device != dev or not t.is_contiguous():
-            raise ValueError("banded_dkw: every tensor must be contiguous on "
-                             f"{dev}")
+            raise ValueError("banded kernel: every tensor must be "
+                             f"contiguous on {dev}")
     for b in bands:
         if b.dtype != x.dtype:
-            raise TypeError(f"banded_dkw: band {b.dtype} vs x {x.dtype}")
+            raise TypeError(f"banded kernel: band {b.dtype} vs x {x.dtype}")
     # The kernel loads bands and x in 16-byte vectors; x0 and c are held
     # to the same rule.
     for t in list(bands) + rows:
         if t.data_ptr() % 16:
-            raise ValueError("banded_dkw: bands, x, x0 and c must start on a "
-                             "16-byte boundary (a view with a storage "
+            raise ValueError("banded kernel: bands, x, x0 and c must start "
+                             "on a 16-byte boundary (a view with a storage "
                              "offset may not)")
     for name, t in (("x0", x0), ("c", c)):
-        if t is not None and (t.dtype != x.dtype or t.shape != x.shape):
-            raise ValueError(f"banded_dkw: {name} must match x's shape and "
-                             "dtype")
+        if t is not None and (t.dtype != x.dtype
+                              or tuple(t.shape) != (nbr * BLOCK, C)):
+            raise ValueError(f"banded kernel: {name} must be [{nbr * BLOCK},"
+                             f" {C}] in x's dtype")
     return nsb
 
 
-def banded_dkw(bands, base, sched, x, x0=None, c=None, *, levels, G,
-               band_scale=None) -> torch.Tensor:
-    """``L @ x`` (``x0`` None), the hop ``2 (L @ x) - x0``, or the adjoint
-    hop ``2 (L @ x) - x0 + c`` on the dkw layout.  ``bands``: one
-    ``[n_rows_l, 128, W_l*128]`` array per level; ``base`` int32
-    ``[Mp/128]``; ``sched`` int32 ``[3, nsb]`` (row offset, level index,
-    column high-water); ``x``, ``x0``, ``c``: ``[Mp, C]`` in the band
-    dtype.  ``band_scale`` (int8 only, no ``c``) is the band's dequant
-    scale; the result is then requantized int8 in x's scale.  Returns
-    ``[Mp, C]`` in x's dtype."""
+def _launch(fn, layout, bands, widths, base, sched, x, x0, c, G,
+            band_scale, donate_x0):
+    """Check, then one launch of ``csrc/band.cu`` in ``layout``, counted
+    on ``fn``.  Returns the output (``x0`` itself when donated)."""
     _check_no_grad(x, x0, c)
-    if x.device.type == "cpu":
-        return banded_dkw_reference(bands, base, sched, x, x0, c,
-                                    levels=levels, G=G,
-                                    band_scale=band_scale)
     if x.device.type != "cuda":
-        raise ValueError(f"banded_dkw: no kernel for device {x.device}")
-    nsb = _check_kernel_args(bands, base, sched, x, x0, c, levels, G,
-                             band_scale)
-    mp, C = x.shape
-    y = torch.empty_like(x)
+        raise ValueError(f"{fn.__name__}: no kernel for device {x.device}")
+    nsb = _check_kernel_args(bands, base, sched, x, x0, c, widths, G,
+                             band_scale, layout)
+    if donate_x0:
+        _check_donate(x, x0, c)
+    nbr = base.numel()
+    x_rows, C = x.shape
+    y = x0 if donate_x0 else torch.empty(nbr * BLOCK, C, dtype=x.dtype,
+                                         device=x.device)
     ptrs = [b.data_ptr() for b in bands] + [None] * (MAX_LEVELS - len(bands))
-    widths = list(levels) + [0] * (MAX_LEVELS - len(levels))
+    widths = list(widths) + [0] * (MAX_LEVELS - len(widths))
     form = "spmm" if x0 is None else "hop" if c is None else "hop_c"
-    # The range names the form in a torch.profiler trace.
-    with torch.cuda.device(x.device), record_function(f"band_dkw.{form}"):
+    # The range names the kernel and form in a torch.profiler trace.
+    with torch.cuda.device(x.device), record_function(
+            f"band_{layout}.{form}"):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _launcher()(
-            *ptrs, *widths, base.data_ptr(), sched.data_ptr(), nsb, G,
-            x.data_ptr(), None if x0 is None else x0.data_ptr(),
-            None if c is None else c.data_ptr(), y.data_ptr(), mp, C,
+            _LAYOUT_CODE[layout], *ptrs, *widths, base.data_ptr(),
+            None if sched is None else sched.data_ptr(), nbr, nsb, G,
+            x.data_ptr(), x_rows, None if x0 is None else x0.data_ptr(),
+            None if c is None else c.data_ptr(), y.data_ptr(), C,
             0.0 if band_scale is None else float(band_scale),
             _DTYPE_CODE[x.dtype], stream,
         )
     if rc != 0:
-        raise RuntimeError(f"band_dkw kernel launch failed: CUDA error {rc}")
-    banded_dkw.launches += 1
-    banded_dkw.form_launches[form] += 1
+        raise RuntimeError(f"band_{layout} kernel launch failed: CUDA "
+                           f"error {rc}")
+    if donate_x0 and not x0.is_inference():
+        # As an in-place torch op would: autograd then refuses a graph
+        # that saved x0 before the kernel overwrote it.
+        torch.autograd.graph.increment_version(x0)
+    fn.launches += 1
+    fn.form_launches[form] += 1
     return y
 
 
-banded_dkw.launches = 0
-banded_dkw.form_launches = collections.Counter()
+def banded_dkw(bands, base, sched, x, x0=None, c=None, *, levels, G,
+               band_scale=None, donate_x0=False) -> torch.Tensor:
+    """``L @ x`` (``x0`` None), the hop ``2 (L @ x) - x0``, or the adjoint
+    hop ``2 (L @ x) - x0 + c`` on the dkw layout (K1).  ``bands``: one
+    ``[n_rows_l, 128, W_l*128]`` array per level; ``base`` int32
+    ``[nbr]``; ``sched`` int32 ``[3, nbr/G]`` (row offset, level index,
+    column high-water); ``x``: ``[x_rows, C]``; ``x0``, ``c``: ``[nbr*128,
+    C]``, all in the band dtype.  ``band_scale`` (int8 only, no ``c``) is
+    the band's dequant scale; the result is then requantized int8 in x's
+    scale.  Returns ``[nbr*128, C]`` in x's dtype."""
+    if x.device.type == "cpu":
+        _check_no_grad(x, x0, c)
+        return banded_dkw_reference(bands, base, sched, x, x0, c,
+                                    levels=levels, G=G,
+                                    band_scale=band_scale,
+                                    donate_x0=donate_x0)
+    return _launch(banded_dkw, "dkw", bands, levels, base, sched, x, x0, c,
+                   G, band_scale, donate_x0)
 
 
-def _band_call(L, x, x0, c=None):
+def banded_uniform(band, base, x, x0=None, c=None, *, band_scale=None,
+                   donate_x0=False) -> torch.Tensor:
+    """``banded_dkw``'s forms on the uniform band ``[nbr, W, 128, 128]``
+    (K5): block-row r multiplies ``band[r, d]`` by x block-row ``base[r] +
+    d`` for d < W."""
+    if x.device.type == "cpu":
+        _check_no_grad(x, x0, c)
+        return banded_uniform_reference(band, base, x, x0, c,
+                                        band_scale=band_scale,
+                                        donate_x0=donate_x0)
+    return _launch(banded_uniform, "uniform", (band,), (band.shape[1],),
+                   base, None, x, x0, c, 1, band_scale, donate_x0)
+
+
+def banded_ragged(band, base, sched, x, x0=None, c=None, *, levels, G,
+                  band_scale=None, donate_x0=False) -> torch.Tensor:
+    """``banded_dkw``'s forms on the flat ragged band ``[total, 128, 128]``
+    (K6): block-row r = s*G + g multiplies ``band[sched[0, s] + g*W_s +
+    d]``, ``W_s = levels[sched[1, s]]``, by x block-row ``base[r] + d``."""
+    if x.device.type == "cpu":
+        _check_no_grad(x, x0, c)
+        return banded_ragged_reference(band, base, sched, x, x0, c,
+                                       levels=levels, G=G,
+                                       band_scale=band_scale,
+                                       donate_x0=donate_x0)
+    return _launch(banded_ragged, "ragged", (band,), levels, base, sched, x,
+                   x0, c, G, band_scale, donate_x0)
+
+
+for _fn in (banded_dkw, banded_uniform, banded_ragged):
+    _fn.launches = 0
+    _fn.form_launches = collections.Counter()
+
+
+def layout_call(L, x, x0=None, c=None, *, band_scale=None, donate=False):
+    """One product through a banded operator's layout, the dispatch of
+    ``_band_call`` (pallas_band.py:688-710): the dkw layout where
+    ``bands_dkw`` is present (K1), else the flat ragged one where
+    ``levels`` is set (K6), else the uniform one (K5).  With
+    ``L.use_pallas`` the kernel's wrapper, without it its plain
+    version."""
+    if L.bands_dkw is not None:
+        fns = (banded_dkw, banded_dkw_reference)
+        args = (L.bands_dkw, L.base, L.sched_dkw)
+        kw = dict(levels=L.levels, G=L.rows_per_step)
+    elif L.levels:
+        fns = (banded_ragged, banded_ragged_reference)
+        args = (L.band, L.base, L.sched)
+        kw = dict(levels=L.levels, G=L.rows_per_step)
+    else:
+        fns = (banded_uniform, banded_uniform_reference)
+        args = (L.band, L.base)
+        kw = {}
+    fn = fns[0] if L.use_pallas else fns[1]
+    return fn(*args, x, x0, c, band_scale=band_scale, donate_x0=donate,
+              **kw)
+
+
+def _band_call(L, x, x0, c=None, donate=False):
     # The kernel boundary casts x, x0 and c to the band dtype; the result
     # comes back in the caller's dtype (pallas_band._band_call).
     cdt = L.compute_dtype
@@ -227,8 +444,7 @@ def _band_call(L, x, x0, c=None):
     def cast(t):
         return None if t is None else t.to(cdt).contiguous()
 
-    y = banded_dkw(L.bands_dkw, L.base, L.sched_dkw, cast(x), cast(x0),
-                   cast(c), levels=L.levels, G=L.rows_per_step)
+    y = layout_call(L, cast(x), cast(x0), cast(c), donate=donate)
     return y.to(x.dtype)
 
 
@@ -271,9 +487,26 @@ def band_spmm(L, x: torch.Tensor) -> torch.Tensor:
     return _BandSpmm.apply(L, x)
 
 
-def band_cheby_hop(L, x1: torch.Tensor, x0: torch.Tensor) -> torch.Tensor:
+def band_cheby_hop(L, x1: torch.Tensor, x0: torch.Tensor,
+                   donate: bool = False) -> torch.Tensor:
     """Fused Chebyshev recurrence hop ``2 (L @ x1) - x0`` in one pass.
-    Differentiable in ``x1`` and ``x0``."""
+    Differentiable in ``x1`` and ``x0``.  ``donate`` writes the result
+    over ``x0``, which must then be contiguous and, with ``x1``, in the
+    band dtype (no cast copy to write into); inference only: it raises
+    when autograd would record the hop."""
+    if donate:
+        if torch.is_grad_enabled() and (x1.requires_grad
+                                        or x0.requires_grad):
+            raise RuntimeError("band_cheby_hop(donate=True) overwrites x0 "
+                               "and has no backward: run under "
+                               "torch.no_grad()")
+        if not (x1.dtype == x0.dtype == L.compute_dtype
+                and x0.is_contiguous()):
+            raise ValueError(
+                f"band_cheby_hop(donate=True): x1 {x1.dtype} and x0 "
+                f"{x0.dtype} must be in the band dtype {L.compute_dtype} "
+                "and x0 contiguous, or the result lands in a copy")
+        return _band_call(L, x1, x0, donate=True)
     return _BandChebyHop.apply(L, x1, x0)
 
 

@@ -5,11 +5,13 @@ Counterpart of ``cnn_graph_tpu/ops/laplacian.py``.  Ported so far:
 * ``DenseLaplacian`` (:130): zero-padded ``[Mp, Mp]`` matrix, plain
   ``torch.matmul`` for the stacked path; with ``use_fused`` the conv
   takes the fused kernels K2 and K3 (``ops/cheby.py``).
-* ``BandedLaplacian`` (:291): the ragged band in its deep-K-window
-  layout, multiplied by the ``band_dkw`` kernel (``ops/band.py``).
+* ``BandedLaplacian`` (:291) in its three layouts (uniform, flat
+  ragged, deep-K window), multiplied by the kernels K5, K6 and K1 of
+  ``csrc/band.cu`` (``ops/band.py``).
 * ``QuantBandedLaplacian`` (:409, with ``QuantOpMixin`` :95 folded in)
-  and ``quantize_banded`` (:745): the int8 serving twin, same kernel in
-  its int8 form.
+  and ``quantize_banded`` (:745): the int8 serving twin, same kernels in
+  their int8 form.
+* ``cheby_finals`` (:519): the chain driver with in-place hops.
 * ``BlockSparseLaplacian`` (:162): dense 128x128 blocks at the nonzero
   block positions, in block-CSR order or the column-streamed layout,
   multiplied by the ``bsr_colstream`` and ``bsr_csr`` kernels
@@ -18,7 +20,7 @@ Counterpart of ``cnn_graph_tpu/ops/laplacian.py``.  Ported so far:
 * ``QuantBlockSparseLaplacian`` (:642) and ``quantize_block_sparse``
   (:713): its int8 serving twin.
 * ``device_laplacian`` (:1200) with the JAX package's format choice and
-  BSR layouts.
+  its banded and BSR layouts.
 
 Operators are frozen dataclasses of tensors; ``.to(device)`` returns a
 copy on another device.  The BCOO format and the dense int8 twin
@@ -28,6 +30,7 @@ copy on another device.  The BCOO format and the dense int8 twin
 from __future__ import annotations
 
 import dataclasses
+import inspect
 
 import numpy as np
 import scipy.sparse
@@ -41,7 +44,8 @@ from cnn_graph_tpu_torch.ops.band import (
     band_cheby_hop,
     band_cheby_hop_c,
     band_spmm,
-    banded_dkw,
+    check_band_tables,
+    layout_call,
 )
 from cnn_graph_tpu_torch.ops.bsr import (
     block_products,
@@ -58,6 +62,7 @@ __all__ = [
     "BandedLaplacian",
     "QuantBandedLaplacian",
     "quantize_banded",
+    "cheby_finals",
     "BlockSparseLaplacian",
     "QuantBlockSparseLaplacian",
     "quantize_block_sparse",
@@ -107,43 +112,87 @@ class DenseLaplacian:
         return dataclasses.replace(self, mat=self.mat.to(device))
 
 
-@dataclasses.dataclass(frozen=True)
-class BandedLaplacian:
-    """Rescaled Laplacian as a ragged block band in the deep-K-window
-    layout: ``bands_dkw[l]`` is ``[n_rows_l, 128, W_l*128]``, block-row r
-    multiplies x rows ``[base[r]*128, (base[r]+W_l)*128)``; ``sched_dkw``
-    int32 ``[3, nsb]`` gives each G-row step its row offset and level."""
+class _BandedMixin:
+    """What the float and int8 banded operators share: the layout
+    fields' accessors and ``.to``."""
 
-    bands_dkw: tuple
+    def __post_init__(self):
+        # The kernels take the tables' values on trust: checked once here.
+        if self.levels:
+            check_band_tables((self.band,), self.base, self.sched,
+                              self.levels, self.rows_per_step, "ragged")
+        else:
+            check_band_tables((self.band,), self.base, None, (), 1,
+                              "uniform")
+        if self.bands_dkw is not None:
+            check_band_tables(self.bands_dkw, self.base, self.sched_dkw,
+                              self.levels, self.rows_per_step, "dkw")
+
+    @property
+    def band_width(self) -> int:
+        return self.levels[-1] if self.levels else self.band.shape[1]
+
+    def to(self, device):
+        moved = {f: getattr(self, f).to(device)
+                 for f in ("band", "base", "sched", "sched_dkw")
+                 if getattr(self, f) is not None}
+        if self.bands_dkw is not None:
+            moved["bands_dkw"] = tuple(b.to(device) for b in self.bands_dkw)
+        return dataclasses.replace(self, **moved)
+
+
+@dataclasses.dataclass(frozen=True)
+class BandedLaplacian(_BandedMixin):
+    """Rescaled Laplacian as a block band with monotone window bases
+    ``base`` (JAX :291-376), in one of three layouts:
+
+    * uniform (``levels`` empty): ``band`` is ``[nbr, W, 128, 128]``;
+      ``band[i, d]`` is the block at block coordinates ``(i, base[i] +
+      d)``.  Products run K5 (``ops.band.banded_uniform``).
+    * flat ragged (``levels`` set): ``band`` is ``[total, 128, 128]``;
+      each G-row step s stores ``W_s = levels[sched[1, s]]`` blocks per
+      row from ``sched[0, s]`` on.  Products run K6 (``banded_ragged``).
+      ``sched`` is int32 ``[3, nsb]`` on the band's device; rows 0-1 are
+      what the GPU reads, row 2 (the TPU's column high-water) is kept for
+      parity.
+    * deep-K window (``bands_dkw`` set, beside the flat band): one array
+      ``[n_rows_l, 128, W_l*128]`` per level, ``sched_dkw`` with each
+      step's row offset.  Products run K1 (``banded_dkw``).
+
+    With ``use_pallas`` the products run the layout's kernel, without it
+    the kernel's plain version, which computes what JAX's fallback does
+    (f32 accumulation of the window products, rounded once)."""
+
+    band: torch.Tensor
     base: torch.Tensor
-    sched_dkw: torch.Tensor
-    levels: tuple
-    rows_per_step: int
     m: int
     m_padded: int
     nnz: int
+    rows_per_step: int
+    use_pallas: bool
+    sched: torch.Tensor | None = None
+    levels: tuple = ()
+    bands_dkw: tuple | None = None
+    sched_dkw: torch.Tensor | None = None
 
     @property
     def compute_dtype(self):
-        return self.bands_dkw[0].dtype
+        return self.band.dtype
 
     def matmul(self, x: torch.Tensor) -> torch.Tensor:
         """``L @ x`` for ``x`` of shape ``[Mp, C]``."""
         return band_spmm(self, x)
 
-    def cheby_hop(self, x1: torch.Tensor, x0: torch.Tensor) -> torch.Tensor:
-        return band_cheby_hop(self, x1, x0)
+    def cheby_hop(self, x1: torch.Tensor, x0: torch.Tensor, *,
+                  donate: bool = False) -> torch.Tensor:
+        """``2 (L @ x1) - x0``; ``donate`` writes it over ``x0``
+        (inference only)."""
+        return band_cheby_hop(self, x1, x0, donate=donate)
 
     def cheby_hop_c(self, x1: torch.Tensor, x0: torch.Tensor,
                     c: torch.Tensor) -> torch.Tensor:
         """The adjoint chain's hop ``2 (L @ x1) - x0 + c``, no backward."""
         return band_cheby_hop_c(self, x1, x0, c)
-
-    def to(self, device) -> BandedLaplacian:
-        return dataclasses.replace(
-            self, bands_dkw=tuple(b.to(device) for b in self.bands_dkw),
-            base=self.base.to(device), sched_dkw=self.sched_dkw.to(device),
-        )
 
 
 class QuantOpMixin:
@@ -188,53 +237,101 @@ class QuantOpMixin:
 
 
 @dataclasses.dataclass(frozen=True)
-class QuantBandedLaplacian(QuantOpMixin):
+class QuantBandedLaplacian(_BandedMixin, QuantOpMixin):
     """Int8 banded Laplacian for serving, the JAX package's banded twin
-    (:409): the band in int8 with ``band_scale = max|L| / 127``, every
-    product one int8 launch of the banded kernel."""
+    (:409): the float operator's layouts with the band in int8 and
+    ``band_scale = max|L| / 127``, every product one int8 launch of the
+    layout's kernel (or its plain version without ``use_pallas``)."""
 
-    bands_dkw: tuple
+    band: torch.Tensor
     base: torch.Tensor
-    sched_dkw: torch.Tensor
-    levels: tuple
-    rows_per_step: int
     m: int
     m_padded: int
     nnz: int
+    rows_per_step: int
+    use_pallas: bool
     band_scale: float
     act_scale: float
     headroom: float = 2.0
+    sched: torch.Tensor | None = None
+    levels: tuple = ()
+    bands_dkw: tuple | None = None
+    sched_dkw: torch.Tensor | None = None
 
-    def _call(self, x_q, x0_q):
-        return banded_dkw(self.bands_dkw, self.base, self.sched_dkw, x_q,
-                          x0_q, levels=self.levels, G=self.rows_per_step,
-                          band_scale=self.band_scale)
+    def _call(self, x_q, x0_q, donate=False):
+        return layout_call(self, x_q, x0_q, band_scale=self.band_scale,
+                           donate=donate)
 
-    def to(self, device) -> QuantBandedLaplacian:
-        return dataclasses.replace(
-            self, bands_dkw=tuple(b.to(device) for b in self.bands_dkw),
-            base=self.base.to(device), sched_dkw=self.sched_dkw.to(device),
-        )
+    def cheby_hop_q(self, x1_q: torch.Tensor, x0_q: torch.Tensor, *,
+                    donate: bool = False) -> torch.Tensor:
+        """Quantized fused recurrence hop ``2 (L @ x1) - x0``; ``donate``
+        writes it over ``x0_q``."""
+        return self._call(x1_q, x0_q, donate)
 
 
 def quantize_banded(op: BandedLaplacian, headroom: float = 2.0,
                     sample_x: float = 1.0) -> QuantBandedLaplacian:
-    """Quantize a BandedLaplacian for int8 inference.  ``sample_x`` is the
-    expected activation max; ``headroom`` widens the activation scale so
-    carries that wander above the input range saturate instead of
-    wrapping."""
-    host = [b.to(torch.float32).cpu().numpy() for b in op.bands_dkw]
-    s_b = packing.band_scale_of(host)
+    """Quantize a BandedLaplacian for int8 inference (JAX :745-786).  The
+    scale comes from the flat or uniform band; the dkw twin is built only
+    where the float operator has the dkw layout's conditions,
+    ``use_pallas`` and ``levels``.  ``sample_x`` is the expected
+    activation max; ``headroom`` widens the activation scale so carries
+    that wander above the input range saturate instead of wrapping."""
+    host = op.band.to(torch.float32).cpu().numpy()
+    s_b = packing.band_scale_of([host])
+    band_q = packing.quantize_band(host, s_b)
     dev = op.base.device
+    bands_dkw = sched_dkw = None
+    if op.use_pallas and op.levels:
+        bd, sd = packing.pack_dkw_from_ragged(
+            band_q, op.sched.cpu().numpy(), op.levels, op.rows_per_step)
+        bands_dkw = tuple(_tensor(b, dev) for b in bd)
+        sched_dkw = _tensor(sd, dev)
     return QuantBandedLaplacian(
-        bands_dkw=tuple(
-            torch.from_numpy(packing.quantize_band(b, s_b)).to(dev)
-            for b in host),
-        base=op.base, sched_dkw=op.sched_dkw, levels=op.levels,
-        rows_per_step=op.rows_per_step, m=op.m, m_padded=op.m_padded,
-        nnz=op.nnz, band_scale=s_b,
+        band=_tensor(band_q, dev), base=op.base, m=op.m,
+        m_padded=op.m_padded, nnz=op.nnz, rows_per_step=op.rows_per_step,
+        use_pallas=op.use_pallas, band_scale=s_b,
         act_scale=float(sample_x) * headroom / 127.0, headroom=headroom,
+        sched=op.sched, levels=op.levels, bands_dkw=bands_dkw,
+        sched_dkw=sched_dkw,
     )
+
+
+def cheby_finals(L, x: torch.Tensor, K: int) -> torch.Tensor:
+    """``T_{K-1}(L) x`` by the K-1-product Chebyshev recurrence (JAX
+    :519-565): the chain driver behind the throughput benches.  Two hops
+    per loop iteration, each written in place over the older carry
+    where the operator's hop takes ``donate`` and the carries are in its
+    compute dtype,
+
+        r = hop(q, p)   # into p's buffer
+        s = hop(r, q)   # into q's buffer
+
+    so the chain runs on two fixed buffers.  The caller's ``x`` is never
+    written: the first hop that would overwrite it allocates instead.
+    Operators with ``cheby_hop_q`` take and return int8 carries (pass
+    ``x`` quantized); every other runs in its compute dtype.  No hop is
+    donated while autograd records ``x``."""
+    quant = hasattr(L, "cheby_hop_q")
+    f = L.cheby_hop_q if quant else L.cheby_hop
+    donate_ok = ("donate" in inspect.signature(f).parameters
+                 and (quant or x.dtype == L.compute_dtype)
+                 and not (torch.is_grad_enabled() and x.requires_grad))
+
+    def hop(a, b, donate):
+        return f(a, b, donate=True) if donate and donate_ok else f(a, b)
+
+    if K <= 1:
+        return x
+    p, q = x, (L.spmm_q(x) if quant else L.matmul(x))
+    n = K - 2  # hops remaining after the first product
+    for i in range(n // 2):
+        r = hop(q, p, donate=i > 0)
+        s = hop(r, q, donate=True)
+        p, q = r, s
+    if n % 2:
+        q = hop(q, p, donate=n > 1)
+    return q
 
 
 def _gather_products(op, x, compute_dtype, acc_dtype) -> torch.Tensor:
@@ -415,7 +512,7 @@ def device_laplacian(L: scipy.sparse.spmatrix, lmax: float = 2.0,
                      use_pallas: bool | None = None,
                      block_size: int | tuple | str = "auto",
                      chunked_rows: bool = False,
-                     col_stream: bool | None = None):
+                     col_stream: bool | None = None, ragged: bool = True):
     """Build a device operator for the rescaled Laplacian ``2 L / lmax - I``.
 
     ``fmt`` is ``dense``, ``banded``, ``bsr`` or ``auto``: dense up to
@@ -428,11 +525,18 @@ def device_laplacian(L: scipy.sparse.spmatrix, lmax: float = 2.0,
     banded layout's G (default ``min(8, block rows)``).
 
     ``use_pallas`` keeps the JAX name.  A dense operator built with it
-    true takes the fused conv kernels (``use_fused``); the banded operator
-    always runs its kernel; a BSR operator runs the BSR kernels with it
-    and the gather and segment-sum route without; for BSR, ``None`` means
+    true takes the fused conv kernels (``use_fused``); a banded operator
+    runs its layout's kernel with it and the kernel's plain version
+    without; a BSR operator runs the BSR kernels with it and the gather
+    and segment-sum route without.  For banded and BSR, ``None`` means
     true wherever CUDA is available, whatever ``device`` is, as JAX's
-    default is true on any backend but the CPU.  BSR only: ``block_size``
+    default is true on any backend but the CPU: an operator built on the
+    host keeps its kernel layouts when ``.to()`` moves it to the card.
+
+    Banded only: ``ragged`` (default true) packs one width level per
+    G-row step (``pack_banded_ragged``), false the uniform band
+    (``pack_banded``); the deep-K-window layout is added for a ragged
+    band with ``use_pallas``, as in JAX.  BSR only: ``block_size``
     is an int (square blocks), ``(rows, cols)`` or ``"auto"``
     (``choose_block_shape``);
     ``col_stream`` (default: ``use_pallas`` and not ``chunked_rows``)
@@ -478,17 +582,8 @@ def device_laplacian(L: scipy.sparse.spmatrix, lmax: float = 2.0,
         )
 
     if fmt == "banded":
-        band, base, sched, levels, G, mp = packing.pack_banded_ragged(
-            L, G=rows_per_step, stats=stats)
-        bands, sched_dkw = packing.pack_dkw_from_ragged(band, sched, levels,
-                                                        G)
-        return BandedLaplacian(
-            bands_dkw=tuple(torch.from_numpy(b).to(device=device, dtype=dtype)
-                            for b in bands),
-            base=torch.from_numpy(base).to(device),
-            sched_dkw=torch.from_numpy(sched_dkw).to(device),
-            levels=levels, rows_per_step=G, m=m, m_padded=mp, nnz=nnz,
-        )
+        return _banded_laplacian(L, m, nnz, dtype, device, use_pallas,
+                                 rows_per_step, ragged, stats)
 
     if fmt == "bsr":
         return _bsr_laplacian(L, m, nnz, dtype, device, use_pallas,
@@ -496,6 +591,31 @@ def device_laplacian(L: scipy.sparse.spmatrix, lmax: float = 2.0,
     if fmt == "bcoo":
         raise NotImplementedError(_UNPORTED.format(fmt))
     raise ValueError(f"unknown Laplacian format {fmt!r}")
+
+
+def _banded_laplacian(L, m, nnz, dtype, device, use_pallas, rows_per_step,
+                      ragged, stats) -> BandedLaplacian:
+    """The ``fmt="banded"`` branch of ``device_laplacian`` (JAX
+    :1292-1339)."""
+    if use_pallas is None:
+        use_pallas = torch.cuda.is_available()
+    sched, levels = None, ()
+    if ragged:
+        band, base, sched, levels, G, mp = packing.pack_banded_ragged(
+            L, G=rows_per_step, stats=stats)
+    else:
+        band, base, G, mp = packing.pack_banded(
+            L, rows_per_step=rows_per_step, stats=stats)
+    bands_dkw = sched_dkw = None
+    if use_pallas and levels:
+        bd, sd = packing.pack_dkw_from_ragged(band, sched, levels, G)
+        bands_dkw = tuple(_tensor(b, device, dtype) for b in bd)
+        sched_dkw = _tensor(sd, device)
+    return BandedLaplacian(
+        band=_tensor(band, device, dtype), base=_tensor(base, device), m=m,
+        m_padded=mp, nnz=nnz, rows_per_step=G, use_pallas=bool(use_pallas),
+        sched=None if sched is None else _tensor(sched, device),
+        levels=levels, bands_dkw=bands_dkw, sched_dkw=sched_dkw)
 
 
 def _bsr_laplacian(L, m, nnz, dtype, device, use_pallas, block_size,

@@ -1,10 +1,11 @@
-"""NumPy packers: for the banded operator the ragged band, the
-deep-K-window ("dkw") layout the kernel reads, and the int8 band
-quantizer; for the block-sparse (BSR) operator the block tiling, its
-column-streamed layout and the choice of block shape and row group.
+"""NumPy packers: for the banded operator the uniform and the ragged
+band, the deep-K-window ("dkw") layout, and the int8 band quantizer; for
+the block-sparse (BSR) operator the block tiling, its column-streamed
+layout and the choice of block shape and row group.
 
 Copies of ``cnn_graph_tpu/ops/laplacian.py`` (``band_stats`` :796,
-``choose_band_levels`` :924, ``pack_banded_ragged`` :944, the quantizer
+``pack_banded`` :864, ``choose_band_levels`` :924,
+``pack_banded_ragged`` :944, the quantizer
 of ``quantize_banded`` :756-760, ``choose_block_shape`` :1022,
 ``pack_block_sparse`` :1048, ``colstream_pack`` :1093,
 ``choose_bsr_row_group`` :1167) and ``cnn_graph_tpu/ops/pallas_band.py:405
@@ -16,11 +17,12 @@ checks that each block's row in its group and column slot fit the 16-bit
 fields of its ``meta`` word, where the original packs them unchecked.
 
 Left out: the TPU VMEM models (``auto_rows_per_step``, ``ring_span``)
-that size G and the x ring.  G defaults to ``min(8, block rows)``, which
-is what the VMEM model picks at the serving shape; the x ring has no
-counterpart on the GPU, where the x window is contiguous in device
-memory.  Schedule row 2 (column high-water) is still computed, so the
-schedule stays byte-equal, but the GPU kernel does not read it.
+that size G and the x ring, so ``pack_banded`` returns no ring size.  G
+defaults to ``min(8, block rows)``, which is what the VMEM model picks
+at the serving shape; the x ring has no counterpart on the GPU, where
+the x window is contiguous in device memory.  Schedule row 2 (column
+high-water) is still computed, so the schedule stays byte-equal, but the
+GPU kernel does not read it.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ __all__ = [
     "MAX_LEVELS",
     "ROWS_PER_STEP",
     "band_stats",
+    "pack_banded",
     "choose_band_levels",
     "pack_banded_ragged",
     "pack_dkw_from_ragged",
@@ -48,7 +51,7 @@ __all__ = [
     "choose_bsr_row_group",
 ]
 
-# The layout's geometry, fixed by the kernel (csrc/band_dkw.cu kBlock,
+# The layout's geometry, fixed by the kernel (csrc/band.cu kBlock,
 # kMaxLevels): square 128x128 blocks and at most 4 width levels.
 BLOCK = 128
 MAX_LEVELS = 4
@@ -80,6 +83,40 @@ def band_stats(L: scipy.sparse.spmatrix):
     W = min(int(max((hi - base).max() + 1, 1)), n_b)
     base = np.clip(base, 0, n_b - W).astype(np.int32)
     return base, W, n_blocks, mp
+
+
+def pack_banded(L: scipy.sparse.spmatrix, max_band_width: int = 48,
+                rows_per_step: int | None = None, stats: tuple | None = None,
+                row_multiple: int | None = None, band_dtype=np.float32):
+    """Pack a block-banded matrix into the uniform band ``[n_rb, W, 128,
+    128]`` with monotone window bases: ``band[i, d]`` is the block at
+    block coordinates ``(i, base[i] + d)``.
+
+    The row count is padded to a multiple of ``rows_per_step`` (G,
+    default ``min(8, block rows)``), or of ``row_multiple`` where given
+    (the sharded packer needs whole steps per shard): zero band rows,
+    base held at its last value.  ``band_dtype`` is the host staging
+    dtype.  Returns ``(band, base, G, m_padded)``.  Raises ``ValueError``
+    when the band is wider than ``max_band_width`` blocks."""
+    base, W, _, mp = stats if stats is not None else band_stats(L)
+    if W > max_band_width:
+        raise ValueError(
+            f"band width {W} blocks exceeds {max_band_width}; "
+            "RCM-reorder the graph or use fmt='bsr'"
+        )
+    G = min(ROWS_PER_STEP, len(base)) if rows_per_step is None \
+        else rows_per_step
+    mp = _round_up(mp, (row_multiple or G) * BLOCK)
+    n_rb = mp // BLOCK
+    base = np.concatenate(
+        [base, np.full(n_rb - len(base), base[-1], np.int32)]
+    )
+    band = np.zeros((n_rb, W, BLOCK, BLOCK), np.dtype(band_dtype))
+    coo = L.tocoo()
+    brow = coo.row // BLOCK
+    band[brow, coo.col // BLOCK - base[brow], coo.row % BLOCK,
+         coo.col % BLOCK] = coo.data.astype(band.dtype)
+    return band, base, G, mp
 
 
 def choose_band_levels(ws) -> tuple:

@@ -1,0 +1,12 @@
+"""Measurement helpers: device timing and rooflines."""
+
+from cnn_graph_tpu_torch.utils.profiling import (
+    H100_BYTES_PER_S,
+    H100_OPS_PER_S,
+    roofline,
+    slope_time,
+    spmm_roofline,
+)
+
+__all__ = ["H100_BYTES_PER_S", "H100_OPS_PER_S", "roofline", "slope_time",
+           "spmm_roofline"]

@@ -23,6 +23,8 @@ from cnn_graph_tpu_torch.ops import (
     band_spmm,
     banded_dkw,
     banded_dkw_reference,
+    banded_ragged,
+    banded_uniform,
     bsr_colstream,
     bsr_colstream_reference,
     bsr_csr,
@@ -34,12 +36,15 @@ from cnn_graph_tpu_torch.ops import (
     cheby_conv_fused_reference,
     cheby_dw_fused,
     cheby_dw_fused_reference,
+    cheby_finals,
     device_laplacian,
     fused_filter,
     quantize_banded,
     quantize_block_sparse,
 )
+from cnn_graph_tpu_torch.ops.band import layout_call
 from cnn_graph_tpu_torch.serve import compile_serving
+from cnn_graph_tpu_torch.utils import slope_time
 
 pytestmark = pytest.mark.gpu
 
@@ -461,3 +466,196 @@ def test_bsr_kernels_reject_bad_arguments(city48, cuda_device):
                               device=cuda_device, col_stream=False)
     with pytest.raises(ValueError, match="128x128"):
         narrow.matmul(torch.zeros(narrow.m_padded, 16, device=cuda_device))
+
+
+# ------------------------------ K5, K6, the in-place form, cheby_finals
+# Tolerances as for K1: int8 bit-exact; f32 atol 1e-4 (sums in another
+# order); bf16 one bf16 ulp of the plain version's single rounding.
+_COUNTED = {"dkw": banded_dkw, "uniform": banded_uniform,
+            "ragged": banded_ragged}
+
+
+def _layout_operator(L, layout, dtype, device, G=2):
+    """The operator whose products run ``layout``'s kernel: K1 on the dkw
+    layout, K5 on the uniform band, K6 on a ragged band built without its
+    dkw twin and then given ``use_pallas`` (as JAX reaches K6)."""
+    dt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    op = device_laplacian(L, fmt="banded", dtype=dt, rows_per_step=G,
+                          device=device, ragged=layout != "uniform",
+                          use_pallas=layout != "ragged")
+    if dtype == "int8":
+        op = quantize_banded(op, sample_x=3.0)
+    return dataclasses.replace(op, use_pallas=True)
+
+
+def _layout_inputs(op, C, device, seed, rows=None):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x, x0, c = (torch.randn(rows or op.m_padded, C, generator=g,
+                            device=device) for _ in range(3))
+    x0, c = x0[: op.m_padded].contiguous(), c[: op.m_padded].contiguous()
+    if op.compute_dtype == torch.int8:
+        return op.quantize(x), op.quantize(x0), None, op.band_scale
+    return (*(t.to(op.compute_dtype) for t in (x, x0, c)), None)
+
+
+def _assert_kernel_close(got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if got.dtype == torch.int8:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(
+            got.float(), want.float(), atol=1e-4,
+            rtol=2**-7 if got.dtype == torch.bfloat16 else 1e-5)
+
+
+@pytest.mark.parametrize("C", [48, 300])
+@pytest.mark.parametrize("dtype,form", [
+    (d, f) for d in ("float32", "bfloat16", "int8")
+    for f in ("spmm", "hop", "hop_c") if (d, f) != ("int8", "hop_c")])
+@pytest.mark.parametrize("layout", ["uniform", "ragged"])
+def test_layout_kernels_match_reference(city96, cuda_device, layout, dtype,
+                                        form, C):
+    op = _layout_operator(city96, layout, dtype, cuda_device)
+    x, x0, c, scale = _layout_inputs(op, C, cuda_device, C)
+    args = (x, None, None) if form == "spmm" else (
+        x, x0, c if form == "hop_c" else None)
+    kernel = _COUNTED[layout]
+    before = kernel.form_launches[form]
+    got = layout_call(op, *args, band_scale=scale)
+    torch.cuda.synchronize()
+    assert kernel.form_launches[form] == before + 1
+    want = layout_call(dataclasses.replace(op, use_pallas=False), *args,
+                       band_scale=scale)
+    _assert_kernel_close(got, want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("layout", ["uniform", "ragged"])
+def test_layout_kernels_take_extended_column_x(city96, cuda_device, layout,
+                                               dtype):
+    """x with 3 halo block rows in front and 2 behind, bases shifted by
+    3: the hop equals the unshifted plain version."""
+    op = _layout_operator(city96, layout, dtype, cuda_device)
+    off, C = 3, 136
+    x_ext, x0, _, scale = _layout_inputs(op, C, cuda_device, 5,
+                                         rows=op.m_padded + 5 * 128)
+    x = x_ext[off * 128: off * 128 + op.m_padded].contiguous()
+    shifted = dataclasses.replace(op, base=op.base + off)
+    got = layout_call(shifted, x_ext, x0, band_scale=scale)
+    torch.cuda.synchronize()
+    want = layout_call(dataclasses.replace(op, use_pallas=False), x, x0,
+                       band_scale=scale)
+    _assert_kernel_close(got, want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("layout", ["dkw", "uniform", "ragged"])
+def test_inplace_form_is_bit_identical(city96, cuda_device, layout, dtype):
+    """donate_x0: the output in x0's storage, equal bit for bit to the
+    out-of-place launch, and rejected when x aliases x0."""
+    op = _layout_operator(city96, layout, dtype, cuda_device)
+    x, x0, _, scale = _layout_inputs(op, 264, cuda_device, 7)
+    want = layout_call(op, x, x0, band_scale=scale)
+    ptr = x0.data_ptr()
+    got = layout_call(op, x, x0, band_scale=scale, donate=True)
+    torch.cuda.synchronize()
+    assert got is x0 and got.data_ptr() == ptr
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="alias"):
+        layout_call(op, x0, x0, band_scale=scale, donate=True)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+@pytest.mark.parametrize("layout", ["dkw", "uniform", "ragged"])
+def test_cheby_finals_through_kernel(city96, cuda_device, layout, dtype):
+    """The chain on the card (K-1 launches, all hops but the first in
+    place) against the same chain through the plain versions."""
+    K = 7
+    op = _layout_operator(city96, layout, dtype, cuda_device)
+    x, _, _, _ = _layout_inputs(op, 96, cuda_device, 9)
+    kernel = _COUNTED[layout]
+    before = kernel.launches
+    got = cheby_finals(op, x, K)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + K - 1
+    want = cheby_finals(dataclasses.replace(op, use_pallas=False), x, K)
+    if dtype == "int8":
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("layout", ["uniform", "ragged"])
+@pytest.mark.parametrize("int8", [False, True])
+def test_layout_serving_through_kernel_matches_plain_version(
+        city96, cuda_device, layout, int8):
+    """Served logits through K5 or K6 (4 launches for K=5) against the
+    same operator's plain version on the CPU.  The int8 operator is
+    quantized before it gets ``use_pallas``, so that the ragged one
+    keeps K6 (quantizing a ragged ``use_pallas`` operator adds the dkw
+    twin, as in JAX)."""
+    op = _layout_operator(city96, layout, "int8" if int8 else "bfloat16",
+                          cuda_device)
+    model = NodeClassifier(op, 32, 8, hidden=[], K=5,
+                           generator=torch.Generator().manual_seed(0))
+    feats = torch.from_numpy(
+        np.random.default_rng(0).normal(size=(op.m, 32)).astype(np.float32))
+    serving = compile_serving(model, model.param_tree(),
+                              feats.to(cuda_device), int8=False)
+    kernel = _COUNTED[layout]
+    before = kernel.launches
+    got = serving(feats.to(cuda_device)).cpu()
+    assert kernel.launches == before + 4
+    want = compile_serving(serving.model, model.param_tree(), feats,
+                           int8=False)(feats)
+    tol = 1e-4 if int8 else 2**-6
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("K", [2, 7])
+def test_uniform_conv_gradients_through_kernel(city96, cuda_device, K):
+    """cheby_conv_banded's dx and dW through K5 on the card against the
+    plain version on the CPU, f32."""
+    op = _layout_operator(city96, "uniform", "float32", cuda_device)
+    rng = np.random.default_rng(K)
+    x = rng.normal(size=(2, op.m, 8)).astype(np.float32)
+    w = (rng.normal(size=(K, 8, 3)) * 0.3).astype(np.float32)
+    t = rng.normal(size=(2, op.m, 3)).astype(np.float32)
+    grads = []
+    for o, dev in ((op, cuda_device), (op.to("cpu"), "cpu")):
+        xt, wt = (torch.from_numpy(a).to(dev).requires_grad_() for a in (x, w))
+        before = banded_uniform.launches
+        y = cheby_conv_banded(xt, o, wt)
+        (y * torch.from_numpy(t).to(dev)).sum().backward()
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert banded_uniform.launches == before + 2 * (K - 1)
+        grads.append((xt.grad.cpu(), wt.grad.cpu()))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, atol=2e-3, rtol=1e-4)
+
+
+def test_host_built_banded_operator_takes_the_kernels(city96, cuda_device):
+    """use_pallas=None on a machine with a card: the host-built ragged
+    operator gets its dkw layout and, moved to the card, runs K1."""
+    op = device_laplacian(city96, fmt="banded")
+    assert op.use_pallas and op.bands_dkw is not None
+    op = op.to(cuda_device)
+    before = banded_dkw.launches
+    op.matmul(torch.zeros(op.m_padded, 16, device=cuda_device))
+    torch.cuda.synchronize()
+    assert banded_dkw.launches == before + 1
+
+
+def test_slope_time_on_the_card(cuda_device):
+    a = torch.randn(1024, 1024, device=cuda_device)
+
+    def make(u):
+        def chain(m):
+            for _ in range(u):
+                m = torch.tanh(m @ a)
+            return m
+        return chain
+
+    per, fixed = slope_time(make, (a,), units=(2, 6))
+    assert per > 0 and np.isfinite(fixed)

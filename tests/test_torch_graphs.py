@@ -102,7 +102,8 @@ class TestPacking:
         word (bf16 compared as raw 16-bit words)."""
         G = 4
         op = device_laplacian(city96, fmt="banded",
-                              dtype=getattr(torch, dtype), rows_per_step=G)
+                              dtype=getattr(torch, dtype), rows_per_step=G,
+                              use_pallas=True)
         op_j = jax_device_laplacian(city96, fmt="banded",
                                     dtype=getattr(jnp, dtype),
                                     use_pallas=True, rows_per_step=G)
@@ -121,7 +122,8 @@ class TestPacking:
     def test_quantized_band_byte_equal(self, city96, dtype):
         G = 2
         op = device_laplacian(city96, fmt="banded",
-                              dtype=getattr(torch, dtype), rows_per_step=G)
+                              dtype=getattr(torch, dtype), rows_per_step=G,
+                              use_pallas=True)
         op_j = jax_device_laplacian(city96, fmt="banded",
                                     dtype=getattr(jnp, dtype),
                                     use_pallas=True, rows_per_step=G)

@@ -43,9 +43,11 @@ FIN, CLASSES, K = 16, 4, 5
 @pytest.fixture(scope="module")
 def city():
     """9,216-node city graph, features from a NumPy seed, and the two
-    packages' operators chosen by fmt="auto" (banded, f32 band)."""
+    packages' operators chosen by fmt="auto" (banded, f32 band); the
+    port's with ``use_pallas`` so that its products run K1's plain
+    version, as on the card."""
     L, _ = graphs.city_graph(96, k=8, seed=0)
-    op = device_laplacian(L, fmt="auto")
+    op = device_laplacian(L, fmt="auto", use_pallas=True)
     op_j = jax_device_laplacian(L, fmt="auto")
     rng = np.random.default_rng(11)
     feats = rng.normal(size=(op.m, FIN)).astype(np.float32)
@@ -184,12 +186,14 @@ class TestGuards:
             "cnn_graph_tpu_torch.graphs.coarsening, "
             "cnn_graph_tpu_torch.data, cnn_graph_tpu_torch.data.mnist, "
             "cnn_graph_tpu_torch.ops, cnn_graph_tpu_torch.ops.cheby, "
+            "cnn_graph_tpu_torch.ops.band, cnn_graph_tpu_torch.ops.laplacian, "
             "cnn_graph_tpu_torch.ops.bsr, cnn_graph_tpu_torch.ops.packing, "
             "cnn_graph_tpu_torch.ops.pooling, cnn_graph_tpu_torch.models, "
             "cnn_graph_tpu_torch.models.chebnet, "
             "cnn_graph_tpu_torch.serve, cnn_graph_tpu_torch.convert, "
             "cnn_graph_tpu_torch.train, "
             "cnn_graph_tpu_torch.train.classification, "
+            "cnn_graph_tpu_torch.utils, cnn_graph_tpu_torch.utils.profiling, "
             "cnn_graph_tpu_torch._build, chip_smoke\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'cnn_graph_tpu')]\n"
