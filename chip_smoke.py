@@ -7,9 +7,10 @@ Phases, each fatal on failure (no CPU path, no fallback):
 1. require a CUDA device; print the card's name and power limit;
 2. build the banded kernels (csrc/band.cu: K1 on the deep-K-window
    layout, K5 on the uniform band, K6 on the flat ragged band), the
-   fused Chebyshev kernels (csrc/cheby_fused.cu) and the BSR kernels
-   (csrc/bsr.cu) from source, one nvcc each, started together; print
-   each kernel's registers and shared memory;
+   fused Chebyshev kernels (csrc/cheby_fused.cu), the BSR kernels
+   (csrc/bsr.cu) and the probes P1-P3 (csrc/probes.cu) from source, one
+   nvcc each, started together; print each kernel's registers and
+   shared memory;
 3. hold the banded kernel K1 against its plain PyTorch version on the real
    50,176-node serving operator at C = 512, for L@x and the hop 2L@x - x0,
    in int8 (bit-identical), bf16 (one bf16 ulp: both round an f32
@@ -43,7 +44,15 @@ Phases, each fatal on failure (no CPU path, no fallback):
    with f32 operators (the paper's) and with bf16 ones; check 1 K2 and
    0 K3 launches per request (layer 0, Fin = 1, takes the stacked path),
    finite [100, 10] logits, and the logits against the same requests
-   through operators whose fused conv runs the plain versions;
+   through operators whose fused conv runs the plain versions; then
+   serve the f32 model through compile_serving's defaults (int8=True):
+   every dense operator quantized (QuantDenseLaplacian), 4 requests
+   with 0 K2 and 0 K3 launches, finite logits equal to the same int8
+   serving on the CPU within 1e-4 of their max (the CPU path is held
+   to JAX's int8 ChebNet by tests/test_torch_chebnet.py), the int8 K=25
+   ``cheby_finals`` chain on the level-0 twin bit-identical on the card
+   and on the CPU, and the argmax agreement with the f32 logits within
+   0.005 of JAX's int8 ChebNet's on the same weights and requests;
 9. train that ChebNet (dropout 0.5, L2 5e-4) for 4 adam steps through
    train_classifier on one fixed batch of 100, with f32 and bf16
    operators; check 2 K2 and 1 K3 launches per step, a finite loss that
@@ -107,7 +116,20 @@ Phases, each fatal on failure (no CPU path, no fallback):
    for training the device time by part (K1, K5 or K4 by form, taps,
    dW, injections, casts, adam; K2 forward, K2 dx, K3, the stacked basis
    of ChebNet's layer 0, fc, adam); write each ``key_averages()`` table
-   to ``DIR/profile_<mode>.txt``.
+   to ``DIR/profile_<mode>.txt``;
+18. the probes (utils/probes.py, csrc/probes.cu): hold P1 (``mxu_probe``)
+   at every geometry of experiments/_probe.py main_mxu, P2
+   (``pred_probe``) in every variant of main_pred and P3
+   (``loopcost_probe``) at unroll 1, 2, 4 and 8 against their plain
+   versions on seeded operands (bf16 P1/P2 ones scaled by
+   ``probes.CHECK_SCALE``, so that a dropped carry shows), two
+   replicas, after 1 and 3 iterations (P3: 64 dots a call, 1 and 3
+   chained calls): int8 bit-identical, bf16 within one bf16 ulp after
+   1 and 2e-2 of the max after 3 (``probes.compare``); then time
+   cuBLAS's chained products (the ``peak`` rows) and each probe at one replica and at enough replicas
+   for two CTAs per SM, with its launches counted, and print each rate
+   with its share of the data sheet's peak and of the measured cuBLAS
+   peak.
 
 Each 50k scattered operator is freed after its phase.
 
@@ -154,6 +176,7 @@ from cnn_graph_tpu_torch.ops import (  # noqa: E402
     DenseLaplacian,
     QuantBandedLaplacian,
     QuantBlockSparseLaplacian,
+    QuantDenseLaplacian,
     banded_dkw,
     banded_dkw_reference,
     banded_ragged,
@@ -180,6 +203,7 @@ from cnn_graph_tpu_torch.train import (  # noqa: E402
     train_node_classifier,
 )
 from cnn_graph_tpu_torch.utils import (  # noqa: E402
+    probes,
     roofline,
     slope_time,
     spmm_roofline,
@@ -209,6 +233,11 @@ PLAIN_CHAIN_UNITS = (1, 3)  # the plain chain's K-blocks take ~0.1-0.2 s
 CHEB = dict(F=[32, 64], K=[25, 25], p=[4, 4], M=[512, 10], dropout=0.5,
             regularization=5e-4)
 CHEB_B, CHEB_SEED = 100, 2017
+# The share of phase 8's 400 requests on which the int8 ChebNet's argmax
+# equals the f32 one's, as JAX's quantize_model_operators ChebNet gives
+# it on the same seeded weights and requests (tests/test_torch_chebnet.py
+# test_phase8_int8_agreement_matches_jax, on the CPU): 347 of 400.
+CHEB_INT8_AGREEMENT = 0.8675
 CHEB_SOURCE = "cnn_graph_tpu_torch/csrc/cheby_fused.cu"
 CHEB_REPLACES = {"K2": "cnn_graph_tpu/ops/pallas_cheby.py:61",    # _kernel
                  "K3": "cnn_graph_tpu/ops/pallas_cheby.py:210"}  # _dw_kernel
@@ -224,6 +253,16 @@ BSR_REPLACES = {"K4": "cnn_graph_tpu/ops/pallas_spmm.py:129",  # colstream
 # 1 L@x and K-2 hops; layer 1's backward K-1 L@x (one per hop and one
 # for its L@x); layer 0's features need no gradient.
 BSR_STEP_FORMS = {"spmm": 2 + (K - 1), "hop": 2 * (K - 2)}
+# The probes (phase 18) and the Pallas probe each replaces.
+PROBE_SOURCE = "cnn_graph_tpu_torch/csrc/probes.cu"
+PROBE_REPLACES = {"mxu": "experiments/_probe.py:154",       # _mxu_probe
+                  "pred": "experiments/_probe.py:253",      # _pred_probe
+                  "loopcost": "experiments/_probe.py:393"}  # main_loopcost
+# Reduced counts: P1/P2 iterations of the longer timed chain (sq1024 an
+# eighth, at least 32), cuBLAS chain links, P3 chained calls of 2048
+# dots in the longer chain, and the plain versions' longer chains.
+PROBE_ITERS, PEAK_ITERS, PROBE_CALLS = 200, 20, 6
+PLAIN_PROBE_ITERS, PLAIN_PROBE_CALLS = 3, 2
 
 
 def check(ok: bool, what: str):
@@ -1041,6 +1080,61 @@ def chebnet_train_phase(model, params, batch, mode: str) -> dict:
             "plain_ms": cuda_ms(lambda: run(1, m=twin), 1)}
 
 
+def chebnet_int8_phase(model, params, reqs, f32_serving) -> dict:
+    """The default serving call, ``compile_serving(model, params, x)``:
+    int8, every dense operator its ``QuantDenseLaplacian`` twin, the
+    convs on the int8 streaming path with 0 K2 and 0 K3 launches, finite
+    logits equal to the same serving on the CPU within 1e-4 of their max,
+    and the int8 K=25 ``cheby_finals`` chain on the level-0 twin
+    bit-identical on the card and on the CPU (exact float64 accumulation,
+    one f32 emission).  The argmax agreement with the f32 serving over
+    all requests is held to JAX's at this configuration,
+    ``CHEB_INT8_AGREEMENT``, within 0.005 (2 of 400 rows: a near tie may
+    fall either way).  JAX's int8 ChebNet itself agrees on 86.75%
+    here, not the 95% its tests ask of a K=5 NodeClassifier
+    (tests/test_quant_formats.py:312-313): the int8 recurrence over 24
+    hops moves these random-weight logits by about 0.44 of their max.
+    The largest int8 - f32 difference is returned too."""
+    serving = compile_serving(model, params, reqs[0])
+    check(all(isinstance(o, QuantDenseLaplacian)
+              for o in serving.model.operators),
+          "chebnet int8: the default serving call left an operator "
+          "unquantized")
+    reset_cheby_launches()
+    logits = [serving(x) for x in reqs]
+    torch.cuda.synchronize()
+    launches = cheby_launches()
+    check(launches == (0, 0), f"chebnet int8: K2/K3 launches {launches}")
+    on_cpu = compile_serving(model, params, reqs[0].cpu())
+    same, rel, err = 0, 0.0, 0.0
+    for x, y in zip(reqs, logits):
+        check(tuple(y.shape) == (CHEB_B, CHEB["M"][-1])
+              and bool(torch.isfinite(y).all()), "chebnet int8: bad logits")
+        want = on_cpu(x.cpu())
+        e = float((y.cpu() - want).abs().max())
+        check(e <= 1e-4 * float(want.abs().max()), f"chebnet int8: card "
+              f"logits off the CPU's by {e:.3g}")
+        err = max(err, e)
+        f32 = f32_serving(x)
+        same += int((y.argmax(1) == f32.argmax(1)).sum())
+        rel = max(rel, float((y - f32).abs().max() / f32.abs().max()))
+    agree = same / (len(reqs) * CHEB_B)
+    check(abs(agree - CHEB_INT8_AGREEMENT) <= 0.005, f"chebnet int8: "
+          f"argmax agreement with f32 {agree:.4f}, JAX's "
+          f"{CHEB_INT8_AGREEMENT:.4f}")
+    q = serving.model.operators[0]
+    gen = torch.Generator(device=q.mat.device).manual_seed(5)
+    xq = q.quantize(2.0 * torch.randn(q.m_padded, FIN, generator=gen,
+                                      device=q.mat.device))
+    with torch.inference_mode():
+        chain = cheby_finals(q, xq, K)
+        chain_cpu = cheby_finals(q.to("cpu"), xq.cpu(), K)
+    check(chain.dtype == torch.int8 and torch.equal(chain.cpu(), chain_cpu),
+          "chebnet int8: the K=25 chain differs between card and CPU")
+    return {"launches": launches, "max_abs_err": err, "agreement": agree,
+            "max_rel_diff": rel, "ms": cuda_ms(lambda: serving(reqs[0]), 5)}
+
+
 # ------------------------------------------------ scattered BSR, K4, K7-K9
 
 
@@ -1208,6 +1302,128 @@ def bsr_train_phase(op, data) -> dict:
             "plain_ms": cuda_ms(lambda: run(1, m=twin), 1)}
 
 
+# ------------------------------------------------------- the probes P1-P3
+
+
+def probe_check_phase(dev) -> dict:
+    """Each probe kernel against its plain version on the same seeded
+    operands, two replicas, after 1 and 3 iterations (P3: 64 dots a
+    call, 1 and 3 chained calls from a random seed), held to
+    ``probes.compare``; bf16 P1 and P2 operands are scaled by
+    ``probes.CHECK_SCALE``, so that the carry and P2's injection dot move
+    the sums checked.  Returns ``{row name: (largest carry or output
+    error, largest error of P1's extra)}``."""
+    errs = {}
+    for name, (_, _, _, taps, _) in probes.MXU_SHAPES.items():
+        a, b = probes.mxu_operands(name, dev, check=True)
+        e = [0.0, 0.0]
+        for iters in (1, 3):
+            got = probes.mxu_probe(a, b, iters, taps, replicas=2)
+            want = probes.mxu_reference(a, b, iters, taps, replicas=2)
+            torch.cuda.synchronize()
+            for i in (0, 1):
+                e[i] = max(e[i], probes.compare(got[i], want[i], iters))
+        errs[f"probe_mxu_{name}"] = tuple(e)
+    pa, pb = probes.pred_operands(dev, check=True)
+    for name, (widths, cond) in probes.PRED_VARIANTS.items():
+        w = torch.tensor(widths, dtype=torch.int32, device=dev)
+        e = 0.0
+        for iters in (1, 3):
+            got = probes.pred_probe(w, pa, pb, iters, cond, replicas=2)
+            want = probes.pred_reference(widths, pa, pb, iters, cond,
+                                         replicas=2)
+            torch.cuda.synchronize()
+            e = max(e, probes.compare(got, want, iters))
+        errs[f"probe_pred_{name}"] = (e, None)
+    _, la, lb = probes.loopcost_operands(dev, replicas=2)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    seed = torch.randn(2, probes.TILE, 512, generator=gen,
+                       device=dev).to(torch.bfloat16)
+    for unroll in probes.LOOPCOST_UNROLLS:
+        got = want = seed
+        e = 0.0
+        for calls, tol_iters in ((1, 1), (2, 3)):
+            for _ in range(calls):
+                got = probes.loopcost_probe(got, la, lb, 64, unroll)
+                want = probes.loopcost_reference(want, la, lb, 64, unroll)
+            torch.cuda.synchronize()
+            e = max(e, probes.compare(got, want, tol_iters))
+        errs[f"probe_loopcost_u{unroll}"] = (e, None)
+    return errs
+
+
+def _probe_row(name, kind, err, recs, unit, **extra):
+    """A probe's ``kernels`` row: ``ms``, ``plain_ms`` and the bound at
+    the whole card's replicas, ``cta_ms`` at one replica; launches of
+    both timing runs."""
+    cta, card = recs.values()
+    return {"name": name, "route": "cuda", "source": PROBE_SOURCE,
+            "replaces": PROBE_REPLACES[kind],
+            "launches": card["launches"] + cta["launches"],
+            "max_abs_err": err[0], "ms": card["s"] * 1e3,
+            "plain_ms": card["plain_s"] * 1e3,
+            "bound_ms": card["bound_s"] * 1e3,
+            "bound_by": card["bound_by"], "library_ms": None, "unit": unit,
+            "replicas": card["replicas"], "ops_per_s": card["ops_per_s"],
+            "cta_ms": cta["s"] * 1e3, "cta_ops_per_s": cta["ops_per_s"],
+            **({"extra_max_abs_err": err[1]} if err[1] is not None else {}),
+            **extra}
+
+
+def probe_time_phase(errs: dict, gpu: str) -> list:
+    """cuBLAS's chained products, then every probe timed at one replica
+    and at the card's replicas (``probes.probe_rows``), each probe's
+    launch count set to 0 just before and read just after.  Returns the
+    ``kernels`` rows."""
+    library = probes.peaks(PEAK_ITERS)
+    for name, _, dt, _, variant in probes.PEAK_ROWS:
+        r = library[name]
+        print(f"peak {name} (cuBLAS{', ' + variant if variant else ''}): "
+              f"{r['s_per_iter'] * 1e6:.1f} us per product, "
+              f"{probes.shares(r['ops_per_s'], dt, variant=variant)} "
+              f"[{gpu}]", flush=True)
+    kernels = (probes.mxu_probe, probes.pred_probe, probes.loopcost_probe)
+    for f in kernels:
+        f.launches = 0
+    timed = {kind: probes.probe_rows(kind, iters, library, plain)
+             for kind, iters, plain in (
+                 ("mxu", PROBE_ITERS, PLAIN_PROBE_ITERS),
+                 ("pred", PROBE_ITERS, PLAIN_PROBE_ITERS),
+                 ("loopcost", PROBE_CALLS, PLAIN_PROBE_CALLS))}
+    torch.cuda.synchronize()
+    counted = [f.launches for f in kernels]
+    overhead = probes.loop_overhead(timed["loopcost"])
+    for reps, ov in overhead.items():
+        print(f"loopcost x{reps}: per-iteration overhead ~ {ov * 1e9:.1f} "
+              f"ns [{gpu}]", flush=True)
+    rows = []
+    for name, recs in timed["mxu"].items():
+        row = f"probe_mxu_{name}"
+        rows.append(_probe_row(
+            row, "mxu", errs[row], recs, "one iteration",
+            library_peak_share=recs[max(recs)]["ops_per_s"] / probes.peak_of(
+                library, probes.MXU_SHAPES[name][4])))
+    for name, recs in timed["pred"].items():
+        row = f"probe_pred_{name}"
+        rows.append(_probe_row(row, "pred", errs[row], recs, "one iteration",
+                               mean_w=recs[1]["mean_w"]))
+    for unroll, recs in timed["loopcost"].items():
+        cta, card = recs.values()
+        row = f"probe_loopcost_u{unroll}"
+        rows.append(_probe_row(
+            row, "loopcost", errs[row], recs,
+            f"one call of {probes.LOOPCOST_DOTS} dots",
+            ns_per_dot=card["s_per_dot"] * 1e9,
+            cta_ns_per_dot=cta["s_per_dot"] * 1e9,
+            overhead_ns={str(k): v * 1e9 for k, v in overhead.items()}))
+    for f, n, kind in zip(kernels, counted, ("mxu", "pred", "loopcost")):
+        want = sum(r["launches"] for r in rows
+                   if r["replaces"] == PROBE_REPLACES[kind])
+        check(n == want and n > 0, f"probe {kind}: {n} launches counted, "
+              f"rows hold {want}")
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile-dir", help="also trace requests and training "
@@ -1223,7 +1439,7 @@ def main() -> int:
 
     # Phase 2: one nvcc per source, all started together.
     t0 = time.perf_counter()
-    sources = ("band", "cheby_fused", "bsr")
+    sources = ("band", "cheby_fused", "bsr", "probes")
     with ThreadPoolExecutor(len(sources)) as pool:
         logs = dict(zip(sources, pool.map(_build.build, sources)))
     print(f"build: {', '.join(f'{n}.cu' for n in sources)} in "
@@ -1333,6 +1549,18 @@ def main() -> int:
         srv = chebnet_serve_phase(model, cparams, creqs, lab)
         trn = chebnet_train_phase(model, cparams, batch, lab)
         cheb[lab] = {"serve": srv, "train": trn}
+        if lab == "f32":
+            q8 = cheb["int8"] = chebnet_int8_phase(model, cparams, creqs,
+                                                   srv["serving"])
+            print(f"chebnet serve int8 (compile_serving defaults): "
+                  f"{N_REQUESTS} requests of {CHEB_B}, launches (K2, K3) "
+                  f"{q8['launches']}, max |card - CPU| "
+                  f"{q8['max_abs_err']:.3g}, K=25 int8 chain bit-identical "
+                  f"on card and CPU; argmax agreement with f32 "
+                  f"{q8['agreement']:.4f} (JAX's {CHEB_INT8_AGREEMENT}; "
+                  f"max |int8 - f32| "
+                  f"{q8['max_rel_diff']:.3g} of the f32 max); "
+                  f"{q8['ms']:.3f} ms per request [{gpu}]", flush=True)
         print(f"chebnet serve {lab}: {N_REQUESTS} requests of {CHEB_B}, "
               f"launches (K2, K3) {srv['launches']}, max |served - plain| "
               f"{srv['max_abs_err']:.3g}; {srv['ms']:.3f} ms per request "
@@ -1610,6 +1838,16 @@ def main() -> int:
                               {f"library_{graph}_{lab}": rec[lab]},
                               args.profile_dir, gpu)
 
+    # Phase 18: the probes against their plain versions, then timed.
+    t0 = time.perf_counter()
+    probe_errs = probe_check_phase(dev)
+    for name, (e, ex) in probe_errs.items():
+        print(f"probe check {name}: max_abs_err {e:.3g}"
+              + ("" if ex is None else f", extra {ex:.3g}"), flush=True)
+    probe_rows = probe_time_phase(probe_errs, gpu)
+    print(f"probes: checks and timing {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
     def band_row(name, lay, lab, rec, launches, **extra):
         return {"name": name, "route": "cuda", "source": SOURCE,
                 "replaces": REPLACES[lay], "launches": launches,
@@ -1739,7 +1977,7 @@ def main() -> int:
          **(f32_keys(csr[f"{key[:2]} f32"], "scattered")
             if f"{key[:2]} f32" in csr else {})}
         for key, rec in route_launches.items()
-    ]}
+    ] + probe_rows}
     for row in record["kernels"]:
         check(row["launches"] > 0, f"{row['name']}: no launch on its path")
     print(json.dumps(record))

@@ -11,10 +11,11 @@ runs where the JAX package is not installed; ``tests/test_torch_graphs.py``
 and ``tests/test_torch_chebnet.py`` hold them equal to the originals.
 
 ``knn`` defaults to the JAX package's exact ``algorithm="dense"`` route
-(``pdist`` and ``argsort``), whose tie-breaking the MNIST grid graph
-depends on.  Any other ``algorithm`` takes ``scipy.spatial.cKDTree``
-where the JAX package goes through scikit-learn: on the city graphs both
-give the same neighbours, distances and RCM order.
+(``pdist`` and ``argsort``, any SciPy metric), whose tie-breaking the
+MNIST grid graph depends on.  Any other ``algorithm`` takes
+``scipy.spatial.cKDTree`` (Euclidean only) where the JAX package goes
+through scikit-learn: on the city graphs both give the same neighbours,
+distances and RCM order.
 """
 
 from __future__ import annotations
@@ -45,18 +46,30 @@ def grid(m: int, dtype=np.float32) -> np.ndarray:
     return np.stack([cols.ravel(), rows.ravel()], axis=1).astype(dtype)
 
 
-def knn(z: np.ndarray, k: int = 4, algorithm: str = "dense"):
-    """Exact Euclidean k-nearest neighbours of every point, self excluded.
+def knn(z: np.ndarray, k: int = 4, metric: str = "euclidean",
+        algorithm: str = "dense"):
+    """Exact k-nearest neighbours of every point under ``metric``, self
+    excluded; the JAX package's signature.
 
-    ``algorithm="dense"`` builds the full distance matrix and argsorts it
-    (O(M^2) memory), exactly as the JAX package does, ties included; any
-    other value queries a ``cKDTree`` and scales to millions of points.
+    ``algorithm="dense"`` builds the full distance matrix with ``pdist``
+    (any SciPy metric, ``"cosine"`` included) and argsorts it (O(M^2)
+    memory), exactly as the JAX package does, ties included.  Any other
+    value queries a ``cKDTree``, which scales to millions of points but
+    serves ``"euclidean"`` only: the JAX package takes scikit-learn's
+    metrics there, and scikit-learn is not on the card's machine, so
+    another metric raises rather than fall back to Euclidean.
     Returns ``(dist, idx)`` of shape ``(M, k)``, nearest first."""
     if algorithm == "dense":
         d = scipy.spatial.distance.squareform(
-            scipy.spatial.distance.pdist(z, metric="euclidean"))
+            scipy.spatial.distance.pdist(z, metric=metric))
         order = np.argsort(d, axis=1)[:, 1:k + 1]
         return np.take_along_axis(d, order, axis=1), order
+    if metric != "euclidean":
+        raise ValueError(
+            f"knn(algorithm={algorithm!r}) serves metric 'euclidean' only, "
+            f"not {metric!r}: the JAX package takes scikit-learn's metrics "
+            "there, and scikit-learn is not on the card's machine; use "
+            "algorithm='dense' for other metrics")
     dist, idx = scipy.spatial.cKDTree(z).query(z, k=k + 1)
     return dist[:, 1:], idx[:, 1:]
 
@@ -80,9 +93,10 @@ def adjacency(dist: np.ndarray, idx: np.ndarray) -> scipy.sparse.csr_matrix:
     return W
 
 
-def knn_graph(z: np.ndarray, k: int = 8) -> scipy.sparse.csr_matrix:
+def knn_graph(z: np.ndarray, k: int = 8,
+              metric: str = "euclidean") -> scipy.sparse.csr_matrix:
     """Points -> Gaussian kNN adjacency through the dense ``knn``."""
-    return adjacency(*knn(z, k=k))
+    return adjacency(*knn(z, k=k, metric=metric))
 
 
 def laplacian(W: scipy.sparse.spmatrix,

@@ -12,6 +12,7 @@ package's: nested dicts and lists with tensors at the leaves.
 from __future__ import annotations
 
 import copy
+import math
 
 import torch
 from torch.profiler import record_function
@@ -52,10 +53,15 @@ def tree_leaves(tree) -> list:
 def trunc_normal(shape, std: float = 0.1, *, generator=None,
                  device=None) -> torch.Tensor:
     """Truncated normal(0, std) on ``[-2 std, 2 std]``, the reference's
-    default weight initializer, drawn from ``generator``."""
+    default weight initializer, drawn from ``generator`` by the inverse
+    CDF of one uniform draw per entry.  The same seed gives the same
+    weights under every torch version (``nn.init.trunc_normal_`` changed
+    its sampler between releases)."""
+    lo, hi = (math.erf(z / math.sqrt(2.0)) for z in (-2.0, 2.0))
     t = torch.empty(shape, dtype=torch.float32, device=device)
-    return torch.nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std,
-                                       generator=generator)
+    t.uniform_(lo, hi, generator=generator)
+    return t.erfinv_().mul_(std * math.sqrt(2.0)).clamp_(-2.0 * std,
+                                                         2.0 * std)
 
 
 def bias_init(shape, value: float = 0.1, *, device=None) -> torch.Tensor:
@@ -124,30 +130,35 @@ def map_operators(model, fn):
 def quantize_model_operators(model, sample_x: float = 1.0,
                              headroom: float = 2.0):
     """A shallow copy of ``model`` whose graph operators are replaced by
-    their int8 twins: banded and block-sparse operators are quantized, an
-    already quantized operator passes through, and any other format (the
-    dense one: ``quantize_dense`` is not ported yet) raises rather than
+    their int8 twins: banded, block-sparse and dense operators are
+    quantized, an already quantized operator passes through, and any
+    other format (none has a twin in the port yet) raises rather than
     serving unquantized."""
     from cnn_graph_tpu_torch.ops.laplacian import (
         BandedLaplacian,
         BlockSparseLaplacian,
+        DenseLaplacian,
         QuantBandedLaplacian,
         QuantBlockSparseLaplacian,
+        QuantDenseLaplacian,
         quantize_banded,
         quantize_block_sparse,
+        quantize_dense,
     )
 
     def q(op):
         if isinstance(op, BandedLaplacian):
             return quantize_banded(op, headroom=headroom, sample_x=sample_x)
+        if isinstance(op, DenseLaplacian):
+            return quantize_dense(op, headroom=headroom, sample_x=sample_x)
         if isinstance(op, BlockSparseLaplacian):
             return quantize_block_sparse(op, headroom=headroom,
                                          sample_x=sample_x)
-        if isinstance(op, (QuantBandedLaplacian, QuantBlockSparseLaplacian)):
+        if isinstance(op, (QuantBandedLaplacian, QuantBlockSparseLaplacian,
+                           QuantDenseLaplacian)):
             return op
         raise NotImplementedError(
-            f"no int8 twin for {type(op).__name__} in cnn_graph_tpu_torch yet "
-            "(quantize_dense: ROADMAP queue 1 item 8)"
+            f"no int8 twin for {type(op).__name__} in cnn_graph_tpu_torch yet"
         )
 
     return map_operators(model, q)

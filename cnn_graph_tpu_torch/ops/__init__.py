@@ -39,10 +39,12 @@ from cnn_graph_tpu_torch.ops.laplacian import (
     DenseLaplacian,
     QuantBandedLaplacian,
     QuantBlockSparseLaplacian,
+    QuantDenseLaplacian,
     cheby_finals,
     device_laplacian,
     quantize_banded,
     quantize_block_sparse,
+    quantize_dense,
 )
 from cnn_graph_tpu_torch.ops.pooling import avg_pool, max_pool
 
@@ -76,10 +78,12 @@ __all__ = [
     "DenseLaplacian",
     "QuantBandedLaplacian",
     "QuantBlockSparseLaplacian",
+    "QuantDenseLaplacian",
     "cheby_finals",
     "device_laplacian",
     "quantize_banded",
     "quantize_block_sparse",
+    "quantize_dense",
     "avg_pool",
     "max_pool",
 ]

@@ -19,12 +19,14 @@ Counterpart of ``cnn_graph_tpu/ops/laplacian.py``.  Ported so far:
   package's gather and segment-sum route in plain torch.
 * ``QuantBlockSparseLaplacian`` (:642) and ``quantize_block_sparse``
   (:713): its int8 serving twin.
+* ``QuantDenseLaplacian`` (:575) and ``quantize_dense`` (:617): the
+  dense operator's int8 serving twin.
 * ``device_laplacian`` (:1200) with the JAX package's format choice and
   its banded and BSR layouts.
 
 Operators are frozen dataclasses of tensors; ``.to(device)`` returns a
-copy on another device.  The BCOO format and the dense int8 twin
-(``quantize_dense``) are not ported: ROADMAP queue 1 item 8.
+copy on another device.  The BCOO format is not ported: ROADMAP queue 1
+item 7.
 """
 
 from __future__ import annotations
@@ -66,6 +68,8 @@ __all__ = [
     "BlockSparseLaplacian",
     "QuantBlockSparseLaplacian",
     "quantize_block_sparse",
+    "QuantDenseLaplacian",
+    "quantize_dense",
     "device_laplacian",
 ]
 
@@ -487,6 +491,53 @@ def quantize_block_sparse(op: BlockSparseLaplacian, headroom: float = 2.0,
     return QuantBlockSparseLaplacian(**fields)
 
 
+@dataclasses.dataclass(frozen=True)
+class QuantDenseLaplacian(QuantOpMixin):
+    """Int8 dense Laplacian for serving, the JAX package's dense twin
+    (:575): the zero-padded matrix in int8 with one global scale
+    ``mat_scale = max|L| / 127`` and the emission of the banded and BSR
+    twins.  JAX multiplies with ``jnp.dot`` outside any Pallas kernel, so
+    the product here is a plain torch matmul, on the device the tensors
+    are on."""
+
+    mat: torch.Tensor  # [Mp, Mp] int8
+    m: int
+    m_padded: int
+    nnz: int
+    mat_scale: float
+    act_scale: float
+    headroom: float = 2.0
+
+    def _call(self, x_q, x0_q):
+        # The exact accumulator (int32 in JAX): every partial sum is an
+        # integer far below 2^53, so float64 sums it exactly in any order
+        # on every device.
+        acc = torch.matmul(self.mat.to(torch.float64),
+                           x_q.to(torch.float64))
+        return _emit(acc, x0_q, None, self.mat_scale, torch.int8)
+
+    def to(self, device) -> QuantDenseLaplacian:
+        return dataclasses.replace(self, mat=self.mat.to(device))
+
+
+def quantize_dense(op: DenseLaplacian, headroom: float = 2.0,
+                   sample_x: float = 1.0) -> QuantDenseLaplacian:
+    """Quantize a DenseLaplacian for int8 inference (JAX :617): ``clip(
+    round(mat / s), +-127)`` in float32 with ``s = max|mat| / 127`` (1.0
+    for a zero matrix), on the matrix's device, byte-equal to the JAX
+    package's NumPy quantizer.  ``sample_x`` and ``headroom`` as in
+    ``quantize_banded``."""
+    mat = op.mat.to(torch.float32)
+    s = float(mat.abs().max()) / 127.0 if mat.numel() else 0.0
+    if s == 0.0:
+        s = 1.0
+    s32 = torch.tensor(s, dtype=torch.float32, device=mat.device)
+    q = torch.clamp(torch.round(mat / s32), -127, 127).to(torch.int8)
+    return QuantDenseLaplacian(
+        mat=q, m=op.m, m_padded=op.m_padded, nnz=op.nnz, mat_scale=s,
+        act_scale=float(sample_x) * headroom / 127.0, headroom=headroom)
+
+
 def _tensor(a: np.ndarray, device, dtype=None) -> torch.Tensor:
     """A host array on ``device``, converted to ``dtype`` there (a large
     block array crosses once, in its host dtype)."""
@@ -512,17 +563,22 @@ def device_laplacian(L: scipy.sparse.spmatrix, lmax: float = 2.0,
                      use_pallas: bool | None = None,
                      block_size: int | tuple | str = "auto",
                      chunked_rows: bool = False,
-                     col_stream: bool | None = None, ragged: bool = True):
-    """Build a device operator for the rescaled Laplacian ``2 L / lmax - I``.
+                     col_stream: bool | None = None, ragged: bool = True,
+                     rescale: bool = True,
+                     dense_threshold: int = DENSE_THRESHOLD):
+    """Build a device operator for the rescaled Laplacian ``2 L / lmax - I``
+    (``rescale=False``: for ``L`` as given, already rescaled).
 
     ``fmt`` is ``dense``, ``banded``, ``bsr`` or ``auto``: dense up to
-    ``DENSE_THRESHOLD`` nodes, banded for narrow, reasonably full bands,
+    ``dense_threshold`` nodes, banded for narrow, reasonably full bands,
     dense again above 1/3 block occupancy within ``dense_budget`` bytes,
     else BSR; with a ``block_size`` other than ``"auto"`` or 128, ``auto``
     goes to BSR straight away (laplacian.py:1240-1277).  These thresholds
     are the JAX package's, tuned on a TPU v5e; they are kept word for word
     for parity and are to be re-tuned on Hopper.  ``rows_per_step`` is the
-    banded layout's G (default ``min(8, block rows)``).
+    banded layout's G (default ``min(8, block rows)``).  The banded
+    layouts hold 128x128 blocks only, the one shape the CUDA kernels
+    take: ``fmt="banded"`` with another ``block_size`` raises.
 
     ``use_pallas`` keeps the JAX name.  A dense operator built with it
     true takes the fused conv kernels (``use_fused``); a banded operator
@@ -547,14 +603,16 @@ def device_laplacian(L: scipy.sparse.spmatrix, lmax: float = 2.0,
     ``group_max`` tail (``choose_bsr_row_group``).  The layouts, paddings
     and tails are the JAX package's, byte for byte.
     """
-    L = rescale_laplacian(L, lmax=lmax).tocsr()
+    if rescale:
+        L = rescale_laplacian(L, lmax=lmax)
+    L = L.tocsr()
     L.eliminate_zeros()
     m = L.shape[0]
     nnz = int(L.nnz)
 
     stats = None
     if fmt == "auto":
-        if m <= DENSE_THRESHOLD:
+        if m <= dense_threshold:
             fmt = "dense"
         elif block_size == "auto" or (isinstance(block_size, int)
                                       and block_size == packing.BLOCK):
@@ -582,6 +640,15 @@ def device_laplacian(L: scipy.sparse.spmatrix, lmax: float = 2.0,
         )
 
     if fmt == "banded":
+        shape = (tuple(block_size) if isinstance(block_size, (list, tuple))
+                 else block_size)
+        if shape not in ("auto", packing.BLOCK,
+                         (packing.BLOCK, packing.BLOCK)):
+            raise ValueError(
+                f"banded block_size {block_size!r}: the banded CUDA kernels "
+                f"take {packing.BLOCK}x{packing.BLOCK} blocks only (pass "
+                f"'auto', {packing.BLOCK} or ({packing.BLOCK}, "
+                f"{packing.BLOCK}))")
         return _banded_laplacian(L, m, nnz, dtype, device, use_pallas,
                                  rows_per_step, ragged, stats)
 

@@ -19,9 +19,11 @@ __all__ = ["H100_BYTES_PER_S", "H100_OPS_PER_S", "slope_time",
 
 H100_BYTES_PER_S = 3.35e12
 # Operations per second by the operands' type: tensor cores for bf16 and
-# int8; float32 is computed in exact f32 by FMA outside the tensor cores.
+# int8; float32 is computed in exact f32 by FMA outside the tensor cores;
+# "tf32" is the tensor cores' rate for f32 products taken in TF32, which
+# only the probes' library rows (utils/probes.py peak_probe) ask for.
 H100_OPS_PER_S = {torch.bfloat16: 989e12, torch.int8: 1979e12,
-                  torch.float32: 67e12}
+                  torch.float32: 67e12, "tf32": 495e12}
 
 
 def slope_time(make_fn, args=(), units=(2, 16), reps: int = 3):

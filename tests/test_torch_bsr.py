@@ -28,9 +28,11 @@ from cnn_graph_tpu.models import NodeClassifier as JaxNodeClassifier
 from cnn_graph_tpu.models.common import (
     quantize_model_operators as jax_quantize_model_operators,
 )
+from cnn_graph_tpu.ops import cheby_finals as jax_cheby_finals
 from cnn_graph_tpu.ops import device_laplacian as jax_device_laplacian
 from cnn_graph_tpu.ops import laplacian as jax_lap
 from cnn_graph_tpu.ops import quantize_block_sparse as jax_quantize_bsr
+from cnn_graph_tpu.ops import quantize_dense as jax_quantize_dense
 from cnn_graph_tpu.ops.pallas_spmm import (
     _bsr_spmm_impl,
     _colstream_call,
@@ -45,16 +47,21 @@ from cnn_graph_tpu_torch.models import NodeClassifier
 from cnn_graph_tpu_torch.models.common import quantize_model_operators
 from cnn_graph_tpu_torch.ops import (
     BlockSparseLaplacian,
+    DenseLaplacian,
     QuantBlockSparseLaplacian,
+    QuantDenseLaplacian,
     bsr_cheby_hop,
     bsr_colstream,
     bsr_colstream_reference,
     bsr_csr,
     bsr_csr_reference,
     bsr_spmm,
+    cheby_conv,
+    cheby_finals,
     device_laplacian,
     packing,
     quantize_block_sparse,
+    quantize_dense,
 )
 from cnn_graph_tpu_torch.serve import compile_serving
 
@@ -499,6 +506,86 @@ class TestQuantTwin:
         with pytest.raises(ValueError, match="no kernel"):
             bsr_colstream(cs.blocks, cs.cs_meta, cs.cs_gcols, cs.cs_gcolptr,
                           cs.cs_groupptr, x, G=cs.rows_per_step)
+
+
+# ---------------------------------------------------------- dense int8 twin
+
+
+@pytest.fixture(scope="module")
+def dense_pair(g900):
+    """The 900-node scattered graph as the port's and JAX's dense operator
+    and int8 twin (tests/test_quant_formats.py:250-268)."""
+    op = device_laplacian(g900, fmt="dense")
+    op_j = jax_device_laplacian(g900, fmt="dense")
+    return op, op_j, quantize_dense(op, sample_x=3.0), jax_quantize_dense(
+        op_j, sample_x=3.0)
+
+
+class TestQuantDense:
+    def test_matrix_and_scales_equal_jax(self, dense_pair):
+        *_, q, q_j = dense_pair
+        assert isinstance(q, QuantDenseLaplacian)
+        assert q.mat.dtype == torch.int8
+        np.testing.assert_array_equal(q.mat.numpy(), np.asarray(q_j.mat))
+        assert q.mat_scale == q_j.mat_scale
+        assert (q.act_scale, q.headroom, q.m, q.m_padded, q.nnz) == (
+            q_j.act_scale, q_j.headroom, q_j.m, q_j.m_padded, q_j.nnz)
+
+    @pytest.mark.parametrize("hop", [False, True])
+    def test_carries_bit_identical_to_jax(self, dense_pair, hop):
+        """spmm_q and cheby_hop_q on the same int8 inputs: the exact
+        accumulator and one f32 emission, as JAX's int32 ``jnp.dot``."""
+        *_, q, q_j = dense_pair
+        x, x0 = _inputs(q.m_padded, 13, scale=2.0)
+        xq, x0q = (np.array(q_j.quantize(jnp.asarray(v))) for v in (x, x0))
+        np.testing.assert_array_equal(q.quantize(torch.from_numpy(x)).numpy(),
+                                      xq)
+        if hop:
+            got = q.cheby_hop_q(torch.from_numpy(xq), torch.from_numpy(x0q))
+            want = q_j.cheby_hop_q(jnp.asarray(xq), jnp.asarray(x0q))
+        else:
+            got = q.spmm_q(torch.from_numpy(xq))
+            want = q_j.spmm_q(jnp.asarray(xq))
+        assert got.dtype == torch.int8
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+    def test_chain_bit_identical_to_jax(self, dense_pair):
+        *_, q, q_j = dense_pair
+        x = _inputs(q.m_padded, 14)[0]
+        got = cheby_finals(q, q.quantize(torch.from_numpy(x)), 6)
+        want = jax_cheby_finals(q_j, q_j.quantize(jnp.asarray(x)), 6)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+    def test_float_view_and_conv_within_jax_bounds(self, dense_pair):
+        """The JAX test's bounds (tests/test_quant_formats.py:252-268):
+        the float view within 0.05 and the int8 conv within 0.08 of the
+        float operator's, relative to its max."""
+        op, _, q, _ = dense_pair
+        rng = np.random.default_rng(7)
+        X = torch.from_numpy(rng.normal(size=(op.m_padded, 64)).astype(
+            np.float32))
+        f32 = op.matmul(X)
+        rel = float((q.matmul(X) - f32).abs().max() / f32.abs().max())
+        assert rel < 0.05, rel
+        x = torch.from_numpy(rng.normal(size=(2, op.m, 8)).astype(np.float32))
+        w = torch.from_numpy((rng.normal(size=(5, 8, 6)) * 0.2).astype(
+            np.float32))
+        with torch.no_grad():
+            yq, yf = cheby_conv(x, q, w), cheby_conv(x, op, w)
+        rel = float((yq - yf).abs().max() / yf.abs().max())
+        assert rel < 0.08, rel
+
+    def test_quantize_model_operators_maps_dense(self, dense_pair):
+        op, *_ = dense_pair
+        model = quantize_model_operators(NodeClassifier(op, 4, 2, hidden=[],
+                                                        K=2))
+        assert isinstance(model.op, QuantDenseLaplacian)
+        assert quantize_model_operators(model).op is model.op
+
+    def test_zero_matrix_takes_scale_one(self):
+        op = DenseLaplacian(mat=torch.zeros(8, 8), m=8, m_padded=8, nnz=0)
+        q = quantize_dense(op)
+        assert q.mat_scale == 1.0 and not bool(q.mat.any())
 
 
 # --------------------------------------------------------------- the model

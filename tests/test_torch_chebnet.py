@@ -16,6 +16,9 @@ Tolerances: graphs, permutations and data exact; logits ``rtol=atol=
 ``rtol=1e-4, atol=1e-6``; adam losses within rel 1e-4 of optax's."""
 
 import dataclasses
+import importlib.util
+import pathlib
+import types
 
 import jax
 import jax.numpy as jnp
@@ -29,17 +32,38 @@ from cnn_graph_tpu.data.mnist import synthetic_mnist as jax_synthetic_mnist
 from cnn_graph_tpu.graphs import coarsening as jax_coarsening
 from cnn_graph_tpu.graphs import construction as gc
 from cnn_graph_tpu.models import ChebNet as JaxChebNet
+from cnn_graph_tpu.models.common import (
+    quantize_model_operators as jax_quantize_model_operators,
+)
 from cnn_graph_tpu.ops import device_laplacian as jax_device_laplacian
 from cnn_graph_tpu_torch import graphs
 from cnn_graph_tpu_torch.convert import chebnet_params_from_jax
 from cnn_graph_tpu_torch.data import mnist_graph_data, synthetic_mnist
 from cnn_graph_tpu_torch.models import ChebNet
-from cnn_graph_tpu_torch.models.common import tree_leaves, tree_map
-from cnn_graph_tpu_torch.ops import DenseLaplacian, device_laplacian
+from cnn_graph_tpu_torch.models.common import (
+    map_operators,
+    tree_leaves,
+    tree_map,
+    trunc_normal,
+)
+from cnn_graph_tpu_torch.ops import (
+    DenseLaplacian,
+    QuantDenseLaplacian,
+    device_laplacian,
+)
 from cnn_graph_tpu_torch.serve import compile_serving
 from cnn_graph_tpu_torch.train import train_classifier
 
 ARCH = dict(F=[32, 64], K=[3, 3], p=[4, 4], M=[512, 10])
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module, for its phase-8 configuration."""
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def _same_sparse(a, b):
@@ -162,6 +186,22 @@ class TestChebNet:
                 model.param_tree(), x))
             assert model.predict_classes(model.param_tree(), x).shape == (2,)
 
+    def test_trunc_normal_is_the_same_under_every_torch_version(self):
+        """The seeded initializer draws one uniform per entry and maps it
+        through the inverse CDF: these values came out of torch 2.11 and
+        2.13 alike (``nn.init.trunc_normal_`` gives other weights under
+        each), so a model made from a seed is the same model on both."""
+        t = trunc_normal((6,), generator=torch.Generator().manual_seed(0))
+        np.testing.assert_array_equal(t.numpy(), np.float32(
+            [-0.000895651348400861, 0.06935495883226395,
+             -0.12415473163127899, -0.10417095571756363,
+             -0.047839339822530746, 0.03265029564499855]))
+        big = trunc_normal((100_000,), std=0.5,
+                           generator=torch.Generator().manual_seed(1))
+        assert float(big.abs().max()) <= 1.0
+        # std of N(0, 0.5) truncated at 2 std: 0.5 * 0.8796
+        assert abs(float(big.std()) - 0.5 * 0.8796) < 3e-3
+
     def test_adam_losses_match_optax(self, mnist):
         """3 adam steps over batches of 4 (the port's wrap-around batch
         order, replayed on the JAX side) against ``optax.adam``."""
@@ -238,11 +278,86 @@ class TestServing:
             serving(x[:1])
 
     def test_int8_on_dense_operators_raises(self, mnist):
+        """Dense operators have their int8 twin now: ``int8=True`` serves
+        them quantized.  What still raises is an operator with no twin,
+        rather than serve it unquantized."""
         data, *_ = mnist
         model, *_ = _models(mnist)
         x = torch.from_numpy(data["test_data"][:2])
-        with pytest.raises(NotImplementedError, match="DenseLaplacian"):
-            compile_serving(model, model.param_tree(), x, int8=True)
+        serving = compile_serving(model, model.param_tree(), x, int8=True)
+        assert all(isinstance(o, QuantDenseLaplacian)
+                   for o in serving.model.operators)
+        odd = map_operators(model, lambda o: types.SimpleNamespace(m=o.m))
+        with pytest.raises(NotImplementedError, match="SimpleNamespace"):
+            compile_serving(odd, model.param_tree(), x, int8=True)
+
+    def test_default_serving_is_int8_and_matches_jax(self):
+        """The paper's ChebNet, small: ``grid(12)``, 8-NN, 2 coarsening
+        levels, F=[4, 8], K=[5, 5].  ``compile_serving`` with its default
+        arguments quantizes every dense operator; the logits equal JAX's
+        ``quantize_model_operators`` ChebNet on the same converted
+        weights within 1e-4 of their max (the int8 carries are the same
+        bits; the f32 taps sum in another order)."""
+        W = gc.knn_graph(gc.grid(12), k=8)
+        Ws, perm = graphs.coarsen(W, levels=2, seed=2017)
+        Ls = [graphs.laplacian(A, normalized=True) for A in Ws]
+        arch = dict(F=[4, 8], K=[5, 5], p=[2, 2], M=[16, 10])
+        model_j = JaxChebNet([jax_device_laplacian(L, fmt="dense")
+                              for L in Ls], **arch)
+        params_j = jax.tree.map(np.asarray,
+                                model_j.init(jax.random.PRNGKey(3)))
+        model = ChebNet([device_laplacian(L, fmt="dense", use_pallas=True)
+                         for L in Ls], **arch)
+        rng = np.random.default_rng(11)
+        x = graphs.perm_data(rng.normal(size=(6, 144)), perm).astype(
+            np.float32)
+        serving = compile_serving(model, chebnet_params_from_jax(params_j),
+                                  torch.from_numpy(x))
+        assert all(isinstance(o, QuantDenseLaplacian)
+                   for o in serving.model.operators)
+        got = serving(torch.from_numpy(x)).numpy()
+        qmodel_j = jax_quantize_model_operators(
+            model_j, sample_x=float(np.abs(x).max()))
+        want = np.asarray(qmodel_j.apply(params_j, jnp.asarray(x)))
+        assert got.shape == want.shape == (6, 10)
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=1e-4 * float(np.abs(want).max()))
+
+    def test_phase8_int8_agreement_matches_jax(self):
+        """chip_smoke.py phase 8's int8 request at its full size: the
+        paper's MNIST ChebNet (F=[32, 64], K=[25, 25]) with its seeded
+        weights, 4 requests of 100 digits.  The port's int8 and f32
+        logits equal JAX's (``quantize_model_operators`` and the f32
+        model, on the same weights) within 1e-4 of their max, and the
+        int8 argmax agrees with the f32 one on the same rows in both:
+        ``CHEB_INT8_AGREEMENT`` of them, the figure the chip run is held
+        to."""
+        cs = _chip_smoke()
+        splits = synthetic_mnist(n_train=cs.CHEB_B, n_val=0,
+                                 n_test=cs.N_REQUESTS * cs.CHEB_B,
+                                 seed=cs.CHEB_SEED)
+        data, Ls, _ = mnist_graph_data(splits, seed=cs.CHEB_SEED)
+        model, params = cs.chebnet_model(Ls, torch.float32,
+                                         torch.device("cpu"))
+        reqs = list(torch.from_numpy(data["test_data"]).split(cs.CHEB_B))
+        f32 = compile_serving(model, params, reqs[0], int8=False)
+        q8 = compile_serving(model, params, reqs[0])
+        got = [np.concatenate([s(x).numpy() for x in reqs]) for s in (f32,
+                                                                      q8)]
+        model_j = JaxChebNet([jax_device_laplacian(L, fmt="dense")
+                              for L in Ls], **cs.CHEB)
+        params_j = tree_map(lambda t: t.detach().numpy(), params)
+        qmodel_j = jax_quantize_model_operators(
+            model_j, sample_x=float(reqs[0].abs().max()))
+        want = [np.concatenate([np.asarray(m.apply(params_j, jnp.asarray(
+            x.numpy()))) for x in reqs]) for m in (model_j, qmodel_j)]
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g, w, rtol=0,
+                                       atol=1e-4 * float(np.abs(w).max()))
+        agree = (got[0].argmax(1) == got[1].argmax(1)).mean()
+        agree_j = (want[0].argmax(1) == want[1].argmax(1)).mean()
+        assert agree == agree_j == pytest.approx(cs.CHEB_INT8_AGREEMENT,
+                                                 abs=1e-12)
 
     def test_unfused_operators_serve_the_same_logits(self, mnist):
         """``use_pallas=False`` operators take the stacked path in every

@@ -41,10 +41,11 @@ from cnn_graph_tpu_torch.ops import (
     fused_filter,
     quantize_banded,
     quantize_block_sparse,
+    quantize_dense,
 )
 from cnn_graph_tpu_torch.ops.band import layout_call
 from cnn_graph_tpu_torch.serve import compile_serving
-from cnn_graph_tpu_torch.utils import slope_time
+from cnn_graph_tpu_torch.utils import probes, slope_time
 
 pytestmark = pytest.mark.gpu
 
@@ -659,3 +660,81 @@ def test_slope_time_on_the_card(cuda_device):
 
     per, fixed = slope_time(make, (a,), units=(2, 6))
     assert per > 0 and np.isfinite(fixed)
+
+
+# ------------------------------------------- the probes (P1-P3) and the
+# dense int8 twin
+
+
+@pytest.mark.parametrize("name", list(probes.MXU_SHAPES))
+def test_mxu_probe_matches_reference(cuda_device, name):
+    """P1 at every geometry of main_mxu, two replicas, after 1 and 3
+    iterations (``probes.compare``: int8 bit-identical, bf16 one ulp
+    then 2e-2 of the max), bf16 on the check operands, where the carry
+    counts."""
+    m, k, n, taps, _ = probes.MXU_SHAPES[name]
+    a, b = probes.mxu_operands(name, cuda_device, check=True)
+    for iters in (1, 3):
+        before = probes.mxu_probe.launches
+        got = probes.mxu_probe(a, b, iters, taps, replicas=2)
+        torch.cuda.synchronize()
+        assert probes.mxu_probe.launches == before + 1
+        want = probes.mxu_reference(a, b, iters, taps, replicas=2)
+        for g, w in zip(got, want):
+            probes.compare(g, w, iters)
+        if m == 128:
+            assert not bool(got[1].any())
+
+
+@pytest.mark.parametrize("variant", list(probes.PRED_VARIANTS))
+def test_pred_probe_matches_reference(cuda_device, variant):
+    widths, cond = probes.PRED_VARIANTS[variant]
+    a, b = probes.pred_operands(cuda_device, check=True)
+    w = torch.tensor(widths, dtype=torch.int32, device=cuda_device)
+    for iters in (1, 3, 11):
+        got = probes.pred_probe(w, a, b, iters, cond, replicas=2)
+        probes.compare(got, probes.pred_reference(widths, a, b, iters, cond,
+                                                  replicas=2), iters)
+
+
+@pytest.mark.parametrize("unroll", probes.LOOPCOST_UNROLLS)
+def test_loopcost_probe_matches_reference(cuda_device, unroll):
+    """P3 with 64 dots per call, chained over 1 and 3 calls."""
+    seed, a, b = probes.loopcost_operands(cuda_device, replicas=2)
+    seed = torch.randn(seed.shape, device=cuda_device).to(torch.bfloat16)
+    got = want = seed
+    for calls in (1, 2):
+        for _ in range(calls):
+            got = probes.loopcost_probe(got, a, b, 64, unroll)
+            want = probes.loopcost_reference(want, a, b, 64, unroll)
+        probes.compare(got, want, 1 if calls == 1 else 3)
+
+
+def test_probes_reject_bad_arguments(cuda_device):
+    a, b = probes.mxu_operands("tap9_bf16", cuda_device)
+    with pytest.raises(ValueError):
+        probes.mxu_probe(a, b, 1, 3)
+    with pytest.raises(TypeError):
+        probes.mxu_probe(a, b.to(torch.int8), 1, 9)
+    pa, pb = probes.pred_operands(cuda_device)
+    with pytest.raises(ValueError, match="widths"):
+        probes.pred_probe(torch.tensor([9], device=cuda_device), pa, pb, 1)
+    seed, la, lb = probes.loopcost_operands(cuda_device)
+    with pytest.raises(ValueError):
+        probes.loopcost_probe(seed, la, lb, 20, 8)
+
+
+def test_dense_int8_twin_bit_identical_on_card_and_cpu(knn203, cuda_device):
+    """``QuantDenseLaplacian``: spmm_q, cheby_hop_q and a cheby_finals
+    chain on the card equal the same calls on the CPU bit for bit (exact
+    float64 accumulation, one f32 emission)."""
+    op = device_laplacian(knn203, fmt="dense")
+    q = quantize_dense(op, sample_x=3.0)
+    qc = q.to(cuda_device)
+    g = torch.Generator().manual_seed(3)
+    x, x0 = (q.quantize(torch.randn(q.m_padded, 37, generator=g) * 2)
+             for _ in range(2))
+    xc, x0c = x.to(cuda_device), x0.to(cuda_device)
+    assert torch.equal(qc.spmm_q(xc).cpu(), q.spmm_q(x))
+    assert torch.equal(qc.cheby_hop_q(xc, x0c).cpu(), q.cheby_hop_q(x, x0))
+    assert torch.equal(cheby_finals(qc, xc, 9).cpu(), cheby_finals(q, x, 9))

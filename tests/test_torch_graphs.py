@@ -57,12 +57,75 @@ class TestGraphConstruction:
         _same_sparse(graphs.rescale_laplacian(L, lmax=3.0),
                      gc.rescale_laplacian(L, lmax=3.0), 0.0)
 
+    def test_knn_takes_the_metric_positionally_as_jax(self):
+        """``knn(z, 5, "cosine")``: the third positional argument is the
+        metric in both packages (it once landed in ``algorithm`` and gave
+        Euclidean neighbours)."""
+        z = np.random.default_rng(8).normal(size=(120, 16))
+        dist, idx = graphs.knn(z, 5, "cosine")
+        dist_j, idx_j = gc.knn(z, 5, "cosine")
+        np.testing.assert_array_equal(idx, idx_j)
+        np.testing.assert_allclose(dist, dist_j, rtol=0, atol=1e-12)
+        assert not np.array_equal(idx, graphs.knn(z, 5)[1])
+        _same_sparse(graphs.knn_graph(z, k=6, metric="cosine"),
+                     gc.knn_graph(z, k=6, metric="cosine"), 1e-12)
+
+    @pytest.mark.parametrize("algorithm", ["auto", "kd_tree"])
+    def test_tree_knn_refuses_other_metrics(self, algorithm):
+        z = np.random.default_rng(9).normal(size=(50, 4))
+        with pytest.raises(ValueError, match="scikit-learn"):
+            graphs.knn(z, 5, "cosine", algorithm=algorithm)
+
     def test_rcm_permutation(self):
         z = np.random.default_rng(7).uniform(size=(400, 2))
         W = graphs.adjacency(*graphs.knn(z, k=8))
         np.testing.assert_array_equal(
             graphs.bandwidth_reducing_permutation(W),
             gc.bandwidth_reducing_permutation(W))
+
+
+class TestDeviceLaplacianArguments:
+    @pytest.mark.parametrize("block_size", [64, (128, 64), (64, 64), 256])
+    def test_banded_refuses_other_block_shapes(self, block_size):
+        L, _ = graphs.city_graph(20, k=4, seed=0)
+        with pytest.raises(ValueError, match="128x128"):
+            device_laplacian(L, fmt="banded", block_size=block_size)
+
+    @pytest.mark.parametrize("block_size", ["auto", 128, (128, 128)])
+    def test_banded_takes_128_blocks(self, block_size):
+        L, _ = graphs.city_graph(20, k=4, seed=0)
+        op = device_laplacian(L, fmt="banded", block_size=block_size)
+        assert op.band.shape[-2:] == (128, 128) and op.m_padded % 128 == 0
+
+    def test_auto_with_other_blocks_still_goes_to_bsr(self):
+        """JAX's rule: ``fmt="auto"`` with a block size other than 128
+        skips the band (laplacian.py:1249-1277)."""
+        L, _ = graphs.city_graph(48, k=8, seed=0)
+        op = device_laplacian(L, block_size=64)
+        op_j = jax_device_laplacian(L, block_size=64, use_pallas=False)
+        assert type(op).__name__ == type(op_j).__name__ == (
+            "BlockSparseLaplacian")
+        assert op.block_shape == tuple(op_j.block_shape) == (64, 64)
+
+    def test_dense_without_rescale_is_jax_matrix(self):
+        L, _ = graphs.city_graph(14, k=4, seed=0)
+        op = device_laplacian(L, fmt="dense", rescale=False)
+        op_j = jax_device_laplacian(L, fmt="dense", rescale=False)
+        np.testing.assert_array_equal(op.mat.numpy(), np.asarray(op_j.mat))
+        np.testing.assert_array_equal(op.mat[:196, :196].numpy(),
+                                      L.toarray().astype(np.float32))
+        assert op.nnz == op_j.nnz == L.nnz
+
+    @pytest.mark.parametrize("side,want", [(14, "DenseLaplacian"),
+                                           (20, "BandedLaplacian")])
+    def test_auto_dense_threshold_picks_jax_format(self, side, want):
+        """196 nodes fall under ``dense_threshold=256``, 400 above it; the
+        default threshold (2048) would take both dense."""
+        L, _ = graphs.city_graph(side, k=4, seed=0)
+        op = device_laplacian(L, dense_threshold=256)
+        op_j = jax_device_laplacian(L, dense_threshold=256, use_pallas=False)
+        assert type(op).__name__ == type(op_j).__name__ == want
+        assert type(device_laplacian(L)).__name__ == "DenseLaplacian"
 
 
 class TestPacking:

@@ -10,6 +10,7 @@ themselves bit-exact."""
 import os
 import subprocess
 import sys
+import types
 
 import jax
 import jax.numpy as jnp
@@ -194,6 +195,7 @@ class TestGuards:
             "cnn_graph_tpu_torch.train, "
             "cnn_graph_tpu_torch.train.classification, "
             "cnn_graph_tpu_torch.utils, cnn_graph_tpu_torch.utils.profiling, "
+            "cnn_graph_tpu_torch.utils.probes, "
             "cnn_graph_tpu_torch._build, chip_smoke\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'cnn_graph_tpu')]\n"
@@ -224,9 +226,14 @@ class TestGuards:
         assert type(op).__name__ == "BlockSparseLaplacian"
 
     def test_quantize_unported_format_raises(self):
+        """The dense operator, once without a twin, quantizes now; an
+        operator of a format with no twin still raises."""
         L, _ = graphs.city_graph(20, k=4, seed=0)
         model = NodeClassifier(device_laplacian(L), 4, 2, hidden=[], K=2)
-        with pytest.raises(NotImplementedError, match="DenseLaplacian"):
+        assert type(quantize_model_operators(model).op).__name__ == (
+            "QuantDenseLaplacian")
+        model.op = types.SimpleNamespace(m=L.shape[0])
+        with pytest.raises(NotImplementedError, match="SimpleNamespace"):
             quantize_model_operators(model)
         with pytest.raises(NotImplementedError):
             compile_serving(model, model.param_tree(),
