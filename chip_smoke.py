@@ -7,10 +7,11 @@ Phases, each fatal on failure (no CPU path, no fallback):
 1. require a CUDA device; print the card's name and power limit;
 2. build the banded kernels (csrc/band.cu: K1 on the deep-K-window
    layout, K5 on the uniform band, K6 on the flat ragged band), the
-   fused Chebyshev kernels (csrc/cheby_fused.cu), the BSR kernels
-   (csrc/bsr.cu) and the probes P1-P3 (csrc/probes.cu) from source, one
-   nvcc each, started together; print each kernel's registers and
-   shared memory;
+   fused Chebyshev kernels (csrc/cheby_fused.cu), the BSR operators'
+   row-sparse gather kernel (csrc/bsr.cu, ``bsr_rows_kernel``, launched
+   as K4 by ``bsr_colstream`` and as K7/K8/K9 by ``bsr_csr``) and the
+   probes P1-P3 (csrc/probes.cu) from source, one nvcc each, started
+   together; print each kernel's registers and shared memory;
 3. hold the banded kernel K1 against its plain PyTorch version on the real
    50,176-node serving operator at C = 512, for L@x and the hop 2L@x - x0,
    in int8 (bit-identical), bf16 (one bf16 ulp: both round an f32
@@ -61,10 +62,16 @@ Phases, each fatal on failure (no CPU path, no fallback):
 10. on the bench's 50k scattered kNN graph (bench.py:763-787: 50,000
    Gaussian points in 8-D, seed 0, k=10, RCM, normalized Laplacian),
    built by ``device_laplacian(fmt="auto")``, which must give the
-   column-streamed BSR operator: hold K4 (``bsr_colstream``, csrc/bsr.cu)
-   against its plain version at C = 512 for L@x and the hop in f32
+   column-streamed BSR operator: hold K4 (``bsr_colstream``, the row
+   kernel of csrc/bsr.cu) against its plain version
+   (``bsr_rows_reference``, the same row walk) and the block walk's plain
+   version
+   (``bsr_colstream_reference``) at C = 512 for L@x and the hop in f32
    (atol 1e-4 of the max), bf16 (one bf16 ulp) and int8 (bit-identical),
-   and time both;
+   and time all three, each time printed beside phase 16's library time,
+   the sparse bound (``sparse_roofline``) and the block format's work
+   (``spmm_roofline``); then the same checks, through K4 and K7, on a
+   graph with a row of 300 nonzeros (``hub_graph``);
 11. serve the bench's NodeClassifier on it (4 requests in bf16, 4 in
    int8, features labelled by node index as bench.py:699-704 makes
    them): 24 K4 launches per request, finite [50000, 16] logits, the
@@ -72,12 +79,13 @@ Phases, each fatal on failure (no CPU path, no fallback):
    the bf16 operator for 4 adam steps: 72 K4 launches per step (26 L@x,
    46 hops), a falling loss, one step against the plain twin; time
    requests and steps beside the twin's;
-12. hold ``bsr_csr`` (csrc/bsr.cu) against its plain version through each
-   route it ports: K8 on the scattered graph's ``col_stream=False``
-   operator (f32 and bf16 L@x), K7 int8 on that operator's int8 twin
-   (G = 1, L@x and hop), K9 on its ``chunked_rows=True`` operator (f32
-   and bf16 L@x) and K7 float with G > 1 on the 50k city graph's
-   ``fmt="bsr", col_stream=False`` bf16 operator (L@x and hop); then serve
+12. hold ``bsr_csr`` (the same row kernel) against both plain versions,
+   as phase 10 does, through each route it ports: K8 on the scattered
+   graph's ``col_stream=False`` operator (f32 and bf16 L@x), K7 int8 on
+   that operator's int8 twin (G = 1, L@x and hop), K9 on its
+   ``chunked_rows=True`` operator (f32 and bf16 L@x) and K7 float with
+   G > 1 on the 50k city graph's ``fmt="bsr", col_stream=False`` bf16
+   operator (L@x and hop); then serve
    one request through each route's operator: 24 launches of that route
    each, logits against the plain twin's;
 13. on the 50k city graph at C = 512, hold K5 (the ``ragged=False``
@@ -104,8 +112,9 @@ Phases, each fatal on failure (no CPU path, no fallback):
    launches each);
 16. time the library call for each sparse product: one
    ``torch.sparse.mm`` of the same matrix in CSR at C = 512 on the card
-   (50k city graph and 50k scattered graph; f32 and bf16, int8 tried and
-   its refusal printed), beside the kernels' bounds;
+   (50k city graph and 50k scattered graph; f32 and bf16; torch has no
+   int8 one), beside the kernels' bounds; run first thing in phase 10,
+   so that phases 10 and 12 print it beside their kernels' times;
 17. with ``--profile-dir DIR`` only: trace 3 requests per serving mode
    after 2 warm-ups (banded, scattered BSR, ChebNet, uniform, ragged),
    2 bf16 training steps after one (banded, scattered and uniform
@@ -185,6 +194,7 @@ from cnn_graph_tpu_torch.ops import (  # noqa: E402
     bsr_colstream_reference,
     bsr_csr,
     bsr_csr_reference,
+    bsr_rows_reference,
     cheby_conv,
     cheby_conv_fused,
     cheby_conv_fused_reference,
@@ -206,6 +216,7 @@ from cnn_graph_tpu_torch.utils import (  # noqa: E402
     probes,
     roofline,
     slope_time,
+    sparse_roofline,
     spmm_roofline,
 )
 
@@ -245,6 +256,7 @@ DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 # The bench's 50k scattered kNN graph (bench.py:763-787) and its kernels.
 SCAT_N, SCAT_DIMS, SCAT_K = 50000, 8, 10
 BSR_SOURCE = "cnn_graph_tpu_torch/csrc/bsr.cu"
+BSR_KERNEL = "bsr_rows"  # csrc/bsr.cu bsr_rows_kernel, for K4 and K7-K9
 BSR_REPLACES = {"K4": "cnn_graph_tpu/ops/pallas_spmm.py:129",  # colstream
                 "K7": "cnn_graph_tpu/ops/pallas_spmm.py:35",   # grouped
                 "K8": "cnn_graph_tpu/ops/pallas_spmm.py:450",  # _kernel
@@ -652,9 +664,10 @@ class _PlainBsrMixin:
             return bsr_colstream_reference(
                 self.blocks, self.cs_meta, self.cs_gcols, self.cs_gcolptr,
                 self.cs_groupptr, x, x0, G=self.rows_per_step,
-                block_scale=block_scale)
+                block_shape=self.block_shape, block_scale=block_scale)
         return bsr_csr_reference(self.blocks, self.block_rowptr,
                                  self.block_cols, x, x0,
+                                 block_shape=self.block_shape,
                                  block_scale=block_scale)
 
 
@@ -1172,11 +1185,28 @@ def reset_bsr_launches():
         c.clear()
 
 
-def bsr_kernel_phase(op, route: str, forms, gen, what: str) -> dict:
-    """``route``'s kernel on ``op`` against its plain version at C = FIN,
-    for each form in ``forms``, and both timed.  Tolerances: int8
-    bit-identical; f32 1e-4 of the largest plain entry (another summation
-    order); bf16 one bf16 ulp (both round one f32 accumulation)."""
+def hub_graph(n: int = 3000, degree: int = 300, seed: int = 4):
+    """A kNN graph (n Gaussian points in 8-D, k=6) whose node 0 is joined
+    to ``degree`` others: one row of ``degree`` + 7 nonzeros, which the
+    row kernel walks in warp-wide chunks of 32."""
+    rng = np.random.default_rng(seed)
+    z = rng.normal(size=(n, 8)).astype(np.float32)
+    W = graphs.adjacency(*graphs.knn(z, k=6, algorithm="auto")).tolil()
+    nb = rng.choice(np.arange(1, n), degree, replace=False)
+    W[0, nb] = 0.5
+    W[nb, 0] = 0.5
+    return graphs.laplacian(W.tocsr())
+
+
+def bsr_kernel_phase(op, route: str, forms, gen, what: str,
+                     lib_ms=None, timed: bool = True) -> dict:
+    """The row kernel as ``route`` on ``op`` against its plain version
+    (``bsr_rows_reference``) and the block walk's (the plain twin's
+    ``kernel_call``) at C = FIN, for each form in ``forms``; all three
+    timed unless ``timed`` is false.  Tolerances: int8 bit-identical; f32
+    1e-4 of the largest plain entry (another summation order); bf16 one
+    bf16 ulp (all round one f32 accumulation).  ``lib_ms`` is phase 16's
+    library time for the operator's dtype, printed beside."""
     dev = op.blocks.device
     x, x0 = (torch.randn(op.m_padded, FIN, generator=gen, device=dev)
              for _ in range(2))
@@ -1186,7 +1216,9 @@ def bsr_kernel_phase(op, route: str, forms, gen, what: str) -> dict:
     else:
         x, x0, scale = x.to(dt), x0.to(dt), None
     plain = _plain_twin(op)
-    rec = {"max_abs_err": 0.0}
+    rows = (op.blocks, op.nz_rowptr, op.nz_cols, op.nz_pos)
+    rec = {"max_abs_err": 0.0, "block_max_abs_err": 0.0,
+           "library_ms": lib_ms}
     for form in forms:
         xx0 = None if form == "spmm" else x0
 
@@ -1194,36 +1226,83 @@ def bsr_kernel_phase(op, route: str, forms, gen, what: str) -> dict:
             return op.kernel_call(x, xx0, route, scale)
 
         def ref():
+            return bsr_rows_reference(*rows, x, xx0, block_scale=scale)
+
+        def block():
             return plain.kernel_call(x, xx0, route, scale)
 
-        got, want = kern(), ref()
-        torch.cuda.synchronize()
-        check(got.dtype == want.dtype == dt and got.shape == want.shape,
-              f"{what} {form}: dtype/shape")
-        if dt == torch.int8:
-            check(torch.equal(got, want), f"{what} {form} not bit-identical")
-            err = float((got.int() - want.int()).abs().max())
-        else:
-            err = float((got.float() - want.float()).abs().max())
-            torch.testing.assert_close(
-                got.float(), want.float(),
-                rtol=2**-7 if dt == torch.bfloat16 else 0.0,
-                atol=1e-4 * float(want.float().abs().max()))
-        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        got = kern()
+        for key, want in (("max_abs_err", ref()),
+                          ("block_max_abs_err", block())):
+            torch.cuda.synchronize()
+            check(got.dtype == want.dtype == dt and got.shape == want.shape,
+                  f"{what} {form}: dtype/shape")
+            if dt == torch.int8:
+                check(torch.equal(got, want), f"{what} {form} not "
+                      f"bit-identical to the {key.split('_')[0]} plain "
+                      "version")
+                err = float((got.int() - want.int()).abs().max())
+            else:
+                err = float((got.float() - want.float()).abs().max())
+                torch.testing.assert_close(
+                    got.float(), want.float(),
+                    rtol=2**-7 if dt == torch.bfloat16 else 0.0,
+                    atol=1e-4 * float(want.float().abs().max()))
+            rec[key] = max(rec[key], err)
+        if not timed:
+            continue
         pre = "" if form == "spmm" else form + "_"
-        rec[pre + "ms"] = cuda_ms(kern, 5)
+        extra = int(xx0 is not None)
+        rec[pre + "ms"] = cuda_ms(kern, 20)
         rec[pre + "plain_ms"] = cuda_ms(ref, 2)
-        rec[pre + "roofline"] = spmm_roofline(
-            op, rec[pre + "ms"] / 1e3, FIN, extra_inputs=int(xx0 is not None))
+        rec[pre + "block_plain_ms"] = cuda_ms(block, 2)
+        rec[pre + "roofline"] = sparse_roofline(
+            op, rec[pre + "ms"] / 1e3, FIN, extra_inputs=extra)
+        rec[pre + "block_roofline"] = spmm_roofline(
+            op, rec[pre + "ms"] / 1e3, FIN, extra_inputs=extra)
     return rec
 
 
+def long_rows_phase(dev, gen) -> dict:
+    """Phase 10's checks on ``hub_graph``, whose longest row holds more
+    than 32 nonzeros: K4 and K7, L@x and the hop, f32, bf16 and int8, at
+    C = FIN, untimed.  Returns the largest errors by dtype."""
+    L = hub_graph()
+    errs = {}
+    for route, kw in (("K4", {}), ("K7", {"col_stream": False})):
+        op = device_laplacian(L, fmt="bsr", device=dev, use_pallas=True,
+                              **kw)
+        longest = int(op.nz_rowptr.diff().max())
+        check(longest > 32 and (route == "K7") != op.col_stream,
+              f"long rows {route}: longest row {longest}, col_stream "
+              f"{op.col_stream}")
+        bf = dataclasses.replace(op, blocks=op.blocks.to(torch.bfloat16))
+        for lab, o in (("f32", op), ("bf16", bf),
+                       ("int8", quantize_block_sparse(op, sample_x=4.0))):
+            rec = bsr_kernel_phase(o, route, ("spmm", "hop"), gen,
+                                   f"long rows {route} {lab}", timed=False)
+            errs[lab] = max(errs.get(lab, 0.0), rec["max_abs_err"],
+                            rec["block_max_abs_err"])
+    print(f"long rows (hub graph, {L.shape[0]} nodes, longest row "
+          f"{longest}): K4 and K7 L@x and hop against both plain versions, "
+          f"max_abs_err {errs}", flush=True)
+    return errs
+
+
 def print_bsr_kernel(what: str, rec: dict, gpu: str):
-    hop = (f", hop {rec['hop_ms']:.4f} ms (plain {rec['hop_plain_ms']:.4f}"
-           " ms)" if "hop_ms" in rec else "")
-    print(f"kernel {what} C={FIN}: max_abs_err {rec['max_abs_err']:.3g}, "
-          f"L@x {rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f} ms){hop} "
-          f"[{gpu}]", flush=True)
+    def one(pre):
+        r, b = rec[pre + "roofline"], rec[pre + "block_roofline"]
+        return (f"{rec[pre + 'ms']:.4f} ms (plain {rec[pre + 'plain_ms']:.4f}"
+                f", block plain {rec[pre + 'block_plain_ms']:.4f} ms; sparse "
+                f"bound {r['bound_us'] / 1e3:.4f} ms {r['bound_by']}, block "
+                f"format's work {b['bound_us'] / 1e3:.4f} ms "
+                f"{b['bound_by']})")
+    lib = ("none" if rec["library_ms"] is None
+           else f"{rec['library_ms']:.4f} ms")
+    hop = f", hop {one('hop_')}" if "hop_ms" in rec else ""
+    print(f"kernel {what} C={FIN}: max_abs_err {rec['max_abs_err']:.3g} "
+          f"(block plain {rec['block_max_abs_err']:.3g}), L@x {one('')}"
+          f"{hop}; torch.sparse.mm {lib} [{gpu}]", flush=True)
 
 
 def bsr_serve_phase(serving, reqs, kernel: str, what: str,
@@ -1588,18 +1667,25 @@ def main() -> int:
     s_labels, s_feats = scattered_features(op32.m, 2 * N_REQUESTS + 1)
     s_reqs = [f.to(dev) for f in s_feats[:2 * N_REQUESTS]]
     s_max = float(max(f.abs().max() for f in s_feats[:2 * N_REQUESTS]))
+    # Phase 16 first: the library call, printed beside the kernels.
+    lib = {"city": library_phase(csr_operand(L, op.m_padded, dev), gen,
+                                 "50k city", gpu),
+           "scattered": library_phase(csr_operand(L_s, op32.m_padded, dev),
+                                      gen, "50k scattered", gpu)}
     k4 = {"f32": bsr_kernel_phase(op32, "K4", ("spmm", "hop"), gen,
-                                  "K4 f32")}
+                                  "K4 f32", lib["scattered"]["f32"])}
     s_bf16 = dataclasses.replace(op32, blocks=op32.blocks.to(torch.bfloat16))
     del op32  # f32 blocks: 3.55 GB
     torch.cuda.empty_cache()
     k4["bf16"] = bsr_kernel_phase(s_bf16, "K4", ("spmm", "hop"), gen,
-                                  "K4 bf16")
+                                  "K4 bf16", lib["scattered"]["bf16"])
     k4["int8"] = bsr_kernel_phase(
         quantize_block_sparse(s_bf16, sample_x=s_max), "K4", ("spmm", "hop"),
         gen, "K4 int8")
     for lab, rec in k4.items():
-        print_bsr_kernel(f"bsr_colstream (K4) {lab}", rec, gpu)
+        print_bsr_kernel(f"{BSR_KERNEL} as K4 (bsr_colstream) {lab}", rec,
+                         gpu)
+    long_rows = long_rows_phase(dev, gen)
 
     # Phase 11: the scattered graph's NodeClassifier served and trained.
     s_model = NodeClassifier(s_bf16, FIN, CLASSES, hidden=[], K=K,
@@ -1635,11 +1721,14 @@ def main() -> int:
           and op8.group_max > 0 and op8.row_max == 0,
           f"col_stream=False layout: G {op8.rows_per_step}, group_max "
           f"{op8.group_max}, row_max {op8.row_max}")
-    csr = {"K8 f32": bsr_kernel_phase(op8, "K8", ("spmm",), gen, "K8 f32")}
+    s_lib = lib["scattered"]
+    csr = {"K8 f32": bsr_kernel_phase(op8, "K8", ("spmm",), gen, "K8 f32",
+                                      s_lib["f32"])}
     bf8 = dataclasses.replace(op8, blocks=op8.blocks.to(torch.bfloat16))
     del op8
     torch.cuda.empty_cache()
-    csr["K8 bf16"] = bsr_kernel_phase(bf8, "K8", ("spmm",), gen, "K8 bf16")
+    csr["K8 bf16"] = bsr_kernel_phase(bf8, "K8", ("spmm",), gen, "K8 bf16",
+                                      s_lib["bf16"])
     q8 = quantize_block_sparse(bf8, sample_x=s_max)
     csr["K7 int8"] = bsr_kernel_phase(q8, "K7", ("spmm", "hop"), gen,
                                       "K7 int8")
@@ -1647,24 +1736,26 @@ def main() -> int:
     op9 = device_laplacian(L_s, fmt="bsr", chunked_rows=True, device=dev)
     check(op9.row_max > 0 and op9.rows_per_step == 1 and op9.group_max == 0,
           f"chunked_rows layout: row_max {op9.row_max}")
-    csr["K9 f32"] = bsr_kernel_phase(op9, "K9", ("spmm",), gen, "K9 f32")
+    csr["K9 f32"] = bsr_kernel_phase(op9, "K9", ("spmm",), gen, "K9 f32",
+                                     s_lib["f32"])
     bf9 = dataclasses.replace(op9, blocks=op9.blocks.to(torch.bfloat16))
     del op9
     torch.cuda.empty_cache()
-    csr["K9 bf16"] = bsr_kernel_phase(bf9, "K9", ("spmm",), gen, "K9 bf16")
+    csr["K9 bf16"] = bsr_kernel_phase(bf9, "K9", ("spmm",), gen, "K9 bf16",
+                                      s_lib["bf16"])
     op_city = device_laplacian(L, fmt="bsr", col_stream=False,
                                dtype=torch.bfloat16, device=dev)
     check(op_city.rows_per_step > 1, "the city graph's block-CSR layout has "
           f"G = {op_city.rows_per_step}, want more than 1")
     csr["K7 bf16"] = bsr_kernel_phase(op_city, "K7", ("spmm", "hop"), gen,
-                                      "K7 bf16")
+                                      "K7 bf16", lib["city"]["bf16"])
     print(f"block-CSR layouts: scattered G 1, group_max {bf8.group_max}; "
           f"chunked row_max {bf9.row_max}; city graph "
           f"{op_city.block_cols.numel()} blocks, G {op_city.rows_per_step}, "
           f"group_max {op_city.group_max}; set-up and checks "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for what, rec in csr.items():
-        print_bsr_kernel(f"bsr_csr ({what})", rec, gpu)
+        print_bsr_kernel(f"{BSR_KERNEL} as {what} (bsr_csr)", rec, gpu)
     routes = {}
     for key, kernel, rop, req, int8 in (
             ("K8 bf16", "K8", bf8, s_reqs[0], False),
@@ -1799,12 +1890,6 @@ def main() -> int:
     for mode, ms in r_lat.items():
         print(f"ragged request latency {mode}: {ms:.3f} ms [{gpu}]")
 
-    # Phase 16: the library call for each sparse product.
-    lib = {"city": library_phase(csr_operand(L, op.m_padded, dev), gen,
-                                 "50k city", gpu),
-           "scattered": library_phase(csr_operand(L_s, s_bf16.m_padded, dev),
-                                      gen, "50k scattered", gpu)}
-
     if args.profile_dir:
         profile_phase(served, reqs[0], lat, args.profile_dir, gpu)
         train_profile_phase(trains["bf16"]["run"], trains["bf16"]["ms"],
@@ -1863,11 +1948,31 @@ def main() -> int:
                 "chain_plain_us_per_spmm": c["plain_us_per_spmm"],
                 "chain_gedges_per_s": c["gedges_per_s"]}
 
-    def f32_keys(rec, graph="city"):
+    def f32_keys(rec):
         return {"f32_ms": rec["ms"], "f32_plain_ms": rec["plain_ms"],
                 "f32_max_abs_err": rec["max_abs_err"],
                 "f32_bound_ms": rec["roofline"]["bound_us"] / 1e3,
-                "f32_library_ms": lib[graph]["f32"]}
+                "f32_library_ms": lib["city"]["f32"]}
+
+    def bsr_keys(rec, library_ms):
+        """A row kernel's numbers: the sparse bound as ``bound_ms``, the
+        block format's work and the block walk's plain time beside."""
+        out = {}
+        for pre in ("", "hop_"):
+            if pre + "ms" not in rec:
+                continue
+            r, b = rec[pre + "roofline"], rec[pre + "block_roofline"]
+            out.update({
+                pre + "ms": rec[pre + "ms"],
+                pre + "plain_ms": rec[pre + "plain_ms"],
+                pre + "block_plain_ms": rec[pre + "block_plain_ms"],
+                pre + "bound_ms": r["bound_us"] / 1e3,
+                pre + "bound_by": r["bound_by"],
+                pre + "block_work_ms": b["bound_us"] / 1e3,
+                pre + "block_work_by": b["bound_by"]})
+        return {"max_abs_err": rec["max_abs_err"],
+                "block_max_abs_err": rec["block_max_abs_err"], **out,
+                "library_ms": library_ms}
 
     record = {"kernels": [
         band_row(f"band_dkw_{lab}", "dkw", lab, checks[lab], launches[lab],
@@ -1946,35 +2051,30 @@ def main() -> int:
          **bound_keys(kchecks[lab + "_bound"]), "library_ms": None}
         for lab in DTYPES
     ] + [
-        {"name": f"bsr_colstream_{lab}", "route": "cuda",
+        {"name": f"{BSR_KERNEL}_K4_{lab}", "route": "cuda",
          "source": BSR_SOURCE, "replaces": BSR_REPLACES["K4"],
+         "wrapper": "bsr_colstream",
          "launches": (s_served[lab]["launches"]
                       + (s_train["launches"] if lab == "bf16" else 0)),
-         "max_abs_err": k4[lab]["max_abs_err"], "ms": k4[lab]["ms"],
-         "plain_ms": k4[lab]["plain_ms"], **bound_keys(k4[lab]["roofline"]),
-         "library_ms": lib["scattered"][lab], "hop_ms": k4[lab]["hop_ms"],
-         "hop_plain_ms": k4[lab]["hop_plain_ms"],
+         **bsr_keys(k4[lab], lib["scattered"][lab]),
+         "long_rows_max_abs_err": long_rows[lab],
          "request_ms": s_served[lab]["ms"],
          "request_plain_ms": s_served[lab]["plain_ms"],
          **({"train_ms_per_step": s_train["ms"],
              "train_plain_ms_per_step": s_train["plain_ms"],
-             "f32_hop_ms": k4["f32"]["hop_ms"],
-             "f32_hop_plain_ms": k4["f32"]["hop_plain_ms"],
-             **f32_keys(k4["f32"], "scattered")}
+             **{"f32_" + k: v for k, v in bsr_keys(
+                 k4["f32"], lib["scattered"]["f32"]).items()},
+             "f32_long_rows_max_abs_err": long_rows["f32"]}
             if lab == "bf16" else {})}
         for lab in ("bf16", "int8")
     ] + [
-        {"name": f"bsr_csr_{key.replace(' ', '_')}", "route": "cuda",
+        {"name": f"{BSR_KERNEL}_{key.replace(' ', '_')}", "route": "cuda",
          "source": BSR_SOURCE, "replaces": BSR_REPLACES[key[:2]],
-         "launches": rec["launches"],
-         "max_abs_err": csr[key]["max_abs_err"], "ms": csr[key]["ms"],
-         "plain_ms": csr[key]["plain_ms"], **bound_keys(csr[key]["roofline"]),
-         "library_ms": lib["city" if key == "K7 bf16" else "scattered"][
-             key.split()[1]],
-         **({"hop_ms": csr[key]["hop_ms"],
-             "hop_plain_ms": csr[key]["hop_plain_ms"]}
-            if "hop_ms" in csr[key] else {}),
-         **(f32_keys(csr[f"{key[:2]} f32"], "scattered")
+         "wrapper": "bsr_csr", "launches": rec["launches"],
+         **bsr_keys(csr[key], lib["city" if key == "K7 bf16"
+                                  else "scattered"][key.split()[1]]),
+         **({"f32_" + k: v for k, v in bsr_keys(
+             csr[f"{key[:2]} f32"], lib["scattered"]["f32"]).items()}
             if f"{key[:2]} f32" in csr else {})}
         for key, rec in route_launches.items()
     ] + probe_rows}

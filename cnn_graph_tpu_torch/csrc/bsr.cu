@@ -1,405 +1,322 @@
-// Block-sparse (BSR) SpMM and fused Chebyshev hop, for Hopper (sm_90a).
+// Row-sparse gather SpMM and fused Chebyshev hop for the BSR operators,
+// for Hopper (sm_90a).
 //
-// Two kernels over 128x128 blocks, each in two forms:
+// One kernel, bsr_rows_kernel, in three forms of one emission:
 //   y = L @ x               (x0 == nullptr)
 //   y = 2 (L @ x) - x0      (x0 != nullptr)
-// in float32 (FMA, f32 accumulation), bfloat16 (tensor cores through wmma,
-// f32 accumulation) and int8 (tensor cores, int32 accumulation, requant
-// clip(rint(scale * acc [*2 - x0]), +-127) at emission, as
-// pallas_band._emit_row).  Columns of x past C are masked, as the TPU
-// kernels pad C to their column tile.
+// in float32 and bfloat16 (f32 accumulation) and int8 (int8 x int8, int32
+// accumulation, requant clip(rint(scale * acc [*2 - x0]), +-127) at
+// emission, as pallas_band._emit_row).
 //
-// bsr_colstream replaces cnn_graph_tpu/ops/pallas_spmm.py:_kernel_colstream
-// (K4, reached through _colstream_call), the default BSR kernel.  It reads
-// the column-streamed layout unchanged: group s of G block-rows owns the
-// blocks groupptr[s]..groupptr[s+1], ordered by (column, row); block b adds
-// blocks[b] @ x[tile gcols[gcolptr[s] + (meta[b] & 0xFFFF)]] to block-row
-// s*G + (meta[b] >> 16).  Pad blocks are zero and sit in the group's row 0,
-// so they add zero.
+// It replaces the four Pallas kernels of cnn_graph_tpu/ops/pallas_spmm.py:
+// _kernel_colstream (K4, through _colstream_call), _kernel_grouped (K7,
+// _grouped_call), _kernel (K8) and _kernel_chunked (K9, both through
+// _bsr_spmm_impl).  Those multiply dense 128x128 blocks; this kernel
+// walks the operator's nonzero index by output row instead (nz_rowptr,
+// nz_cols, nz_pos: ops/packing.py row_index) and reads each value from
+// the operator's own blocks array at its flat position, in whatever
+// dtype the blocks have, so an operator whose blocks were cast or
+// quantized keeps a right index.  The ops/bsr.py wrappers bsr_colstream
+// (K4) and bsr_csr (K7/K8/K9) both launch it.
 //
-// bsr_csr replaces _kernel_grouped (K7, _grouped_call), _kernel (K8) and
-// _kernel_chunked (K9, both through _bsr_spmm_impl).  The three differ only
-// in how the TPU moves blocks into VMEM (a slab per G rows, a per-block DMA
-// pipeline, a slab per row); all compute y = L @ x over block-CSR, K7 also
-// the hop and int8.  Block-row i owns blocks block_rowptr[i]..
-// block_rowptr[i+1]; the zero tails that the TPU layouts carry past the
-// last block are never read.
+// What bounds it is bytes.  On the bench's 50k scattered kNN graph
+// (699,780 nonzeros in 54,165 blocks) a 128x128 block holds 12.9
+// nonzeros: a tile product does 1,266x the work the graph needs, and the
+// block kernels this one replaced were bound by that work (0.91 TFLOP at
+// C = 512).  The row walk does 2 nnz C operations and must move x and y
+// once plus 6 bytes per nonzero: 107 MB in bf16 at C = 512, 0.032 ms at
+// 3.35 TB/s.  So it uses neither tensor cores nor TMA.  What Hopper gives
+// it is the 50 MB L2: every nonzero gathers one row of x (1 KB in bf16
+// at C = 512, 717 MB in all), and x (51 MB in bf16) about fits L2, so
+// neighbouring warps on RCM-neighbouring rows find their x rows there.
 //
-// Design.  Both are the banded kernel's design (band.cu) with an
-// indexed x tile per block in place of a contiguous window: one CTA per
-// (block-row, column tile) walks its blocks, staging 32-deep (16 in f32)
-// chunks of block and x tile through shared memory, the accumulators in
-// registers.  They differ only in the walk: bsr_csr takes its row's
-// extent; bsr_colstream walks its group's run and skips the blocks of the
-// group's other rows (a uniform branch on one int per block).  What the
-// column-streamed layout is for on the TPU, one fetch of each x tile per
-// group, comes here from L2: the G CTAs of one group run side by side and
-// read the same tiles, and at C = 512 all of x (51 MB in bf16) about fits
-// the 50 MB L2.  A first design that staged each distinct column's tile
-// once per group kept the G*128 x 32 accumulators in shared memory and so
-// re-staged every block once per 32-column tile: 2.35x slower in bf16,
-// 2.51x in int8, 2.86x in f32 (PERF.md section 6).
-//
-// Bounds.  At the 50k scattered kNN graph (54,328 blocks with the pads)
-// and C = 512 one call multiplies 0.91 TFLOP (TOP in int8) and reads each
-// block once per 128-column tile (4x, mostly from L2: the 4 CTAs of one
-// row run side by side).  Loads and tensor cores do not overlap: one
-// staging, one barrier pair, one product per 32-deep chunk.  Left for
-// later: cp.async or TMA rings, wgmma, a column tile as wide as C.
+// Layout of the work.  One warp per output row, 8 rows per 256-thread
+// CTA.  The lanes load the row's columns and positions 32 at a time (one
+// coalesced read each), then the 32 values, and pass each nonzero to the
+// whole warp with __shfl_sync; longer rows loop.  Each lane owns 16
+// columns of a 512-column pass, as 16-byte vectors spaced 32 vectors
+// apart (f32 4 vectors, bf16 2, int8 1), so one warp-wide load reads 512
+// contiguous bytes of an x row; its 16 accumulators sit in registers.  A
+// wider C loops over passes; a C that is not a multiple of the vector's
+// elements leaves the rows off 16-byte boundaries and takes the scalar
+// form (16 scalar columns per lane, 32 apart).  A gather SpMM is bound by
+// the loads in flight: each lane issues the loads of several nonzeros
+// (8 vectors, 16 scalars) before it multiplies, through the read-only
+// path (__ldg).  Pad rows have no nonzeros: 0 for L@x, -x0 for the hop.
 //
 // Build without --use_fast_math: the int8 path is bit-exact with the
 // PyTorch reference only with IEEE rounding of every float operation.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <type_traits>
 
-using namespace nvcuda;
-
 namespace {
 
-constexpr int kBlock = 128;  // block edge (ops/packing.py BLOCK)
 constexpr int kThreads = 256;
-
-struct Out {
-  const void* x0;  // [mp, C] or nullptr
-  void* y;         // [mp, C]
-  int C;
-  float scale;  // int8 only: the block scale
-};
-
-template <typename T> __device__ __forceinline__ T zero();
-template <> __device__ __forceinline__ float zero() { return 0.0f; }
-template <> __device__ __forceinline__ __nv_bfloat16 zero() {
-  return __float2bfloat16_rn(0.0f);
-}
-template <> __device__ __forceinline__ int8_t zero() { return 0; }
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-
-// Emission of element i from its f32 or int32 accumulator: float y = acc
-// or 2 acc - x0 in f32 with IEEE rounding, rounded once to T; int8 in
-// input-scale units (pallas_band._emit_row, quant branch).
-template <typename T, typename Acc>
-__device__ __forceinline__ void emit(const Out& o, size_t i, Acc acc) {
-  if constexpr (std::is_same<T, int8_t>::value) {
-    float y = __fmul_rn(o.scale, __int2float_rn(acc));
-    if (o.x0 != nullptr) {
-      y = __fsub_rn(__fmul_rn(2.0f, y),
-                    (float)static_cast<const int8_t*>(o.x0)[i]);
-    }
-    y = fminf(fmaxf(rintf(y), -127.0f), 127.0f);
-    static_cast<int8_t*>(o.y)[i] = (int8_t)y;
-  } else {
-    float y = acc;
-    if (o.x0 != nullptr) {
-      y = __fsub_rn(__fmul_rn(2.0f, y),
-                    to_float(static_cast<const T*>(o.x0)[i]));
-    }
-    store(static_cast<T*>(o.y) + i, y);
-  }
-}
-
-// Tensor-core element types: accumulator and the padded leading dimension
-// of the 16-wide shared panels (every fragment pointer 32-byte aligned).
-template <typename T> struct Tc;
-template <> struct Tc<__nv_bfloat16> {
-  using Acc = float;
-  static constexpr int kLd = 24;
-};
-template <> struct Tc<int8_t> {
-  using Acc = int;
-  static constexpr int kLd = 32;
-};
-
-// Copy rows [0, nrows) x columns [n0, n0 + ncols) of the row-major
-// [*, C] matrix src (row 0 at src_row0) into 16-wide panels
-// dst[n / 16][r * kLd + n % 16], zeros past column C.  16-byte vectors
-// when C allows (the wrapper checks that src starts on 16 bytes).
-template <typename T, int kLd>
-__device__ __forceinline__ void stage_panels(T* dst, int panel_stride,
-                                             const T* src, int src_row0,
-                                             int nrows, int n0, int ncols,
-                                             int C) {
-  constexpr int kVec = 16 / sizeof(T);
-  const int per_row = ncols / kVec;
-  const bool vec = (C % kVec) == 0;
-  for (int v = threadIdx.x; v < nrows * per_row; v += kThreads) {
-    const int r = v / per_row, nv = (v % per_row) * kVec;
-    const int col = n0 + nv;
-    T* d = dst + (nv / 16) * panel_stride + r * kLd + nv % 16;
-    const T* s = src + (size_t)(src_row0 + r) * C + col;
-    if (vec) {
-      uint4 val = make_uint4(0, 0, 0, 0);
-      if (col < C) val = *reinterpret_cast<const uint4*>(s);
-      *reinterpret_cast<uint4*>(d) = val;
-    } else {
-      for (int e = 0; e < kVec; ++e) d[e] = (col + e < C) ? s[e] : zero<T>();
-    }
-  }
-}
-
-// ================================================================ walkers
+constexpr int kRowsPerCta = kThreads / 32;
+constexpr int kLaneCols = 16;               // accumulators per lane
+constexpr int kPassCols = 32 * kLaneCols;   // columns per pass
+constexpr int kLoadsInFlight = 8;           // 16-byte loads per lane per round
 
 struct Args {
-  const void* blocks;  // [>= blocks walked, 128, 128]
-  // block-CSR (bsr_csr)
-  const int* rowptr;  // [n_rb + 1]
-  const int* cols;    // [>= nb]
-  // column-streamed (bsr_colstream)
-  const int* meta;      // (row in group << 16) | column slot
-  const int* gcols;     // each group's distinct columns
-  const int* gcolptr;   // [nsb + 1]
-  const int* groupptr;  // [nsb + 1]
-  int G;
-  const void* x;  // [mp, C]
-  Out o;
+  const void* blocks;      // the operator's blocks, any layout
+  const int* rowptr;       // [mp + 1]
+  const int* cols;         // [nnz]
+  const long long* pos;    // [nnz], flat positions in blocks
+  const void* x;           // [>= max col + 1, C]
+  const void* x0;          // [mp, C] or nullptr
+  void* y;                 // [mp, C]
+  int mp, C;
+  float scale;             // int8 only: the blocks' scale
 };
 
-// The run of blocks that block-row r walks.
-template <bool kColstream>
-__device__ __forceinline__ void row_extent(const Args& a, int r, int& lo,
-                                           int& hi) {
-  if constexpr (kColstream) {
-    lo = a.groupptr[r / a.G];
-    hi = a.groupptr[r / a.G + 1];
+__device__ __forceinline__ unsigned word(const uint4& u, int i) {
+  return i == 0 ? u.x : i == 1 ? u.y : i == 2 ? u.z : u.w;
+}
+__device__ __forceinline__ unsigned& word(uint4& u, int i) {
+  return i == 0 ? u.x : i == 1 ? u.y : i == 2 ? u.z : u.w;
+}
+
+// Per element type: the accumulator, a value of the blocks, element e of
+// a 16-byte vector and of a scalar load, and the bits of an output.
+template <typename T> struct Elem;
+
+template <> struct Elem<float> {
+  using Acc = float;
+  using Bits = unsigned;
+  static __device__ __forceinline__ Acc value(const void* b, long long p) {
+    return __ldg(static_cast<const float*>(b) + p);
+  }
+  static __device__ __forceinline__ Acc at(const uint4& u, int e) {
+    return __uint_as_float(word(u, e));
+  }
+  static __device__ __forceinline__ Acc scalar(Bits s) {
+    return __uint_as_float(s);
+  }
+  static __device__ __forceinline__ void madd(Acc& acc, Acc v, Acc x) {
+    acc = fmaf(v, x, acc);
+  }
+  static __device__ __forceinline__ Bits bits(float y) {
+    return __float_as_uint(y);
+  }
+};
+
+template <> struct Elem<__nv_bfloat16> {
+  using Acc = float;
+  using Bits = unsigned short;
+  static __device__ __forceinline__ Acc scalar(Bits s) {
+    return __uint_as_float(static_cast<unsigned>(s) << 16);
+  }
+  static __device__ __forceinline__ Acc value(const void* b, long long p) {
+    return scalar(__ldg(static_cast<const unsigned short*>(b) + p));
+  }
+  static __device__ __forceinline__ Acc at(const uint4& u, int e) {
+    const unsigned w = word(u, e / 2);
+    return __uint_as_float(e % 2 ? (w & 0xFFFF0000u) : (w << 16));
+  }
+  static __device__ __forceinline__ void madd(Acc& acc, Acc v, Acc x) {
+    acc = fmaf(v, x, acc);  // a bf16 product is exact in f32
+  }
+  static __device__ __forceinline__ Bits bits(float y) {
+    return __bfloat16_as_ushort(__float2bfloat16_rn(y));
+  }
+};
+
+template <> struct Elem<int8_t> {
+  using Acc = int;
+  using Bits = unsigned char;
+  static __device__ __forceinline__ Acc scalar(Bits s) {
+    return static_cast<int8_t>(s);
+  }
+  static __device__ __forceinline__ Acc value(const void* b, long long p) {
+    return scalar(__ldg(static_cast<const unsigned char*>(b) + p));
+  }
+  static __device__ __forceinline__ Acc at(const uint4& u, int e) {
+    return static_cast<int8_t>((word(u, e / 4) >> (8 * (e % 4))) & 0xFFu);
+  }
+  static __device__ __forceinline__ void madd(Acc& acc, Acc v, Acc x) {
+    acc += v * x;
+  }
+  static __device__ __forceinline__ Bits bits(float y) {
+    return static_cast<unsigned char>(static_cast<int8_t>(y));
+  }
+};
+
+// Emission of one element from its accumulator: float y = acc or
+// 2 acc - x0 in f32 with IEEE rounding (rounded to T by Elem::bits); int8
+// in input-scale units, rounded half to even and clipped
+// (pallas_band._emit_row, quant branch).
+template <typename T, typename Acc>
+__device__ __forceinline__ float emit(const Args& a, Acc acc, float x0) {
+  if constexpr (std::is_same<T, int8_t>::value) {
+    float y = __fmul_rn(a.scale, __int2float_rn(acc));
+    if (a.x0 != nullptr) y = __fsub_rn(__fmul_rn(2.0f, y), x0);
+    return fminf(fmaxf(rintf(y), -127.0f), 127.0f);
   } else {
-    lo = a.rowptr[r];
-    hi = a.rowptr[r + 1];
+    float y = acc;
+    if (a.x0 != nullptr) y = __fsub_rn(__fmul_rn(2.0f, y), x0);
+    return y;
   }
 }
 
-// The first x row of block b's tile, or -1 for a block of another row of
-// the group.  Uniform across the CTA.
-template <bool kColstream>
-__device__ __forceinline__ int block_xrow(const Args& a, int r, int b) {
-  if constexpr (kColstream) {
-    const int m = a.meta[b];
-    if ((int)((unsigned)m >> 16) != r % a.G) return -1;
-    return a.gcols[a.gcolptr[r / a.G] + (m & 0xFFFF)] * kBlock;
-  } else {
-    return a.cols[b] * kBlock;
+// Loads of x: a 16-byte vector of V elements (kVec) or one element.
+template <typename T, bool kVec> struct Load;
+template <typename T> struct Load<T, true> {
+  using Type = uint4;
+  static constexpr int V = 16 / sizeof(T);
+  static __device__ __forceinline__ uint4 get(const T* p) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
   }
-}
-
-// ============================================================== float32
-// Register-tiled FMA: tile 128 x 64, each thread 8 rows x 4 columns.
-constexpr int kF32Cols = 64;
-constexpr int kF32Depth = 16;
-
-template <bool kColstream>
-__global__ void __launch_bounds__(kThreads) bsr_f32_kernel(Args a) {
-  __shared__ float As[kF32Depth][kBlock + 4];    // block chunk, [k][row]
-  __shared__ float Bs[kF32Depth][kF32Cols + 4];  // x chunk, [k][col]
-  const int r = blockIdx.y;
-  const int n0 = blockIdx.x * kF32Cols;
-  const int C = a.o.C;
-  const float* x = static_cast<const float*>(a.x);
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;  // columns tx*4 .. +3
-  const int ty = tid / 16;  // rows ty*8 .. +7
-  int lo, hi;
-  row_extent<kColstream>(a, r, lo, hi);
-
-  float acc[8][4];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-  for (int b = lo; b < hi; ++b) {
-    const int xrow0 = block_xrow<kColstream>(a, r, b);
-    if (xrow0 < 0) continue;
-    const float* blk =
-        static_cast<const float*>(a.blocks) + (size_t)b * kBlock * kBlock;
-    for (int k0 = 0; k0 < kBlock; k0 += kF32Depth) {
-#pragma unroll
-      for (int t = 0; t < kBlock * kF32Depth / kThreads; ++t) {
-        const int e = tid + t * kThreads;
-        const int row = e / kF32Depth, kk = e % kF32Depth;
-        As[kk][row] = blk[row * kBlock + k0 + kk];
-      }
-#pragma unroll
-      for (int t = 0; t < kF32Depth * kF32Cols / kThreads; ++t) {
-        const int e = tid + t * kThreads;
-        const int kr = e / kF32Cols, c = e % kF32Cols;
-        const int col = n0 + c;
-        Bs[kr][c] = col < C ? x[(size_t)(xrow0 + k0 + kr) * C + col] : 0.0f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kF32Depth; ++kk) {
-        float av[8], bv[4];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) av[i] = As[kk][ty * 8 + i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) bv[j] = Bs[kk][tx * 4 + j];
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
+  static __device__ __forceinline__ uint4 none() {
+    return make_uint4(0, 0, 0, 0);
   }
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const size_t row = (size_t)r * kBlock + ty * 8 + i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + tx * 4 + j;
-      if (col < C) emit<float>(a.o, row * C + col, acc[i][j]);
-    }
+};
+template <typename T> struct Load<T, false> {
+  using Type = typename Elem<T>::Bits;
+  static constexpr int V = 1;
+  static __device__ __forceinline__ Type get(const T* p) {
+    return __ldg(reinterpret_cast<const Type*>(p));
   }
-}
+  static __device__ __forceinline__ Type none() { return 0; }
+};
 
-// ================================================= bfloat16 and int8 (wmma)
-// Tile 128 x 128, 8 warps as 4 (rows) x 2 (columns), each warp 32 x 64 as
-// 2 x 4 fragments of 16 x 16.
-constexpr int kTcCols = 128;
-constexpr int kTcDepth = 32;
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kThreads) bsr_rows_kernel(Args a) {
+  using E = Elem<T>;
+  using Acc = typename E::Acc;
+  using L = Load<T, kVec>;
+  constexpr int V = L::V;
+  constexpr int NV = kLaneCols / V;  // loads per lane per nonzero
+  constexpr int U = NV >= kLoadsInFlight ? 1 : kLoadsInFlight / NV;
 
-template <typename T, bool kColstream>
-__global__ void __launch_bounds__(kThreads) bsr_tc_kernel(Args a) {
-  using Acc = typename Tc<T>::Acc;
-  constexpr int kLd = Tc<T>::kLd;
-  constexpr int kVec = 16 / sizeof(T);
-  __shared__ __align__(128) T As[kTcDepth / 16][kBlock * kLd];   // [row][k]
-  __shared__ __align__(128) T Bs[kTcCols / 16][kTcDepth * kLd];  // [k][n]
-  __shared__ __align__(128) Acc Cs[kThreads / 32][16 * 16];
-
-  const int r = blockIdx.y;
-  const int n0 = blockIdx.x * kTcCols;
-  const int C = a.o.C;
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * kRowsPerCta + threadIdx.x / 32;
+  if (row >= a.mp) return;  // the whole warp leaves together
+  const int C = a.C;
+  const int lo = __ldg(a.rowptr + row), hi = __ldg(a.rowptr + row + 1);
   const T* x = static_cast<const T*>(a.x);
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int wm = warp / 2, wn = warp % 2;
-  int lo, hi;
-  row_extent<kColstream>(a, r, lo, hi);
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, Acc> acc[2][4];
+  for (int c0 = 0; c0 < C; c0 += kPassCols) {
+    Acc acc[kLaneCols];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], Acc(0));
+    for (int i = 0; i < kLaneCols; ++i) acc[i] = Acc(0);
 
-  for (int b = lo; b < hi; ++b) {
-    const int xrow0 = block_xrow<kColstream>(a, r, b);
-    if (xrow0 < 0) continue;
-    const T* blk = static_cast<const T*>(a.blocks) + (size_t)b * kBlock * kBlock;
-    for (int k0 = 0; k0 < kBlock; k0 += kTcDepth) {
-      constexpr int kVa = kTcDepth / kVec;  // 16-byte vectors per block row
-      for (int v = tid; v < kBlock * kVa; v += kThreads) {
-        const int row = v / kVa, kv = (v % kVa) * kVec;
-        *reinterpret_cast<uint4*>(&As[kv / 16][row * kLd + kv % 16]) =
-            *reinterpret_cast<const uint4*>(blk + row * kBlock + k0 + kv);
+    for (int base = lo; base < hi; base += 32) {
+      const int n = min(32, hi - base);
+      int my_col = 0;
+      Acc my_val = Acc(0);
+      if (lane < n) {
+        my_col = __ldg(a.cols + base + lane);
+        my_val = E::value(a.blocks, __ldg(a.pos + base + lane));
       }
-      stage_panels<T, kLd>(&Bs[0][0], kTcDepth * kLd, x, xrow0 + k0,
-                           kTcDepth, n0, kTcCols, C);
-      __syncthreads();
+      for (int k = 0; k < n; k += U) {
+        typename L::Type buf[U][NV];
+        Acc v[U];
 #pragma unroll
-      for (int kk = 0; kk < kTcDepth / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> fa[2];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> fb[4];
+        for (int u = 0; u < U; ++u) {
+          const int src = k + u;
+          const int col = __shfl_sync(0xFFFFFFFFu, my_col, src & 31);
+          v[u] = __shfl_sync(0xFFFFFFFFu, my_val, src & 31);
+          const T* xr = x + (size_t)col * C + c0;
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(fa[i], &As[kk][(wm * 32 + i * 16) * kLd], kLd);
+          for (int j = 0; j < NV; ++j) {
+            const int cc = (j * 32 + lane) * V;
+            buf[u][j] = (src < n && c0 + cc < C) ? L::get(xr + cc) : L::none();
+          }
+        }
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          wmma::load_matrix_sync(fb[j], &Bs[wn * 4 + j][kk * 16 * kLd], kLd);
+        for (int u = 0; u < U; ++u) {
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
+          for (int j = 0; j < NV; ++j) {
+            if constexpr (kVec) {
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
-            wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+              for (int e = 0; e < V; ++e)
+                E::madd(acc[j * V + e], v[u], E::at(buf[u][j], e));
+            } else {
+              E::madd(acc[j], v[u], E::scalar(buf[u][j]));
+            }
+          }
+        }
       }
-      __syncthreads();
     }
-  }
 
-  // Emission: each warp stages one fragment at a time in its own scratch.
-  Acc* cs = Cs[warp];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
+    for (int j = 0; j < NV; ++j) {
+      const int col = c0 + (j * 32 + lane) * V;
+      if (col >= C) continue;
+      const size_t i = (size_t)row * C + col;
+      if constexpr (kVec) {
+        uint4 x0v = L::none(), out = L::none();
+        if (a.x0 != nullptr) x0v = L::get(static_cast<const T*>(a.x0) + i);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wmma::store_matrix_sync(cs, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const size_t row = (size_t)r * kBlock + wm * 32 + i * 16 + e / 16;
-        const int col = n0 + wn * 64 + j * 16 + e % 16;
-        if (col < C) emit<T>(a.o, row * C + col, cs[e]);
+        for (int e = 0; e < V; ++e) {
+          const unsigned b = E::bits(
+              emit<T>(a, acc[j * V + e], static_cast<float>(E::at(x0v, e))));
+          constexpr int kBits = 8 * sizeof(T);
+          const int w = e * kBits / 32, sh = (e * kBits) % 32;
+          if constexpr (kBits == 32) {
+            word(out, w) = b;
+          } else {
+            word(out, w) |= b << sh;
+          }
+        }
+        *reinterpret_cast<uint4*>(static_cast<T*>(a.y) + i) = out;
+      } else {
+        using Bits = typename E::Bits;
+        const float x0 =
+            a.x0 == nullptr ? 0.0f
+                            : static_cast<float>(E::scalar(L::get(
+                                  static_cast<const T*>(a.x0) + i)));
+        reinterpret_cast<Bits*>(a.y)[i] =
+            static_cast<Bits>(E::bits(emit<T>(a, acc[j], x0)));
       }
-      __syncwarp();
     }
   }
 }
 
-template <bool kColstream>
-int launch(const Args& a, int n_rb, int dtype, cudaStream_t s) {
-  const int C = a.o.C;
-  switch (dtype) {
-    case 0:
-      bsr_f32_kernel<kColstream>
-          <<<dim3((C + kF32Cols - 1) / kF32Cols, n_rb), kThreads, 0, s>>>(a);
-      break;
-    case 1:
-      bsr_tc_kernel<__nv_bfloat16, kColstream>
-          <<<dim3((C + kTcCols - 1) / kTcCols, n_rb), kThreads, 0, s>>>(a);
-      break;
-    case 2:
-      bsr_tc_kernel<int8_t, kColstream>
-          <<<dim3((C + kTcCols - 1) / kTcCols, n_rb), kThreads, 0, s>>>(a);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
+template <typename T>
+int launch(const Args& a, cudaStream_t s) {
+  const dim3 grid((a.mp + kRowsPerCta - 1) / kRowsPerCta);
+  if (a.C % (16 / sizeof(T)) == 0) {
+    bsr_rows_kernel<T, true><<<grid, kThreads, 0, s>>>(a);
+  } else {
+    bsr_rows_kernel<T, false><<<grid, kThreads, 0, s>>>(a);
   }
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16, 2 int8.  Each launches on `stream` and
-// returns cudaGetLastError() (cudaErrorInvalidValue for a bad dtype).
-
-extern "C" int bsr_csr_launch(const void* blocks, const void* rowptr,
-                              const void* cols, int n_rb, const void* x,
-                              const void* x0, void* y, int C, float scale,
-                              int dtype, void* stream) {
+// dtype: 0 float32, 1 bfloat16, 2 int8.  Launches on `stream` and returns
+// cudaGetLastError() (cudaErrorInvalidValue for a bad dtype or shape).
+extern "C" int bsr_rows_launch(const void* blocks, const void* rowptr,
+                               const void* cols, const void* pos, int mp,
+                               const void* x, const void* x0, void* y, int C,
+                               float scale, int dtype, void* stream) {
+  if (mp < 1 || C < 1) return (int)cudaErrorInvalidValue;
   Args a = {};
   a.blocks = blocks;
   a.rowptr = static_cast<const int*>(rowptr);
   a.cols = static_cast<const int*>(cols);
+  a.pos = static_cast<const long long*>(pos);
   a.x = x;
-  a.o = Out{x0, y, C, scale};
-  return launch<false>(a, n_rb, dtype, static_cast<cudaStream_t>(stream));
-}
-
-extern "C" int bsr_colstream_launch(const void* blocks, const void* meta,
-                                    const void* gcols, const void* gcolptr,
-                                    const void* groupptr, int nsb, int G,
-                                    const void* x, const void* x0, void* y,
-                                    int C, float scale, int dtype,
-                                    void* stream) {
-  Args a = {};
-  a.blocks = blocks;
-  a.meta = static_cast<const int*>(meta);
-  a.gcols = static_cast<const int*>(gcols);
-  a.gcolptr = static_cast<const int*>(gcolptr);
-  a.groupptr = static_cast<const int*>(groupptr);
-  a.G = G;
-  a.x = x;
-  a.o = Out{x0, y, C, scale};
-  return launch<true>(a, nsb * G, dtype, static_cast<cudaStream_t>(stream));
+  a.x0 = x0;
+  a.y = y;
+  a.mp = mp;
+  a.C = C;
+  a.scale = scale;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return launch<float>(a, s);
+    case 1:
+      return launch<__nv_bfloat16>(a, s);
+    case 2:
+      return launch<int8_t>(a, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -1,21 +1,27 @@
 """Block-sparse (BSR) SpMM and fused Chebyshev hop.
 
-Counterpart of ``cnn_graph_tpu/ops/pallas_spmm.py``.  Two kernels in
-``csrc/bsr.cu``, each with its plain PyTorch version beside it:
+Counterpart of ``cnn_graph_tpu/ops/pallas_spmm.py``.  One CUDA kernel,
+``csrc/bsr.cu``, computes what its four Pallas kernels compute: a
+row-sparse gather SpMM that walks the operator's nonzero index by output
+row (``nz_rowptr``, ``nz_cols``, ``nz_pos``; ``ops.packing.row_index``)
+and reads each value from the operator's ``blocks`` through it.  Two
+wrappers launch it, under the names of the TPU kernels they stand for:
 
-* ``bsr_colstream`` (K4, ``_kernel_colstream`` :129 via ``_colstream_call``
-  :269) reads the column-streamed layout; ``bsr_colstream_reference``.
-* ``bsr_csr`` computes what K7 (``_kernel_grouped`` :35), K8 (``_kernel``
-  :450) and K9 (``_kernel_chunked`` :502) compute over block-CSR: the TPU
-  kernels differ only in how blocks reach VMEM.  ``route`` names which of
-  the three a call stands for, for the launch counts; ``bsr_csr_reference``.
+* ``bsr_colstream``: K4, ``_kernel_colstream`` :129 via
+  ``_colstream_call`` :269, on the column-streamed layout.
+* ``bsr_csr``: K7 (``_kernel_grouped`` :35), K8 (``_kernel`` :450) and K9
+  (``_kernel_chunked`` :502) over block-CSR; ``route`` names which of the
+  three a call stands for, for the launch counts.
 
-Each wrapper launches its CUDA kernel for CUDA tensors and runs its plain
-version for CPU tensors; the device of ``x`` is the only thing that
-chooses.  ``launches`` counts kernel launches, ``form_launches`` the same
-by form (``spmm``, ``hop``) and, on ``bsr_csr``, ``route_launches`` by
-route (``K7``, ``K8``, ``K9``).  The kernels take 128x128 blocks; other
-block shapes run on the CPU only.
+Beside the kernel, its plain PyTorch version ``bsr_rows_reference`` (the
+same row walk); the wrappers run it for CPU tensors, and the device of
+``x`` is the only thing that chooses.  The plain versions of the block
+walks the TPU kernels do, ``bsr_colstream_reference`` and
+``bsr_csr_reference``, stay as what the CPU tests hold against the Pallas
+kernels in interpret mode, and as a second check of the kernel on the
+card.  ``launches`` counts kernel launches, ``form_launches`` the same by
+form (``spmm``, ``hop``) and, on ``bsr_csr``, ``route_launches`` by route
+(``K7``, ``K8``, ``K9``).
 
 The operator-level wrappers route as the JAX package does: ``bsr_spmm``
 (:580, backward ``dx = L g``) takes K4 for a column-streamed layout, K7
@@ -43,6 +49,7 @@ __all__ = [
     "bsr_colstream_reference",
     "bsr_csr",
     "bsr_csr_reference",
+    "bsr_rows_reference",
     "block_products",
     "kernel_call",
     "bsr_spmm",
@@ -89,12 +96,12 @@ def _acc_dtype(block_scale):
 def bsr_colstream_reference(blocks, meta, gcols, gcolptr, groupptr, x,
                             x0=None, *, G, block_shape=(BLOCK, BLOCK),
                             block_scale=None) -> torch.Tensor:
-    """Plain PyTorch version of ``bsr_colstream``, written from the TPU
-    kernel: every block of group s's run ``groupptr[s]:groupptr[s+1]``
-    (pads included) adds ``blocks[b] @ x[tile gcols[gcolptr[s] +
-    (meta[b] & 0xFFFF)]]`` to block-row ``s*G + (meta[b] >> 16)``; f32
-    accumulation over a row's blocks (exact for int8), then the emission,
-    rounded once."""
+    """The block walk of K4 (``_kernel_colstream``) in plain PyTorch,
+    written from the TPU kernel: every block of group s's run
+    ``groupptr[s]:groupptr[s+1]`` (pads included) adds ``blocks[b] @
+    x[tile gcols[gcolptr[s] + (meta[b] & 0xFFFF)]]`` to block-row ``s*G +
+    (meta[b] >> 16)``; f32 accumulation over a row's blocks (exact for
+    int8), then the emission, rounded once."""
     nsb = groupptr.numel() - 1
     dev = x.device
     groupptr = groupptr.to(torch.int64)
@@ -114,9 +121,9 @@ def bsr_colstream_reference(blocks, meta, gcols, gcolptr, groupptr, x,
 def bsr_csr_reference(blocks, rowptr, cols, x, x0=None, *,
                       block_shape=(BLOCK, BLOCK),
                       block_scale=None) -> torch.Tensor:
-    """Plain PyTorch version of ``bsr_csr``: block-row i sums ``blocks[b]
-    @ x[tile cols[b]]`` over ``rowptr[i]:rowptr[i+1]`` in f32 (exact for
-    int8), then the emission, rounded once.  Never reads past
+    """The block walk of K7/K8/K9 in plain PyTorch: block-row i sums
+    ``blocks[b] @ x[tile cols[b]]`` over ``rowptr[i]:rowptr[i+1]`` in f32
+    (exact for int8), then the emission, rounded once.  Never reads past
     ``rowptr[-1]``."""
     n_rb = rowptr.numel() - 1
     rowptr = rowptr.to(torch.int64)
@@ -132,16 +139,38 @@ def bsr_csr_reference(blocks, rowptr, cols, x, x0=None, *,
 # ------------------------------------------------------------------ kernels
 
 
+def bsr_rows_reference(blocks, nz_rowptr, nz_cols, nz_pos, x, x0=None, *,
+                       block_scale=None) -> torch.Tensor:
+    """Plain PyTorch version of the row kernel: output row i sums
+    ``blocks.view(-1)[nz_pos[e]] * x[nz_cols[e]]`` over its nonzeros
+    ``nz_rowptr[i]:nz_rowptr[i+1]`` in f32 (float64 for int8, exact),
+    then the emission, rounded once.  Rows without nonzeros (the pad
+    rows) give 0, or ``-x0`` for the hop."""
+    mp, C = x.shape
+    dev = x.device
+    rowptr = nz_rowptr.to(torch.int64)
+    nnz = int(rowptr[-1])
+    rows = torch.repeat_interleave(torch.arange(mp, device=dev),
+                                   rowptr.diff())
+    cols = nz_cols[:nnz].to(torch.int64)
+    acc_dt = _acc_dtype(block_scale)
+    vals = blocks.reshape(-1)[nz_pos[:nnz]].to(acc_dt)
+    acc = torch.zeros(mp, C, dtype=acc_dt, device=dev)
+    step = max(1, _CHUNK_BYTES // (max(C, 1) * 8))
+    for lo in range(0, nnz, step):
+        hi = lo + step
+        acc.index_add_(0, rows[lo:hi], vals[lo:hi, None]
+                       * x.index_select(0, cols[lo:hi]).to(acc_dt))
+    return _emit(acc, x0, None, block_scale, x.dtype)
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = _build.load("bsr")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.bsr_csr_launch.argtypes = [p, p, p, i, p, p, p, i, ctypes.c_float,
-                                   i, p]
-    lib.bsr_colstream_launch.argtypes = [p, p, p, p, p, i, i, p, p, p, i,
-                                         ctypes.c_float, i, p]
-    for fn in (lib.bsr_csr_launch, lib.bsr_colstream_launch):
-        fn.restype = ctypes.c_int
+    lib.bsr_rows_launch.argtypes = [p, p, p, p, i, p, p, p, i,
+                                    ctypes.c_float, i, p]
+    lib.bsr_rows_launch.restype = ctypes.c_int
     return lib
 
 
@@ -153,81 +182,89 @@ def _check_no_grad(name, *ts):
             "bsr_cheby_hop, or run under torch.no_grad()")
 
 
-def _check_common(name, blocks, index, x, x0, block_shape, block_scale):
-    """Checks both kernels share; ``index``: the int32 metadata."""
+def _check_rows(name, blocks, nz_rowptr, nz_cols, nz_pos, x, x0,
+                block_scale):
+    """What the kernel takes: dtypes, the row index's shape and types,
+    one device, contiguity, and x and x0 on 16-byte boundaries."""
     dev = x.device
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"{name}: unsupported dtype {x.dtype}")
     if (x.dtype == torch.int8) != (block_scale is not None):
         raise ValueError(f"{name}: block_scale is required for int8 and "
                          "only for int8")
-    if tuple(block_shape) != (BLOCK, BLOCK) or blocks.dim() != 3 or tuple(
-            blocks.shape[1:]) != (BLOCK, BLOCK):
-        raise ValueError(f"{name}: the CUDA kernel takes {BLOCK}x{BLOCK} "
-                         f"blocks, got {tuple(blocks.shape[1:])}")
     if blocks.dtype != x.dtype:
         raise TypeError(f"{name}: blocks {blocks.dtype} vs x {x.dtype}")
-    mp, C = x.shape
-    if mp % BLOCK or C < 1:
-        raise ValueError(f"{name}: x rows {mp} not a multiple of {BLOCK}")
+    if x.dim() != 2 or x.shape[0] < 1 or x.shape[1] < 1:
+        raise ValueError(f"{name}: x must be [Mp, C] with Mp, C >= 1, got "
+                         f"{tuple(x.shape)}")
     if x0 is not None and (x0.dtype != x.dtype or x0.shape != x.shape):
         raise ValueError(f"{name}: x0 must match x's shape and dtype")
-    for t in index:
-        if t.dtype != torch.int32 or t.dim() != 1:
-            raise TypeError(f"{name}: block metadata must be 1-D int32")
-    for t in [blocks, x] + list(index) + ([] if x0 is None else [x0]):
+    if (nz_rowptr.dtype != torch.int32 or nz_cols.dtype != torch.int32
+            or nz_pos.dtype != torch.int64):
+        raise TypeError(f"{name}: the row index is int32 nz_rowptr and "
+                        "nz_cols and int64 nz_pos")
+    if (nz_rowptr.dim() != 1 or nz_rowptr.numel() != x.shape[0] + 1
+            or nz_cols.shape != nz_pos.shape or nz_cols.dim() != 1):
+        raise ValueError(f"{name}: nz_rowptr must hold x's {x.shape[0]} "
+                         "rows + 1 and nz_cols/nz_pos one entry per nonzero")
+    for t in (blocks, nz_rowptr, nz_cols, nz_pos, x) + (
+            () if x0 is None else (x0,)):
         if t.device != dev or not t.is_contiguous():
             raise ValueError(f"{name}: every tensor must be contiguous on "
                              f"{dev}")
-    # The kernels load blocks and x in 16-byte vectors.
-    for t in (blocks, x):
+    # The kernel loads x and x0 in 16-byte vectors.
+    for t in (x,) + (() if x0 is None else (x0,)):
         if t.data_ptr() % 16:
-            raise ValueError(f"{name}: blocks and x must start on a 16-byte "
+            raise ValueError(f"{name}: x and x0 must start on a 16-byte "
                              "boundary (a view with a storage offset may "
                              "not)")
 
 
-def _finish(rc: int, name: str):
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-
-
-def bsr_colstream(blocks, meta, gcols, gcolptr, groupptr, x, x0=None, *, G,
-                  block_shape=(BLOCK, BLOCK), block_scale=None):
-    """``L @ x`` (``x0`` None) or the hop ``2 (L @ x) - x0`` on the
-    column-streamed layout (``ops.packing.colstream_pack``): ``blocks``
-    ``[nb + pads, br, bc]``, ``meta``/``gcols``/``gcolptr``/``groupptr``
-    int32, ``x`` and ``x0`` ``[Mp, C]`` in the blocks' dtype with ``Mp =
-    (len(groupptr) - 1) * G * br``.  ``block_scale`` (int8 only) is the
-    blocks' dequant scale; the result is then requantized int8 in x's
-    scale.  Returns ``[Mp, C]`` in x's dtype."""
-    _check_no_grad("bsr_colstream", x, x0)
-    if x.device.type == "cpu":
-        return bsr_colstream_reference(
-            blocks, meta, gcols, gcolptr, groupptr, x, x0, G=G,
-            block_shape=block_shape, block_scale=block_scale)
-    if x.device.type != "cuda":
-        raise ValueError(f"bsr_colstream: no kernel for device {x.device}")
-    _check_common("bsr_colstream", blocks, (meta, gcols, gcolptr, groupptr),
-                  x, x0, block_shape, block_scale)
+def _launch(name, blocks, nz_rowptr, nz_cols, nz_pos, x, x0, block_scale,
+            span):
+    """One launch of the row kernel under the profiler range ``span``."""
+    _check_rows(name, blocks, nz_rowptr, nz_cols, nz_pos, x, x0,
+                block_scale)
     mp, C = x.shape
-    nsb = groupptr.numel() - 1
-    if gcolptr.numel() != nsb + 1 or mp != nsb * G * BLOCK:
-        raise ValueError("bsr_colstream: groupptr/gcolptr do not match x's "
-                         f"{mp} rows at G = {G}")
-    if G < 1 or nsb * G > 65535:
-        raise ValueError(f"bsr_colstream: {nsb * G} block-rows at G = {G}: "
-                         "the kernel takes 1 to 65535")
     y = torch.empty_like(x)
-    form = "spmm" if x0 is None else "hop"
-    with torch.cuda.device(x.device), record_function(f"bsr_colstream.{form}"):
-        rc = _lib().bsr_colstream_launch(
-            blocks.data_ptr(), meta.data_ptr(), gcols.data_ptr(),
-            gcolptr.data_ptr(), groupptr.data_ptr(), nsb, G, x.data_ptr(),
+    with torch.cuda.device(x.device), record_function(span):
+        rc = _lib().bsr_rows_launch(
+            blocks.data_ptr(), nz_rowptr.data_ptr(), nz_cols.data_ptr(),
+            nz_pos.data_ptr(), mp, x.data_ptr(),
             None if x0 is None else x0.data_ptr(), y.data_ptr(), C,
             0.0 if block_scale is None else float(block_scale),
             _DTYPE_CODE[x.dtype], torch.cuda.current_stream().cuda_stream)
-    _finish(rc, "bsr_colstream")
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    return y
+
+
+def _on_device(name, x):
+    """True for a CUDA tensor (launch), False for a CPU one (the plain
+    version); any other device raises."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {x.device}")
+    return True
+
+
+def bsr_colstream(blocks, nz_rowptr, nz_cols, nz_pos, x, x0=None, *,
+                  block_scale=None):
+    """K4: ``L @ x`` (``x0`` None) or the hop ``2 (L @ x) - x0`` of a
+    column-streamed operator, by the row kernel over its nonzero index
+    (``nz_rowptr`` int32 ``[Mp + 1]``, ``nz_cols`` int32 and ``nz_pos``
+    int64, into ``blocks`` of any layout and block shape); ``x`` and
+    ``x0`` ``[Mp, C]`` in the blocks' dtype.  ``block_scale`` (int8 only)
+    is the blocks' dequant scale; the result is then requantized int8 in
+    x's scale.  Returns ``[Mp, C]`` in x's dtype."""
+    _check_no_grad("bsr_colstream", x, x0)
+    if not _on_device("bsr_colstream", x):
+        return bsr_rows_reference(blocks, nz_rowptr, nz_cols, nz_pos, x, x0,
+                                  block_scale=block_scale)
+    form = "spmm" if x0 is None else "hop"
+    y = _launch("bsr_colstream", blocks, nz_rowptr, nz_cols, nz_pos, x, x0,
+                block_scale, f"bsr_colstream.{form}")
     bsr_colstream.launches += 1
     bsr_colstream.form_launches[form] += 1
     return y
@@ -237,40 +274,20 @@ bsr_colstream.launches = 0
 bsr_colstream.form_launches = collections.Counter()
 
 
-def bsr_csr(blocks, rowptr, cols, x, x0=None, *, block_shape=(BLOCK, BLOCK),
+def bsr_csr(blocks, nz_rowptr, nz_cols, nz_pos, x, x0=None, *,
             block_scale=None, route="K8"):
-    """``L @ x`` or ``2 (L @ x) - x0`` over block-CSR: block-row i owns
-    blocks ``rowptr[i]:rowptr[i+1]`` (``rowptr`` and ``cols`` int32; the
-    zero tails past ``rowptr[-1]`` are not read); ``x``/``x0`` ``[Mp, C]``
-    with ``Mp = (len(rowptr) - 1) * br``.  ``route`` (``K7``, ``K8`` or
-    ``K9``) names the TPU kernel the call stands for, for the counts."""
+    """K7, K8 or K9 (``route``, for the counts): the same product as
+    ``bsr_colstream``, by the same row kernel, on a block-CSR operator's
+    nonzero index."""
     _check_no_grad("bsr_csr", x, x0)
     if route not in _ROUTES:
         raise ValueError(f"bsr_csr: route {route!r} not in {_ROUTES}")
-    if x.device.type == "cpu":
-        return bsr_csr_reference(blocks, rowptr, cols, x, x0,
-                                 block_shape=block_shape,
-                                 block_scale=block_scale)
-    if x.device.type != "cuda":
-        raise ValueError(f"bsr_csr: no kernel for device {x.device}")
-    _check_common("bsr_csr", blocks, (rowptr, cols), x, x0, block_shape,
-                  block_scale)
-    mp, C = x.shape
-    n_rb = rowptr.numel() - 1
-    if mp != n_rb * BLOCK or n_rb > 65535:
-        raise ValueError(f"bsr_csr: rowptr of {n_rb} rows does not match x's "
-                         f"{mp} rows (or exceeds 65535 block-rows)")
-    y = torch.empty_like(x)
+    if not _on_device("bsr_csr", x):
+        return bsr_rows_reference(blocks, nz_rowptr, nz_cols, nz_pos, x, x0,
+                                  block_scale=block_scale)
     form = "spmm" if x0 is None else "hop"
-    with torch.cuda.device(x.device), record_function(
-            f"bsr_csr.{route}.{form}"):
-        rc = _lib().bsr_csr_launch(
-            blocks.data_ptr(), rowptr.data_ptr(), cols.data_ptr(), n_rb,
-            x.data_ptr(), None if x0 is None else x0.data_ptr(),
-            y.data_ptr(), C,
-            0.0 if block_scale is None else float(block_scale),
-            _DTYPE_CODE[x.dtype], torch.cuda.current_stream().cuda_stream)
-    _finish(rc, "bsr_csr")
+    y = _launch("bsr_csr", blocks, nz_rowptr, nz_cols, nz_pos, x, x0,
+                block_scale, f"bsr_csr.{route}.{form}")
     bsr_csr.launches += 1
     bsr_csr.form_launches[form] += 1
     bsr_csr.route_launches[route] += 1
@@ -286,19 +303,18 @@ bsr_csr.route_launches = collections.Counter()
 
 
 def kernel_call(L, x, x0, route, block_scale=None):
-    """One kernel launch on a (Quant)BlockSparseLaplacian's layout:
+    """One kernel launch on a (Quant)BlockSparseLaplacian's row index:
     ``bsr_colstream`` for ``route == "K4"``, else ``bsr_csr`` as that
     route.  The operators' ``kernel_call`` method lands here; every
     product of the operator-level wrappers below goes through that
     method."""
+    if L.nz_rowptr is None:
+        raise ValueError("this BSR operator has no row index (nz_rowptr): "
+                         "build it with device_laplacian(fmt='bsr')")
+    index = (L.blocks, L.nz_rowptr, L.nz_cols, L.nz_pos)
     if route == "K4":
-        return bsr_colstream(
-            L.blocks, L.cs_meta, L.cs_gcols, L.cs_gcolptr, L.cs_groupptr, x,
-            x0, G=L.rows_per_step, block_shape=L.block_shape,
-            block_scale=block_scale)
-    return bsr_csr(L.blocks, L.block_rowptr, L.block_cols, x, x0,
-                   block_shape=L.block_shape, block_scale=block_scale,
-                   route=route)
+        return bsr_colstream(*index, x, x0, block_scale=block_scale)
+    return bsr_csr(*index, x, x0, block_scale=block_scale, route=route)
 
 
 def _grouped_route(L) -> str:

@@ -351,6 +351,11 @@ def _gather_products(op, x, compute_dtype, acc_dtype) -> torch.Tensor:
     return acc.reshape(x.shape)
 
 
+# The port's own fields of the BSR operators: the nonzero index by output
+# row (``packing.row_index``) that the GPU's row kernel walks.
+ROW_INDEX_FIELDS = ("nz_rowptr", "nz_cols", "nz_pos")
+
+
 class _BsrMixin:
     """What the float and int8 BSR operators share."""
 
@@ -365,7 +370,7 @@ class _BsrMixin:
     def to(self, device):
         moved = {f: getattr(self, f).to(device) for f in (
             "blocks", "block_rows", "block_cols", "block_rowptr", "cs_meta",
-            "cs_gcols", "cs_gcolptr", "cs_groupptr")
+            "cs_gcols", "cs_gcolptr", "cs_groupptr") + ROW_INDEX_FIELDS
             if getattr(self, f) is not None}
         return dataclasses.replace(self, **moved)
 
@@ -385,6 +390,13 @@ class BlockSparseLaplacian(_BsrMixin):
     metadata ``cs_*`` (``ops.packing.colstream_pack``); ``block_rows`` is
     then not sorted within a group and ``block_rowptr`` holds at group
     boundaries only.
+
+    Beside JAX's fields the operator carries the nonzero index by output
+    row, ``nz_rowptr`` (int32 ``[m_padded + 1]``), ``nz_cols`` (int32) and
+    ``nz_pos`` (int64, each nonzero's flat place in ``blocks``;
+    ``ops.packing.row_index``): the GPU kernel walks it and reads the
+    values from ``blocks`` through it, so a copy with other ``blocks`` of
+    the same layout (another dtype, the int8 twin) stays right.
 
     With ``use_pallas`` the products run through the BSR kernels
     (``ops.bsr``); without, through the gather and segment-sum route,
@@ -407,6 +419,9 @@ class BlockSparseLaplacian(_BsrMixin):
     cs_gcols: torch.Tensor | None = None
     cs_gcolptr: torch.Tensor | None = None
     cs_groupptr: torch.Tensor | None = None
+    nz_rowptr: torch.Tensor | None = None
+    nz_cols: torch.Tensor | None = None
+    nz_pos: torch.Tensor | None = None
 
     @property
     def compute_dtype(self):
@@ -455,6 +470,9 @@ class QuantBlockSparseLaplacian(_BsrMixin, QuantOpMixin):
     cs_gcols: torch.Tensor | None = None
     cs_gcolptr: torch.Tensor | None = None
     cs_groupptr: torch.Tensor | None = None
+    nz_rowptr: torch.Tensor | None = None
+    nz_cols: torch.Tensor | None = None
+    nz_pos: torch.Tensor | None = None
 
     def _acc(self, x_q: torch.Tensor) -> torch.Tensor:
         """The exact accumulator ``(L / block_scale) @ x_q`` (int32 in
@@ -709,6 +727,13 @@ def _bsr_laplacian(L, m, nnz, dtype, device, use_pallas, block_size,
     common = dict(m=m, nnz=nnz, block_shape=block_shape,
                   use_pallas=use_pallas)
 
+    csr_rows, csr_cols = brows, bcols  # block-CSR order, before any reorder
+
+    def index(mp, order=None):
+        return dict(zip(ROW_INDEX_FIELDS, (
+            _tensor(a, device) for a in packing.row_index(
+                L, csr_rows, csr_cols, block_shape, mp, order))))
+
     if col_stream and use_pallas and len(counts):
         G = min(packing.ROWS_PER_STEP, max(len(counts), 1))
         mp = _round_up(mp, int(np.lcm(G * br, bc)))
@@ -718,6 +743,8 @@ def _bsr_laplacian(L, m, nnz, dtype, device, use_pallas, block_size,
         blocks = _zero_tail(blocks, packing.COLSTREAM_CHUNK)
         meta = np.concatenate(
             [meta, np.zeros(packing.COLSTREAM_CHUNK, meta.dtype)])
+        order = packing.colstream_order(csr_rows, csr_cols, rowptr, groupptr,
+                                        G)
         return BlockSparseLaplacian(
             blocks=_tensor(blocks, device, dtype),
             block_rows=_tensor(brows, device),
@@ -726,7 +753,8 @@ def _bsr_laplacian(L, m, nnz, dtype, device, use_pallas, block_size,
             rows_per_step=G, col_stream=True,
             cs_meta=_tensor(meta, device), cs_gcols=_tensor(gcols, device),
             cs_gcolptr=_tensor(gcolptr, device),
-            cs_groupptr=_tensor(groupptr, device), **common)
+            cs_groupptr=_tensor(groupptr, device), **index(mp, order),
+            **common)
 
     if chunked_rows and row_max > 0 and row_max <= max(4.0 * mean_cnt, 8.0):
         blocks = _zero_tail(blocks, row_max)
@@ -748,4 +776,4 @@ def _bsr_laplacian(L, m, nnz, dtype, device, use_pallas, block_size,
         blocks=_tensor(blocks, device, dtype),
         block_rows=_tensor(brows, device), block_cols=_tensor(bcols, device),
         block_rowptr=_tensor(rowptr, device), m_padded=mp, row_max=row_max,
-        rows_per_step=G, group_max=Lg, **common)
+        rows_per_step=G, group_max=Lg, **index(mp), **common)

@@ -15,6 +15,8 @@ modules import JAX.  ``tests/test_torch_graphs.py`` and
 packers' for the same arguments.  One difference: ``colstream_pack``
 checks that each block's row in its group and column slot fit the 16-bit
 fields of its ``meta`` word, where the original packs them unchecked.
+``row_index`` (with ``colstream_order``) is the port's own: the nonzero
+index by output row that the GPU's row kernel walks (``ops/bsr.py``).
 
 Left out: the TPU VMEM models (``auto_rows_per_step``, ``ring_span``)
 that size G and the x ring, so ``pack_banded`` returns no ring size.  G
@@ -48,6 +50,8 @@ __all__ = [
     "choose_block_shape",
     "pack_block_sparse",
     "colstream_pack",
+    "colstream_order",
+    "row_index",
     "choose_bsr_row_group",
 ]
 
@@ -373,6 +377,56 @@ def colstream_pack(blocks: np.ndarray, brows: np.ndarray,
         gcolptr.astype(np.int32),
         groupptr.astype(np.int32),
     )
+
+
+def colstream_order(brows: np.ndarray, bcols: np.ndarray,
+                    rowptr: np.ndarray, groupptr: np.ndarray,
+                    G: int) -> np.ndarray:
+    """Where ``colstream_pack`` puts each block of the block-CSR order:
+    its ``blocks2[order[b]]`` is ``blocks[b]``.  Group s's real blocks,
+    sorted by (column, row), open its run at ``groupptr[s]``; its pads
+    follow them and are no block's place."""
+    s = brows.astype(np.int64) // G
+    k = np.lexsort((brows, bcols, s))
+    sk = s[k]
+    order = np.empty(len(brows), np.int64)
+    order[k] = (groupptr.astype(np.int64)[sk] + np.arange(len(k))
+                - rowptr.astype(np.int64)[sk * G])
+    return order
+
+
+def row_index(L: scipy.sparse.spmatrix, brows: np.ndarray,
+              bcols: np.ndarray, block_shape: tuple, m_padded: int,
+              order: np.ndarray | None = None):
+    """The nonzero index of a BSR operator, by output row: ``(rowptr,
+    cols, pos)`` with ``rowptr`` int32 ``[m_padded + 1]``, and for each
+    nonzero of ``L`` (once per position, in row order, columns sorted)
+    its column ``cols`` (int32) and ``pos`` (int64), its flat place in
+    the operator's ``blocks`` array, ``block * br * bc + r * bc + c``.
+    ``brows``/``bcols`` are the block-CSR order that ``pack_block_sparse``
+    returns and ``order`` where a reordered layout puts each of those
+    blocks (``colstream_order``; none: in place).  The row kernel reads
+    each value as ``blocks.view(-1)[pos]``, in whatever dtype the blocks
+    have."""
+    br, bc = block_shape
+    coo = L.tocoo()
+    n = max(L.shape[1], 1)
+    key = np.unique(coo.row.astype(np.int64) * n + coo.col)
+    rows, cols = key // n, key % n
+    n_cb = -(-n // bc)
+    block_key = brows.astype(np.int64) * n_cb + bcols
+    want = (rows // br) * n_cb + cols // bc
+    slot = np.searchsorted(block_key, want)
+    if len(slot) and (slot.max() >= len(block_key)
+                      or not np.array_equal(block_key[slot], want)):
+        raise ValueError("row_index: a nonzero of L lies in no block")
+    if order is not None:
+        slot = order[slot]
+    pos = slot * (br * bc) + (rows % br) * bc + cols % bc
+    rowptr = np.searchsorted(rows, np.arange(m_padded + 1)).astype(np.int32)
+    if len(rows) >= 2**31:
+        raise ValueError("row_index: more nonzeros than int32 holds")
+    return rowptr, cols.astype(np.int32), pos.astype(np.int64)
 
 
 def choose_bsr_row_group(rowptr: np.ndarray, br: int, bc: int,

@@ -5,8 +5,9 @@ from cnn_graph_tpu_torch.utils.profiling import (
     H100_OPS_PER_S,
     roofline,
     slope_time,
+    sparse_roofline,
     spmm_roofline,
 )
 
 __all__ = ["H100_BYTES_PER_S", "H100_OPS_PER_S", "roofline", "slope_time",
-           "spmm_roofline"]
+           "sparse_roofline", "spmm_roofline"]

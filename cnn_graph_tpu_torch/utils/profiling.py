@@ -1,7 +1,10 @@
-"""Device timing by slope fit and the SpMM roofline, on an NVIDIA H100.
+"""Device timing by slope fit and the SpMM rooflines, on an NVIDIA H100.
 
 Counterpart of ``cnn_graph_tpu/utils/profiling.py`` (``slope_time`` :18,
-``spmm_roofline`` :117), its own copy: that module imports JAX.  Times
+``spmm_roofline`` :117), its own copy: that module imports JAX.
+``sparse_roofline`` is the port's own: the bound of a sparse product by
+what its nonzeros need, where ``spmm_roofline`` counts a block format's
+work.  Times
 come from CUDA events, and a run that finds no card raises rather than
 time the CPU.  The roofline uses the H100 SXM data-sheet peaks at its
 700 W limit (dense rates, no sparsity) in place of the TPU v5e's
@@ -15,7 +18,7 @@ import math
 import torch
 
 __all__ = ["H100_BYTES_PER_S", "H100_OPS_PER_S", "slope_time",
-           "spmm_roofline", "roofline"]
+           "spmm_roofline", "sparse_roofline", "roofline"]
 
 H100_BYTES_PER_S = 3.35e12
 # Operations per second by the operands' type: tensor cores for bf16 and
@@ -120,3 +123,21 @@ def spmm_roofline(op, seconds_per_spmm: float | None, feature_width: int,
                    **peaks)
     out["useful_edge_flops_frac"] = 2 * op.nnz * C / flops
     return out
+
+
+def sparse_roofline(op, seconds_per_spmm: float | None, feature_width: int,
+                    extra_inputs: int = 0, **peaks) -> dict:
+    """Roofline of one ``L @ x`` by what the inputs need: each nonzero's
+    value (in the operator's dtype) and int32 column index, the int32 row
+    pointer over the ``m_padded`` rows, one activation read and one
+    written (``extra_inputs`` more reads: 1 for the hop's x0), and
+    ``2 nnz C`` operations.  This is the bound of a CSR product and of
+    the row kernel (``ops/bsr.py``) alike; ``spmm_roofline`` counts the
+    block format's work instead."""
+    e = torch.empty(0, dtype=op.compute_dtype).element_size()
+    C = feature_width
+    nnz = op.nnz
+    nbytes = (nnz * (e + 4) + (op.m_padded + 1) * 4
+              + (2 + extra_inputs) * op.m_padded * C * e)
+    return roofline(2 * nnz * C, nbytes, op.compute_dtype, seconds_per_spmm,
+                    **peaks)

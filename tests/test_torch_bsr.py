@@ -63,6 +63,7 @@ from cnn_graph_tpu_torch.ops import (
     quantize_block_sparse,
     quantize_dense,
 )
+from cnn_graph_tpu_torch.ops.laplacian import ROW_INDEX_FIELDS
 from cnn_graph_tpu_torch.serve import compile_serving
 
 C = 200  # not a multiple of the TPU's 128-lane tiles
@@ -114,8 +115,12 @@ def _inputs(mp, seed, scale=1.0):
 
 
 def _assert_same_operator(op, op_j):
-    """Every field equal: tensors as raw bytes, the rest by value."""
+    """Every field equal: tensors as raw bytes, the rest by value.  The
+    port's own row index (``ROW_INDEX_FIELDS``) has no JAX counterpart;
+    tests/test_torch_bsr_rows.py holds it to the Laplacian."""
     for f in dataclasses.fields(op):
+        if f.name in ROW_INDEX_FIELDS:
+            continue
         a, b = getattr(op, f.name), getattr(op_j, f.name)
         if isinstance(a, torch.Tensor):
             if a.dtype == torch.bfloat16:
@@ -247,7 +252,8 @@ class TestDeviceOperator:
         op, _ = _ops(g900)
         moved = op.to("meta")
         for f in ("blocks", "block_rows", "block_cols", "block_rowptr",
-                  "cs_meta", "cs_gcols", "cs_gcolptr", "cs_groupptr"):
+                  "cs_meta", "cs_gcols", "cs_gcolptr", "cs_groupptr",
+                  "nz_rowptr", "nz_cols", "nz_pos"):
             assert getattr(moved, f).device.type == "meta"
         assert moved.rows_per_step == op.rows_per_step
 
@@ -492,8 +498,7 @@ class TestQuantTwin:
         with pytest.raises(RuntimeError, match="inference-only"):
             q.matmul(x)
         with pytest.raises(RuntimeError, match="no backward"):
-            bsr_colstream(q.blocks, q.cs_meta, q.cs_gcols, q.cs_gcolptr,
-                          q.cs_groupptr, x, G=q.rows_per_step)
+            bsr_colstream(q.blocks, q.nz_rowptr, q.nz_cols, q.nz_pos, x)
 
     def test_no_kernel_on_other_devices(self, g900):
         """No silent fallback: a tensor on neither the CPU nor a CUDA
@@ -501,11 +506,10 @@ class TestQuantTwin:
         op = _ops(g900, col_stream=False)[0]
         x = torch.zeros(op.m_padded, 4, device="meta")
         with pytest.raises(ValueError, match="no kernel"):
-            bsr_csr(op.blocks, op.block_rowptr, op.block_cols, x)
+            bsr_csr(op.blocks, op.nz_rowptr, op.nz_cols, op.nz_pos, x)
         cs = _ops(g900)[0]
         with pytest.raises(ValueError, match="no kernel"):
-            bsr_colstream(cs.blocks, cs.cs_meta, cs.cs_gcols, cs.cs_gcolptr,
-                          cs.cs_groupptr, x, G=cs.rows_per_step)
+            bsr_colstream(cs.blocks, cs.nz_rowptr, cs.nz_cols, cs.nz_pos, x)
 
 
 # ---------------------------------------------------------- dense int8 twin

@@ -29,6 +29,7 @@ from cnn_graph_tpu_torch.ops import (
     bsr_colstream_reference,
     bsr_csr,
     bsr_csr_reference,
+    bsr_rows_reference,
     bsr_spmm,
     cheby_conv,
     cheby_conv_banded,
@@ -301,10 +302,10 @@ _LAYOUTS = {  # layout -> (device_laplacian arguments, bsr_csr route)
 }
 
 
-def _bsr(L, layout, dtype, device):
+def _bsr(L, layout, dtype, device, block_size=128):
     kw, route = _LAYOUTS[layout]
     dt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
-    op = device_laplacian(L, fmt="bsr", block_size=128, dtype=dt,
+    op = device_laplacian(L, fmt="bsr", block_size=block_size, dtype=dt,
                           device=device, **kw)
     assert op.use_pallas and op.col_stream == (layout == "colstream")
     if layout == "csr":  # the one-row-per-step route of the same layout
@@ -315,45 +316,94 @@ def _bsr(L, layout, dtype, device):
 
 
 def _bsr_args(op, route):
-    """The kernel, its plain version, the layout arguments and the
-    keywords both take."""
+    """The kernel's wrapper and its row-index arguments, and the block
+    walk's plain version with its layout arguments and keywords."""
+    rows = (op.blocks, op.nz_rowptr, op.nz_cols, op.nz_pos)
     if route is None:
-        return (bsr_colstream, bsr_colstream_reference,
+        return (bsr_colstream, rows, bsr_colstream_reference,
                 (op.blocks, op.cs_meta, op.cs_gcols, op.cs_gcolptr,
-                 op.cs_groupptr), dict(G=op.rows_per_step))
-    return (functools.partial(bsr_csr, route=route), bsr_csr_reference,
-            (op.blocks, op.block_rowptr, op.block_cols), {})
+                 op.cs_groupptr),
+                dict(G=op.rows_per_step, block_shape=op.block_shape))
+    return (functools.partial(bsr_csr, route=route), rows, bsr_csr_reference,
+            (op.blocks, op.block_rowptr, op.block_cols),
+            dict(block_shape=op.block_shape))
 
 
-@pytest.mark.parametrize("C", [48, 37, 300])
-@pytest.mark.parametrize("hop", [False, True])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
-@pytest.mark.parametrize("layout", list(_LAYOUTS))
-def test_bsr_kernels_match_reference(city48, cuda_device, layout, dtype,
-                                     hop, C):
-    op, route = _bsr(city48, layout, dtype, cuda_device)
-    g = torch.Generator(device=cuda_device).manual_seed(C)
-    x, x0 = (torch.randn(op.m_padded, C, generator=g, device=cuda_device)
+def _hub(n=700, degree=300, seed=4):
+    """A kNN graph whose node 0 is joined to ``degree`` others: a row of
+    more than 32 nonzeros, which the kernel's warp walks in chunks."""
+    rng = np.random.default_rng(seed)
+    z = rng.normal(size=(n, 8)).astype(np.float32)
+    W = graphs.adjacency(*graphs.knn(z, k=6, algorithm="auto")).tolil()
+    nb = rng.choice(np.arange(1, n), degree, replace=False)
+    W[0, nb] = 0.5
+    W[nb, 0] = 0.5
+    return graphs.laplacian(W.tocsr())
+
+
+@pytest.fixture(scope="module")
+def hub700():
+    return _hub()
+
+
+def _check_bsr_kernel(op, route, dtype, hop, C, device):
+    """One launch of the row kernel against the row walk's and the block
+    walk's plain versions on the same inputs; pad rows included."""
+    g = torch.Generator(device=device).manual_seed(C)
+    x, x0 = (torch.randn(op.m_padded, C, generator=g, device=device)
              for _ in range(2))
     if dtype == "int8":
         x, x0, scale = op.quantize(x), op.quantize(x0), op.block_scale
     else:
         x, x0, scale = x.to(op.compute_dtype), x0.to(op.compute_dtype), None
-    kernel, plain, lay, kw = _bsr_args(op, route)
+    kernel, rows, block_plain, lay, kw = _bsr_args(op, route)
     counted = bsr_colstream if route is None else bsr_csr
-    args = lay + (x, x0 if hop else None)
+    xx0 = x0 if hop else None
     before = counted.launches
-    got = kernel(*args, block_scale=scale, **kw)
+    got = kernel(*rows, x, xx0, block_scale=scale)
     torch.cuda.synchronize()
     assert counted.launches == before + 1
-    want = plain(*args, block_scale=scale, **kw)
-    assert got.dtype == want.dtype == x.dtype and got.shape == x.shape
-    if dtype == "int8":
-        assert torch.equal(got, want)
-    else:
-        torch.testing.assert_close(
-            got.float(), want.float(), atol=1e-4,
-            rtol=2**-7 if dtype == "bfloat16" else 1e-5)
+    assert got.dtype == x.dtype and got.shape == x.shape
+    for want in (bsr_rows_reference(*rows, x, xx0, block_scale=scale),
+                 block_plain(*lay, x, xx0, block_scale=scale, **kw)):
+        _assert_kernel_close(got, want)
+    pad = got[op.m:].float()
+    assert torch.equal(pad, torch.zeros_like(pad) if not hop
+                       else (-x0[op.m:].float()).to(x.dtype).float())
+
+
+@pytest.mark.parametrize("C", [20, 37, 512])
+@pytest.mark.parametrize("hop", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("layout", list(_LAYOUTS))
+def test_bsr_kernels_match_reference(city48, cuda_device, layout, dtype,
+                                     hop, C):
+    """Every route, dtype and form at C = 20 (the scalar form in bf16 and
+    int8), 37 (scalar in every dtype) and 512 (one full pass of
+    16-byte vectors)."""
+    op, route = _bsr(city48, layout, dtype, cuda_device)
+    _check_bsr_kernel(op, route, dtype, hop, C, cuda_device)
+
+
+@pytest.mark.parametrize("C", [20, 512, 1040])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("layout", ["colstream", "grouped"])
+def test_bsr_kernel_long_rows(hub700, cuda_device, layout, dtype, C):
+    """A row of 300 nonzeros (10 warp-wide chunks) and, at C = 1040, three
+    passes of 512 columns with a masked tail; hop form."""
+    op, route = _bsr(hub700, layout, dtype, cuda_device)
+    assert int(op.nz_rowptr.diff().max()) > 32
+    _check_bsr_kernel(op, route, dtype, True, C, cuda_device)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("layout", ["colstream", "grouped"])
+def test_bsr_kernel_other_block_shape(city48, cuda_device, layout, dtype):
+    """(8, 128) blocks: the row index reads them as it reads 128x128 ones
+    (JAX's BSR kernels take other block shapes too)."""
+    op, route = _bsr(city48, layout, dtype, cuda_device, block_size=(8, 128))
+    assert op.block_shape == (8, 128)
+    _check_bsr_kernel(op, route, dtype, True, 64, cuda_device)
 
 
 @pytest.mark.parametrize("layout", ["colstream", "grouped", "csr",
@@ -453,20 +503,22 @@ def test_bsr_host_built_operator_serves_through_kernel(city48, cuda_device,
 def test_bsr_kernels_reject_bad_arguments(city48, cuda_device):
     op, _ = _bsr(city48, "grouped", "float32", cuda_device)
     x = torch.zeros(op.m_padded, 16, device=cuda_device)
-    lay = (op.blocks, op.block_rowptr, op.block_cols)
+    rows = (op.blocks, op.nz_rowptr, op.nz_cols, op.nz_pos)
     with pytest.raises(TypeError):
-        bsr_csr(*lay, x.to(torch.bfloat16))
+        bsr_csr(*rows, x.to(torch.bfloat16))
     with pytest.raises(ValueError):
-        bsr_csr(*lay, x[:, ::2])
+        bsr_csr(*rows, x[:, ::2])
     with pytest.raises(ValueError):
-        bsr_csr(op.blocks, op.block_rowptr.cpu(), op.block_cols, x)
+        bsr_csr(op.blocks, op.nz_rowptr.cpu(), op.nz_cols, op.nz_pos, x)
     flat = torch.zeros(op.m_padded * 16 + 3, device=cuda_device)
     with pytest.raises(ValueError, match="16-byte"):
         bsr_spmm(op, flat[3:].view(op.m_padded, 16))
-    narrow = device_laplacian(city48, fmt="bsr", block_size=(8, 128),
-                              device=cuda_device, col_stream=False)
-    with pytest.raises(ValueError, match="128x128"):
-        narrow.matmul(torch.zeros(narrow.m_padded, 16, device=cuda_device))
+    with pytest.raises(ValueError, match="16-byte"):
+        bsr_csr(*rows, x, flat[3:].view(op.m_padded, 16))
+    with pytest.raises(TypeError, match="row index"):
+        bsr_csr(op.blocks, op.nz_rowptr, op.nz_cols, op.nz_pos.int(), x)
+    with pytest.raises(ValueError, match="rows"):
+        bsr_csr(*rows, x[:-128].contiguous())
 
 
 # ------------------------------ K5, K6, the in-place form, cheby_finals
