@@ -5,19 +5,26 @@
 Phases, each fatal on failure (no CPU path, no fallback):
 
 1. require a CUDA device; print the card's name and power limit;
-2. build the banded kernels (csrc/band.cu: K1 on the deep-K-window
-   layout, K5 on the uniform band, K6 on the flat ragged band), the
-   fused Chebyshev kernels (csrc/cheby_fused.cu), the BSR operators'
-   row-sparse gather kernel (csrc/bsr.cu, ``bsr_rows_kernel``, launched
-   as K4 by ``bsr_colstream`` and as K7/K8/K9 by ``bsr_csr``) and the
-   probes P1-P3 (csrc/probes.cu) from source, one nvcc each, started
-   together; print each kernel's registers and shared memory;
-3. hold the banded kernel K1 against its plain PyTorch version on the real
-   50,176-node serving operator at C = 512, for L@x and the hop 2L@x - x0,
-   in int8 (bit-identical), bf16 (one bf16 ulp: both round an f32
-   accumulation of exact bf16 products, summed in another order) and f32
-   (atol 1e-4, another summation order), and for the adjoint hop
-   2L@x - x0 + c in bf16 and f32 (same bounds);
+2. build the banded kernels (csrc/band.cu: ``band_rows_kernel``, the
+   walk over the band's nonzeros row by row, for K1 on the deep-K-window
+   layout and K5 on the uniform band; the tile kernels for K6 on the
+   flat ragged band), the fused Chebyshev kernels (csrc/cheby_fused.cu),
+   the BSR operators' row-sparse gather kernel (csrc/bsr.cu,
+   ``bsr_rows_kernel``, launched as K4 by ``bsr_colstream`` and as
+   K7/K8/K9 by ``bsr_csr``; it shares csrc/rows.cuh with
+   ``band_rows_kernel``) and the probes P1-P3 (csrc/probes.cu) from
+   source, one nvcc each, started together; print each kernel's
+   registers and shared memory;
+3. hold the banded kernel K1 against both its plain PyTorch versions,
+   the window product (``banded_dkw_reference``) and the row walk
+   (``banded_rows_reference``), on the real 50,176-node serving operator
+   at C = 512, for L@x, the hop 2L@x - x0 and the adjoint hop
+   2L@x - x0 + c, in int8 (bit-identical; no adjoint hop), bf16 (one
+   bf16 ulp: all round an f32 accumulation of exact bf16 products,
+   summed in another order) and f32 (atol 1e-4, another summation
+   order); time each form beside phase 16's library time, the sparse
+   bound (``sparse_roofline``) and the block format's work
+   (``spmm_roofline``);
 4. serve the bench's NodeClassifier (K=25, Fin=512, 16 classes) on
    city_graph(224, k=8) through compile_serving: 4 requests in bf16 and
    4 in int8, each with its own features; check 24 kernel launches per
@@ -89,12 +96,13 @@ Phases, each fatal on failure (no CPU path, no fallback):
    one request through each route's operator: 24 launches of that route
    each, logits against the plain twin's;
 13. on the 50k city graph at C = 512, hold K5 (the ``ragged=False``
-   operator) and K6 (the ragged operator built with ``use_pallas=False``
-   and then given it, quantized before for int8) against their plain
-   versions for L@x, the hop and (float) the adjoint hop in f32, bf16
-   and int8, tolerances as phase 3, and time both; check the in-place
-   hop (``donate``) of K1, K5 and K6 bit-identical to the out-of-place
-   one and written into x0's storage, and time the two;
+   operator; against both plain versions, as phase 3) and K6 (the
+   ragged operator built with ``use_pallas=False`` and then given it,
+   quantized before for int8; against its window plain version) for
+   L@x, the hop and (float) the adjoint hop in f32, bf16 and int8,
+   tolerances as phase 3, and time them as phase 3 does; check the
+   in-place hop (``donate``) of K1, K5 and K6 bit-identical to the
+   out-of-place one and written into x0's storage, and time the two;
 14. run bench.py's K=25 chains (bench.py:423-612): ``cheby_finals`` in a
    loop of K-blocks with the bf16 renormalisation, and int8 carries on
    the quantized operator, timed by ``utils.profiling.slope_time``, on
@@ -113,8 +121,9 @@ Phases, each fatal on failure (no CPU path, no fallback):
 16. time the library call for each sparse product: one
    ``torch.sparse.mm`` of the same matrix in CSR at C = 512 on the card
    (50k city graph and 50k scattered graph; f32 and bf16; torch has no
-   int8 one), beside the kernels' bounds; run first thing in phase 10,
-   so that phases 10 and 12 print it beside their kernels' times;
+   int8 one), beside the kernels' bounds; the city graph's before phase
+   3 and the scattered graph's first thing in phase 10, so that phases
+   3, 10, 12 and 13 print it beside their kernels' times;
 17. with ``--profile-dir DIR`` only: trace 3 requests per serving mode
    after 2 warm-ups (banded, scattered BSR, ChebNet, uniform, ragged),
    2 bf16 training steps after one (banded, scattered and uniform
@@ -151,6 +160,7 @@ card's name and power limit, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import json
@@ -187,8 +197,8 @@ from cnn_graph_tpu_torch.ops import (  # noqa: E402
     QuantBlockSparseLaplacian,
     QuantDenseLaplacian,
     banded_dkw,
-    banded_dkw_reference,
     banded_ragged,
+    banded_rows_reference,
     banded_uniform,
     bsr_colstream,
     bsr_colstream_reference,
@@ -203,6 +213,7 @@ from cnn_graph_tpu_torch.ops import (  # noqa: E402
     cheby_finals,
     device_laplacian,
     fused_filter,
+    packing,
     quantize_banded,
     quantize_block_sparse,
 )
@@ -235,6 +246,9 @@ REPLACES = {"dkw": "cnn_graph_tpu/ops/pallas_band.py:448",      # K1
             "uniform": "cnn_graph_tpu/ops/pallas_band.py:70",   # K5
             "ragged": "cnn_graph_tpu/ops/pallas_band.py:202"}   # K6
 KERNEL_ID = {"dkw": "K1", "uniform": "K5", "ragged": "K6"}
+# The kernel of csrc/band.cu each layout launches.
+BAND_KERNEL = {"dkw": "band_rows_kernel", "uniform": "band_rows_kernel",
+               "ragged": "band_f32_kernel/band_tc_kernel"}
 # bench.py's chains: the 100k city graph (bench.py:555) and the K-blocks
 # slope_time differences (bench.py:401).
 SIDE_100K, CHAIN_UNITS = 316, (2, 8)
@@ -291,6 +305,31 @@ def card() -> str:
     return out.stdout.strip()
 
 
+# Spin cycles per call enqueued behind device_ms's spin kernel: 2 ms at
+# the H100's 1.98 GHz boost clock, more than a wrapper's host time.
+SPIN_CYCLES_PER_CALL = 4_000_000
+
+
+@contextlib.contextmanager
+def call_seconds(module, name: str):
+    """The seconds of each call of ``module.name`` made inside the block,
+    in a list: a step of a builder, timed where the builder calls it."""
+    fn, spent = getattr(module, name), []
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            spent.append(time.perf_counter() - t0)
+
+    setattr(module, name, timed)
+    try:
+        yield spent
+    finally:
+        setattr(module, name, fn)
+
+
 def cuda_ms(fn, n: int) -> float:
     """Mean device milliseconds of ``fn()`` over ``n`` calls after one
     warm-up call, from CUDA events."""
@@ -306,48 +345,113 @@ def cuda_ms(fn, n: int) -> float:
     return start.elapsed_time(stop) / n
 
 
-def kernel_phase(ops, C: int, gen: torch.Generator, label: str) -> dict:
-    """Kernel vs plain version on one operator, every form it has."""
-    op = ops[label]
-    dev = op.base.device
-    x, x0, c = (torch.randn(op.m_padded, C, generator=gen, device=dev)
-                for _ in range(3))
-    if label == "int8":
-        x, x0, scale = op.quantize(x), op.quantize(x0), op.band_scale
-        forms = (("spmm", None, None), ("hop", x0, None))
+def device_ms(fn, n: int) -> float:
+    """Mean device milliseconds of ``fn()`` over ``n`` calls after one
+    warm-up call, from CUDA events, with the host's enqueue hidden: a
+    spin kernel holds the stream while the host enqueues the ``n`` calls,
+    so the events time the device work alone.  ``cuda_ms`` times both,
+    which for a kernel shorter than its wrapper's host time is the
+    host's; requests and steps take ``cuda_ms``."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES_PER_CALL * (n + 1))
+    start.record()
+    for _ in range(n):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / n
+
+
+def rows_plain(op, args, scale):
+    """The row walk's plain version (``banded_rows_reference``) on ``op``'s
+    layout, for K1 and K5."""
+    lay = layout_of(op)
+    if lay == "dkw":
+        bands, sched, levels = op.bands_dkw, op.sched_dkw, op.levels
     else:
-        x, x0, c = (t.to(op.compute_dtype) for t in (x, x0, c))
-        scale = None
-        forms = (("spmm", None, None), ("hop", x0, None), ("hop_c", x0, c))
-    kw = dict(levels=op.levels, G=op.rows_per_step, band_scale=scale)
-    rec = {"max_abs_err": 0.0}
-    for form, xx0, cc in forms:
-        args = (op.bands_dkw, op.base, op.sched_dkw, x, xx0, cc)
-        got = banded_dkw(*args, **kw)
-        want = banded_dkw_reference(*args, **kw)
-        torch.cuda.synchronize()
-        check(got.dtype == want.dtype and got.shape == want.shape,
-              f"{label} {form}: dtype/shape")
-        if label == "int8":
-            check(torch.equal(got, want), f"int8 {form} not bit-identical")
-            err = float((got.int() - want.int()).abs().max())
-        else:
-            rtol = 2**-7 if label == "bf16" else 0.0
-            err = float((got.float() - want.float()).abs().max())
-            torch.testing.assert_close(got.float(), want.float(),
-                                       rtol=rtol, atol=1e-4)
-        if form == "hop_c":
-            rec["hop_c_max_abs_err"] = err
-        else:
-            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        bands, sched, levels = (op.band,), None, (op.band.shape[1],)
+    return banded_rows_reference(bands, op.base, sched, op.nz_rowptr,
+                                 op.nz_win, *args, layout=lay, levels=levels,
+                                 G=op.rows_per_step, band_scale=scale)
+
+
+def band_kernel_check(op, gen, what: str, lib: dict) -> dict:
+    """``op``'s layout kernel (K1, K5 or K6) against its window plain
+    version and, for the row walk (K1, K5), the row walk's plain version,
+    at C = FIN for every form it has; all timed, each time beside the
+    sparse bound (``sparse_roofline``), the block format's work
+    (``spmm_roofline``) and, for L@x, phase 16's library time ``lib``
+    (the same matrix in CSR, by dtype).  Tolerances of ``_check_close``."""
+    x, x0, c, scale = _layout_inputs(op, gen)
+    plain = _plain_banded(op)
+    rows = layout_of(op) != "ragged"
+    dt = {torch.int8: "int8", torch.bfloat16: "bf16"}.get(op.compute_dtype,
+                                                           "f32")
+    rec = {"max_abs_err": 0.0, "library_ms": lib.get(dt)}
+    if rows:
+        rec["rows_max_abs_err"] = 0.0
+    forms = {"spmm": (x, None, None), "hop": (x, x0, None)}
+    if c is not None:  # the adjoint hop, float only
+        forms["hop_c"] = (x, x0, c)
+    for form, args in forms.items():
+        def kern(a=args):
+            return layout_call(op, *a, band_scale=scale)
+
+        def ref(a=args):
+            return layout_call(plain, *a, band_scale=scale)
+
+        def rref(a=args):
+            return rows_plain(op, a, scale)
+
+        got = kern()
         pre = "" if form == "spmm" else form + "_"
-        rec[pre + "ms"] = cuda_ms(lambda: banded_dkw(*args, **kw), 20)
-        rec[pre + "plain_ms"] = cuda_ms(
-            lambda: banded_dkw_reference(*args, **kw), 3)
-        rec[pre + "roofline"] = spmm_roofline(
-            op, rec[pre + "ms"] / 1e3, C,
-            extra_inputs=(xx0 is not None) + (cc is not None))
+        for key, want in ((pre + "max_abs_err", ref()),
+                          (pre + "rows_max_abs_err",
+                           rref() if rows else None)):
+            if want is None:
+                continue
+            torch.cuda.synchronize()
+            rec[key] = _check_close(got, want, f"{what} {form} ({key})")
+            top = key[len(pre):]
+            rec[top] = max(rec[top], rec[key])
+        extra = sum(a is not None for a in args[1:])
+        rec[pre + "ms"] = device_ms(kern, 20)
+        rec[pre + "plain_ms"] = device_ms(ref, 3)
+        if rows:
+            rec[pre + "rows_plain_ms"] = device_ms(rref, 2)
+        rec[pre + "roofline"] = sparse_roofline(
+            op, rec[pre + "ms"] / 1e3, FIN, extra_inputs=extra)
+        rec[pre + "block_roofline"] = spmm_roofline(
+            op, rec[pre + "ms"] / 1e3, FIN, extra_inputs=extra)
     return rec
+
+
+def print_band_kernel(what: str, rec: dict, gpu: str):
+    """One line per banded kernel: each form's time beside its plain
+    versions', its sparse bound and its block format's work; the library
+    time beside L@x."""
+    def one(pre):
+        r, b = rec[pre + "roofline"], rec[pre + "block_roofline"]
+        rows = (f", row walk plain {rec[pre + 'rows_plain_ms']:.4f}"
+                if pre + "rows_plain_ms" in rec else "")
+        return (f"{rec[pre + 'ms']:.4f} ms (plain {rec[pre + 'plain_ms']:.4f}"
+                f"{rows} ms; sparse bound {r['bound_us'] / 1e3:.4f} ms "
+                f"{r['bound_by']}, block format's work "
+                f"{b['bound_us'] / 1e3:.4f} ms {b['bound_by']})")
+    lib = ("none" if rec["library_ms"] is None
+           else f"{rec['library_ms']:.4f} ms")
+    c = f", +c {one('hop_c_')}" if "hop_c_ms" in rec else ""
+    inplace = (f"; in place {rec['hop_inplace_ms']:.4f} ms vs out of place "
+               f"{rec['hop_outofplace_ms']:.4f} ms" if "hop_inplace_ms" in rec
+               else "")
+    rows = (f" (row walk plain {rec['rows_max_abs_err']:.3g})"
+            if "rows_max_abs_err" in rec else "")
+    print(f"kernel {what} C={FIN}: max_abs_err {rec['max_abs_err']:.3g}"
+          f"{rows}, L@x {one('')}; torch.sparse.mm {lib}; hop {one('hop_')}"
+          f"{c}{inplace} [{gpu}]", flush=True)
 
 
 # ------------------------------------- K5, K6, in place, bench's chains
@@ -405,37 +509,6 @@ def _layout_inputs(op, gen):
     return (*(t.to(op.compute_dtype) for t in (x, x0, c)), None)
 
 
-def layout_kernel_phase(op, gen, what: str) -> dict:
-    """``op``'s layout kernel (K5 or K6) against its plain version on the
-    same inputs, for every form it has, both timed."""
-    x, x0, c, scale = _layout_inputs(op, gen)
-    forms = {"spmm": (x, None, None), "hop": (x, x0, None)}
-    if c is not None:
-        forms["hop_c"] = (x, x0, c)
-    plain = _plain_banded(op)
-    rec = {"max_abs_err": 0.0}
-    for form, args in forms.items():
-        def kern(a=args):
-            return layout_call(op, *a, band_scale=scale)
-
-        def ref(a=args):
-            return layout_call(plain, *a, band_scale=scale)
-
-        got, want = kern(), ref()
-        torch.cuda.synchronize()
-        err = _check_close(got, want, f"{what} {form}")
-        pre = "" if form == "spmm" else form + "_"
-        rec[pre + "max_abs_err"] = err
-        rec["max_abs_err"] = max(rec["max_abs_err"], err)
-        rec[pre + "ms"] = cuda_ms(kern, 20)
-        rec[pre + "plain_ms"] = cuda_ms(ref, 3)
-        rec[pre + "roofline"] = spmm_roofline(
-            op, rec[pre + "ms"] / 1e3, FIN,
-            extra_inputs=sum(a is not None for a in args[1:]))
-    rec.update(inplace_phase(op, gen, what))
-    return rec
-
-
 def inplace_phase(op, gen, what: str) -> dict:
     """The in-place hop (``donate``): bit-identical to the out-of-place
     launch and written into x0's storage; both timed in turns."""
@@ -456,19 +529,9 @@ def inplace_phase(op, gen, what: str) -> dict:
     def inplace():
         return layout_call(op, x, buf, band_scale=scale, donate=True)
 
-    t = [cuda_ms(f, 20) for f in (outplace, inplace, inplace, outplace)]
+    t = [device_ms(f, 20) for f in (outplace, inplace, inplace, outplace)]
     return {"hop_outofplace_ms": (t[0] + t[3]) / 2,
             "hop_inplace_ms": (t[1] + t[2]) / 2}
-
-
-def print_layout_kernel(what: str, rec: dict, gpu: str):
-    c = (f", +c {rec['hop_c_ms']:.4f} ms (plain {rec['hop_c_plain_ms']:.4f}"
-         " ms)" if "hop_c_ms" in rec else "")
-    print(f"kernel {what} C={FIN}: max_abs_err {rec['max_abs_err']:.3g}, "
-          f"L@x {rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f} ms), hop "
-          f"{rec['hop_ms']:.4f} ms (plain {rec['hop_plain_ms']:.4f} ms){c}; "
-          f"in place {rec['hop_inplace_ms']:.4f} ms vs out of place "
-          f"{rec['hop_outofplace_ms']:.4f} ms [{gpu}]", flush=True)
 
 
 def make_chain(op, u: int):
@@ -612,7 +675,7 @@ def library_phase(csr, gen, what: str, gpu: str) -> dict:
             warnings.simplefilter("ignore", UserWarning)
             A = torch.sparse_csr_tensor(crow, col, val.to(dt), size=(mp, mp))
         out["calls"][lab] = lambda _=None, A=A, x=x: torch.sparse.mm(A, x)
-        out[lab] = cuda_ms(out["calls"][lab], 10)
+        out[lab] = device_ms(out["calls"][lab], 10)
         print(f"library {what} {lab}: torch.sparse.mm (CSR) C={FIN} "
               f"{out[lab]:.4f} ms [{gpu}]", flush=True)
     return out
@@ -633,6 +696,12 @@ def dense_cheby_bound(op, B: int, F: int, O: int, K_: int) -> dict:
 def bound_keys(r: dict) -> dict:
     """A roofline's bound as the kernel record's keys."""
     return {"bound_ms": r["bound_us"] / 1e3, "bound_by": r["bound_by"]}
+
+
+def work_keys(r: dict) -> dict:
+    """The block format's work (``spmm_roofline``) as the record's keys."""
+    return {"block_work_ms": r["bound_us"] / 1e3,
+            "block_work_by": r["bound_by"]}
 
 
 def request_features(positions, n: int, seed: int = 1):
@@ -1253,9 +1322,9 @@ def bsr_kernel_phase(op, route: str, forms, gen, what: str,
             continue
         pre = "" if form == "spmm" else form + "_"
         extra = int(xx0 is not None)
-        rec[pre + "ms"] = cuda_ms(kern, 20)
-        rec[pre + "plain_ms"] = cuda_ms(ref, 2)
-        rec[pre + "block_plain_ms"] = cuda_ms(block, 2)
+        rec[pre + "ms"] = device_ms(kern, 20)
+        rec[pre + "plain_ms"] = device_ms(ref, 2)
+        rec[pre + "block_plain_ms"] = device_ms(block, 2)
         rec[pre + "roofline"] = sparse_roofline(
             op, rec[pre + "ms"] / 1e3, FIN, extra_inputs=extra)
         rec[pre + "block_roofline"] = spmm_roofline(
@@ -1531,7 +1600,11 @@ def main() -> int:
 
     t0 = time.perf_counter()
     L, positions = graphs.city_graph(SIDE, k=KNN, seed=0)
-    op = device_laplacian(L, fmt="auto", dtype=torch.bfloat16, device=dev)
+    # The row index K1 and K5 walk, timed where the operator builds it.
+    with call_seconds(packing, "band_row_index") as index_s:
+        op = device_laplacian(L, fmt="auto", dtype=torch.bfloat16,
+                              device=dev)
+    check(len(index_s) == 1, f"{len(index_s)} row index builds")
     check(isinstance(op, BandedLaplacian), f"auto format gave {type(op)}")
     # One feature matrix per request, and the last one for training.
     labels, feats = request_features(positions, 2 * N_REQUESTS + 1)
@@ -1539,23 +1612,22 @@ def main() -> int:
     ops = {"bf16": op, "int8": quantize_banded(op, sample_x=sample),
            "f32": to_f32(op)}
     n_blocks = sum(b.shape[0] * b.shape[2] // 128 for b in op.bands_dkw)
+    setup = time.perf_counter() - t0
     print(f"graph: {op.m} nodes, nnz {op.nnz}, levels {op.levels}, "
-          f"G {op.rows_per_step}, {n_blocks} band blocks, "
-          f"set-up {time.perf_counter() - t0:.1f} s", flush=True)
+          f"G {op.rows_per_step}, {n_blocks} band blocks, set-up "
+          f"{setup:.1f} s (the row index {index_s[0]:.3f} s)", flush=True)
 
-    # Phase 3: kernel against plain version at the serving shape.
+    # Phase 16 first for the city graph: the library call, printed beside
+    # the banded kernels of phases 3 and 13.
     gen = torch.Generator(device=dev).manual_seed(0)
-    checks = {lab: kernel_phase(ops, FIN, gen, lab)
+    lib = {"city": library_phase(csr_operand(L, op.m_padded, dev), gen,
+                                 "50k city", gpu)}
+
+    # Phase 3: K1 against both plain versions at the serving shape.
+    checks = {lab: band_kernel_check(ops[lab], gen, f"K1 {lab}", lib["city"])
               for lab in ("int8", "bf16", "f32")}
     for lab, rec in checks.items():
-        hop_c = ("" if lab == "int8" else
-                 f", +c {rec['hop_c_ms']:.4f} ms (plain "
-                 f"{rec['hop_c_plain_ms']:.4f} ms, max_abs_err "
-                 f"{rec['hop_c_max_abs_err']:.3g})")
-        print(f"kernel {lab} C={FIN}: max_abs_err {rec['max_abs_err']:.3g}, "
-              f"L@x {rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f} ms), "
-              f"hop {rec['hop_ms']:.4f} ms (plain {rec['hop_plain_ms']:.4f} "
-              f"ms){hop_c} [{gpu}]", flush=True)
+        print_band_kernel(f"band_dkw (K1) {lab}", rec, gpu)
 
     # Phase 4: the main path, through the user's entry points.
     model = NodeClassifier(op, FIN, CLASSES, hidden=[], K=K,
@@ -1667,11 +1739,9 @@ def main() -> int:
     s_labels, s_feats = scattered_features(op32.m, 2 * N_REQUESTS + 1)
     s_reqs = [f.to(dev) for f in s_feats[:2 * N_REQUESTS]]
     s_max = float(max(f.abs().max() for f in s_feats[:2 * N_REQUESTS]))
-    # Phase 16 first: the library call, printed beside the kernels.
-    lib = {"city": library_phase(csr_operand(L, op.m_padded, dev), gen,
-                                 "50k city", gpu),
-           "scattered": library_phase(csr_operand(L_s, op32.m_padded, dev),
-                                      gen, "50k scattered", gpu)}
+    # Phase 16 for the scattered graph, printed beside its kernels.
+    lib["scattered"] = library_phase(csr_operand(L_s, op32.m_padded, dev),
+                                     gen, "50k scattered", gpu)
     k4 = {"f32": bsr_kernel_phase(op32, "K4", ("spmm", "hop"), gen,
                                   "K4 f32", lib["scattered"]["f32"])}
     s_bf16 = dataclasses.replace(op32, blocks=op32.blocks.to(torch.bfloat16))
@@ -1799,13 +1869,14 @@ def main() -> int:
           f"{uni.band.shape[1]} = {uni.band.shape[0] * uni.band.shape[1]} "
           f"blocks; ragged levels {rag.levels}, {rag.band.shape[0]} blocks; "
           f"set-up {time.perf_counter() - t0:.1f} s", flush=True)
-    lay_checks = {lay: {lab: layout_kernel_phase(
-        o, gen, f"{KERNEL_ID[lay]} {lab}") for lab, o in by.items()}
-        for lay, by in lay_ops.items()}
+    lay_checks = {lay: {lab: {
+        **band_kernel_check(o, gen, f"{KERNEL_ID[lay]} {lab}", lib["city"]),
+        **inplace_phase(o, gen, f"{KERNEL_ID[lay]} {lab}")}
+        for lab, o in by.items()} for lay, by in lay_ops.items()}
     for lay, by in lay_checks.items():
         for lab, rec in by.items():
-            print_layout_kernel(f"band_{lay} ({KERNEL_ID[lay]}) {lab}", rec,
-                                gpu)
+            print_band_kernel(f"band_{lay} ({KERNEL_ID[lay]}) {lab}", rec,
+                              gpu)
     k1_inplace = {lab: inplace_phase(ops[lab], gen, f"K1 {lab}")
                   for lab in ("int8", "bf16", "f32")}
     for lab, rec in k1_inplace.items():
@@ -1934,12 +2005,21 @@ def main() -> int:
           flush=True)
 
     def band_row(name, lay, lab, rec, launches, **extra):
+        """A banded kernel's row: the sparse bound as ``bound_ms``, the
+        block format's work beside; K1 and K5 also the row walk's plain
+        version."""
+        rows = {k: rec[k] for k in ("rows_max_abs_err", "rows_plain_ms",
+                                    "hop_rows_plain_ms") if k in rec}
         return {"name": name, "route": "cuda", "source": SOURCE,
-                "replaces": REPLACES[lay], "launches": launches,
-                "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
-                "plain_ms": rec["plain_ms"], **bound_keys(rec["roofline"]),
-                "library_ms": lib["city"][lab], "hop_ms": rec["hop_ms"],
-                "hop_plain_ms": rec["hop_plain_ms"], **extra}
+                "kernel": BAND_KERNEL[lay], "replaces": REPLACES[lay],
+                "launches": launches, "max_abs_err": rec["max_abs_err"],
+                "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+                **bound_keys(rec["roofline"]),
+                **work_keys(rec["block_roofline"]),
+                "library_ms": rec["library_ms"], "hop_ms": rec["hop_ms"],
+                "hop_plain_ms": rec["hop_plain_ms"],
+                "hop_bound_ms": rec["hop_roofline"]["bound_us"] / 1e3,
+                **rows, **extra}
 
     def chain_keys(lay, lab):
         c = chains[lay][lab]
@@ -1952,7 +2032,8 @@ def main() -> int:
         return {"f32_ms": rec["ms"], "f32_plain_ms": rec["plain_ms"],
                 "f32_max_abs_err": rec["max_abs_err"],
                 "f32_bound_ms": rec["roofline"]["bound_us"] / 1e3,
-                "f32_library_ms": lib["city"]["f32"]}
+                "f32_block_work_ms": rec["block_roofline"]["bound_us"] / 1e3,
+                "f32_library_ms": rec["library_ms"]}
 
     def bsr_keys(rec, library_ms):
         """A row kernel's numbers: the sparse bound as ``bound_ms``, the
@@ -1989,10 +2070,15 @@ def main() -> int:
         {"name": f"band_dkw_hop_c_{lab}", "route": "cuda", "source": SOURCE,
          "replaces": REPLACES["dkw"],
          "launches": trains[lab]["forms"]["hop_c"],
+         "kernel": BAND_KERNEL["dkw"],
          "max_abs_err": checks[lab]["hop_c_max_abs_err"],
+         "rows_max_abs_err": checks[lab]["hop_c_rows_max_abs_err"],
          "ms": checks[lab]["hop_c_ms"],
          "plain_ms": checks[lab]["hop_c_plain_ms"],
-         **bound_keys(checks[lab]["hop_c_roofline"]), "library_ms": None,
+         "rows_plain_ms": checks[lab]["hop_c_rows_plain_ms"],
+         **bound_keys(checks[lab]["hop_c_roofline"]),
+         **work_keys(checks[lab]["hop_c_block_roofline"]),
+         "library_ms": None,
          "train_ms_per_step": trains[lab]["ms"],
          "train_plain_ms_per_step": trains[lab]["plain_ms"]}
         for lab in ("bf16", "f32")

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface.  On first use it is
 compiled with ``nvcc`` for ``sm_90a`` into ``_build/`` next to this file
 (listed in ``.gitignore``) and loaded with ``ctypes``.  The library's
-file name carries a hash of the source and the flags, so an edited source
-is rebuilt and an unchanged one is loaded as built.  ``nvcc`` is found
+file name carries a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header is rebuilt
+and an unchanged one is loaded as built.  ``nvcc`` is found
 through ``CUDA_HOME`` or ``PATH``.  A failed build raises with nvcc's
 output; nothing falls back to another implementation.
 """
@@ -47,8 +48,10 @@ def build(name: str) -> tuple[Path, str]:
     Returns ``(library path, compiler output)``; the output is empty when
     the library was already built."""
     src = SOURCE_DIR / f"{name}.cu"
+    headers = b"".join(h.read_bytes()
+                       for h in sorted(SOURCE_DIR.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{name}_{digest}.so"
     if lib.exists():

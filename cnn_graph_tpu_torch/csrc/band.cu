@@ -10,15 +10,15 @@
 //   y = 2 (L @ x) - x0        (x0 != nullptr)
 //   y = 2 (L @ x) - x0 + c    (x0, c != nullptr; float only: the backward
 //                              adjoint chain's hop)
-// in float32 (FMA, f32 accumulation), bfloat16 (tensor cores, f32
-// accumulation) and int8 (tensor cores, int32 accumulation, requant
-// clip(rint(band_scale * acc [*2 - x0]), +-127) at emission).  y may be
-// x0 itself (the in-place form): each output element is written by the
-// thread that read its x0 element just before, and no CTA reads another
-// CTA's rows of x0.  x must not overlap x0 or y.
+// in float32 and bfloat16 (f32 accumulation) and int8 (int32
+// accumulation, requant clip(rint(band_scale * acc [*2 - x0]), +-127) at
+// emission).  y may be x0 itself (the in-place form): each output element
+// is written by the thread that read its x0 element just before, and no
+// warp (layouts 0, 1) or CTA (layout 2) reads another's rows of x0.  x
+// must not overlap x0 or y.
 //
-// Layouts.  Block-row r (128 rows of L) multiplies a [128, W*128] band
-// operand by the contiguous x window rows [base[r]*128, (base[r]+W)*128).
+// Layouts.  Block-row r (128 rows of L) has the band operand [128, W*128]
+// over the contiguous x window rows [base[r]*128, (base[r]+W)*128).
 //   dkw:     step s = r / G has level li = sched[1][s]; the operand is
 //            row sched[0][s] + r % G of bands[li] ([n_rows, 128, W_l*128]),
 //            its blocks side by side along the contraction axis.
@@ -30,24 +30,50 @@
 // k / 128, row i, column k % 128.  x may have more rows than the output
 // (x_rows): base indexes x's block rows, as the sharded halo operators
 // feed [left halo | local | right halo].  Window rows past x_rows read as
-// zero (the band is zero there).  The TPU kernels' VMEM x ring, its
-// mirror copies, prefetch-ahead, DMA semaphores and the high-water row of
-// sched exist only because x arrives there in column blocks; here the
-// window is contiguous in device memory, so none has a counterpart.
+// zero.  The TPU kernels' VMEM x ring, its mirror copies, prefetch-ahead,
+// DMA semaphores and the high-water row of sched exist only because x
+// arrives there in column blocks; here the window is contiguous in device
+// memory, so none has a counterpart.
 //
-// Design.  One CTA per (block-row, column tile) computes
-// [128, W*128] @ [W*128, tile], staging 32-deep (16 for f32) K chunks of
-// band and x through shared memory, with no pipelining across chunks.  A
-// chunk never straddles two 128-blocks, so the tap layouts differ from
-// dkw only in the band chunk's address.
+// Layouts 0 and 1 (K1, K5): band_rows_kernel, a walk over the band's
+// nonzeros row by row, csrc/rows.cuh's scheme (one warp per output row,
+// 8 rows per 256-thread CTA).  The walk reads the operator's row index
+// (ops/packing.py band_row_index): nz_rowptr [n_rows*128 + 1] and, per
+// nonzero in row order, its offset k in its block-row's window (int16).
+// The warp loads base[r] and the block-row's band pointer once
+// (row_setup); each lane reads one k and its value band[band_off(i, k)]
+// from the layout's own band, where the TPU kernel would read it, and x
+// row base[r]*128 + k is gathered by the whole warp.  An x row at or past
+// x_rows adds nothing (one compare per nonzero), so the index, which
+// holds window offsets and no x rows, stays right when the bases shift.
+// The index holds no values, so an int8 or cast band reads its own.
 //
-// Bounds.  At the 50,176-node serving graph and C = 512 one call is
-// 2 * blocks * 128^2 * 512 FLOP (2,856 blocks ragged or dkw: 48 GFLOP;
-// 3,528 uniform: 59 GFLOP) and reads the band once per column tile, i.e.
-// 4x at the 128-wide tiles used here: the band re-read and the
-// unpipelined shared-memory staging bound it long before the tensor
-// cores do.  Left for later: TMA loads into a multi-stage ring, wgmma,
-// and a column tile as wide as C so the band is read once.
+// What bounds the walk is bytes, and how fast L2 serves the gathers.  On
+// the bench's 50,176-node city graph (436,582 nonzeros) at C = 512 it
+// does 2 nnz C = 0.45 GFLOP and must move x and y once plus a value and
+// an int16 offset per nonzero: 105 MB in bf16, 0.031 ms at 3.35 TB/s.  Each
+// nonzero gathers one x row (1 KB in bf16, 447 MB in all), most of it
+// from the 50 MB L2, since a block-row's window (at most 9 blocks here)
+// is shared by its 128 rows and by its neighbours'.  Neither tensor cores
+// nor a tile serve K1/K5: the band is 0.93% full, so a [128, W*128] tile
+// product does 48 GFLOP (dkw, 2,856 blocks) or 59 GFLOP (uniform, 3,528)
+// where the graph needs 0.45, and reads the 94 MB (dkw, bf16) band.  In
+// f32 that block work alone takes 0.72 ms at the 67 TFLOP/s of FMA (TF32
+// would change the results), 3.3x torch.sparse.mm's 0.21 ms; in bf16 even
+// cuBLAS's 936 TFLOP/s leaves the band to read.  The tile kernels this
+// walk replaced took 0.53 (K1) and 0.57 ms (K5) in bf16.  Staging each
+// block-row's whole window in shared memory instead (one CTA per
+// block-row, 64-byte slabs of every window row, double-buffered with
+// cp.async) moves as many bytes as the gathers, 365k-452k window rows
+// against 437k nonzeros, at one CTA per SM: measured 6.7x slower in
+// bf16 L@x, so the walk gathers straight from L2.
+//
+// Layout 2 (K6): the tile kernels band_f32_kernel and band_tc_kernel,
+// one CTA per (block-row, column tile)
+// computing [128, W*128] @ [W*128, tile], staging 32-deep (16 for f32) K
+// chunks of band and x through shared memory, with no pipelining across
+// chunks; wmma (bf16, int8) or FMA (f32).  It is bound by the band re-read
+// per column tile and the unpipelined staging, as K1/K5 were.
 //
 // Build without --use_fast_math: the int8 path is bit-exact with the
 // PyTorch reference only with IEEE rounding of every float operation.
@@ -59,12 +85,15 @@
 
 #include <type_traits>
 
+#include "rows.cuh"
+
 using namespace nvcuda;
 
 namespace {
 
 constexpr int kBlock = 128;   // ops/packing.py BLOCK: band block edge
 constexpr int kThreads = 256;
+constexpr int kRowsPerCta = kThreads / 32;  // the row walk's warps
 constexpr int kMaxLevels = 4;  // ops/packing.py MAX_LEVELS
 
 // ops/band.py _LAYOUT_CODE
@@ -77,6 +106,8 @@ struct Args {
   int width[kMaxLevels];         // dkw, ragged: W per level; uniform: W
   const int* base;               // [n_block_rows]
   const int* sched;              // [3, nsb]: row or block offset, level
+  const int* nz_rowptr;          // [n_block_rows*128 + 1] (layouts 0, 1)
+  const int16_t* nz_win;         // [nnz]: window offset k of each nonzero
   int nsb;
   int G;
   const void* x;   // [x_rows, C]
@@ -142,41 +173,91 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-// Float emission: y = acc, 2 acc - x0, or (2 acc - x0) + c in f32, in
-// that order with IEEE rounding and no contraction, rounded once to T.
+// The tile kernels' emission of element i, by rows::emit.
 template <typename T>
 __device__ __forceinline__ void emit_float(const Args& a, size_t i,
                                            float acc) {
-  float y = acc;
-  if (a.x0 != nullptr) {
-    y = __fsub_rn(__fmul_rn(2.0f, acc),
-                  to_float(static_cast<const T*>(a.x0)[i]));
-    if (a.c != nullptr) {
-      y = __fadd_rn(y, to_float(static_cast<const T*>(a.c)[i]));
-    }
-  }
+  const bool hop = a.x0 != nullptr, add_c = a.c != nullptr;
+  const float y = rows::emit<T>(
+      acc, 0.0f, hop, hop ? to_float(static_cast<const T*>(a.x0)[i]) : 0.0f,
+      add_c, add_c ? to_float(static_cast<const T*>(a.c)[i]) : 0.0f);
   store(static_cast<T*>(a.y) + i, y);
 }
 
-// Int8 emission in input-scale units (pallas_band._emit_row, quant branch).
 __device__ __forceinline__ void emit_quant(const Args& a, size_t i,
                                            int acc) {
-  float y = __fmul_rn(a.band_scale, __int2float_rn(acc));
-  if (a.x0 != nullptr) {
-    y = __fsub_rn(__fmul_rn(2.0f, y),
-                  (float)static_cast<const int8_t*>(a.x0)[i]);
-  }
-  y = fminf(fmaxf(rintf(y), -127.0f), 127.0f);
+  const bool hop = a.x0 != nullptr;
+  const float y = rows::emit<int8_t>(
+      acc, a.band_scale, hop,
+      hop ? (float)static_cast<const int8_t*>(a.x0)[i] : 0.0f, false, 0.0f);
   static_cast<int8_t*>(a.y)[i] = (int8_t)y;
 }
 
+// ------------------------------------------------ layouts 0, 1: the row walk
+template <int L, typename T, bool kVec>
+__global__ void __launch_bounds__(kThreads) band_rows_kernel(Args a) {
+  using E = rows::Elem<T>;
+  using Acc = typename E::Acc;
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * kRowsPerCta + threadIdx.x / 32;
+  const int r = row / kBlock, i = row % kBlock;
+  const T* band;
+  int K, xrow0;
+  row_setup<L>(a, r, band, K, xrow0);
+  const int lo = __ldg(a.nz_rowptr + row), hi = __ldg(a.nz_rowptr + row + 1);
+  const rows::Out out = {a.x0, a.c, a.y, a.band_scale};
+  const auto entry = [&](int e, int& xrow, Acc& val) {
+    const int k = __ldg(a.nz_win + e);
+    xrow = xrow0 + k < a.x_rows ? xrow0 + k : -1;
+    val = E::value(band, (long long)band_off<L>(i, k, K));
+  };
+  for (int c0 = 0; c0 < a.C; c0 += rows::kPassCols) {
+    Acc acc[rows::kLaneCols];
+    rows::gather<T, kVec, true>(static_cast<const T*>(a.x), a.C, c0, lo, hi,
+                                lane, entry, acc);
+    rows::store<T, kVec>(out, row, a.C, c0, lane, acc);
+  }
+}
+
+template <int L, typename T>
+void start_rows(const Args& a, int n_block_rows, cudaStream_t s) {
+  const dim3 grid(n_block_rows * (kBlock / kRowsPerCta));
+  if (a.C % (16 / sizeof(T)) == 0) {
+    band_rows_kernel<L, T, true><<<grid, kThreads, 0, s>>>(a);
+  } else {
+    band_rows_kernel<L, T, false><<<grid, kThreads, 0, s>>>(a);
+  }
+}
+
+template <int L>
+int launch_rows(const Args& a, int n_block_rows, int dtype, cudaStream_t s) {
+  if (a.nz_rowptr == nullptr || a.nz_win == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
+  switch (dtype) {
+    case 0:
+      start_rows<L, float>(a, n_block_rows, s);
+      break;
+    case 1:
+      start_rows<L, __nv_bfloat16>(a, n_block_rows, s);
+      break;
+    case 2:
+      start_rows<L, int8_t>(a, n_block_rows, s);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------ layout 2: the tile kernels
 // ---------------------------------------------------------------- float32
 // Register-tiled FMA: tile 128 x 64, each thread 8 rows x 4 columns.
 constexpr int kF32Cols = 64;
 constexpr int kF32Depth = 16;
 
-template <int L>
 __global__ void __launch_bounds__(kThreads) band_f32_kernel(Args a) {
+  constexpr int L = kRagged;
   __shared__ float As[kF32Depth][kBlock + 4];  // band chunk, [k][row]
   __shared__ float Bs[kF32Depth][kF32Cols + 4];  // x chunk, [k][col]
   const int r = blockIdx.y;
@@ -196,17 +277,17 @@ __global__ void __launch_bounds__(kThreads) band_f32_kernel(Args a) {
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
 
   // Each thread loads column tid % 16 of band rows tid / 16 + 16 t, from
-  // one pointer per chunk: nvcc schedules this form faster, in every
-  // layout, than an address computed per element (measured on the card).
-  const int row_stride = L == kDkw ? K : kBlock;
-  const float* bthr = band + (size_t)(tid / kF32Depth) * row_stride +
+  // one pointer per chunk: nvcc schedules this form faster than an
+  // address computed per element (measured on the card).  A tap's rows
+  // are kBlock apart.
+  const float* bthr = band + (size_t)(tid / kF32Depth) * kBlock +
                       tid % kF32Depth;
   for (int k0 = 0; k0 < K; k0 += kF32Depth) {
     const float* chunk = bthr + band_off<L>(0, k0, K);
 #pragma unroll
     for (int t = 0; t < kBlock * kF32Depth / kThreads; ++t) {
       As[tid % kF32Depth][tid / kF32Depth + t * (kThreads / kF32Depth)] =
-          chunk[(size_t)t * (kThreads / kF32Depth) * row_stride];
+          chunk[(size_t)t * (kThreads / kF32Depth) * kBlock];
     }
 #pragma unroll
     for (int t = 0; t < kF32Depth * kF32Cols / kThreads; ++t) {
@@ -260,8 +341,9 @@ template <> struct Tc<int8_t> {
   static constexpr int kLd = 32;
 };
 
-template <int L, typename T>
+template <typename T>
 __global__ void __launch_bounds__(kThreads) band_tc_kernel(Args a) {
+  constexpr int L = kRagged;
   using Acc = typename Tc<T>::Acc;
   constexpr int kLd = Tc<T>::kLd;
   constexpr int kVec = 16 / sizeof(T);  // elements per 16-byte load
@@ -356,22 +438,21 @@ __global__ void __launch_bounds__(kThreads) band_tc_kernel(Args a) {
   }
 }
 
-template <int L>
-int launch(const Args& a, int n_block_rows, int dtype, cudaStream_t s) {
+int launch_tile(const Args& a, int n_block_rows, int dtype, cudaStream_t s) {
   switch (dtype) {
     case 0: {
       dim3 grid((a.C + kF32Cols - 1) / kF32Cols, n_block_rows);
-      band_f32_kernel<L><<<grid, kThreads, 0, s>>>(a);
+      band_f32_kernel<<<grid, kThreads, 0, s>>>(a);
       break;
     }
     case 1: {
       dim3 grid((a.C + kTcCols - 1) / kTcCols, n_block_rows);
-      band_tc_kernel<L, __nv_bfloat16><<<grid, kThreads, 0, s>>>(a);
+      band_tc_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(a);
       break;
     }
     case 2: {
       dim3 grid((a.C + kTcCols - 1) / kTcCols, n_block_rows);
-      band_tc_kernel<L, int8_t><<<grid, kThreads, 0, s>>>(a);
+      band_tc_kernel<int8_t><<<grid, kThreads, 0, s>>>(a);
       break;
     }
     default:
@@ -384,17 +465,21 @@ int launch(const Args& a, int n_block_rows, int dtype, cudaStream_t s) {
 
 // layout: 0 dkw, 1 uniform, 2 ragged.  dtype: 0 float32, 1 bfloat16,
 // 2 int8.  Unused band slots take a null pointer and width 0 (uniform and
-// ragged pass one band; uniform one width, W).  The output has
-// n_block_rows * 128 rows; y may equal x0.  c needs x0 and a float dtype.
-// Launches on `stream` and returns cudaGetLastError().
+// ragged pass one band; uniform one width, W).  nz_rowptr (int32) and
+// nz_win (int16) are the row index that layouts 0 and 1 walk; layout 2
+// takes null pointers.  The output has n_block_rows * 128 rows; y may
+// equal x0.  c needs x0 and a float dtype.  Launches on `stream` and
+// returns cudaGetLastError() (cudaErrorInvalidValue for bad arguments).
 extern "C" int band_launch(int layout, const void* band0, const void* band1,
                            const void* band2, const void* band3, int w0,
                            int w1, int w2, int w3, const void* base,
-                           const void* sched, int n_block_rows, int nsb,
+                           const void* sched, const void* nz_rowptr,
+                           const void* nz_win, int n_block_rows, int nsb,
                            int G, const void* x, int x_rows, const void* x0,
                            const void* c, void* y, int C, float band_scale,
                            int dtype, void* stream) {
-  if (c != nullptr && (x0 == nullptr || dtype == 2)) {
+  if (n_block_rows < 1 || C < 1 ||
+      (c != nullptr && (x0 == nullptr || dtype == 2))) {
     return (int)cudaErrorInvalidValue;
   }
   Args a;
@@ -408,6 +493,8 @@ extern "C" int band_launch(int layout, const void* band0, const void* band1,
   a.width[3] = w3;
   a.base = static_cast<const int*>(base);
   a.sched = static_cast<const int*>(sched);
+  a.nz_rowptr = static_cast<const int*>(nz_rowptr);
+  a.nz_win = static_cast<const int16_t*>(nz_win);
   a.nsb = nsb;
   a.G = G;
   a.x = x;
@@ -420,11 +507,11 @@ extern "C" int band_launch(int layout, const void* band0, const void* band1,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (layout) {
     case kDkw:
-      return launch<kDkw>(a, n_block_rows, dtype, s);
+      return launch_rows<kDkw>(a, n_block_rows, dtype, s);
     case kUniform:
-      return launch<kUniform>(a, n_block_rows, dtype, s);
+      return launch_rows<kUniform>(a, n_block_rows, dtype, s);
     case kRagged:
-      return launch<kRagged>(a, n_block_rows, dtype, s);
+      return launch_tile(a, n_block_rows, dtype, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -12,15 +12,26 @@ wrapper, plain PyTorch version and launch counts:
 * ``banded_ragged`` (K6, ``banded_call_ragged`` :314): the flat ragged
   band ``[total, 128, 128]``, ``W_s`` taps per G-row step.
 
-Each launches its kernel for CUDA tensors and runs its plain version
-(``*_reference``) for CPU tensors; the device of ``x`` is the only thing
-that chooses.  ``launches`` counts kernel launches, ``form_launches`` the
-same launches by form (``spmm``, ``hop``, ``hop_c``).  ``x`` may have
-more rows than the output (the sharded halo operators' extended
-columns): the output has ``128 * len(base)`` rows and ``base`` indexes
-x's block rows.  ``donate_x0`` writes the hop's output over ``x0`` and
-returns ``x0``: the in-place form that ``cheby_finals`` uses.  It is
-inference-only, like the raw calls themselves.
+K1 and K5 launch a walk over the band's nonzeros row by row (one warp
+per output row, ``csrc/rows.cuh``): they take the operator's row index
+``nz_rowptr``/``nz_win`` (``ops.packing.band_row_index``, each nonzero's
+offset in its block-row's window) as keywords and read every value from
+the layout's own band.  Their plain version as the kernel computes it is
+``banded_rows_reference``, the same row walk; tests and chip_smoke.py
+hold the kernel against it and against the layout's window product.  K6
+still multiplies each block-row's ``[128, W*128]`` band operand by its
+x window as a dense tile.
+
+Each wrapper launches its kernel for CUDA tensors and runs its layout's
+plain window version (``*_reference``) for CPU tensors; the device of
+``x`` is the only thing that chooses.  ``launches`` counts kernel
+launches, ``form_launches`` the same launches by form (``spmm``,
+``hop``, ``hop_c``).  ``x`` may have more rows than the output (the
+sharded halo operators' extended columns): the output has ``128 *
+len(base)`` rows and ``base`` indexes x's block rows.  ``donate_x0``
+writes the hop's output over ``x0`` and returns ``x0``: the in-place
+form that ``cheby_finals`` uses.  It is inference-only, like the raw
+calls themselves.
 
 ``band_spmm`` and ``band_cheby_hop`` are ``torch.autograd.Function``s
 with the symmetric adjoints of :664-671 and :850-858, each backward one
@@ -47,12 +58,20 @@ from cnn_graph_tpu_torch.ops.packing import BLOCK, MAX_LEVELS
 
 __all__ = ["banded_dkw", "banded_dkw_reference", "banded_uniform",
            "banded_uniform_reference", "banded_ragged",
-           "banded_ragged_reference", "layout_call", "band_spmm",
-           "band_cheby_hop", "band_cheby_hop_c", "check_band_tables",
-           "full_f32_matmul"]
+           "banded_ragged_reference", "banded_rows_reference", "layout_call",
+           "band_spmm", "band_cheby_hop", "band_cheby_hop_c",
+           "check_band_index", "check_band_tables", "full_f32_matmul",
+           "profiled"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_LAYOUT_CODE = {"dkw": 0, "uniform": 1, "ragged": 2}  # csrc/band.cu
+# csrc/band.cu's layout codes: dkw (K1) and uniform (K5) take the row walk
+# band_rows_kernel, ragged (K6) the tile kernels band_f32_kernel and
+# band_tc_kernel.
+_LAYOUT_CODE = {"dkw": 0, "uniform": 1, "ragged": 2}
+# The plain versions here and in ops/bsr.py gather x rows or block tiles
+# in chunks of about this many bytes: one gather of every block's tile at
+# the 50k scattered graph and C = 512 would take 7.1 GB in bf16.
+_CHUNK_BYTES = 1 << 28
 
 
 @contextlib.contextmanager
@@ -64,6 +83,15 @@ def full_f32_matmul():
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def profiled(name: str):
+    """A ``record_function`` range called ``name`` while a profiler
+    records, else a no-op: the range costs host time on every call even
+    with no profiler, about as much as the rest of a row-walk launch."""
+    if torch._C._autograd._profiler_enabled():
+        return record_function(name)
+    return contextlib.nullcontext()
 
 
 def _emit(acc: torch.Tensor, x0, c, band_scale, out_dtype) -> torch.Tensor:
@@ -206,12 +234,67 @@ def banded_ragged_reference(band, base, sched, x, x0=None, c=None, *,
     return _windows_reference(x, base, parts, x0, c, band_scale, donate_x0)
 
 
+def banded_rows_reference(bands, base, sched, nz_rowptr, nz_win, x, x0=None,
+                          c=None, *, layout, levels, G,
+                          band_scale=None) -> torch.Tensor:
+    """Plain PyTorch version of the row walk that K1 and K5 launch:
+    output row ``r*128 + i`` sums ``v * x[base[r]*128 + k]`` over its
+    nonzeros ``nz_rowptr[row]:nz_rowptr[row+1]``, where ``k =
+    nz_win[e]`` and ``v`` is element ``(i, k)`` of block-row r's band
+    operand in ``layout`` (``dkw`` or ``uniform``; ``bands``, ``sched``,
+    ``levels`` and ``G`` as the layout's wrapper takes them, ``sched``
+    None and ``levels`` ``(W,)`` for the uniform band).  x rows at or
+    past ``x.shape[0]`` add nothing.  f32 accumulation (float64 for int8,
+    exact), then the emission, rounded once; rows without nonzeros give
+    0, ``-x0`` or ``-x0 + c``."""
+    if layout not in ("dkw", "uniform"):
+        raise ValueError(f"banded_rows_reference: the row walk reads the "
+                         f"dkw and uniform layouts, not {layout!r}")
+    _check_c(x0, c, band_scale)
+    x_rows, C = x.shape
+    dev = x.device
+    nbr = base.numel()
+    nnz = int(nz_rowptr[-1])
+    row = torch.repeat_interleave(torch.arange(nbr * BLOCK, device=dev),
+                                  nz_rowptr.to(torch.int64).diff())
+    r, i = row // BLOCK, row % BLOCK
+    k = nz_win[:nnz].to(torch.int64)
+    if layout == "uniform":
+        (band,) = bands
+        w = band.shape[1]
+        flat = [((r * w + k // BLOCK) * BLOCK + i) * BLOCK + k % BLOCK]
+        sources, lvl = (band,), torch.zeros_like(k)
+    else:
+        _, lvl_r, off_r = _step_rows(sched, nbr, G, dev)
+        lvl, off = lvl_r[r], off_r[r]
+        flat = [((off + r % G) * BLOCK + i) * (w * BLOCK) + k
+                for w in levels]
+        sources = bands
+    acc_dt = torch.float64 if band_scale is not None else torch.float32
+    vals = torch.zeros(nnz, dtype=acc_dt, device=dev)
+    for li, (src, fl) in enumerate(zip(sources, flat)):
+        sel = lvl == li
+        vals[sel] = src.reshape(-1)[fl[sel]].to(acc_dt)
+    xrow = base.to(torch.int64)[r] * BLOCK + k
+    inside = xrow < x_rows
+    vals = vals * inside
+    xrow = xrow.clamp(max=x_rows - 1)
+    acc = torch.zeros(nbr * BLOCK, C, dtype=acc_dt, device=dev)
+    step = max(1, _CHUNK_BYTES // (max(C, 1) * 8))
+    for lo in range(0, nnz, step):
+        hi = lo + step
+        acc.index_add_(0, row[lo:hi], vals[lo:hi, None]
+                       * x.index_select(0, xrow[lo:hi]).to(acc_dt))
+    return _emit(acc, x0, c, band_scale, x.dtype)
+
+
 @functools.lru_cache(maxsize=None)
 def _launcher():
     fn = _build.load("band").band_launch
     p, i = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = ([i] + [p] * MAX_LEVELS + [i] * MAX_LEVELS
-                   + [p, p, i, i, i, p, i, p, p, p, i, ctypes.c_float, i, p])
+                   + [p, p, p, p, i, i, i, p, i, p, p, p, i, ctypes.c_float,
+                      i, p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -242,14 +325,48 @@ def check_band_tables(bands, base, sched, levels, G, layout="dkw"):
                          "its band array")
 
 
+def check_band_index(nz_rowptr, nz_win, base, sched, levels, G):
+    """The row index's values, which the row walk takes on trust:
+    ``nz_rowptr`` int32 ``[128 * len(base) + 1]`` from 0, monotone and
+    ending at ``len(nz_win)``; every window offset in ``nz_win`` (int16)
+    inside its block-row's band, ``0 <= k < W * 128`` with ``W`` the
+    row's level width (``levels[sched[1, r // G]]``; ``sched`` None and
+    ``levels`` ``(W,)`` for the uniform band).  Reads the index on the
+    host, one device sync, so the banded operators run it once where they
+    are built.  Meta tensors hold no values and pass."""
+    if nz_rowptr.is_meta:
+        return
+    if nz_rowptr.dtype != torch.int32 or nz_win.dtype != torch.int16:
+        raise TypeError("banded row index: nz_rowptr int32 and nz_win int16 "
+                        f"wanted, got {nz_rowptr.dtype} and {nz_win.dtype}")
+    rowptr = nz_rowptr.cpu().to(torch.int64)
+    win = nz_win.cpu().to(torch.int64)
+    nbr = base.numel()
+    if (rowptr.dim() != 1 or rowptr.numel() != nbr * BLOCK + 1
+            or int(rowptr[0]) != 0 or int(rowptr[-1]) != win.numel()
+            or bool((rowptr.diff() < 0).any())):
+        raise ValueError(f"banded row index: nz_rowptr must rise from 0 to "
+                         f"{win.numel()} over {nbr * BLOCK} rows")
+    if sched is None:
+        width = torch.full((nbr,), levels[0], dtype=torch.int64)
+    else:
+        step = torch.arange(nbr) // G
+        width = torch.tensor(levels)[sched[1].cpu().to(torch.int64)[step]]
+    limit = torch.repeat_interleave(width, rowptr[::BLOCK].diff()) * BLOCK
+    if win.numel() and (int(win.min()) < 0 or bool((win >= limit).any())):
+        raise ValueError("banded row index: a window offset lies outside "
+                         "its block-row's band")
+
+
 def _check_kernel_args(bands, base, sched, x, x0, c, levels, G, band_scale,
-                       layout="dkw"):
+                       layout="dkw", index=None):
     """The shapes, dtypes, devices and alignment the kernel takes on
     trust, checked before a launch (the table values are
-    ``check_band_tables``'s).  ``bands``: the dkw layout's arrays, or
-    ``(band,)`` for the tap layouts; ``levels``: the uniform layout's
-    ``(W,)``.  Returns the number of G-row steps (the block rows for the
-    uniform layout)."""
+    ``check_band_tables``'s and the row index's ``check_band_index``'s).
+    ``bands``: the dkw layout's arrays, or ``(band,)`` for the tap
+    layouts; ``levels``: the uniform layout's ``(W,)``; ``index``: the
+    row walk's ``(nz_rowptr, nz_win)`` (dkw and uniform).  Returns the
+    number of G-row steps (the block rows for the uniform layout)."""
     dev = x.device
     x_rows, C = x.shape
     if x.dtype not in _DTYPE_CODE:
@@ -292,6 +409,16 @@ def _check_kernel_args(bands, base, sched, x, x0, c, levels, G, band_scale,
         tables = [base, sched]
     if any(t.dtype != torch.int32 for t in tables):
         raise TypeError("banded kernel: base and sched must be int32")
+    if index is not None:
+        nz_rowptr, nz_win = index
+        if nz_rowptr.dtype != torch.int32 or nz_win.dtype != torch.int16:
+            raise TypeError("banded kernel: nz_rowptr must be int32 and "
+                            "nz_win int16")
+        if (tuple(nz_rowptr.shape) != (nbr * BLOCK + 1,)
+                or nz_win.dim() != 1):
+            raise ValueError(f"banded kernel: nz_rowptr must be "
+                             f"[{nbr * BLOCK + 1}] and nz_win 1-D")
+        tables = tables + [nz_rowptr, nz_win]
     _check_c(x0, c, band_scale)
     rows = [t for t in (x, x0, c) if t is not None]
     for t in list(bands) + tables + rows:
@@ -317,14 +444,21 @@ def _check_kernel_args(bands, base, sched, x, x0, c, levels, G, band_scale,
 
 
 def _launch(fn, layout, bands, widths, base, sched, x, x0, c, G,
-            band_scale, donate_x0):
+            band_scale, donate_x0, index=None):
     """Check, then one launch of ``csrc/band.cu`` in ``layout``, counted
-    on ``fn``.  Returns the output (``x0`` itself when donated)."""
+    on ``fn``; ``index`` is the row walk's ``(nz_rowptr, nz_win)``,
+    required for dkw and uniform.  Returns the output (``x0`` itself when
+    donated)."""
     _check_no_grad(x, x0, c)
     if x.device.type != "cuda":
         raise ValueError(f"{fn.__name__}: no kernel for device {x.device}")
+    if layout != "ragged" and (index is None or index[0] is None
+                               or index[1] is None):
+        raise ValueError(f"{fn.__name__}: the kernel walks the operator's "
+                         "row index; pass nz_rowptr and nz_win "
+                         "(ops.packing.band_row_index)")
     nsb = _check_kernel_args(bands, base, sched, x, x0, c, widths, G,
-                             band_scale, layout)
+                             band_scale, layout, index)
     if donate_x0:
         _check_donate(x, x0, c)
     nbr = base.numel()
@@ -335,12 +469,13 @@ def _launch(fn, layout, bands, widths, base, sched, x, x0, c, G,
     widths = list(widths) + [0] * (MAX_LEVELS - len(widths))
     form = "spmm" if x0 is None else "hop" if c is None else "hop_c"
     # The range names the kernel and form in a torch.profiler trace.
-    with torch.cuda.device(x.device), record_function(
-            f"band_{layout}.{form}"):
+    with torch.cuda.device(x.device), profiled(f"band_{layout}.{form}"):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _launcher()(
             _LAYOUT_CODE[layout], *ptrs, *widths, base.data_ptr(),
-            None if sched is None else sched.data_ptr(), nbr, nsb, G,
+            None if sched is None else sched.data_ptr(),
+            *((None, None) if index is None
+              else (t.data_ptr() for t in index)), nbr, nsb, G,
             x.data_ptr(), x_rows, None if x0 is None else x0.data_ptr(),
             None if c is None else c.data_ptr(), y.data_ptr(), C,
             0.0 if band_scale is None else float(band_scale),
@@ -359,7 +494,8 @@ def _launch(fn, layout, bands, widths, base, sched, x, x0, c, G,
 
 
 def banded_dkw(bands, base, sched, x, x0=None, c=None, *, levels, G,
-               band_scale=None, donate_x0=False) -> torch.Tensor:
+               band_scale=None, donate_x0=False, nz_rowptr=None,
+               nz_win=None) -> torch.Tensor:
     """``L @ x`` (``x0`` None), the hop ``2 (L @ x) - x0``, or the adjoint
     hop ``2 (L @ x) - x0 + c`` on the dkw layout (K1).  ``bands``: one
     ``[n_rows_l, 128, W_l*128]`` array per level; ``base`` int32
@@ -367,7 +503,9 @@ def banded_dkw(bands, base, sched, x, x0=None, c=None, *, levels, G,
     column high-water); ``x``: ``[x_rows, C]``; ``x0``, ``c``: ``[nbr*128,
     C]``, all in the band dtype.  ``band_scale`` (int8 only, no ``c``) is
     the band's dequant scale; the result is then requantized int8 in x's
-    scale.  Returns ``[nbr*128, C]`` in x's dtype."""
+    scale.  ``nz_rowptr``/``nz_win``: the operator's row index, which the
+    kernel walks (required for a CUDA x, unread on the CPU).  Returns
+    ``[nbr*128, C]`` in x's dtype."""
     if x.device.type == "cpu":
         _check_no_grad(x, x0, c)
         return banded_dkw_reference(bands, base, sched, x, x0, c,
@@ -375,21 +513,23 @@ def banded_dkw(bands, base, sched, x, x0=None, c=None, *, levels, G,
                                     band_scale=band_scale,
                                     donate_x0=donate_x0)
     return _launch(banded_dkw, "dkw", bands, levels, base, sched, x, x0, c,
-                   G, band_scale, donate_x0)
+                   G, band_scale, donate_x0, (nz_rowptr, nz_win))
 
 
 def banded_uniform(band, base, x, x0=None, c=None, *, band_scale=None,
-                   donate_x0=False) -> torch.Tensor:
+                   donate_x0=False, nz_rowptr=None,
+                   nz_win=None) -> torch.Tensor:
     """``banded_dkw``'s forms on the uniform band ``[nbr, W, 128, 128]``
     (K5): block-row r multiplies ``band[r, d]`` by x block-row ``base[r] +
-    d`` for d < W."""
+    d`` for d < W.  The row index as for ``banded_dkw``."""
     if x.device.type == "cpu":
         _check_no_grad(x, x0, c)
         return banded_uniform_reference(band, base, x, x0, c,
                                         band_scale=band_scale,
                                         donate_x0=donate_x0)
     return _launch(banded_uniform, "uniform", (band,), (band.shape[1],),
-                   base, None, x, x0, c, 1, band_scale, donate_x0)
+                   base, None, x, x0, c, 1, band_scale, donate_x0,
+                   (nz_rowptr, nz_win))
 
 
 def banded_ragged(band, base, sched, x, x0=None, c=None, *, levels, G,
@@ -417,12 +557,17 @@ def layout_call(L, x, x0=None, c=None, *, band_scale=None, donate=False):
     ``_band_call`` (pallas_band.py:688-710): the dkw layout where
     ``bands_dkw`` is present (K1), else the flat ragged one where
     ``levels`` is set (K6), else the uniform one (K5).  With
-    ``L.use_pallas`` the kernel's wrapper, without it its plain
-    version."""
+    ``L.use_pallas`` the kernel's wrapper, without it the layout's plain
+    window version.  K1 and K5 walk the band's nonzeros row by row
+    through the operator's row index (``L.nz_rowptr``, ``L.nz_win``),
+    reading each value from the layout's band; K6 multiplies each
+    block-row's band operand by its x window as a tile."""
+    index = {}
     if L.bands_dkw is not None:
         fns = (banded_dkw, banded_dkw_reference)
         args = (L.bands_dkw, L.base, L.sched_dkw)
         kw = dict(levels=L.levels, G=L.rows_per_step)
+        index = dict(nz_rowptr=L.nz_rowptr, nz_win=L.nz_win)
     elif L.levels:
         fns = (banded_ragged, banded_ragged_reference)
         args = (L.band, L.base, L.sched)
@@ -431,9 +576,12 @@ def layout_call(L, x, x0=None, c=None, *, band_scale=None, donate=False):
         fns = (banded_uniform, banded_uniform_reference)
         args = (L.band, L.base)
         kw = {}
-    fn = fns[0] if L.use_pallas else fns[1]
-    return fn(*args, x, x0, c, band_scale=band_scale, donate_x0=donate,
-              **kw)
+        index = dict(nz_rowptr=L.nz_rowptr, nz_win=L.nz_win)
+    if not L.use_pallas:
+        return fns[1](*args, x, x0, c, band_scale=band_scale,
+                      donate_x0=donate, **kw)
+    return fns[0](*args, x, x0, c, band_scale=band_scale, donate_x0=donate,
+                  **kw, **index)
 
 
 def _band_call(L, x, x0, c=None, donate=False):

@@ -41,7 +41,7 @@ from torch.autograd.function import once_differentiable
 from torch.profiler import record_function
 
 from cnn_graph_tpu_torch import _build
-from cnn_graph_tpu_torch.ops.band import _emit, full_f32_matmul
+from cnn_graph_tpu_torch.ops.band import _CHUNK_BYTES, _emit, full_f32_matmul
 from cnn_graph_tpu_torch.ops.packing import BLOCK
 
 __all__ = [
@@ -59,10 +59,6 @@ __all__ = [
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _ROUTES = ("K7", "K8", "K9")
-# The plain versions multiply blocks in chunks whose gathered x tiles take
-# about this many bytes: one gather of every block's tile at the 50k
-# scattered graph and C = 512 would take 7.1 GB in bf16.
-_CHUNK_BYTES = 1 << 28
 
 
 def block_products(blocks, brow, bcol, x, n_rb: int, block_shape,

@@ -20,7 +20,7 @@ import torch
 from torch.autograd.function import once_differentiable
 from torch.profiler import record_function
 
-from cnn_graph_tpu_torch.ops.band import full_f32_matmul
+from cnn_graph_tpu_torch.ops.band import full_f32_matmul, profiled
 from cnn_graph_tpu_torch.ops.cheby import cheby_conv_fused, fused_vmem_ok
 from cnn_graph_tpu_torch.ops.laplacian import BandedLaplacian
 
@@ -103,7 +103,7 @@ def _ccb_forward(x: torch.Tensor, L, w: torch.Tensor, keep: bool):
         if keep:
             carries.append(cur)
         tap = cur[:M].reshape(M, B, F).to(torch.float32)
-        with full_f32_matmul(), record_function("cheby_conv_banded.taps"):
+        with full_f32_matmul(), profiled("cheby_conv_banded.taps"):
             y = y + torch.einsum("mbf,fo->bmo", tap, wc[k])
     return y.to(x.dtype), carries
 
@@ -132,8 +132,7 @@ class _ChebyConvBanded(torch.autograd.Function):
             dws = []
             for k in range(K):
                 tap = S[k][:M].reshape(M, B, Fin).to(torch.float32)
-                with full_f32_matmul(), record_function(
-                        "cheby_conv_banded.dW"):
+                with full_f32_matmul(), profiled("cheby_conv_banded.dW"):
                     dws.append(torch.einsum("mbf,bmo->fo", tap, gc))
             dw = torch.stack(dws).to(w.dtype)
         if ctx.input_grad and ctx.needs_input_grad[0]:
@@ -157,8 +156,7 @@ def _ccb_adjoint(L, g, w):
     gcd, wcd = g.to(cdt), w.to(cdt)
 
     def c_inj(k):
-        with full_f32_matmul(), record_function(
-                "cheby_conv_banded.injections"):
+        with full_f32_matmul(), profiled("cheby_conv_banded.injections"):
             ck = torch.einsum("bmo,fo->mbf", gcd, wcd[k]).reshape(M, B * Fin)
         return _pad_nodes(ck, L.m_padded)
 

@@ -46,6 +46,7 @@ from cnn_graph_tpu_torch.ops.band import (
     band_cheby_hop,
     band_cheby_hop_c,
     band_spmm,
+    check_band_index,
     check_band_tables,
     layout_call,
 )
@@ -116,6 +117,11 @@ class DenseLaplacian:
         return dataclasses.replace(self, mat=self.mat.to(device))
 
 
+# The port's own fields of the banded operators: the nonzero index by
+# output row (``packing.band_row_index``) that K1 and K5 walk.
+BAND_INDEX_FIELDS = ("nz_rowptr", "nz_win")
+
+
 class _BandedMixin:
     """What the float and int8 banded operators share: the layout
     fields' accessors and ``.to``."""
@@ -131,6 +137,10 @@ class _BandedMixin:
         if self.bands_dkw is not None:
             check_band_tables(self.bands_dkw, self.base, self.sched_dkw,
                               self.levels, self.rows_per_step, "dkw")
+        if self.nz_rowptr is not None:
+            check_band_index(self.nz_rowptr, self.nz_win, self.base,
+                             self.sched, self.levels or (self.band_width,),
+                             self.rows_per_step)
 
     @property
     def band_width(self) -> int:
@@ -139,7 +149,7 @@ class _BandedMixin:
     def to(self, device):
         moved = {f: getattr(self, f).to(device)
                  for f in ("band", "base", "sched", "sched_dkw")
-                 if getattr(self, f) is not None}
+                 + BAND_INDEX_FIELDS if getattr(self, f) is not None}
         if self.bands_dkw is not None:
             moved["bands_dkw"] = tuple(b.to(device) for b in self.bands_dkw)
         return dataclasses.replace(self, **moved)
@@ -163,6 +173,15 @@ class BandedLaplacian(_BandedMixin):
       ``[n_rows_l, 128, W_l*128]`` per level, ``sched_dkw`` with each
       step's row offset.  Products run K1 (``banded_dkw``).
 
+    Beside JAX's fields the operator carries the nonzero index by output
+    row, ``nz_rowptr`` (int32 ``[m_padded + 1]``) and ``nz_win`` (int16,
+    each nonzero's offset in its block-row's window;
+    ``ops.packing.band_row_index``): K1 and K5 walk it and read each
+    value from the layout's own band, so it holds for the int8 twin and
+    for shifted bases.  K6 (the flat ragged band) does not read it; the
+    ragged operator keeps it for its int8 twin, which ``quantize_banded``
+    gives the dkw layout when ``use_pallas`` is set.
+
     With ``use_pallas`` the products run the layout's kernel, without it
     the kernel's plain version, which computes what JAX's fallback does
     (f32 accumulation of the window products, rounded once)."""
@@ -178,6 +197,8 @@ class BandedLaplacian(_BandedMixin):
     levels: tuple = ()
     bands_dkw: tuple | None = None
     sched_dkw: torch.Tensor | None = None
+    nz_rowptr: torch.Tensor | None = None
+    nz_win: torch.Tensor | None = None
 
     @property
     def compute_dtype(self):
@@ -261,6 +282,8 @@ class QuantBandedLaplacian(_BandedMixin, QuantOpMixin):
     levels: tuple = ()
     bands_dkw: tuple | None = None
     sched_dkw: torch.Tensor | None = None
+    nz_rowptr: torch.Tensor | None = None
+    nz_win: torch.Tensor | None = None
 
     def _call(self, x_q, x0_q, donate=False):
         return layout_call(self, x_q, x0_q, band_scale=self.band_scale,
@@ -280,7 +303,8 @@ def quantize_banded(op: BandedLaplacian, headroom: float = 2.0,
     where the float operator has the dkw layout's conditions,
     ``use_pallas`` and ``levels``.  ``sample_x`` is the expected
     activation max; ``headroom`` widens the activation scale so carries
-    that wander above the input range saturate instead of wrapping."""
+    that wander above the input range saturate instead of wrapping.  The
+    row index is the float operator's: the int8 band has its layout."""
     host = op.band.to(torch.float32).cpu().numpy()
     s_b = packing.band_scale_of([host])
     band_q = packing.quantize_band(host, s_b)
@@ -297,7 +321,7 @@ def quantize_banded(op: BandedLaplacian, headroom: float = 2.0,
         use_pallas=op.use_pallas, band_scale=s_b,
         act_scale=float(sample_x) * headroom / 127.0, headroom=headroom,
         sched=op.sched, levels=op.levels, bands_dkw=bands_dkw,
-        sched_dkw=sched_dkw,
+        sched_dkw=sched_dkw, nz_rowptr=op.nz_rowptr, nz_win=op.nz_win,
     )
 
 
@@ -696,11 +720,15 @@ def _banded_laplacian(L, m, nnz, dtype, device, use_pallas, rows_per_step,
         bd, sd = packing.pack_dkw_from_ragged(band, sched, levels, G)
         bands_dkw = tuple(_tensor(b, device, dtype) for b in bd)
         sched_dkw = _tensor(sd, device)
+    # The ragged operator carries it too: given use_pallas, its int8 twin
+    # takes the dkw layout (quantize_banded, as JAX's), which K1 walks.
+    nz_rowptr, nz_win = packing.band_row_index(L, base, mp)
     return BandedLaplacian(
         band=_tensor(band, device, dtype), base=_tensor(base, device), m=m,
         m_padded=mp, nnz=nnz, rows_per_step=G, use_pallas=bool(use_pallas),
         sched=None if sched is None else _tensor(sched, device),
-        levels=levels, bands_dkw=bands_dkw, sched_dkw=sched_dkw)
+        levels=levels, bands_dkw=bands_dkw, sched_dkw=sched_dkw,
+        nz_rowptr=_tensor(nz_rowptr, device), nz_win=_tensor(nz_win, device))
 
 
 def _bsr_laplacian(L, m, nnz, dtype, device, use_pallas, block_size,

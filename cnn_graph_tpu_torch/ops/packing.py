@@ -15,8 +15,10 @@ modules import JAX.  ``tests/test_torch_graphs.py`` and
 packers' for the same arguments.  One difference: ``colstream_pack``
 checks that each block's row in its group and column slot fit the 16-bit
 fields of its ``meta`` word, where the original packs them unchecked.
-``row_index`` (with ``colstream_order``) is the port's own: the nonzero
-index by output row that the GPU's row kernel walks (``ops/bsr.py``).
+``row_index`` (with ``colstream_order``) and ``band_row_index`` are the
+port's own: the nonzero index by output row that the GPU's row walks
+take through the BSR operators (``ops/bsr.py``) and the banded
+operators' dkw and uniform layouts (``ops/band.py``).
 
 Left out: the TPU VMEM models (``auto_rows_per_step``, ``ring_span``)
 that size G and the x ring, so ``pack_banded`` returns no ring size.  G
@@ -43,6 +45,8 @@ __all__ = [
     "choose_band_levels",
     "pack_banded_ragged",
     "pack_dkw_from_ragged",
+    "MAX_BAND_WIDTH",
+    "band_row_index",
     "band_scale_of",
     "quantize_band",
     "COLSTREAM_CHUNK",
@@ -60,6 +64,9 @@ __all__ = [
 BLOCK = 128
 MAX_LEVELS = 4
 ROWS_PER_STEP = 8  # default G: block-rows per schedule step
+# The widest band the packers take, in blocks: band_row_index's window
+# offsets (< MAX_BAND_WIDTH * BLOCK = 6,144) fit int16.
+MAX_BAND_WIDTH = 48
 
 
 def _round_up(x: int, m: int) -> int:
@@ -89,7 +96,8 @@ def band_stats(L: scipy.sparse.spmatrix):
     return base, W, n_blocks, mp
 
 
-def pack_banded(L: scipy.sparse.spmatrix, max_band_width: int = 48,
+def pack_banded(L: scipy.sparse.spmatrix,
+                max_band_width: int = MAX_BAND_WIDTH,
                 rows_per_step: int | None = None, stats: tuple | None = None,
                 row_multiple: int | None = None, band_dtype=np.float32):
     """Pack a block-banded matrix into the uniform band ``[n_rb, W, 128,
@@ -141,7 +149,8 @@ def choose_band_levels(ws) -> tuple:
 
 
 def pack_banded_ragged(L: scipy.sparse.spmatrix, G: int | None = None,
-                       max_band_width: int = 48, stats: tuple | None = None):
+                       max_band_width: int = MAX_BAND_WIDTH,
+                       stats: tuple | None = None):
     """Pack a block-banded matrix with one width per G-block-row step.
 
     Each step stores ``W_s`` = its widest row span, rounded up to one of at
@@ -222,6 +231,40 @@ def pack_dkw_from_ragged(band_flat, sched, levels, G: int):
         )
     sched_dkw = np.stack([row_off, lvl_idx, hw]).astype(np.int32)
     return bands, sched_dkw
+
+
+def band_row_index(L: scipy.sparse.spmatrix, base, m_padded: int):
+    """The banded operators' nonzero index by output row: ``(rowptr,
+    win)`` with ``rowptr`` int32 ``[m_padded + 1]`` and, for each nonzero
+    of ``L`` (once per position, in row order, columns sorted), ``win``
+    (int16), its offset in its block-row's window, ``col - 128 *
+    base[row // 128]``.  A value's place follows from (row, offset) and
+    the block-row's band in each layout (csrc/band.cu ``band_off``), so
+    the index holds no positions and serves the dkw and uniform bands
+    that K1 and K5 walk, their int8 twins (the flat ragged band's too,
+    which takes the dkw layout) and bases shifted for an extended-column
+    x.
+    Raises ``ValueError`` on a nonzero before its window, an offset that
+    does not fit int16 (past ``MAX_BAND_WIDTH`` blocks) or a row past
+    ``m_padded`` or ``base``."""
+    coo = L.tocoo()
+    n = max(L.shape[1], 1)
+    key = np.unique(coo.row.astype(np.int64) * n + coo.col)
+    rows, cols = key // n, key % n
+    base = np.asarray(base, np.int64)
+    if len(rows) and (rows[-1] >= m_padded
+                      or rows[-1] // BLOCK >= len(base)):
+        raise ValueError(f"band_row_index: a row past m_padded {m_padded} "
+                         f"or the {len(base)} block-row bases")
+    k = cols - BLOCK * base[rows // BLOCK]
+    if len(k) and int(k.min()) < 0:
+        raise ValueError("band_row_index: a nonzero lies before its row's "
+                         "window")
+    if len(k) and int(k.max()) >= MAX_BAND_WIDTH * BLOCK:
+        raise ValueError(f"band_row_index: a window offset {int(k.max())} "
+                         f"past {MAX_BAND_WIDTH} blocks does not fit int16")
+    rowptr = np.searchsorted(rows, np.arange(m_padded + 1)).astype(np.int32)
+    return rowptr, k.astype(np.int16)
 
 
 def band_scale_of(bands) -> float:

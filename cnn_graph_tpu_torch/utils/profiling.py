@@ -128,16 +128,19 @@ def spmm_roofline(op, seconds_per_spmm: float | None, feature_width: int,
 def sparse_roofline(op, seconds_per_spmm: float | None, feature_width: int,
                     extra_inputs: int = 0, **peaks) -> dict:
     """Roofline of one ``L @ x`` by what the inputs need: each nonzero's
-    value (in the operator's dtype) and int32 column index, the int32 row
+    value (in the operator's dtype) and column index, the int32 row
     pointer over the ``m_padded`` rows, one activation read and one
     written (``extra_inputs`` more reads: 1 for the hop's x0), and
-    ``2 nnz C`` operations.  This is the bound of a CSR product and of
-    the row kernel (``ops/bsr.py``) alike; ``spmm_roofline`` counts the
-    block format's work instead."""
+    ``2 nnz C`` operations.  The index is int32 (a CSR column, the BSR
+    row kernel's ``nz_cols``) or, on a banded operator, the int16 window
+    offset that the banded row walk reads (``ops.packing.band_row_index``;
+    the band fixes every nonzero's window, in every layout).
+    ``spmm_roofline`` counts the block format's work instead."""
     e = torch.empty(0, dtype=op.compute_dtype).element_size()
+    index_bytes = 2 if getattr(op, "band", None) is not None else 4
     C = feature_width
     nnz = op.nnz
-    nbytes = (nnz * (e + 4) + (op.m_padded + 1) * 4
+    nbytes = (nnz * (e + index_bytes) + (op.m_padded + 1) * 4
               + (2 + extra_inputs) * op.m_padded * C * e)
     return roofline(2 * nnz * C, nbytes, op.compute_dtype, seconds_per_spmm,
                     **peaks)

@@ -24,6 +24,7 @@ from cnn_graph_tpu_torch.ops import (
     banded_dkw,
     banded_dkw_reference,
     banded_ragged,
+    banded_rows_reference,
     banded_uniform,
     bsr_colstream,
     bsr_colstream_reference,
@@ -70,6 +71,24 @@ def _operator(L, dtype, device, G=2):
     return quantize_banded(op, sample_x=3.0) if dtype == "int8" else op
 
 
+def _index(op):
+    """The row index K1 and K5 walk, as their wrappers take it."""
+    return dict(nz_rowptr=op.nz_rowptr, nz_win=op.nz_win)
+
+
+def _rows_reference(op, layout, x, x0=None, c=None, scale=None,
+                    base=None):
+    """The row walk's plain version on ``op``'s ``layout`` band."""
+    if layout == "dkw":
+        bands, sched, levels = op.bands_dkw, op.sched_dkw, op.levels
+    else:
+        bands, sched, levels = (op.band,), None, (op.band.shape[1],)
+    return banded_rows_reference(
+        bands, op.base if base is None else base, sched, op.nz_rowptr,
+        op.nz_win, x, x0, c, layout=layout, levels=levels,
+        G=op.rows_per_step, band_scale=scale)
+
+
 @pytest.mark.parametrize("C", [48, 37, 300])
 @pytest.mark.parametrize("hop", [False, True])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
@@ -86,17 +105,20 @@ def test_kernel_matches_reference(city96, cuda_device, dtype, hop, C):
     args = (op.bands_dkw, op.base, op.sched_dkw, x, x0 if hop else None)
     kw = dict(levels=op.levels, G=op.rows_per_step, band_scale=scale)
     before = banded_dkw.launches
-    got = banded_dkw(*args, **kw)
+    got = banded_dkw(*args, **kw, **_index(op))
     torch.cuda.synchronize()
     assert banded_dkw.launches == before + 1
-    want = banded_dkw_reference(*args, **kw)
-    assert got.dtype == want.dtype == x.dtype
-    if dtype == "int8":
-        assert torch.equal(got, want)
-    else:
-        torch.testing.assert_close(
-            got.float(), want.float(), atol=1e-4,
-            rtol=2**-7 if dtype == "bfloat16" else 1e-5)
+    # The window product and the row walk, both plain versions.
+    for want in (banded_dkw_reference(*args, **kw),
+                 _rows_reference(op, "dkw", x, x0 if hop else None,
+                                 scale=scale)):
+        assert got.dtype == want.dtype == x.dtype
+        if dtype == "int8":
+            assert torch.equal(got, want)
+        else:
+            torch.testing.assert_close(
+                got.float(), want.float(), atol=1e-4,
+                rtol=2**-7 if dtype == "bfloat16" else 1e-5)
 
 
 @pytest.mark.parametrize("C", [48, 300])
@@ -110,7 +132,7 @@ def test_adjoint_hop_matches_reference(city96, cuda_device, dtype, C):
     args = (op.bands_dkw, op.base, op.sched_dkw, x, x0, c)
     kw = dict(levels=op.levels, G=op.rows_per_step)
     before = banded_dkw.form_launches["hop_c"]
-    got = banded_dkw(*args, **kw)
+    got = banded_dkw(*args, **kw, **_index(op))
     torch.cuda.synchronize()
     assert banded_dkw.form_launches["hop_c"] == before + 1
     want = banded_dkw_reference(*args, **kw)
@@ -125,7 +147,7 @@ def test_adjoint_hop_refuses_int8(city96, cuda_device):
     with pytest.raises(ValueError):
         banded_dkw(q.bands_dkw, q.base, q.sched_dkw, x, x, x,
                    levels=q.levels, G=q.rows_per_step,
-                   band_scale=q.band_scale)
+                   band_scale=q.band_scale, **_index(q))
 
 
 @pytest.mark.parametrize("K", [2, 7])
@@ -157,7 +179,7 @@ def test_conv_gradients_through_kernel_match_plain_version(city96,
 def test_kernel_rejects_bad_arguments(city96, cuda_device):
     op = _operator(city96, "float32", cuda_device)
     x = torch.zeros(op.m_padded, 16, device=cuda_device)
-    kw = dict(levels=op.levels, G=op.rows_per_step)
+    kw = dict(levels=op.levels, G=op.rows_per_step, **_index(op))
     with pytest.raises(TypeError):
         banded_dkw(op.bands_dkw, op.base, op.sched_dkw, x.to(torch.bfloat16),
                    **kw)
@@ -170,6 +192,32 @@ def test_kernel_rejects_bad_arguments(city96, cuda_device):
     flat = torch.zeros(op.m_padded * 16 + 3, device=cuda_device)
     with pytest.raises(ValueError, match="16-byte"):
         band_spmm(op, flat[3:].view(op.m_padded, 16))
+    # The row index: int16 offsets, int32 row pointer of nbr*128 + 1.
+    with pytest.raises(TypeError, match="int16"):
+        banded_dkw(op.bands_dkw, op.base, op.sched_dkw, x,
+                   **dict(kw, nz_win=op.nz_win.int()))
+    with pytest.raises(ValueError, match="nz_rowptr"):
+        banded_dkw(op.bands_dkw, op.base, op.sched_dkw, x,
+                   **dict(kw, nz_rowptr=op.nz_rowptr[:-1]))
+
+
+@pytest.mark.parametrize("layout", ["dkw", "uniform"])
+def test_row_walk_wrappers_raise_without_the_index(city96, cuda_device,
+                                                   layout):
+    """K1 and K5 walk the row index: a CUDA x without it raises, and
+    nothing falls back to a tile kernel or the plain version."""
+    op = _layout_operator(city96, layout, "float32", cuda_device)
+    x = torch.zeros(op.m_padded, 16, device=cuda_device)
+    before = _COUNTED[layout].launches
+    for missing in ("nz_rowptr", "nz_win"):
+        index = dict(_index(op), **{missing: None})
+        with pytest.raises(ValueError, match="row index"):
+            if layout == "dkw":
+                banded_dkw(op.bands_dkw, op.base, op.sched_dkw, x,
+                           levels=op.levels, G=op.rows_per_step, **index)
+            else:
+                banded_uniform(op.band, op.base, x, **index)
+    assert _COUNTED[layout].launches == before
 
 
 @pytest.mark.parametrize("int8", [False, True])
@@ -561,13 +609,16 @@ def _assert_kernel_close(got, want):
             rtol=2**-7 if got.dtype == torch.bfloat16 else 1e-5)
 
 
-@pytest.mark.parametrize("C", [48, 300])
+@pytest.mark.parametrize("C", [48, 37, 300])
 @pytest.mark.parametrize("dtype,form", [
     (d, f) for d in ("float32", "bfloat16", "int8")
     for f in ("spmm", "hop", "hop_c") if (d, f) != ("int8", "hop_c")])
-@pytest.mark.parametrize("layout", ["uniform", "ragged"])
+@pytest.mark.parametrize("layout", ["dkw", "uniform", "ragged"])
 def test_layout_kernels_match_reference(city96, cuda_device, layout, dtype,
                                         form, C):
+    """Each layout's kernel against its window plain version and, for the
+    row walk (K1, K5), the row walk's plain version; C = 37 and (int8)
+    300 take the scalar loads."""
     op = _layout_operator(city96, layout, dtype, cuda_device)
     x, x0, c, scale = _layout_inputs(op, C, cuda_device, C)
     args = (x, None, None) if form == "spmm" else (
@@ -580,14 +631,19 @@ def test_layout_kernels_match_reference(city96, cuda_device, layout, dtype,
     want = layout_call(dataclasses.replace(op, use_pallas=False), *args,
                        band_scale=scale)
     _assert_kernel_close(got, want)
+    if layout != "ragged":
+        _assert_kernel_close(got, _rows_reference(op, layout, *args,
+                                                  scale=scale))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
-@pytest.mark.parametrize("layout", ["uniform", "ragged"])
+@pytest.mark.parametrize("layout", ["dkw", "uniform", "ragged"])
 def test_layout_kernels_take_extended_column_x(city96, cuda_device, layout,
                                                dtype):
     """x with 3 halo block rows in front and 2 behind, bases shifted by
-    3: the hop equals the unshifted plain version."""
+    3 (the row index unchanged: it holds window offsets): the hop equals
+    the unshifted plain version.  Then an x that ends inside the last
+    windows: rows past its end read as zero."""
     op = _layout_operator(city96, layout, dtype, cuda_device)
     off, C = 3, 136
     x_ext, x0, _, scale = _layout_inputs(op, C, cuda_device, 5,
@@ -598,6 +654,12 @@ def test_layout_kernels_take_extended_column_x(city96, cuda_device, layout,
     torch.cuda.synchronize()
     want = layout_call(dataclasses.replace(op, use_pallas=False), x, x0,
                        band_scale=scale)
+    _assert_kernel_close(got, want)
+    short = x_ext[: op.m_padded].contiguous()
+    got = layout_call(shifted, short, x0, band_scale=scale)
+    torch.cuda.synchronize()
+    want = layout_call(dataclasses.replace(shifted, use_pallas=False),
+                       short, x0, band_scale=scale)
     _assert_kernel_close(got, want)
 
 
