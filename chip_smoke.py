@@ -5,16 +5,19 @@
 Phases, each fatal on failure (no CPU path, no fallback):
 
 1. require a CUDA device; print the card's name and power limit;
-2. build the banded kernels (csrc/band.cu: ``band_rows_kernel``, the
+2. build the banded kernel (csrc/band.cu: ``band_rows_kernel``, the
    walk over the band's nonzeros row by row, for K1 on the deep-K-window
-   layout and K5 on the uniform band; the tile kernels for K6 on the
-   flat ragged band), the fused Chebyshev kernels (csrc/cheby_fused.cu),
+   layout, K5 on the uniform band and K6 on the flat ragged band), the
+   fused Chebyshev kernels (csrc/cheby_fused.cu: ``cheby_conv_kernel``,
+   K2, and ``cheby_dw_kernel``, K3),
    the BSR operators' row-sparse gather kernel (csrc/bsr.cu,
    ``bsr_rows_kernel``, launched as K4 by ``bsr_colstream`` and as
    K7/K8/K9 by ``bsr_csr``; it shares csrc/rows.cuh with
    ``band_rows_kernel``) and the probes P1-P3 (csrc/probes.cu) from
    source, one nvcc each, started together; print each kernel's
-   registers and shared memory;
+   registers and shared memory, and the tensor-core instructions
+   (``HMMA``/``HGMMA``) in K2's SASS (``cuobjdump -sass``), which its
+   bf16 instantiations must hold;
 3. hold the banded kernel K1 against both its plain PyTorch versions,
    the window product (``banded_dkw_reference``) and the row walk
    (``banded_rows_reference``), on the real 50,176-node serving operator
@@ -44,8 +47,13 @@ Phases, each fatal on failure (no CPU path, no fallback):
 7. hold the fused kernels K2 (the conv) and K3 (its weight gradient)
    against their plain versions at the bench's dense_fused shape (x and
    g [100, 976, 32], w [25, 32, 32] on the 976-node level-0 operator) in
-   f32 and bf16, and K2 at ChebNet layer 1's dx shape (g [100, 244, 64],
-   W^T [25, 64, 32]) in f32, and time both;
+   f32 (1e-4 of the largest value) and bf16 (1e-2), and K2 also at
+   ChebNet layer 1's forward shape (x [100, 244, 32], w [25, 32, 64])
+   and dx shape (g [100, 244, 64], W^T [25, 64, 32]) in both; time K2
+   by device work (``device_ms``) beside its bound and K3 with CUDA
+   events; print K2's geometry, one CTA's shared memory and how many
+   clusters the card holds at once (``conv_resources``), and fail unless
+   the ring fits in 232,448 bytes and one cluster fits;
 8. serve the paper's ChebNet (MNIST grid, F=[32, 64], K=[25, 25], p=[4,
    4], M=[512, 10]; nips2016/mnist.ipynb cells 14-17) on its coarsened
    operators through compile_serving: 4 requests of 100 synthetic digits,
@@ -96,9 +104,9 @@ Phases, each fatal on failure (no CPU path, no fallback):
    one request through each route's operator: 24 launches of that route
    each, logits against the plain twin's;
 13. on the 50k city graph at C = 512, hold K5 (the ``ragged=False``
-   operator; against both plain versions, as phase 3) and K6 (the
-   ragged operator built with ``use_pallas=False`` and then given it,
-   quantized before for int8; against its window plain version) for
+   operator) and K6 (the ragged operator built with ``use_pallas=False``
+   and then given it, quantized before for int8) against both plain
+   versions, as phase 3, for
    L@x, the hop and (float) the adjoint hop in f32, bf16 and int8,
    tolerances as phase 3, and time them as phase 3 does; check the
    in-place hop (``donate``) of K1, K5 and K6 bit-identical to the
@@ -211,6 +219,8 @@ from cnn_graph_tpu_torch.ops import (  # noqa: E402
     cheby_dw_fused,
     cheby_dw_fused_reference,
     cheby_finals,
+    conv_geometry,
+    conv_resources,
     device_laplacian,
     fused_filter,
     packing,
@@ -247,8 +257,7 @@ REPLACES = {"dkw": "cnn_graph_tpu/ops/pallas_band.py:448",      # K1
             "ragged": "cnn_graph_tpu/ops/pallas_band.py:202"}   # K6
 KERNEL_ID = {"dkw": "K1", "uniform": "K5", "ragged": "K6"}
 # The kernel of csrc/band.cu each layout launches.
-BAND_KERNEL = {"dkw": "band_rows_kernel", "uniform": "band_rows_kernel",
-               "ragged": "band_f32_kernel/band_tc_kernel"}
+BAND_KERNEL = {lay: "band_rows_kernel" for lay in LAYOUT_KERNELS}
 # bench.py's chains: the 100k city graph (bench.py:555) and the K-blocks
 # slope_time differences (bench.py:401).
 SIDE_100K, CHAIN_UNITS = 316, (2, 8)
@@ -367,10 +376,12 @@ def device_ms(fn, n: int) -> float:
 
 def rows_plain(op, args, scale):
     """The row walk's plain version (``banded_rows_reference``) on ``op``'s
-    layout, for K1 and K5."""
+    layout."""
     lay = layout_of(op)
     if lay == "dkw":
         bands, sched, levels = op.bands_dkw, op.sched_dkw, op.levels
+    elif lay == "ragged":
+        bands, sched, levels = (op.band,), op.sched, op.levels
     else:
         bands, sched, levels = (op.band,), None, (op.band.shape[1],)
     return banded_rows_reference(bands, op.base, sched, op.nz_rowptr,
@@ -380,19 +391,17 @@ def rows_plain(op, args, scale):
 
 def band_kernel_check(op, gen, what: str, lib: dict) -> dict:
     """``op``'s layout kernel (K1, K5 or K6) against its window plain
-    version and, for the row walk (K1, K5), the row walk's plain version,
-    at C = FIN for every form it has; all timed, each time beside the
+    version and the row walk's plain version, at C = FIN for every form it
+    has; all timed, each time beside the
     sparse bound (``sparse_roofline``), the block format's work
     (``spmm_roofline``) and, for L@x, phase 16's library time ``lib``
     (the same matrix in CSR, by dtype).  Tolerances of ``_check_close``."""
     x, x0, c, scale = _layout_inputs(op, gen)
     plain = _plain_banded(op)
-    rows = layout_of(op) != "ragged"
     dt = {torch.int8: "int8", torch.bfloat16: "bf16"}.get(op.compute_dtype,
                                                            "f32")
-    rec = {"max_abs_err": 0.0, "library_ms": lib.get(dt)}
-    if rows:
-        rec["rows_max_abs_err"] = 0.0
+    rec = {"max_abs_err": 0.0, "rows_max_abs_err": 0.0,
+           "library_ms": lib.get(dt)}
     forms = {"spmm": (x, None, None), "hop": (x, x0, None)}
     if c is not None:  # the adjoint hop, float only
         forms["hop_c"] = (x, x0, c)
@@ -409,10 +418,7 @@ def band_kernel_check(op, gen, what: str, lib: dict) -> dict:
         got = kern()
         pre = "" if form == "spmm" else form + "_"
         for key, want in ((pre + "max_abs_err", ref()),
-                          (pre + "rows_max_abs_err",
-                           rref() if rows else None)):
-            if want is None:
-                continue
+                          (pre + "rows_max_abs_err", rref())):
             torch.cuda.synchronize()
             rec[key] = _check_close(got, want, f"{what} {form} ({key})")
             top = key[len(pre):]
@@ -420,8 +426,7 @@ def band_kernel_check(op, gen, what: str, lib: dict) -> dict:
         extra = sum(a is not None for a in args[1:])
         rec[pre + "ms"] = device_ms(kern, 20)
         rec[pre + "plain_ms"] = device_ms(ref, 3)
-        if rows:
-            rec[pre + "rows_plain_ms"] = device_ms(rref, 2)
+        rec[pre + "rows_plain_ms"] = device_ms(rref, 2)
         rec[pre + "roofline"] = sparse_roofline(
             op, rec[pre + "ms"] / 1e3, FIN, extra_inputs=extra)
         rec[pre + "block_roofline"] = spmm_roofline(
@@ -1036,9 +1041,12 @@ def reset_cheby_launches():
     cheby_conv_fused.launches = cheby_dw_fused.launches = 0
 
 
-def _kernel_vs_plain(kernel, plain, tol: float, what: str) -> dict:
+def _kernel_vs_plain(kernel, plain, tol: float, what: str,
+                     timer=None) -> dict:
     """One kernel call against its plain version on the same inputs,
-    within ``tol`` of the plain result's largest entry, and both timed."""
+    within ``tol`` of the plain result's largest entry, and both timed
+    by ``timer`` (``cuda_ms``, looked up when called, by default)."""
+    timer = timer or cuda_ms
     got, want = kernel(), plain()
     torch.cuda.synchronize()
     check(got.shape == want.shape and got.dtype == want.dtype,
@@ -1048,45 +1056,55 @@ def _kernel_vs_plain(kernel, plain, tol: float, what: str) -> dict:
     check(bool(torch.isfinite(got).all()) and err <= tol * scale,
           f"{what}: max |kernel - plain| {err:.3g} over limit "
           f"{tol * scale:.3g}")
-    return {"max_abs_err": err, "scale": scale, "ms": cuda_ms(kernel, 10),
-            "plain_ms": cuda_ms(plain, 3)}
+    return {"max_abs_err": err, "scale": scale, "ms": timer(kernel, 10),
+            "plain_ms": timer(plain, 3)}
+
+
+# K2's shapes (B, level, F, O): the bench's dense_fused conv
+# (bench.py:926-936) on the 976-node level 0, and ChebNet layer 1's
+# forward and dx (W^T) on the 244-node level 2.
+K2_SHAPES = {"bench": (CHEB_B, 0, 32, 32), "layer1": (CHEB_B, 2, 32, 64),
+             "dx": (CHEB_B, 2, 64, 32)}
 
 
 def cheby_kernel_phase(Ls, dev, gen: torch.Generator) -> dict:
-    """K2 and K3 against their plain versions at the bench's dense_fused
-    shape (bench.py:926-936) in f32 and bf16, and K2 at ChebNet layer 1's
-    dx shape in f32.  Tolerances, of the largest plain entry: f32 1e-4,
-    the same f32 products summed in another order through 24 hops; bf16
+    """K2 against its plain version at the bench's dense_fused shape,
+    ChebNet layer 1's forward shape and its dx shape, and K3 at the bench
+    shape, in f32 and bf16.  K2 is timed by device work (``device_ms``),
+    K3 by ``cuda_ms``.  Tolerances, of the largest plain entry: f32 1e-4,
+    the same products summed in another order through 24 hops; bf16
     1e-2, a carry next to a bf16 rounding boundary may round one ulp
     (2^-8) apart and later hops carry that along."""
     rec = {}
     for lab, dt in DTYPES.items():
-        op = device_laplacian(Ls[0], fmt="dense", dtype=dt, device=dev,
-                              use_pallas=True)
-        x, g = (torch.randn(CHEB_B, op.m, 32, generator=gen, device=dev)
-                for _ in range(2))
-        w = 0.05 * torch.randn(CHEB["K"][0], 32, 32, generator=gen,
-                               device=dev)
         tol = 1e-4 if lab == "f32" else 1e-2
-        # K3's operands (x, g; dW) have K2's sizes (x, w; y).
-        rec[lab + "_bound"] = dense_cheby_bound(op, CHEB_B, 32, 32,
-                                                w.shape[0])
-        rec[lab] = {
-            "K2": _kernel_vs_plain(
-                lambda: fused_filter(x, op, w),
-                lambda: cheby_conv_fused_reference(x, op, w), tol,
-                f"K2 {lab}"),
-            "K3": _kernel_vs_plain(
-                lambda: cheby_dw_fused(x, op, g, w.shape[0]),
-                lambda: cheby_dw_fused_reference(x, op, g, w.shape[0]), tol,
-                f"K3 {lab}"),
-        }
-    op = device_laplacian(Ls[2], fmt="dense", device=dev, use_pallas=True)
-    g = torch.randn(CHEB_B, op.m, 64, generator=gen, device=dev)
-    wt = 0.05 * torch.randn(CHEB["K"][1], 64, 32, generator=gen, device=dev)
-    rec["dx"] = _kernel_vs_plain(
-        lambda: fused_filter(g, op, wt),
-        lambda: cheby_conv_fused_reference(g, op, wt), 1e-4, "K2 dx f32")
+        for shape, (B, lvl, F, O) in K2_SHAPES.items():
+            op = device_laplacian(Ls[lvl], fmt="dense", dtype=dt, device=dev,
+                                  use_pallas=True)
+            x = torch.randn(B, op.m, F, generator=gen, device=dev)
+            w = 0.05 * torch.randn(CHEB["K"][0], F, O, generator=gen,
+                                   device=dev)
+            rec[f"{lab}_{shape}"] = {
+                **_kernel_vs_plain(
+                    lambda: fused_filter(x, op, w),
+                    lambda: cheby_conv_fused_reference(x, op, w), tol,
+                    f"K2 {lab} {shape}", timer=device_ms),
+                "bound": dense_cheby_bound(op, B, F, O, w.shape[0]),
+                "geometry": conv_geometry(B, op.m_padded, F, O,
+                                          torch.cuda.get_device_properties(
+                                              dev).multi_processor_count)}
+            geo = rec[f"{lab}_{shape}"]["geometry"]
+            geo.update(conv_resources(geo["rows"], dt, geo["cluster"]))
+            check(0 < geo["smem"] <= 232_448 and geo["resident_clusters"] >= 1,
+                  f"K2 {lab} {shape}: {geo} does not fit the card")
+            if shape == "bench":
+                g = torch.randn(B, op.m, F, generator=gen, device=dev)
+                # K3's operands (x, g; dW) have K2's sizes (x, w; y).
+                rec[lab + "_bound"] = rec[f"{lab}_{shape}"]["bound"]
+                rec[lab + "_K3"] = _kernel_vs_plain(
+                    lambda: cheby_dw_fused(x, op, g, w.shape[0]),
+                    lambda: cheby_dw_fused_reference(x, op, g, w.shape[0]),
+                    tol, f"K3 {lab}")
     return rec
 
 
@@ -1572,6 +1590,28 @@ def probe_time_phase(errs: dict, gpu: str) -> list:
     return rows
 
 
+def k2_tensor_core_ops(lib) -> dict:
+    """The tensor-core instructions (``HMMA``, ``HGMMA``) in the SASS of
+    each instantiation of K2 (``cheby_conv_kernel``) in the built
+    library, by ``cuobjdump -sass``; fails unless every bf16 one has
+    some."""
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    found = {}
+    for block in sass.split("Function : ")[1:]:
+        name, body = block.split("\n", 1)
+        if "cheby_conv_kernel" in name:
+            dt = "bf16" if "__nv_bfloat16" in name else "f32"
+            rows = "128" if "Li128E" in name else "64"
+            found[f"cheby_conv_kernel<{dt}, {rows}>"] = (
+                body.count("HMMA") + body.count("HGMMA"))
+    bf16 = [n for k, n in found.items() if "bf16" in k]
+    check(len(bf16) == 2 and all(n > 0 for n in bf16),
+          f"K2's bf16 SASS holds no tensor-core instruction: {found}")
+    return found
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile-dir", help="also trace requests and training "
@@ -1597,10 +1637,13 @@ def main() -> int:
             if ("registers" in line or "Compiling entry" in line
                     or "spill" in line):
                 print(f"  ptxas {name}: {line.strip()}")
+    for kernel, n in k2_tensor_core_ops(logs["cheby_fused"][0]).items():
+        print(f"  sass cheby_fused: {kernel}: {n} HMMA/HGMMA")
 
     t0 = time.perf_counter()
     L, positions = graphs.city_graph(SIDE, k=KNN, seed=0)
-    # The row index K1 and K5 walk, timed where the operator builds it.
+    # The row index the banded kernels walk, timed where the operator
+    # builds it.
     with call_seconds(packing, "band_row_index") as index_s:
         op = device_laplacian(L, fmt="auto", dtype=torch.bfloat16,
                               device=dev)
@@ -1677,16 +1720,24 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     kchecks = cheby_kernel_phase(Ls, dev, gen)
     for lab in DTYPES:
-        for kern in ("K2", "K3"):
-            r = kchecks[lab][kern]
-            print(f"kernel {kern} {lab} [100, 976, 32] K=25: max_abs_err "
+        for shape, (B, lvl, F, O) in K2_SHAPES.items():
+            r = kchecks[f"{lab}_{shape}"]
+            geo = r["geometry"]
+            print(f"kernel K2 {lab} {shape} x [{B}, {Ls[lvl].shape[0]}, {F}] "
+                  f"w [{CHEB['K'][0]}, {F}, {O}]: max_abs_err "
                   f"{r['max_abs_err']:.3g} (of max {r['scale']:.3g}), "
-                  f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms) [{gpu}]",
+                  f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms; bound "
+                  f"{r['bound']['bound_us'] / 1e3:.4f} ms "
+                  f"{r['bound']['bound_by']}); {geo['groups']} clusters of "
+                  f"{geo['cluster']} CTAs, {geo['rows']}-row tiles, "
+                  f"{geo['smem']} B shared memory, "
+                  f"{geo['resident_clusters']} clusters at once [{gpu}]",
                   flush=True)
-    r = kchecks["dx"]
-    print(f"kernel K2 dx f32 [100, 244, 64] W^T [25, 64, 32]: max_abs_err "
-          f"{r['max_abs_err']:.3g} (of max {r['scale']:.3g}), {r['ms']:.4f} "
-          f"ms (plain {r['plain_ms']:.4f} ms) [{gpu}]", flush=True)
+        r = kchecks[lab + "_K3"]
+        print(f"kernel K3 {lab} [100, 976, 32] K=25: max_abs_err "
+              f"{r['max_abs_err']:.3g} (of max {r['scale']:.3g}), "
+              f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms) [{gpu}]",
+              flush=True)
 
     # Phases 8 and 9: the paper's ChebNet served and trained, its
     # operators in f32 (the paper's) and in bf16.
@@ -2006,8 +2057,7 @@ def main() -> int:
 
     def band_row(name, lay, lab, rec, launches, **extra):
         """A banded kernel's row: the sparse bound as ``bound_ms``, the
-        block format's work beside; K1 and K5 also the row walk's plain
-        version."""
+        block format's work and the row walk's plain version beside."""
         rows = {k: rec[k] for k in ("rows_max_abs_err", "rows_plain_ms",
                                     "hop_rows_plain_ms") if k in rec}
         return {"name": name, "route": "cuda", "source": SOURCE,
@@ -2111,29 +2161,32 @@ def main() -> int:
         for lab in ("int8", "bf16")
     ] + [
         {"name": f"cheby_conv_fused_{lab}", "route": "cuda",
-         "source": CHEB_SOURCE, "replaces": CHEB_REPLACES["K2"],
+         "source": CHEB_SOURCE, "kernel": "cheby_conv_kernel",
+         "replaces": CHEB_REPLACES["K2"],
          "launches": (cheb[lab]["serve"]["launches"][0]
                       + cheb[lab]["train"]["launches"][0]),
-         "max_abs_err": kchecks[lab]["K2"]["max_abs_err"],
-         "ms": kchecks[lab]["K2"]["ms"],
-         "plain_ms": kchecks[lab]["K2"]["plain_ms"],
-         **bound_keys(kchecks[lab + "_bound"]), "library_ms": None,
+         "max_abs_err": kchecks[f"{lab}_bench"]["max_abs_err"],
+         "ms": kchecks[f"{lab}_bench"]["ms"],
+         "plain_ms": kchecks[f"{lab}_bench"]["plain_ms"],
+         **bound_keys(kchecks[f"{lab}_bench"]["bound"]), "library_ms": None,
+         **{f"{shape}_{k}": kchecks[f"{lab}_{shape}"][k]
+            for shape in ("layer1", "dx")
+            for k in ("ms", "plain_ms", "max_abs_err")},
+         **{f"{shape}_bound_ms": kchecks[f"{lab}_{shape}"]["bound"][
+             "bound_us"] / 1e3 for shape in ("layer1", "dx")},
          "request_ms": cheb[lab]["serve"]["ms"],
          "request_plain_ms": cheb[lab]["serve"]["plain_ms"],
          "train_ms_per_step": cheb[lab]["train"]["ms"],
-         "train_plain_ms_per_step": cheb[lab]["train"]["plain_ms"],
-         **({"dx_ms": kchecks["dx"]["ms"],
-             "dx_plain_ms": kchecks["dx"]["plain_ms"],
-             "dx_max_abs_err": kchecks["dx"]["max_abs_err"]}
-            if lab == "f32" else {})}
+         "train_plain_ms_per_step": cheb[lab]["train"]["plain_ms"]}
         for lab in DTYPES
     ] + [
         {"name": f"cheby_dw_fused_{lab}", "route": "cuda",
-         "source": CHEB_SOURCE, "replaces": CHEB_REPLACES["K3"],
+         "source": CHEB_SOURCE, "kernel": "cheby_dw_kernel",
+         "replaces": CHEB_REPLACES["K3"],
          "launches": cheb[lab]["train"]["launches"][1],
-         "max_abs_err": kchecks[lab]["K3"]["max_abs_err"],
-         "ms": kchecks[lab]["K3"]["ms"],
-         "plain_ms": kchecks[lab]["K3"]["plain_ms"],
+         "max_abs_err": kchecks[lab + "_K3"]["max_abs_err"],
+         "ms": kchecks[lab + "_K3"]["ms"],
+         "plain_ms": kchecks[lab + "_K3"]["plain_ms"],
          **bound_keys(kchecks[lab + "_bound"]), "library_ms": None}
         for lab in DTYPES
     ] + [

@@ -13,9 +13,8 @@
 // in float32 and bfloat16 (f32 accumulation) and int8 (int32
 // accumulation, requant clip(rint(band_scale * acc [*2 - x0]), +-127) at
 // emission).  y may be x0 itself (the in-place form): each output element
-// is written by the thread that read its x0 element just before, and no
-// warp (layouts 0, 1) or CTA (layout 2) reads another's rows of x0.  x
-// must not overlap x0 or y.
+// is written by the lane that read its x0 element just before, and no
+// warp reads another's rows of x0.  x must not overlap x0 or y.
 //
 // Layouts.  Block-row r (128 rows of L) has the band operand [128, W*128]
 // over the contiguous x window rows [base[r]*128, (base[r]+W)*128).
@@ -27,26 +26,28 @@
 //            W_s = levels[sched[1][s]] and row r = s*G + g takes the W_s
 //            blocks from sched[0][s] + g*W_s on.
 // For the two tap layouts element (i, k) of the operand is at block
-// k / 128, row i, column k % 128.  x may have more rows than the output
-// (x_rows): base indexes x's block rows, as the sharded halo operators
-// feed [left halo | local | right halo].  Window rows past x_rows read as
-// zero.  The TPU kernels' VMEM x ring, its mirror copies, prefetch-ahead,
-// DMA semaphores and the high-water row of sched exist only because x
-// arrives there in column blocks; here the window is contiguous in device
-// memory, so none has a counterpart.
+// k / 128, row i, column k % 128: in the flat ragged band that is
+// ((sched[0][s] + g*W_s + k/128)*128 + i)*128 + k % 128.  x may have more
+// rows than the output (x_rows): base indexes x's block rows, as the
+// sharded halo operators feed [left halo | local | right halo].  Window
+// rows past x_rows read as zero.  The TPU kernels' VMEM x ring, its mirror
+// copies, prefetch-ahead, DMA semaphores and the high-water row of sched
+// exist only because x arrives there in column blocks; here the window is
+// contiguous in device memory, so none has a counterpart.
 //
-// Layouts 0 and 1 (K1, K5): band_rows_kernel, a walk over the band's
-// nonzeros row by row, csrc/rows.cuh's scheme (one warp per output row,
-// 8 rows per 256-thread CTA).  The walk reads the operator's row index
-// (ops/packing.py band_row_index): nz_rowptr [n_rows*128 + 1] and, per
-// nonzero in row order, its offset k in its block-row's window (int16).
-// The warp loads base[r] and the block-row's band pointer once
-// (row_setup); each lane reads one k and its value band[band_off(i, k)]
-// from the layout's own band, where the TPU kernel would read it, and x
-// row base[r]*128 + k is gathered by the whole warp.  An x row at or past
-// x_rows adds nothing (one compare per nonzero), so the index, which
-// holds window offsets and no x rows, stays right when the bases shift.
-// The index holds no values, so an int8 or cast band reads its own.
+// All three layouts (K1, K5, K6) launch one kernel, band_rows_kernel, a
+// walk over the band's nonzeros row by row, csrc/rows.cuh's scheme (one
+// warp per output row, 8 rows per 256-thread CTA).  The walk reads the
+// operator's row index (ops/packing.py band_row_index): nz_rowptr
+// [n_rows*128 + 1] and, per nonzero in row order, its offset k in its
+// block-row's window (int16).  The warp loads base[r] and the block-row's
+// band pointer once (row_setup); each lane reads one k and its value
+// band[band_off(i, k)] from the layout's own band, where the TPU kernel
+// would read it, and x row base[r]*128 + k is gathered by the whole warp.
+// An x row at or past x_rows adds nothing (one compare per nonzero), so
+// the index, which holds window offsets and no x rows, stays right when
+// the bases shift.  The index holds no values, so an int8 or cast band
+// reads its own, and one index serves every layout of one graph.
 //
 // What bounds the walk is bytes, and how fast L2 serves the gathers.  On
 // the bench's 50,176-node city graph (436,582 nonzeros) at C = 512 it
@@ -54,40 +55,29 @@
 // an int16 offset per nonzero: 105 MB in bf16, 0.031 ms at 3.35 TB/s.  Each
 // nonzero gathers one x row (1 KB in bf16, 447 MB in all), most of it
 // from the 50 MB L2, since a block-row's window (at most 9 blocks here)
-// is shared by its 128 rows and by its neighbours'.  Neither tensor cores
-// nor a tile serve K1/K5: the band is 0.93% full, so a [128, W*128] tile
-// product does 48 GFLOP (dkw, 2,856 blocks) or 59 GFLOP (uniform, 3,528)
-// where the graph needs 0.45, and reads the 94 MB (dkw, bf16) band.  In
-// f32 that block work alone takes 0.72 ms at the 67 TFLOP/s of FMA (TF32
-// would change the results), 3.3x torch.sparse.mm's 0.21 ms; in bf16 even
-// cuBLAS's 936 TFLOP/s leaves the band to read.  The tile kernels this
-// walk replaced took 0.53 (K1) and 0.57 ms (K5) in bf16.  Staging each
+// is shared by its 128 rows and by its neighbours': the walk ran at
+// 5.4 TB/s of gathers (K1 bf16 L@x, 0.0823 ms on the H100), so L2's rate
+// for them bounds it.  Neither tensor cores nor a tile serve the band: it
+// is 0.93% full, so a [128, W*128] tile product does 48 GFLOP (dkw, 2,856
+// blocks) to 59 GFLOP (uniform, 3,528) where the graph needs 0.45, and
+// reads the 94 MB (dkw, bf16) band.  In f32 that block work alone takes
+// 0.72 ms at the 67 TFLOP/s of FMA (TF32 would change the results), 3.3x
+// torch.sparse.mm's 0.21 ms.  The tile kernels this walk replaced took
+// 0.53 (K1), 0.57 (K5) and 0.52 ms (K6) in bf16.  Staging each
 // block-row's whole window in shared memory instead (one CTA per
 // block-row, 64-byte slabs of every window row, double-buffered with
 // cp.async) moves as many bytes as the gathers, 365k-452k window rows
 // against 437k nonzeros, at one CTA per SM: measured 6.7x slower in
 // bf16 L@x, so the walk gathers straight from L2.
 //
-// Layout 2 (K6): the tile kernels band_f32_kernel and band_tc_kernel,
-// one CTA per (block-row, column tile)
-// computing [128, W*128] @ [W*128, tile], staging 32-deep (16 for f32) K
-// chunks of band and x through shared memory, with no pipelining across
-// chunks; wmma (bf16, int8) or FMA (f32).  It is bound by the band re-read
-// per column tile and the unpipelined staging, as K1/K5 were.
-//
 // Build without --use_fast_math: the int8 path is bit-exact with the
 // PyTorch reference only with IEEE rounding of every float operation.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 #include "rows.cuh"
-
-using namespace nvcuda;
 
 namespace {
 
@@ -106,7 +96,7 @@ struct Args {
   int width[kMaxLevels];         // dkw, ragged: W per level; uniform: W
   const int* base;               // [n_block_rows]
   const int* sched;              // [3, nsb]: row or block offset, level
-  const int* nz_rowptr;          // [n_block_rows*128 + 1] (layouts 0, 1)
+  const int* nz_rowptr;          // [n_block_rows*128 + 1]
   const int16_t* nz_win;         // [nnz]: window offset k of each nonzero
   int nsb;
   int G;
@@ -158,42 +148,7 @@ __device__ __forceinline__ void row_setup(const Args& a, int r,
   }
 }
 
-template <typename T> __device__ __forceinline__ T zero();
-template <> __device__ __forceinline__ __nv_bfloat16 zero() {
-  return __float2bfloat16_rn(0.0f);
-}
-template <> __device__ __forceinline__ int8_t zero() { return 0; }
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-
-// The tile kernels' emission of element i, by rows::emit.
-template <typename T>
-__device__ __forceinline__ void emit_float(const Args& a, size_t i,
-                                           float acc) {
-  const bool hop = a.x0 != nullptr, add_c = a.c != nullptr;
-  const float y = rows::emit<T>(
-      acc, 0.0f, hop, hop ? to_float(static_cast<const T*>(a.x0)[i]) : 0.0f,
-      add_c, add_c ? to_float(static_cast<const T*>(a.c)[i]) : 0.0f);
-  store(static_cast<T*>(a.y) + i, y);
-}
-
-__device__ __forceinline__ void emit_quant(const Args& a, size_t i,
-                                           int acc) {
-  const bool hop = a.x0 != nullptr;
-  const float y = rows::emit<int8_t>(
-      acc, a.band_scale, hop,
-      hop ? (float)static_cast<const int8_t*>(a.x0)[i] : 0.0f, false, 0.0f);
-  static_cast<int8_t*>(a.y)[i] = (int8_t)y;
-}
-
-// ------------------------------------------------ layouts 0, 1: the row walk
+// ------------------------------------------------------------ the row walk
 template <int L, typename T, bool kVec>
 __global__ void __launch_bounds__(kThreads) band_rows_kernel(Args a) {
   using E = rows::Elem<T>;
@@ -250,225 +205,14 @@ int launch_rows(const Args& a, int n_block_rows, int dtype, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-// ------------------------------------------ layout 2: the tile kernels
-// ---------------------------------------------------------------- float32
-// Register-tiled FMA: tile 128 x 64, each thread 8 rows x 4 columns.
-constexpr int kF32Cols = 64;
-constexpr int kF32Depth = 16;
-
-__global__ void __launch_bounds__(kThreads) band_f32_kernel(Args a) {
-  constexpr int L = kRagged;
-  __shared__ float As[kF32Depth][kBlock + 4];  // band chunk, [k][row]
-  __shared__ float Bs[kF32Depth][kF32Cols + 4];  // x chunk, [k][col]
-  const int r = blockIdx.y;
-  const int n0 = blockIdx.x * kF32Cols;
-  const float* band;
-  int K, xrow0;
-  row_setup<L>(a, r, band, K, xrow0);
-  const float* x = static_cast<const float*>(a.x);
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;  // columns tx*4 .. +3
-  const int ty = tid / 16;  // rows ty*8 .. +7
-
-  float acc[8][4];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-  // Each thread loads column tid % 16 of band rows tid / 16 + 16 t, from
-  // one pointer per chunk: nvcc schedules this form faster than an
-  // address computed per element (measured on the card).  A tap's rows
-  // are kBlock apart.
-  const float* bthr = band + (size_t)(tid / kF32Depth) * kBlock +
-                      tid % kF32Depth;
-  for (int k0 = 0; k0 < K; k0 += kF32Depth) {
-    const float* chunk = bthr + band_off<L>(0, k0, K);
-#pragma unroll
-    for (int t = 0; t < kBlock * kF32Depth / kThreads; ++t) {
-      As[tid % kF32Depth][tid / kF32Depth + t * (kThreads / kF32Depth)] =
-          chunk[(size_t)t * (kThreads / kF32Depth) * kBlock];
-    }
-#pragma unroll
-    for (int t = 0; t < kF32Depth * kF32Cols / kThreads; ++t) {
-      const int e = tid + t * kThreads;
-      const int kr = e / kF32Cols, c = e % kF32Cols;
-      const int xr = xrow0 + k0 + kr, col = n0 + c;
-      Bs[kr][c] = (xr < a.x_rows && col < a.C) ? x[(size_t)xr * a.C + col]
-                                                : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kF32Depth; ++kk) {
-      float av[8], bv[4];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) av[i] = As[kk][ty * 8 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = Bs[kk][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const size_t row = (size_t)r * kBlock + ty * 8 + i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + tx * 4 + j;
-      if (col < a.C) emit_float<float>(a, row * a.C + col, acc[i][j]);
-    }
-  }
-}
-
-// ------------------------------------------------- bfloat16 and int8 (wmma)
-// Tile 128 x 128, 8 warps as 4 (rows) x 2 (columns), each warp 32 x 64 as
-// 2 x 4 fragments of 16 x 16.  Shared operands are kept as 16-wide panels
-// with a padded leading dimension (kLd elements) so that every fragment
-// pointer is 32-byte aligned for both element sizes.
-constexpr int kTcCols = 128;
-constexpr int kTcDepth = 32;
-
-template <typename T> struct Tc;
-template <> struct Tc<__nv_bfloat16> {
-  using Acc = float;
-  static constexpr int kLd = 24;
-};
-template <> struct Tc<int8_t> {
-  using Acc = int;
-  static constexpr int kLd = 32;
-};
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads) band_tc_kernel(Args a) {
-  constexpr int L = kRagged;
-  using Acc = typename Tc<T>::Acc;
-  constexpr int kLd = Tc<T>::kLd;
-  constexpr int kVec = 16 / sizeof(T);  // elements per 16-byte load
-  __shared__ __align__(128) T As[kTcDepth / 16][kBlock * kLd];  // [row][k]
-  __shared__ __align__(128) T Bs[kTcCols / 16][kTcDepth * kLd];  // [k][n]
-  __shared__ __align__(128) Acc Cs[kThreads / 32][16 * 16];
-
-  const int r = blockIdx.y;
-  const int n0 = blockIdx.x * kTcCols;
-  const T* band;
-  int K, xrow0;
-  row_setup<L>(a, r, band, K, xrow0);
-  const T* x = static_cast<const T*>(a.x);
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int wm = warp / 2, wn = warp % 2;
-  const bool x_vec = (a.C % kVec) == 0;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, Acc> acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], Acc(0));
-
-  for (int k0 = 0; k0 < K; k0 += kTcDepth) {
-    constexpr int kVa = kTcDepth / kVec;  // 16-byte vectors per band row
-    for (int v = tid; v < kBlock * kVa; v += kThreads) {
-      const int row = v / kVa, kv = (v % kVa) * kVec;
-      *reinterpret_cast<uint4*>(&As[kv / 16][row * kLd + kv % 16]) =
-          *reinterpret_cast<const uint4*>(band +
-                                          band_off<L>(row, k0 + kv, K));
-    }
-    constexpr int kVb = kTcCols / kVec;  // 16-byte vectors per x row
-    for (int v = tid; v < kTcDepth * kVb; v += kThreads) {
-      const int kr = v / kVb, nv = (v % kVb) * kVec;
-      const int xr = xrow0 + k0 + kr, col = n0 + nv;
-      T* dst = &Bs[nv / 16][kr * kLd + nv % 16];
-      const T* src = x + (size_t)xr * a.C + col;
-      if (x_vec) {
-        uint4 val = make_uint4(0, 0, 0, 0);
-        if (xr < a.x_rows && col < a.C) {
-          val = *reinterpret_cast<const uint4*>(src);
-        }
-        *reinterpret_cast<uint4*>(dst) = val;
-      } else {
-        for (int e = 0; e < kVec; ++e) {
-          dst[e] = (xr < a.x_rows && col + e < a.C) ? src[e] : zero<T>();
-        }
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kTcDepth / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> fb[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], &As[kk][(wm * 32 + i * 16) * kLd], kLd);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::load_matrix_sync(fb[j], &Bs[wn * 4 + j][kk * 16 * kLd], kLd);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  // Emission: each warp stages one fragment at a time in its own scratch.
-  Acc* cs = Cs[warp];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wmma::store_matrix_sync(cs, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const size_t row = (size_t)r * kBlock + wm * 32 + i * 16 + e / 16;
-        const int col = n0 + wn * 64 + j * 16 + e % 16;
-        if (col < a.C) {
-          if constexpr (std::is_same<T, int8_t>::value) {
-            emit_quant(a, row * a.C + col, cs[e]);
-          } else {
-            emit_float<T>(a, row * a.C + col, cs[e]);
-          }
-        }
-      }
-      __syncwarp();
-    }
-  }
-}
-
-int launch_tile(const Args& a, int n_block_rows, int dtype, cudaStream_t s) {
-  switch (dtype) {
-    case 0: {
-      dim3 grid((a.C + kF32Cols - 1) / kF32Cols, n_block_rows);
-      band_f32_kernel<<<grid, kThreads, 0, s>>>(a);
-      break;
-    }
-    case 1: {
-      dim3 grid((a.C + kTcCols - 1) / kTcCols, n_block_rows);
-      band_tc_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(a);
-      break;
-    }
-    case 2: {
-      dim3 grid((a.C + kTcCols - 1) / kTcCols, n_block_rows);
-      band_tc_kernel<int8_t><<<grid, kThreads, 0, s>>>(a);
-      break;
-    }
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // layout: 0 dkw, 1 uniform, 2 ragged.  dtype: 0 float32, 1 bfloat16,
 // 2 int8.  Unused band slots take a null pointer and width 0 (uniform and
 // ragged pass one band; uniform one width, W).  nz_rowptr (int32) and
-// nz_win (int16) are the row index that layouts 0 and 1 walk; layout 2
-// takes null pointers.  The output has n_block_rows * 128 rows; y may
-// equal x0.  c needs x0 and a float dtype.  Launches on `stream` and
+// nz_win (int16) are the row index that every layout walks.  The output
+// has n_block_rows * 128 rows; y may equal x0.  c needs x0 and a float
+// dtype.  Launches on `stream` and
 // returns cudaGetLastError() (cudaErrorInvalidValue for bad arguments).
 extern "C" int band_launch(int layout, const void* band0, const void* band1,
                            const void* band2, const void* band3, int w0,
@@ -511,7 +255,7 @@ extern "C" int band_launch(int layout, const void* band0, const void* band1,
     case kUniform:
       return launch_rows<kUniform>(a, n_block_rows, dtype, s);
     case kRagged:
-      return launch_tile(a, n_block_rows, dtype, s);
+      return launch_rows<kRagged>(a, n_block_rows, dtype, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -26,15 +26,16 @@
 //
 // Design.  The TPU probes keep every operand resident in VMEM.  Here the
 // operands (under 10 MB for every probe) stay in L2 and are walked
-// through shared memory with K1's CTA tiling (csrc/band.cu:245-341): a
-// 128 x 128 output tile, 8 warps as 4 x 2, each warp 2 x 4 wmma 16x16x16
+// through shared memory with the CTA tiling of the banded tile kernels
+// that K1, K5, K6 and K4 ran until the row walks replaced them: a 128 x
+// 128 output tile, 8 warps as 4 x 2, each warp 2 x 4 wmma 16x16x16
 // fragments, 32-deep K chunks staged once per chunk with no pipelining.
-// So the probes measure the ceiling of the tile that K1, K5, K6 and K4
-// use.  Every column tile evolves independently (the carry's columns feed
-// only their own tile), so one CTA owns one column tile for all
-// iterations and keeps its carry in shared memory; for m > 128 it walks
-// the row chunks in turn, chunk 0 last so that the carry is updated in
-// place.  gridDim.y replicas of the same work, each writing its own
+// So the probes measure the ceiling of that tile, which no kernel of the
+// port runs any more.  Every column tile evolves independently (the
+// carry's columns feed only their own tile), so one CTA owns one column
+// tile for all iterations and keeps its carry in shared memory; for m >
+// 128 it walks the row chunks in turn, chunk 0 last so that the carry is
+// updated in place.  gridDim.y replicas of the same work, each writing its own
 // output, fill the card.  What bounds it: the tensor cores' rate through
 // wmma with unpipelined shared-memory staging; the operand bytes come
 // from L2 every iteration.

@@ -39,7 +39,8 @@ class ChebNet(nn.Module):
     ``b1relu``, ``b2relu`` or ``b1tanh``; ``pool``: ``max`` or
     ``average``; ``dropout``: keep probability on the fc layers in
     training; ``regularization``: weight of the fc L2 term.  Weights are
-    drawn from ``generator`` (truncated normal, std 0.1), biases are 0.1.
+    drawn from ``generator`` (truncated normal, std 0.1), biases are 0.1;
+    they live on ``device``, by default the first operator's.
     ``apply`` is the JAX-style functional forward and shadows
     ``nn.Module.apply``.
 
@@ -69,6 +70,8 @@ class ChebNet(nn.Module):
         if len(operators) < 1 + int(np.sum(p_log2)):
             raise ValueError("not enough coarsening levels for the pooling")
         levels = np.concatenate([[0], np.cumsum(p_log2[:-1])]).astype(int)
+        if device is None:
+            device = common.operator_device(operators[0])
         self.operators = [operators[j] for j in levels]
         self.F, self.K, self.p, self.M = list(F), list(K), list(p), list(M)
         self.input_features = input_features

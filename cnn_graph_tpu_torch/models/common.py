@@ -12,6 +12,7 @@ package's: nested dicts and lists with tensors at the leaves.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import math
 
 import torch
@@ -21,6 +22,7 @@ from cnn_graph_tpu_torch.ops.band import full_f32_matmul
 
 __all__ = [
     "trunc_normal",
+    "operator_device",
     "bias_init",
     "bias_act_init",
     "bias_act",
@@ -54,14 +56,26 @@ def trunc_normal(shape, std: float = 0.1, *, generator=None,
                  device=None) -> torch.Tensor:
     """Truncated normal(0, std) on ``[-2 std, 2 std]``, the reference's
     default weight initializer, drawn from ``generator`` by the inverse
-    CDF of one uniform draw per entry.  The same seed gives the same
-    weights under every torch version (``nn.init.trunc_normal_`` changed
-    its sampler between releases)."""
+    CDF of one uniform draw per entry, on the generator's device (the
+    CPU without one), then moved to ``device``.  The same seed gives the
+    same weights under every torch version (``nn.init.trunc_normal_``
+    changed its sampler between releases) and on every device."""
     lo, hi = (math.erf(z / math.sqrt(2.0)) for z in (-2.0, 2.0))
-    t = torch.empty(shape, dtype=torch.float32, device=device)
+    src = "cpu" if generator is None else generator.device
+    t = torch.empty(shape, dtype=torch.float32, device=src)
     t.uniform_(lo, hi, generator=generator)
-    return t.erfinv_().mul_(std * math.sqrt(2.0)).clamp_(-2.0 * std,
-                                                         2.0 * std)
+    t = t.erfinv_().mul_(std * math.sqrt(2.0)).clamp_(-2.0 * std, 2.0 * std)
+    return t if device is None else t.to(device)
+
+
+def operator_device(op) -> torch.device:
+    """The device a graph operator's tensors live on (its first tensor
+    field's)."""
+    for f in dataclasses.fields(op):
+        v = getattr(op, f.name)
+        if isinstance(v, torch.Tensor):
+            return v.device
+    raise TypeError(f"{type(op).__name__} holds no tensor")
 
 
 def bias_init(shape, value: float = 0.1, *, device=None) -> torch.Tensor:

@@ -30,7 +30,8 @@ class NodeClassifier(nn.Module):
     ``dropout``: keep probability after each hidden layer in training;
     ``residual``: add a hidden layer's input to its output where the
     widths match.  Weights are drawn from ``generator`` (truncated normal,
-    std 0.1), biases start at zero.  Note that ``apply`` here is the
+    std 0.1), biases start at zero; they live on ``device``, by default
+    the operator's.  Note that ``apply`` here is the
     JAX-style functional forward and shadows ``nn.Module.apply``.
 
     ``input_grad`` (default False): layer 0 declares that no gradient
@@ -48,6 +49,8 @@ class NodeClassifier(nn.Module):
                  residual: bool = False, input_grad: bool = False, *,
                  generator: torch.Generator | None = None, device=None):
         super().__init__()
+        if device is None:
+            device = common.operator_device(operator)
         self.op = operator
         self.Fin = input_features
         self.C = num_classes

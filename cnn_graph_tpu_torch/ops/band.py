@@ -12,15 +12,13 @@ wrapper, plain PyTorch version and launch counts:
 * ``banded_ragged`` (K6, ``banded_call_ragged`` :314): the flat ragged
   band ``[total, 128, 128]``, ``W_s`` taps per G-row step.
 
-K1 and K5 launch a walk over the band's nonzeros row by row (one warp
+All three launch one walk over the band's nonzeros row by row (one warp
 per output row, ``csrc/rows.cuh``): they take the operator's row index
 ``nz_rowptr``/``nz_win`` (``ops.packing.band_row_index``, each nonzero's
 offset in its block-row's window) as keywords and read every value from
 the layout's own band.  Their plain version as the kernel computes it is
 ``banded_rows_reference``, the same row walk; tests and chip_smoke.py
-hold the kernel against it and against the layout's window product.  K6
-still multiplies each block-row's ``[128, W*128]`` band operand by its
-x window as a dense tile.
+hold the kernel against it and against the layout's window product.
 
 Each wrapper launches its kernel for CUDA tensors and runs its layout's
 plain window version (``*_reference``) for CPU tensors; the device of
@@ -64,9 +62,7 @@ __all__ = ["banded_dkw", "banded_dkw_reference", "banded_uniform",
            "profiled"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-# csrc/band.cu's layout codes: dkw (K1) and uniform (K5) take the row walk
-# band_rows_kernel, ragged (K6) the tile kernels band_f32_kernel and
-# band_tc_kernel.
+# csrc/band.cu's layout codes; each launches the row walk band_rows_kernel.
 _LAYOUT_CODE = {"dkw": 0, "uniform": 1, "ragged": 2}
 # The plain versions here and in ops/bsr.py gather x rows or block tiles
 # in chunks of about this many bytes: one gather of every block's tile at
@@ -237,19 +233,19 @@ def banded_ragged_reference(band, base, sched, x, x0=None, c=None, *,
 def banded_rows_reference(bands, base, sched, nz_rowptr, nz_win, x, x0=None,
                           c=None, *, layout, levels, G,
                           band_scale=None) -> torch.Tensor:
-    """Plain PyTorch version of the row walk that K1 and K5 launch:
+    """Plain PyTorch version of the row walk that K1, K5 and K6 launch:
     output row ``r*128 + i`` sums ``v * x[base[r]*128 + k]`` over its
     nonzeros ``nz_rowptr[row]:nz_rowptr[row+1]``, where ``k =
     nz_win[e]`` and ``v`` is element ``(i, k)`` of block-row r's band
-    operand in ``layout`` (``dkw`` or ``uniform``; ``bands``, ``sched``,
-    ``levels`` and ``G`` as the layout's wrapper takes them, ``sched``
-    None and ``levels`` ``(W,)`` for the uniform band).  x rows at or
-    past ``x.shape[0]`` add nothing.  f32 accumulation (float64 for int8,
+    operand in ``layout`` (``dkw``, ``uniform`` or ``ragged``; ``bands``,
+    ``sched``, ``levels`` and ``G`` as the layout's wrapper takes them,
+    ``bands`` ``(band,)`` for the tap layouts, ``sched`` None and
+    ``levels`` ``(W,)`` for the uniform band).  x rows at or past
+    ``x.shape[0]`` add nothing.  f32 accumulation (float64 for int8,
     exact), then the emission, rounded once; rows without nonzeros give
     0, ``-x0`` or ``-x0 + c``."""
-    if layout not in ("dkw", "uniform"):
-        raise ValueError(f"banded_rows_reference: the row walk reads the "
-                         f"dkw and uniform layouts, not {layout!r}")
+    if layout not in _LAYOUT_CODE:
+        raise ValueError(f"banded_rows_reference: unknown layout {layout!r}")
     _check_c(x0, c, band_scale)
     x_rows, C = x.shape
     dev = x.device
@@ -267,9 +263,15 @@ def banded_rows_reference(bands, base, sched, nz_rowptr, nz_win, x, x0=None,
     else:
         _, lvl_r, off_r = _step_rows(sched, nbr, G, dev)
         lvl, off = lvl_r[r], off_r[r]
-        flat = [((off + r % G) * BLOCK + i) * (w * BLOCK) + k
-                for w in levels]
-        sources = bands
+        if layout == "dkw":
+            flat = [((off + r % G) * BLOCK + i) * (w * BLOCK) + k
+                    for w in levels]
+            sources = bands
+        else:
+            # One flat band: block sched[0, s] + g*W_s + k // 128 of it.
+            flat = [((off + (r % G) * w + k // BLOCK) * BLOCK + i) * BLOCK
+                    + k % BLOCK for w in levels]
+            sources = bands * len(levels)
     acc_dt = torch.float64 if band_scale is not None else torch.float32
     vals = torch.zeros(nnz, dtype=acc_dt, device=dev)
     for li, (src, fl) in enumerate(zip(sources, flat)):
@@ -365,7 +367,7 @@ def _check_kernel_args(bands, base, sched, x, x0, c, levels, G, band_scale,
     ``check_band_tables``'s and the row index's ``check_band_index``'s).
     ``bands``: the dkw layout's arrays, or ``(band,)`` for the tap
     layouts; ``levels``: the uniform layout's ``(W,)``; ``index``: the
-    row walk's ``(nz_rowptr, nz_win)`` (dkw and uniform).  Returns the
+    row walk's ``(nz_rowptr, nz_win)``.  Returns the
     number of G-row steps (the block rows for the uniform layout)."""
     dev = x.device
     x_rows, C = x.shape
@@ -444,16 +446,14 @@ def _check_kernel_args(bands, base, sched, x, x0, c, levels, G, band_scale,
 
 
 def _launch(fn, layout, bands, widths, base, sched, x, x0, c, G,
-            band_scale, donate_x0, index=None):
+            band_scale, donate_x0, index):
     """Check, then one launch of ``csrc/band.cu`` in ``layout``, counted
     on ``fn``; ``index`` is the row walk's ``(nz_rowptr, nz_win)``,
-    required for dkw and uniform.  Returns the output (``x0`` itself when
-    donated)."""
+    required.  Returns the output (``x0`` itself when donated)."""
     _check_no_grad(x, x0, c)
     if x.device.type != "cuda":
         raise ValueError(f"{fn.__name__}: no kernel for device {x.device}")
-    if layout != "ragged" and (index is None or index[0] is None
-                               or index[1] is None):
+    if index[0] is None or index[1] is None:
         raise ValueError(f"{fn.__name__}: the kernel walks the operator's "
                          "row index; pass nz_rowptr and nz_win "
                          "(ops.packing.band_row_index)")
@@ -474,8 +474,7 @@ def _launch(fn, layout, bands, widths, base, sched, x, x0, c, G,
         rc = _launcher()(
             _LAYOUT_CODE[layout], *ptrs, *widths, base.data_ptr(),
             None if sched is None else sched.data_ptr(),
-            *((None, None) if index is None
-              else (t.data_ptr() for t in index)), nbr, nsb, G,
+            *(t.data_ptr() for t in index), nbr, nsb, G,
             x.data_ptr(), x_rows, None if x0 is None else x0.data_ptr(),
             None if c is None else c.data_ptr(), y.data_ptr(), C,
             0.0 if band_scale is None else float(band_scale),
@@ -533,10 +532,12 @@ def banded_uniform(band, base, x, x0=None, c=None, *, band_scale=None,
 
 
 def banded_ragged(band, base, sched, x, x0=None, c=None, *, levels, G,
-                  band_scale=None, donate_x0=False) -> torch.Tensor:
+                  band_scale=None, donate_x0=False, nz_rowptr=None,
+                  nz_win=None) -> torch.Tensor:
     """``banded_dkw``'s forms on the flat ragged band ``[total, 128, 128]``
     (K6): block-row r = s*G + g multiplies ``band[sched[0, s] + g*W_s +
-    d]``, ``W_s = levels[sched[1, s]]``, by x block-row ``base[r] + d``."""
+    d]``, ``W_s = levels[sched[1, s]]``, by x block-row ``base[r] + d``.
+    The row index as for ``banded_dkw``."""
     if x.device.type == "cpu":
         _check_no_grad(x, x0, c)
         return banded_ragged_reference(band, base, sched, x, x0, c,
@@ -544,7 +545,7 @@ def banded_ragged(band, base, sched, x, x0=None, c=None, *, levels, G,
                                        band_scale=band_scale,
                                        donate_x0=donate_x0)
     return _launch(banded_ragged, "ragged", (band,), levels, base, sched, x,
-                   x0, c, G, band_scale, donate_x0)
+                   x0, c, G, band_scale, donate_x0, (nz_rowptr, nz_win))
 
 
 for _fn in (banded_dkw, banded_uniform, banded_ragged):
@@ -558,16 +559,13 @@ def layout_call(L, x, x0=None, c=None, *, band_scale=None, donate=False):
     ``bands_dkw`` is present (K1), else the flat ragged one where
     ``levels`` is set (K6), else the uniform one (K5).  With
     ``L.use_pallas`` the kernel's wrapper, without it the layout's plain
-    window version.  K1 and K5 walk the band's nonzeros row by row
+    window version.  Every kernel walks the band's nonzeros row by row
     through the operator's row index (``L.nz_rowptr``, ``L.nz_win``),
-    reading each value from the layout's band; K6 multiplies each
-    block-row's band operand by its x window as a tile."""
-    index = {}
+    reading each value from the layout's band."""
     if L.bands_dkw is not None:
         fns = (banded_dkw, banded_dkw_reference)
         args = (L.bands_dkw, L.base, L.sched_dkw)
         kw = dict(levels=L.levels, G=L.rows_per_step)
-        index = dict(nz_rowptr=L.nz_rowptr, nz_win=L.nz_win)
     elif L.levels:
         fns = (banded_ragged, banded_ragged_reference)
         args = (L.band, L.base, L.sched)
@@ -576,7 +574,7 @@ def layout_call(L, x, x0=None, c=None, *, band_scale=None, donate=False):
         fns = (banded_uniform, banded_uniform_reference)
         args = (L.band, L.base)
         kw = {}
-        index = dict(nz_rowptr=L.nz_rowptr, nz_win=L.nz_win)
+    index = dict(nz_rowptr=L.nz_rowptr, nz_win=L.nz_win)
     if not L.use_pallas:
         return fns[1](*args, x, x0, c, band_scale=band_scale,
                       donate_x0=donate, **kw)

@@ -26,9 +26,11 @@ CUDA tensors, counting launches on ``cheby_conv_fused.launches`` and
 ``cheby_dw_fused.launches``.  The operator's ``fused_filter`` and
 ``fused_dw`` methods call them, so an operator may substitute either.
 
-``expand_tap_weights`` (the TPU's block-diagonal lane fill) and
-``zero_cotangent`` have no counterpart: the CUDA kernel taps per sample,
-and the operator is not a differentiable argument.
+K2's wrapper lays the columns out by cluster (``conv_geometry``: groups
+of ``128 // F`` samples) and expands each ``W_k`` block-diagonally over a
+group's samples, as ``expand_tap_weights`` (the TPU's lane fill) does,
+so that a group taps in one product.  ``zero_cotangent`` has no
+counterpart: the operator is not a differentiable argument.
 """
 
 from __future__ import annotations
@@ -49,6 +51,8 @@ __all__ = [
     "cheby_conv_fused_reference",
     "cheby_dw_fused",
     "cheby_dw_fused_reference",
+    "conv_geometry",
+    "conv_resources",
     "fused_filter",
     "fused_vmem_ok",
 ]
@@ -141,60 +145,159 @@ def cheby_dw_fused_reference(x: torch.Tensor, L, g: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=None)
-def _launcher():
-    fn = _build.load("cheby_fused").cheby_fused_launch
+def _lib():
+    lib = _build.load("cheby_fused")
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p] * 6 + [i] * 8 + [p]
-    fn.restype = ctypes.c_int
-    return fn
+    lib.cheby_conv_launch.argtypes = [p] * 7 + [i] * 12 + [p]
+    lib.cheby_dw_launch.argtypes = [p] * 5 + [i] * 7 + [p]
+    lib.cheby_conv_resident_clusters.argtypes = [i, i, i]
+    lib.cheby_conv_smem_bytes.argtypes = [i, i]
+    for f in (lib.cheby_conv_launch, lib.cheby_dw_launch,
+              lib.cheby_conv_resident_clusters, lib.cheby_conv_smem_bytes):
+        f.restype = i
+    return lib
 
 
-def _samples_per_cta(F: int) -> int:
-    """Whole samples per CTA: enough to fill 32 columns when F is small,
-    else one, so that a batch of B gives B CTAs."""
-    return max(1, 32 // F)
+# K2's geometry (csrc/cheby_fused.cu cheby_conv_kernel): a CTA tile is at
+# most 128 columns wide; clusters of at most 8 CTAs (the portable limit).
+_TILE_COLS = 128
+_MAX_CLUSTER = 8
 
 
-def _launch(L, x: torch.Tensor, w, g, *, K: int, O: int, name: str):
-    """One launch of K2 (``w`` given) or K3 (``g`` given) on CUDA tensors;
-    returns the kernel's raw f32 output."""
-    B, M, F = x.shape
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def conv_geometry(B: int, mp: int, F: int, O: int, n_sms: int) -> dict:
+    """K2's launch geometry, a pure function of the shapes and the card's
+    ``n_sms``.
+
+    ``samples`` whole samples per column group (``128 // F``, at least
+    one, at most ``B``), ``groups`` of them; each group's columns padded
+    to ``np`` (carries) and ``nop`` (outputs), multiples of 8.  One
+    cluster of ``cluster`` CTAs per group splits the ``mp`` rows into
+    ``rows`` -row tiles (128, or 64 where 128-row tiles would give fewer
+    CTAs than ``n_sms``), ``tiles_per_cta`` consecutive tiles each:
+    CTA ``c`` of group ``g`` owns rows ``[c * tiles_per_cta * rows,
+    (c + 1) * tiles_per_cta * rows)`` of columns ``[g * np, (g + 1) *
+    np)``."""
+    S = min(B, max(1, _TILE_COLS // F))
+    G = -(-B // S)
+    rows = 128
+    if G * min(_MAX_CLUSTER, -(-mp // 128)) < n_sms:
+        rows = 64
+    tiles = -(-mp // rows)
+    cluster = min(_MAX_CLUSTER, tiles)
+    per = -(-tiles // cluster)
+    cluster = -(-tiles // per)
+    return {"samples": S, "groups": G, "np": _round_up(S * F, 8),
+            "nop": _round_up(S * O, 8), "rows": rows, "cluster": cluster,
+            "tiles_per_cta": per, "ctas": cluster * G}
+
+
+def conv_resources(rows: int, dtype, cluster: int) -> dict:
+    """What the built K2 for ``rows``-row tiles and a ``dtype`` operator
+    asks of the card: ``smem``, one CTA's dynamic shared memory in bytes,
+    and ``resident_clusters``, how many clusters of ``cluster`` CTAs the
+    current CUDA device holds at once (negative: a CUDA error)."""
+    lib, code = _lib(), _DTYPE_CODE[dtype]
+    return {"smem": lib.cheby_conv_smem_bytes(rows, code),
+            "resident_clusters": lib.cheby_conv_resident_clusters(
+                cluster, rows, code)}
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _check_operator(L, x, name: str, *others):
     mat = L.mat
     if mat.dtype not in _DTYPE_CODE:
         raise TypeError(f"{name}: no kernel for a {mat.dtype} operator")
     if (mat.device != x.device or not mat.is_contiguous()
-            or tuple(mat.shape) != (L.m_padded, L.m_padded)):
-        raise ValueError(f"{name}: the operator must be a contiguous "
-                         f"[Mp, Mp] matrix on {x.device}")
-    if M > L.m_padded:
-        raise ValueError(f"{name}: {M} nodes for a {L.m_padded}-node operator")
-    if any(t is not None and t.device != x.device for t in (w, g)):
+            or tuple(mat.shape) != (L.m_padded, L.m_padded)
+            or mat.data_ptr() % 16):
+        raise ValueError(f"{name}: the operator must be a contiguous, "
+                         f"16-byte aligned [Mp, Mp] matrix on {x.device}")
+    if x.shape[1] > L.m_padded:
+        raise ValueError(f"{name}: {x.shape[1]} nodes for a {L.m_padded}-"
+                         "node operator")
+    if any(t.device != x.device for t in others):
         raise ValueError(f"{name}: every tensor must be on {x.device}")
+
+
+def _launch_conv(L, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """One launch of K2 on CUDA tensors: ``[B, M, O]`` f32.  The f32
+    kernel reads the hop's operand as its transpose, so it is given
+    ``L^T``; L need not be symmetric."""
+    _check_operator(L, x, "cheby_fused.K2", w)
+    B, M, F = x.shape
+    K, _, O = w.shape
     mp = L.m_padded
-    S = _samples_per_cta(F)
+    dt = L.mat.dtype
+    geo = conv_geometry(B, mp, F, O, _sms(x.device.index or 0))
+    S, G, np_, nop = geo["samples"], geo["groups"], geo["np"], geo["nop"]
+    # Columns grouped [G, mp, np]: S samples per group, pads zero.
+    xg = nnf.pad(_columns(x, mp).reshape(mp, B, F),
+                 (0, 0, 0, G * S - B)).reshape(mp, G, S * F)
+    xg = nnf.pad(xg, (0, np_ - S * F)).permute(1, 0, 2).contiguous()
+    # T_0 as the tap reads it: rounded (bf16) or transposed (f32).
+    xc = (xg.transpose(1, 2).contiguous() if dt == torch.float32
+          else xg.to(dt))
+    # Each hop's tap weights, block-diagonal over the group's samples.
+    eye = torch.eye(S, dtype=torch.float32, device=x.device)
+    wbd = torch.einsum("st,kfo->ksfto", eye, w.to(torch.float32))
+    wbd = nnf.pad(wbd.reshape(K, S * F, S * O),
+                  (0, nop - S * O, 0, np_ - S * F)).to(dt).contiguous()
+    mat = L.mat.t().contiguous() if dt == torch.float32 else L.mat
+    y = torch.empty(G, mp, nop, dtype=torch.float32, device=x.device)
+    carry = torch.empty(G, 2, mp, np_, dtype=torch.float32, device=x.device)
+    carryc = torch.empty_like(carry, dtype=dt)  # f32: [G, 2, np, mp]
+    with torch.cuda.device(x.device), record_function("cheby_fused.K2"):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _lib().cheby_conv_launch(
+            mat.data_ptr(), xg.data_ptr(), xc.data_ptr(), wbd.data_ptr(),
+            y.data_ptr(), carry.data_ptr(), carryc.data_ptr(), mp, K, np_,
+            nop, S, F, O, G, geo["cluster"], geo["rows"],
+            geo["tiles_per_cta"], _DTYPE_CODE[dt], stream)
+    if rc != 0:
+        raise RuntimeError(f"cheby_fused.K2 kernel launch failed: CUDA "
+                           f"error {rc}")
+    y = y[:, :M, :S * O].reshape(G, M, S, O).permute(0, 2, 1, 3)
+    return y.reshape(G * S, M, O)[:B]
+
+
+def _dw_samples_per_cta(F: int) -> int:
+    """K3's whole samples per CTA: enough to fill 32 columns when F is
+    small, else one, so that a batch of B gives B CTAs."""
+    return max(1, 32 // F)
+
+
+def _launch_dw(L, x: torch.Tensor, g: torch.Tensor, K: int):
+    """One launch of K3 on CUDA tensors; returns the per-CTA partials
+    ``[n_ctas, K, F, S*O]`` and S."""
+    _check_operator(L, x, "cheby_fused.K3", g)
+    B, M, F = x.shape
+    O = g.shape[2]
+    mp = L.m_padded
+    S = _dw_samples_per_cta(F)
     n_ctas = -(-B // S)
     xt = _columns(x, mp)
     scratch = torch.empty(n_ctas, 2, mp, S * F, dtype=torch.float32,
                           device=x.device)
-    if g is None:
-        wt = w.to(mat.dtype).contiguous()
-        gt = None
-        out = torch.empty(mp, B * O, dtype=torch.float32, device=x.device)
-    else:
-        wt = None
-        gt = _columns(g, mp)
-        out = torch.zeros(n_ctas, K, F, S * O, dtype=torch.float32,
-                          device=x.device)
-    with torch.cuda.device(x.device), record_function(name):
+    out = torch.zeros(n_ctas, K, F, S * O, dtype=torch.float32,
+                      device=x.device)
+    gt = _columns(g, mp)
+    with torch.cuda.device(x.device), record_function("cheby_fused.K3"):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _launcher()(
-            mat.data_ptr(), xt.data_ptr(),
-            None if wt is None else wt.data_ptr(),
-            None if gt is None else gt.data_ptr(), out.data_ptr(),
-            scratch.data_ptr(), mp, K, F, O, B, S, _DTYPE_CODE[mat.dtype],
-            int(g is not None), stream)
+        rc = _lib().cheby_dw_launch(
+            L.mat.data_ptr(), xt.data_ptr(), gt.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), mp, K, F, O, B, S, _DTYPE_CODE[L.mat.dtype],
+            stream)
     if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"cheby_fused.K3 kernel launch failed: CUDA "
+                           f"error {rc}")
     return out, S
 
 
@@ -225,11 +328,9 @@ def fused_filter(x: torch.Tensor, L, w: torch.Tensor) -> torch.Tensor:
     backward: ``cheby_conv_fused`` differentiates it."""
     if _plain_or_kernel("fused_filter", x, w=w):
         return cheby_conv_fused_reference(x, L, w)
-    K, F, O = w.shape
-    B, M, _ = x.shape
-    y, _ = _launch(L, x, w, None, K=K, O=O, name="cheby_fused.K2")
+    y = _launch_conv(L, x, w)
     cheby_conv_fused.launches += 1
-    return y[:M].reshape(M, B, O).permute(1, 0, 2).to(x.dtype)
+    return y.to(x.dtype)
 
 
 def cheby_dw_fused(x: torch.Tensor, L, g: torch.Tensor,
@@ -239,9 +340,8 @@ def cheby_dw_fused(x: torch.Tensor, L, g: torch.Tensor,
     tensors, the plain version for CPU ones.  No backward."""
     if _plain_or_kernel("cheby_dw_fused", x, g=g):
         return cheby_dw_fused_reference(x, L, g, K)
-    B, M, F = x.shape
-    O = g.shape[2]
-    parts, S = _launch(L, x, None, g, K=K, O=O, name="cheby_fused.K3")
+    F, O = x.shape[2], g.shape[2]
+    parts, S = _launch_dw(L, x, g, K)
     cheby_dw_fused.launches += 1
     return parts.reshape(-1, K, F, S, O).sum(dim=(0, 3))
 

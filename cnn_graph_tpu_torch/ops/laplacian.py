@@ -118,7 +118,7 @@ class DenseLaplacian:
 
 
 # The port's own fields of the banded operators: the nonzero index by
-# output row (``packing.band_row_index``) that K1 and K5 walk.
+# output row (``packing.band_row_index``) that K1, K5 and K6 walk.
 BAND_INDEX_FIELDS = ("nz_rowptr", "nz_win")
 
 
@@ -176,11 +176,9 @@ class BandedLaplacian(_BandedMixin):
     Beside JAX's fields the operator carries the nonzero index by output
     row, ``nz_rowptr`` (int32 ``[m_padded + 1]``) and ``nz_win`` (int16,
     each nonzero's offset in its block-row's window;
-    ``ops.packing.band_row_index``): K1 and K5 walk it and read each
-    value from the layout's own band, so it holds for the int8 twin and
-    for shifted bases.  K6 (the flat ragged band) does not read it; the
-    ragged operator keeps it for its int8 twin, which ``quantize_banded``
-    gives the dkw layout when ``use_pallas`` is set.
+    ``ops.packing.band_row_index``): K1, K5 and K6 walk it and read each
+    value from the layout's own band, so one index serves every layout
+    of a graph, the int8 twin and shifted bases.
 
     With ``use_pallas`` the products run the layout's kernel, without it
     the kernel's plain version, which computes what JAX's fallback does
@@ -580,6 +578,20 @@ def quantize_dense(op: DenseLaplacian, headroom: float = 2.0,
         act_scale=float(sample_x) * headroom / 127.0, headroom=headroom)
 
 
+def _resolve_device(device=None) -> torch.device:
+    """The device an operator is built on: ``device`` as given, else the
+    CUDA device, as the JAX package puts its operators on the
+    accelerator.  Raises where there is none rather than falling back to
+    the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port's operators live on the card by "
+            "default; pass device=\"cpu\" to build one on the CPU")
+    return torch.device("cuda")
+
+
 def _tensor(a: np.ndarray, device, dtype=None) -> torch.Tensor:
     """A host array on ``device``, converted to ``dtype`` there (a large
     block array crosses once, in its host dtype)."""
@@ -622,6 +634,10 @@ def device_laplacian(L: scipy.sparse.spmatrix, lmax: float = 2.0,
     layouts hold 128x128 blocks only, the one shape the CUDA kernels
     take: ``fmt="banded"`` with another ``block_size`` raises.
 
+    ``device`` (default: the CUDA device) is where the operator lives;
+    without CUDA, ``device=None`` raises, and CPU use asks for
+    ``device="cpu"``.
+
     ``use_pallas`` keeps the JAX name.  A dense operator built with it
     true takes the fused conv kernels (``use_fused``); a banded operator
     runs its layout's kernel with it and the kernel's plain version
@@ -645,6 +661,7 @@ def device_laplacian(L: scipy.sparse.spmatrix, lmax: float = 2.0,
     ``group_max`` tail (``choose_bsr_row_group``).  The layouts, paddings
     and tails are the JAX package's, byte for byte.
     """
+    device = _resolve_device(device)
     if rescale:
         L = rescale_laplacian(L, lmax=lmax)
     L = L.tocsr()
@@ -720,8 +737,6 @@ def _banded_laplacian(L, m, nnz, dtype, device, use_pallas, rows_per_step,
         bd, sd = packing.pack_dkw_from_ragged(band, sched, levels, G)
         bands_dkw = tuple(_tensor(b, device, dtype) for b in bd)
         sched_dkw = _tensor(sd, device)
-    # The ragged operator carries it too: given use_pallas, its int8 twin
-    # takes the dkw layout (quantize_banded, as JAX's), which K1 walks.
     nz_rowptr, nz_win = packing.band_row_index(L, base, mp)
     return BandedLaplacian(
         band=_tensor(band, device, dtype), base=_tensor(base, device), m=m,

@@ -240,10 +240,9 @@ def band_row_index(L: scipy.sparse.spmatrix, base, m_padded: int):
     (int16), its offset in its block-row's window, ``col - 128 *
     base[row // 128]``.  A value's place follows from (row, offset) and
     the block-row's band in each layout (csrc/band.cu ``band_off``), so
-    the index holds no positions and serves the dkw and uniform bands
-    that K1 and K5 walk, their int8 twins (the flat ragged band's too,
-    which takes the dkw layout) and bases shifted for an extended-column
-    x.
+    the index holds no positions and serves the dkw, uniform and flat
+    ragged bands that K1, K5 and K6 walk, their int8 twins and bases
+    shifted for an extended-column x.
     Raises ``ValueError`` on a nonzero before its window, an offset that
     does not fit int16 (past ``MAX_BAND_WIDTH`` blocks) or a row past
     ``m_padded`` or ``base``."""

@@ -26,7 +26,8 @@ PyTorch version (``*_reference``), which computes the same function on any
 device and is what the kernels are held against.  ``launches`` on each
 probe counts its kernel launches.  The Pallas probes compute their
 functions with every operand resident in VMEM; ``csrc/probes.cu`` says
-how the CUDA ones keep theirs in L2 and walk them through K1's CTA tile.
+how the CUDA ones keep theirs in L2 and walk them through the wmma CTA
+tile of the banded tile kernels that the row walks replaced.
 """
 
 from __future__ import annotations

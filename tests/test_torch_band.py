@@ -47,7 +47,8 @@ C = 48
 def ops():
     """(port f32 operator, JAX f32 operator with its dkw layout)."""
     L, _ = graphs.city_graph(96, k=8, seed=0)
-    op = device_laplacian(L, fmt="banded", rows_per_step=G, use_pallas=True)
+    op = device_laplacian(L, fmt="banded", rows_per_step=G, use_pallas=True,
+                          device="cpu")
     op_j = jax_device_laplacian(L, fmt="banded", dtype=jnp.float32,
                                 use_pallas=True, rows_per_step=G)
     assert len(op.levels) >= 2
@@ -122,7 +123,7 @@ class TestReferenceAgainstPallas:
         the result back in f32 (pallas_band._band_call)."""
         L, _, _ = ops
         op = device_laplacian(L, fmt="banded", dtype=torch.bfloat16,
-                              rows_per_step=G, use_pallas=True)
+                              rows_per_step=G, use_pallas=True, device="cpu")
         op_j = jax_device_laplacian(L, fmt="banded", dtype=jnp.bfloat16,
                                     use_pallas=True, rows_per_step=G)
         x, _ = _inputs(op.m_padded, 3)

@@ -82,7 +82,8 @@ def _port_op(L, layout, dtype=torch.float32):
     """The port's operator whose products run K5 or K6 (their plain
     versions here)."""
     op = device_laplacian(L, fmt="banded", ragged=layout == "ragged",
-                          use_pallas=False, rows_per_step=G, dtype=dtype)
+                          use_pallas=False, rows_per_step=G, dtype=dtype,
+                          device="cpu")
     return dataclasses.replace(op, use_pallas=True)
 
 
@@ -170,7 +171,7 @@ class TestLayouts:
         ``use_pallas``."""
         op = device_laplacian(city, fmt="banded", ragged=layout == "ragged",
                               use_pallas=False, rows_per_step=G,
-                              dtype=getattr(torch, dtype))
+                              dtype=getattr(torch, dtype), device="cpu")
         op_j = _jax_op(city, layout, getattr(jnp, dtype), pallas=False)
         assert (op.levels, op.m, op.m_padded, op.nnz, op.rows_per_step,
                 op.band_width) == (op_j.levels, op_j.m, op_j.m_padded,
@@ -191,7 +192,7 @@ class TestLayouts:
     @pytest.mark.parametrize("layout", LAYOUTS)
     def test_dkw_twin_only_with_use_pallas_and_levels(self, city, layout):
         op = device_laplacian(city, fmt="banded", ragged=layout == "ragged",
-                              use_pallas=True, rows_per_step=G)
+                              use_pallas=True, rows_per_step=G, device="cpu")
         op_j = jax_device_laplacian(city, fmt="banded",
                                     ragged=layout == "ragged",
                                     use_pallas=True, rows_per_step=G)
@@ -206,18 +207,21 @@ class TestLayouts:
         """``None`` resolves from the platform, as the BSR branch does:
         false on this CPU-only machine, true wherever CUDA is available
         (then the ragged band gets its dkw layout)."""
-        op = device_laplacian(city, fmt="banded", rows_per_step=G)
+        op = device_laplacian(city, fmt="banded", rows_per_step=G,
+                              device="cpu")
         assert op.use_pallas is torch.cuda.is_available()
         monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-        op = device_laplacian(city, fmt="banded", rows_per_step=G)
+        op = device_laplacian(city, fmt="banded", rows_per_step=G,
+                              device="cpu")
         assert op.use_pallas and op.bands_dkw is not None
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-        op = device_laplacian(city, fmt="banded", rows_per_step=G)
+        op = device_laplacian(city, fmt="banded", rows_per_step=G,
+                              device="cpu")
         assert not op.use_pallas and op.bands_dkw is None
 
     def test_to_moves_every_tensor(self, city):
         op = device_laplacian(city, fmt="banded", rows_per_step=G,
-                              use_pallas=True)
+                              use_pallas=True, device="cpu")
         for o in (op, quantize_banded(op)):
             moved = o.to("meta")
             tensors = [moved.band, moved.base, moved.sched, moved.sched_dkw,
@@ -309,7 +313,8 @@ class TestInPlace:
 
     def _layout_args(self, city, layout, dtype):
         op = device_laplacian(city, fmt="banded", ragged=layout != "uniform",
-                              use_pallas=layout == "dkw", rows_per_step=G)
+                              use_pallas=layout == "dkw", rows_per_step=G,
+                              device="cpu")
         if dtype == "int8":
             op = quantize_banded(op, sample_x=3.0)
         x, x0 = _inputs(op.m_padded, 5, n=2, scale=1.5)
@@ -395,7 +400,7 @@ class TestTables:
         return {lay: device_laplacian(city, fmt="banded",
                                       ragged=lay != "uniform",
                                       use_pallas=lay == "dkw",
-                                      rows_per_step=G)
+                                      rows_per_step=G, device="cpu")
                 for lay in ("dkw", "uniform", "ragged")}
 
     @pytest.mark.parametrize("layout", ["dkw", "uniform", "ragged"])
@@ -442,7 +447,7 @@ class TestChebyFinals:
             op = device_laplacian(city, fmt="banded",
                                   ragged=layout != "uniform",
                                   use_pallas=layout == "dkw",
-                                  rows_per_step=G)
+                                  rows_per_step=G, device="cpu")
             op_j = _jax_op(city, "uniform" if layout == "uniform"
                            else "ragged", pallas=False)
             out[layout] = (op, op_j)
@@ -601,7 +606,8 @@ class TestRoofline:
         """The dkw arrays hold the flat band's blocks, so both count the
         same; the bound is the larger time, named by its resource."""
         op = device_laplacian(city, fmt="banded", rows_per_step=G,
-                              use_pallas=True, dtype=torch.bfloat16)
+                              use_pallas=True, dtype=torch.bfloat16,
+                              device="cpu")
         flat = dataclasses.replace(op, bands_dkw=None, sched_dkw=None)
         got, want = spmm_roofline(op, None, 512), spmm_roofline(flat, None,
                                                                  512)

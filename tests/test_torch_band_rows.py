@@ -1,13 +1,14 @@
 """The banded operators' row index and the row walk's plain version.
 
-K1 (dkw layout) and K5 (uniform band) of ``csrc/band.cu`` walk the
-banded operator's nonzero index by output row (``nz_rowptr``,
-``nz_win``: each nonzero's offset in its block-row's window) and read
-every value from the layout's own band.  On the CPU: the index against a
-loop over the rescaled Laplacian's nonzeros and its refusals; the row
-walk's plain version ``banded_rows_reference`` against the layouts'
-window plain versions and against the JAX package's Pallas kernels
-(``banded_call_dkw``, ``banded_call``) in interpret mode, for L@x, the
+K1 (dkw layout), K5 (uniform band) and K6 (flat ragged band) of
+``csrc/band.cu`` walk the banded operator's nonzero index by output row
+(``nz_rowptr``, ``nz_win``: each nonzero's offset in its block-row's
+window) and read every value from the layout's own band.  On the CPU:
+the index against a loop over the rescaled Laplacian's nonzeros and its
+refusals; the row walk's plain version ``banded_rows_reference`` against
+the layouts' window plain versions and against the JAX package's Pallas
+kernels (``banded_call_dkw``, ``banded_call``, ``banded_call_ragged``)
+in interpret mode, for L@x, the
 hop and the adjoint hop in f32, bf16 and int8; the index after
 ``quantize_banded`` and ``.to()``, with bases shifted for an
 extended-column x, and the operator's check of it.  The kernel itself is
@@ -30,9 +31,14 @@ import torch
 
 from cnn_graph_tpu.ops import device_laplacian as jax_device_laplacian
 from cnn_graph_tpu.ops import quantize_banded as jax_quantize_banded
-from cnn_graph_tpu.ops.pallas_band import banded_call, banded_call_dkw
+from cnn_graph_tpu.ops.pallas_band import (
+    banded_call,
+    banded_call_dkw,
+    banded_call_ragged,
+)
 from cnn_graph_tpu_torch import graphs
 from cnn_graph_tpu_torch.ops import (
+    banded_ragged_reference,
     banded_rows_reference,
     device_laplacian,
     packing,
@@ -60,7 +66,8 @@ def city():
 def _port_op(L, layout, dtype):
     dt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
     op = device_laplacian(L, fmt="banded", ragged=layout == "dkw",
-                          use_pallas=True, rows_per_step=G, dtype=dt)
+                          use_pallas=True, rows_per_step=G, dtype=dt,
+                          device="cpu")
     return quantize_banded(op, sample_x=3.0) if dtype == "int8" else op
 
 
@@ -77,6 +84,29 @@ def _jax_op(L, layout, dtype):
 def ops(city):
     return {(lay, dt): _port_op(city, lay, dt)
             for lay in LAYOUTS for dt in DTYPES}
+
+
+@pytest.fixture(scope="module")
+def rag_ops(city):
+    """The flat ragged operators (no dkw layout) of both packages by
+    dtype, given ``use_pallas`` after the build (and after quantizing)
+    as JAX's tests reach K6."""
+    out = {}
+    for dtype in DTYPES:
+        f = "float32" if dtype == "int8" else dtype
+        op = device_laplacian(city, fmt="banded", use_pallas=False,
+                              rows_per_step=G, device="cpu",
+                              dtype=getattr(torch, f))
+        op_j = jax_device_laplacian(city, fmt="banded", use_pallas=False,
+                                    rows_per_step=G, dtype=getattr(jnp, f))
+        if dtype == "int8":  # before use_pallas, which adds the dkw twin
+            op = quantize_banded(op, sample_x=3.0)
+            op_j = jax_quantize_banded(op_j, sample_x=3.0)
+        op = dataclasses.replace(op, use_pallas=True)
+        op_j = dataclasses.replace(op_j, use_pallas=True)
+        assert op.levels and op.bands_dkw is None
+        out[dtype] = (op, op_j)
+    return out
 
 
 def _operands(op):
@@ -148,7 +178,7 @@ class TestIndex:
         operator given ``use_pallas`` quantizes to the dkw layout (as in
         JAX), whose kernel K1 walks that index."""
         rag = device_laplacian(city, fmt="banded", use_pallas=False,
-                               rows_per_step=G)
+                               rows_per_step=G, device="cpu")
         for lay in LAYOUTS:
             for f in BAND_INDEX_FIELDS:
                 assert torch.equal(getattr(ops[(lay, "float32")], f),
@@ -274,15 +304,44 @@ class TestRowsReference:
             band_scale=getattr(op, "band_scale", None))
         assert torch.equal(got, want)
 
-    def test_refuses_the_ragged_layout(self, ops):
-        """The walk reads the dkw and uniform bands only: K6 keeps its
-        tile kernel."""
-        op = ops[("dkw", "float32")]
-        (x,) = _inputs(op, op.m_padded, 4, 1)
-        with pytest.raises(ValueError, match="ragged"):
-            banded_rows_reference((op.band,), op.base, op.sched,
-                                  op.nz_rowptr, op.nz_win, x,
-                                  layout="ragged", levels=op.levels, G=G)
+    @pytest.mark.parametrize("shift", [0, 3])
+    @pytest.mark.parametrize("dtype,form", CASES)
+    def test_ragged_layout(self, city, rag_ops, dtype, form, shift):
+        """The walk on the flat ragged band (K6) against the ragged
+        window product ``banded_ragged_reference`` and against the TPU
+        kernel ``banded_call_ragged`` in interpret mode, on the same
+        inputs: x with 5 extra block rows, every base shifted by
+        ``shift``, the same index."""
+        op, op_j = rag_ops[dtype]
+        scale = op.band_scale if dtype == "int8" else None
+        (x,) = _inputs(op, op.m_padded + 5 * 128, 7, 1)
+        rest = _inputs(op, op.m_padded, 8, FORMS[form] - 1)
+        base = op.base + shift
+        got = banded_rows_reference(
+            (op.band,), base, op.sched, op.nz_rowptr, op.nz_win, x, *rest,
+            layout="ragged", levels=op.levels, G=G, band_scale=scale)
+        _close(got, banded_ragged_reference(
+            op.band, base, op.sched, x, *rest, levels=op.levels, G=G,
+            band_scale=scale), dtype)
+        args = [x, *rest]
+        if dtype == "bfloat16":
+            arrs = [jnp.asarray(a.float().numpy(), jnp.bfloat16)
+                    for a in args]
+        else:
+            arrs = [jnp.asarray(a.numpy()) for a in args]
+        arrs += [None] * (3 - len(arrs))
+        # The TPU kernel's x ring follows the schedule's column high-water
+        # (row 2), which moves with the bases; the walk does not read it.
+        sched = np.asarray(op_j.sched, np.int32).copy()
+        sched[2] += shift
+        want = banded_call_ragged(
+            op_j.band, jnp.asarray(base.numpy()), jnp.asarray(sched), *arrs,
+            levels=op_j.levels, ring=op_j.ring_slots, G=G,
+            out_rows=op_j.m_padded, interpret=True,
+            band_scale=op_j.band_scale if dtype == "int8" else None)
+        if dtype == "bfloat16":
+            want = np.asarray(want.astype(jnp.float32))
+        _close(got, want, dtype)
 
     def test_pad_rows(self, ops):
         """Rows without nonzeros: 0 for L@x, -x0 + c for the adjoint
@@ -310,7 +369,8 @@ def test_sparse_roofline_counts_the_int16_offset(city, ops, layout, dtype):
     assert sparse_roofline(op, None, C, extra_inputs=1)["bytes"] == want
     rag = device_laplacian(
         city, fmt="banded", use_pallas=False, rows_per_step=G,
-        dtype=torch.bfloat16 if dtype == "bfloat16" else torch.float32)
+        dtype=torch.bfloat16 if dtype == "bfloat16" else torch.float32,
+                           device="cpu")
     if dtype == "int8":
         rag = quantize_banded(rag, sample_x=3.0)
     assert sparse_roofline(rag, None, C, extra_inputs=1)["bytes"] == want

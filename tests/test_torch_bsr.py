@@ -105,7 +105,8 @@ def graph(request):
 def _ops(L, **kw):
     """The port's and the JAX package's operator for the same arguments."""
     kw = {"fmt": "bsr", "block_size": 128, "use_pallas": True, **kw}
-    return device_laplacian(L, **kw), jax_device_laplacian(L, **kw)
+    return device_laplacian(L, **kw,
+                            device="cpu"), jax_device_laplacian(L, **kw)
 
 
 def _inputs(mp, seed, scale=1.0):
@@ -213,7 +214,8 @@ class TestDeviceOperator:
     @pytest.mark.parametrize("kw", [dict(), dict(col_stream=False)])
     def test_bf16_layout_matches_jax(self, g900, kw):
         op = device_laplacian(g900, fmt="bsr", block_size=128,
-                              use_pallas=True, dtype=torch.bfloat16, **kw)
+                              use_pallas=True, dtype=torch.bfloat16, **kw,
+                              device="cpu")
         op_j = jax_device_laplacian(g900, fmt="bsr", block_size=128,
                                     use_pallas=True, dtype=jnp.bfloat16,
                                     **kw)
@@ -224,15 +226,16 @@ class TestDeviceOperator:
         """None: the kernels wherever a CUDA device is present, whatever
         device the operator is built on, the gather route elsewhere (JAX:
         on any backend but the CPU)."""
-        op = device_laplacian(g900, fmt="bsr")
+        op = device_laplacian(g900, fmt="bsr", device="cpu")
         assert not op.use_pallas and not op.col_stream
         _assert_same_operator(op, jax_device_laplacian(g900, fmt="bsr"))
         monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-        for device in (None, "cpu"):
+        for device in ("meta", "cpu"):
             op = device_laplacian(g900, fmt="bsr", device=device)
             assert op.use_pallas and op.col_stream
-            _assert_same_operator(
-                op, jax_device_laplacian(g900, fmt="bsr", use_pallas=True))
+            assert op.blocks.device.type == device
+        _assert_same_operator(
+            op, jax_device_laplacian(g900, fmt="bsr", use_pallas=True))
 
     def test_auto_takes_bsr_as_jax_does(self, city48):
         """A block size other than 128 sends fmt="auto" to BSR; so does a
@@ -408,7 +411,8 @@ class TestOperatorRouting:
         a few bf16 ulps of JAX's XLA result (the two round the partial sums
         in other orders)."""
         op = device_laplacian(g900, fmt="bsr", block_size=128,
-                              use_pallas=False, dtype=torch.bfloat16)
+                              use_pallas=False, dtype=torch.bfloat16,
+                              device="cpu")
         op_j = jax_device_laplacian(g900, fmt="bsr", block_size=128,
                                     use_pallas=False, dtype=jnp.bfloat16)
         x, _ = _inputs(op.m_padded, 8)
@@ -519,7 +523,7 @@ class TestQuantTwin:
 def dense_pair(g900):
     """The 900-node scattered graph as the port's and JAX's dense operator
     and int8 twin (tests/test_quant_formats.py:250-268)."""
-    op = device_laplacian(g900, fmt="dense")
+    op = device_laplacian(g900, fmt="dense", device="cpu")
     op_j = jax_device_laplacian(g900, fmt="dense")
     return op, op_j, quantize_dense(op, sample_x=3.0), jax_quantize_dense(
         op_j, sample_x=3.0)
@@ -622,7 +626,8 @@ class TestNodeClassifier:
         """The deep model on a BSR operator (the kernels' plain versions,
         or the gather route) against JAX's on its XLA route, f32."""
         feats, labels, mask = model_data
-        op = device_laplacian(city48, fmt="bsr", use_pallas=use_pallas)
+        op = device_laplacian(city48, fmt="bsr", use_pallas=use_pallas,
+                              device="cpu")
         op_j = jax_device_laplacian(city48, fmt="bsr", use_pallas=False)
         assert op.col_stream == use_pallas
         model, model_j, params, params_j = _models(op, op_j, hidden=[8])
@@ -669,7 +674,7 @@ class TestNodeClassifier:
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
 
     def test_quantize_model_operators_passes_the_twin_through(self, city48):
-        op = device_laplacian(city48, fmt="bsr")
+        op = device_laplacian(city48, fmt="bsr", device="cpu")
         model = quantize_model_operators(NodeClassifier(op, 4, 2, hidden=[],
                                                         K=2))
         assert isinstance(model.op, QuantBlockSparseLaplacian)

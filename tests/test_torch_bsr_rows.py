@@ -100,7 +100,7 @@ _LAYOUTS = {  # layout -> (device_laplacian arguments, route)
 def _op(L, layout, **kw):
     kw = {"fmt": "bsr", "block_size": 128, "use_pallas": True,
           **_LAYOUTS[layout][0], **kw}
-    op = device_laplacian(L, **kw)
+    op = device_laplacian(L, **kw, device="cpu")
     if layout == "per_block":  # K8: the one-row-per-step route
         op = dataclasses.replace(op, rows_per_step=1)
     return op
@@ -321,7 +321,7 @@ def test_sparse_roofline_counts_what_the_nonzeros_need():
     products of every stored 128x128 block, pads included."""
     W = scipy.sparse.diags([np.ones(3), np.ones(3)], [-1, 1], format="csr")
     op = device_laplacian(graphs.laplacian(W), fmt="bsr", block_size=128,
-                          use_pallas=True)
+                          use_pallas=True, device="cpu")
     assert (op.nnz, op.m_padded) == (6, 128)
     r = sparse_roofline(op, 1e-6, 10)
     assert (r["bytes"], r["flops"], r["bound_by"]) == (10804, 120, "bytes")

@@ -78,7 +78,8 @@ def mnist():
     two packages' f32 dense operators per level."""
     splits = synthetic_mnist(8, 2, 2, seed=3)
     data, Ls, perm = mnist_graph_data(splits)
-    ops = [device_laplacian(L, fmt="dense", use_pallas=True) for L in Ls]
+    ops = [device_laplacian(L, fmt="dense", use_pallas=True,
+                            device="cpu") for L in Ls]
     ops_j = [jax_device_laplacian(L, fmt="dense", use_pallas=False)
              for L in Ls]
     return data, Ls, perm, ops, ops_j
@@ -306,7 +307,8 @@ class TestServing:
                               for L in Ls], **arch)
         params_j = jax.tree.map(np.asarray,
                                 model_j.init(jax.random.PRNGKey(3)))
-        model = ChebNet([device_laplacian(L, fmt="dense", use_pallas=True)
+        model = ChebNet([device_laplacian(L, fmt="dense", use_pallas=True,
+                                          device="cpu")
                          for L in Ls], **arch)
         rng = np.random.default_rng(11)
         x = graphs.perm_data(rng.normal(size=(6, 144)), perm).astype(

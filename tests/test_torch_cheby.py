@@ -20,6 +20,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import scipy.sparse
 import torch
 
 from cnn_graph_tpu.graphs import construction as gc
@@ -45,7 +46,11 @@ from cnn_graph_tpu_torch.ops import (
     fused_filter,
     max_pool,
 )
-from cnn_graph_tpu_torch.ops.cheby import _dw_eligible, fused_vmem_ok
+from cnn_graph_tpu_torch.ops.cheby import (
+    _dw_eligible,
+    conv_geometry,
+    fused_vmem_ok,
+)
 from cnn_graph_tpu_torch.ops.filters import _fused_eligible
 
 DTYPES = {"float32": (torch.float32, jnp.float32),
@@ -62,7 +67,8 @@ def knn200():
 
 def _ops(L, dtype):
     dt, jdt = DTYPES[dtype]
-    return (device_laplacian(L, fmt="dense", dtype=dt, use_pallas=True),
+    return (device_laplacian(L, fmt="dense", dtype=dt, use_pallas=True,
+                             device="cpu"),
             jax_device_laplacian(L, fmt="dense", dtype=jdt, use_pallas=False))
 
 
@@ -121,6 +127,22 @@ class TestPlainVersions:
         tol = 1e-5 if dtype == "float32" else 2**-8
         np.testing.assert_allclose(got, want, rtol=0,
                                    atol=tol * np.abs(want).max())
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_k2_takes_a_nonsymmetric_operator(self, knn200, dtype):
+        """K2 computes ``sum_k T_k(L) x W_k`` for any L, as the Pallas
+        kernel does; its plain version, which the CUDA kernel is held
+        to, multiplies by L and not by L^T."""
+        L = (knn200 + 0.5 * scipy.sparse.triu(knn200, 1)).tocsr()
+        assert (L != L.T).nnz
+        op, op_j = _ops(L, dtype)
+        x, w, _ = _inputs(11, 3, 5, 32, 16)
+        want = np.asarray(jax_cheby_conv_fused(
+            jnp.asarray(x), op_j, jnp.asarray(w), 128, True))
+        got = cheby_conv_fused_reference(torch.from_numpy(x), op,
+                                         torch.from_numpy(w)).numpy()
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=1e-4 if dtype == "float32" else 1e-3)
 
     def test_cpu_wrappers_take_the_plain_versions(self, knn200):
         """On CPU tensors the wrappers compute the plain versions and
@@ -235,6 +257,45 @@ class TestDispatchRules:
         assert not _fused_eligible(l0, 1, 32)
         assert _fused_eligible(l2, 32, 64) and _dw_eligible(32, 64)
         assert _fused_eligible(l0, 32, 32) and _dw_eligible(32, 32)
+
+
+# K2's launch shapes (B, Mp, F, O): the bench's dense_fused conv, the
+# paper ChebNet's layer 1 forward and dx, and tests/test_torch_gpu.py's
+# knn203 operator (208 padded nodes) at its K2 shapes.
+GEOMETRY_SHAPES = {"bench": (100, 976, 32, 32), "layer1": (100, 244, 32, 64),
+                   "dx": (100, 244, 64, 32), "knn203": (3, 208, 32, 64),
+                   "knn203_dx": (2, 208, 64, 32),
+                   "knn203_narrow": (5, 208, 8, 12),
+                   "bench_b4": (4, 976, 32, 32), "wide": (3, 976, 200, 40)}
+
+
+@pytest.mark.parametrize("shape", GEOMETRY_SHAPES)
+def test_conv_geometry_covers_every_element_once(shape):
+    """Every (row, column) of the conv's columns falls in exactly one CTA:
+    cluster c of group g owns rows ``[c, c + 1) * tiles_per_cta * rows``
+    of the group's samples.  Clusters stay within the portable 8 and the
+    bench shape fills at least 120 of the H100's 132 SMs.  (The shared
+    memory a tile takes is the built kernel's: tests/test_torch_gpu.py
+    holds it to the card.)"""
+    B, mp, F, O = GEOMETRY_SHAPES[shape]
+    geo = conv_geometry(B, mp, F, O, 132)
+    S, G, rows, per = (geo[k] for k in ("samples", "groups", "rows",
+                                          "tiles_per_cta"))
+    assert 1 <= geo["cluster"] <= 8 and rows in (64, 128)
+    assert geo["ctas"] == G * geo["cluster"]
+    assert S == min(B, max(1, 128 // F)) and G * S >= B > (G - 1) * S
+    assert geo["np"] % 8 == 0 and S * F <= geo["np"] < S * F + 8
+    assert geo["nop"] % 8 == 0 and S * O <= geo["nop"] < S * O + 8
+    count = np.zeros((mp, B * F), np.int32)
+    for g in range(G):
+        cols = slice(g * S * F, min((g + 1) * S, B) * F)
+        for c in range(geo["cluster"]):
+            r0, r1 = c * per * rows, min((c + 1) * per * rows, mp)
+            assert r0 < r1  # no CTA without rows
+            count[r0:r1, cols] += 1
+    assert (count == 1).all()
+    if shape == "bench":
+        assert geo["ctas"] >= 120
 
 
 @pytest.mark.parametrize("p", [1, 2, 4])

@@ -15,6 +15,7 @@ import functools
 
 import numpy as np
 import pytest
+import scipy.sparse
 import torch
 
 from cnn_graph_tpu_torch import graphs
@@ -39,6 +40,8 @@ from cnn_graph_tpu_torch.ops import (
     cheby_dw_fused,
     cheby_dw_fused_reference,
     cheby_finals,
+    conv_geometry,
+    conv_resources,
     device_laplacian,
     fused_filter,
     quantize_banded,
@@ -72,7 +75,7 @@ def _operator(L, dtype, device, G=2):
 
 
 def _index(op):
-    """The row index K1 and K5 walk, as their wrappers take it."""
+    """The row index K1, K5 and K6 walk, as their wrappers take it."""
     return dict(nz_rowptr=op.nz_rowptr, nz_win=op.nz_win)
 
 
@@ -81,6 +84,8 @@ def _rows_reference(op, layout, x, x0=None, c=None, scale=None,
     """The row walk's plain version on ``op``'s ``layout`` band."""
     if layout == "dkw":
         bands, sched, levels = op.bands_dkw, op.sched_dkw, op.levels
+    elif layout == "ragged":
+        bands, sched, levels = (op.band,), op.sched, op.levels
     else:
         bands, sched, levels = (op.band,), None, (op.band.shape[1],)
     return banded_rows_reference(
@@ -201,11 +206,11 @@ def test_kernel_rejects_bad_arguments(city96, cuda_device):
                    **dict(kw, nz_rowptr=op.nz_rowptr[:-1]))
 
 
-@pytest.mark.parametrize("layout", ["dkw", "uniform"])
+@pytest.mark.parametrize("layout", ["dkw", "uniform", "ragged"])
 def test_row_walk_wrappers_raise_without_the_index(city96, cuda_device,
                                                    layout):
-    """K1 and K5 walk the row index: a CUDA x without it raises, and
-    nothing falls back to a tile kernel or the plain version."""
+    """K1, K5 and K6 walk the row index: a CUDA x without it raises, and
+    nothing falls back to another kernel or the plain version."""
     op = _layout_operator(city96, layout, "float32", cuda_device)
     x = torch.zeros(op.m_padded, 16, device=cuda_device)
     before = _COUNTED[layout].launches
@@ -215,6 +220,9 @@ def test_row_walk_wrappers_raise_without_the_index(city96, cuda_device,
             if layout == "dkw":
                 banded_dkw(op.bands_dkw, op.base, op.sched_dkw, x,
                            levels=op.levels, G=op.rows_per_step, **index)
+            elif layout == "ragged":
+                banded_ragged(op.band, op.base, op.sched, x,
+                              levels=op.levels, G=op.rows_per_step, **index)
             else:
                 banded_uniform(op.band, op.base, x, **index)
     assert _COUNTED[layout].launches == before
@@ -273,12 +281,30 @@ def _close(got, want, dtype):
         assert err <= 1e-2 * float(want.abs().max()), err
 
 
-@pytest.mark.parametrize("F,O,B", [(32, 64, 3), (64, 32, 2), (8, 12, 5)])
+@pytest.fixture(scope="module")
+def grid976():
+    """The MNIST grid's 976-node level-0 operator's Laplacian (the bench's
+    dense_fused shape)."""
+    from cnn_graph_tpu_torch.data import mnist_graph_data, synthetic_mnist
+
+    splits = synthetic_mnist(n_train=8, n_val=0, n_test=8, seed=2017)
+    return mnist_graph_data(splits, seed=2017)[1][0]
+
+
+@pytest.mark.parametrize("F,O,B,graph", [
+    (32, 64, 3, "knn203"), (64, 32, 2, "knn203"), (8, 12, 5, "knn203"),
+    (12, 8, 23, "knn203"), (32, 32, 6, "knn203"), (32, 32, 4, "grid976"),
+    (32, 32, 7, "grid976"), (200, 24, 2, "knn203")])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cheby_kernels_match_reference(knn203, cuda_device, dtype, F, O, B):
-    """K2 and K3 against their plain versions on the card; (8, 12, 5)
-    packs 4 samples per CTA and leaves the last CTA partial."""
-    op = _dense(knn203, dtype, cuda_device)
+def test_cheby_kernels_match_reference(request, cuda_device, dtype, F, O, B,
+                                       graph):
+    """K2 and K3 against their plain versions on the card.  K2's tiling
+    edges: B not a multiple of the samples per cluster (3 of 4, 23 of
+    10, 6 and 7 of 4), 208 padded nodes (not a multiple of the 64-row
+    tile), the 976-node operator at B = 4 (one cluster of 8 CTAs, two
+    tiles each) and 7, F = 8 and 12 (np 40 and 120), and F = 200 (two
+    128-column passes per hop)."""
+    op = _dense(request.getfixturevalue(graph), dtype, cuda_device)
     g = torch.Generator(device=cuda_device).manual_seed(F + O)
     x = torch.randn(B, op.m, F, generator=g, device=cuda_device)
     w = 0.1 * torch.randn(7, F, O, generator=g, device=cuda_device)
@@ -292,6 +318,47 @@ def test_cheby_kernels_match_reference(knn203, cuda_device, dtype, F, O, B):
     assert y.shape == (B, op.m, O) and dw.shape == (7, F, O)
     _close(y, cheby_conv_fused_reference(x, op, w), dtype)
     _close(dw, cheby_dw_fused_reference(x, op, gy, 7), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cheby_conv_kernel_takes_a_nonsymmetric_operator(knn203, cuda_device,
+                                                         dtype):
+    """K2 multiplies by L, not L^T, in both dtypes: the f32 kernel reads
+    its hop operand transposed and is given L^T."""
+    L = (knn203 + 0.5 * scipy.sparse.triu(knn203, 1)).tocsr()
+    op = _dense(L, dtype, cuda_device)
+    assert not torch.equal(op.mat, op.mat.T)
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.randn(3, op.m, 32, generator=g, device=cuda_device)
+    w = 0.1 * torch.randn(6, 32, 16, generator=g, device=cuda_device)
+    _close(fused_filter(x, op, w), cheby_conv_fused_reference(x, op, w),
+           dtype)
+
+
+# K2's launch shapes (B, Mp, F, O), as tests/test_torch_cheby.py's
+# geometry test: the bench's dense_fused conv, ChebNet layer 1's forward
+# and dx, knn203's, and a wide F.
+_GEOMETRY_SHAPES = [(100, 976, 32, 32), (100, 244, 32, 64),
+                    (100, 244, 64, 32), (3, 208, 32, 64), (5, 208, 8, 12),
+                    (4, 976, 32, 32), (3, 976, 200, 40)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_geometry_fits_the_card(cuda_device, dtype):
+    """At every geometry K2 takes, the built kernel's ring fits in the
+    232,448 bytes of shared memory a CTA can have and the card holds at
+    least one cluster at once; at the bench shape, all of its clusters
+    (one wave)."""
+    n_sms = torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count
+    for B, mp, F, O in _GEOMETRY_SHAPES:
+        geo = conv_geometry(B, mp, F, O, n_sms)
+        res = conv_resources(geo["rows"], dtype, geo["cluster"])
+        assert 0 < res["smem"] <= 232_448, (B, mp, F, O, res)
+        assert res["resident_clusters"] >= 1, (B, mp, F, O, res)
+    bench = conv_geometry(100, 976, 32, 32, n_sms)
+    assert conv_resources(bench["rows"], dtype, bench["cluster"])[
+        "resident_clusters"] >= bench["groups"]
 
 
 def test_cheby_conv_fused_gradients_through_kernels(knn203, cuda_device):
@@ -532,7 +599,8 @@ def test_bsr_host_built_operator_serves_through_kernel(city48, cuda_device,
     """An operator built on the host with the default use_pallas and
     moved to the card by compile_serving keeps the kernel route: 4 K4
     launches for K=5, no plain path on the card."""
-    op = device_laplacian(city48, fmt="bsr", dtype=torch.bfloat16)
+    op = device_laplacian(city48, fmt="bsr", dtype=torch.bfloat16,
+                          device="cpu")
     assert op.blocks.device.type == "cpu" and op.use_pallas
     assert op.col_stream
     model = NodeClassifier(op, 16, 4, hidden=[], K=5,
@@ -616,9 +684,8 @@ def _assert_kernel_close(got, want):
 @pytest.mark.parametrize("layout", ["dkw", "uniform", "ragged"])
 def test_layout_kernels_match_reference(city96, cuda_device, layout, dtype,
                                         form, C):
-    """Each layout's kernel against its window plain version and, for the
-    row walk (K1, K5), the row walk's plain version; C = 37 and (int8)
-    300 take the scalar loads."""
+    """Each layout's kernel against its window plain version and the row
+    walk's plain version; C = 37 and (int8) 300 take the scalar loads."""
     op = _layout_operator(city96, layout, dtype, cuda_device)
     x, x0, c, scale = _layout_inputs(op, C, cuda_device, C)
     args = (x, None, None) if form == "spmm" else (
@@ -631,9 +698,8 @@ def test_layout_kernels_match_reference(city96, cuda_device, layout, dtype,
     want = layout_call(dataclasses.replace(op, use_pallas=False), *args,
                        band_scale=scale)
     _assert_kernel_close(got, want)
-    if layout != "ragged":
-        _assert_kernel_close(got, _rows_reference(op, layout, *args,
-                                                  scale=scale))
+    _assert_kernel_close(got, _rows_reference(op, layout, *args,
+                                              scale=scale))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
@@ -753,7 +819,7 @@ def test_uniform_conv_gradients_through_kernel(city96, cuda_device, K):
 def test_host_built_banded_operator_takes_the_kernels(city96, cuda_device):
     """use_pallas=None on a machine with a card: the host-built ragged
     operator gets its dkw layout and, moved to the card, runs K1."""
-    op = device_laplacian(city96, fmt="banded")
+    op = device_laplacian(city96, fmt="banded", device="cpu")
     assert op.use_pallas and op.bands_dkw is not None
     op = op.to(cuda_device)
     before = banded_dkw.launches
@@ -842,7 +908,7 @@ def test_dense_int8_twin_bit_identical_on_card_and_cpu(knn203, cuda_device):
     """``QuantDenseLaplacian``: spmm_q, cheby_hop_q and a cheby_finals
     chain on the card equal the same calls on the CPU bit for bit (exact
     float64 accumulation, one f32 emission)."""
-    op = device_laplacian(knn203, fmt="dense")
+    op = device_laplacian(knn203, fmt="dense", device="cpu")
     q = quantize_dense(op, sample_x=3.0)
     qc = q.to(cuda_device)
     g = torch.Generator().manual_seed(3)

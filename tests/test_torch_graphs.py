@@ -17,6 +17,7 @@ from cnn_graph_tpu.ops import quantize_banded as jax_quantize_banded
 from cnn_graph_tpu.ops.pallas_band import pack_dkw_from_ragged as jax_dkw
 from cnn_graph_tpu_torch import graphs
 from cnn_graph_tpu_torch.ops import device_laplacian, packing, quantize_banded
+from cnn_graph_tpu_torch.ops import laplacian as port_laplacian
 
 
 def _same_sparse(a, b, tol):
@@ -85,23 +86,41 @@ class TestGraphConstruction:
 
 
 class TestDeviceLaplacianArguments:
+    @pytest.mark.parametrize("fmt", ["dense", "banded", "bsr", "auto"])
+    def test_default_device_is_the_card(self, monkeypatch, fmt):
+        """As JAX puts its operators on the accelerator, ``device=None``
+        means the CUDA device: without one it raises, naming the CPU
+        request, rather than building on the CPU; ``device="cpu"``
+        builds there."""
+        L, _ = graphs.city_graph(20, k=4, seed=0)
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            device_laplacian(L, fmt=fmt)
+        op = device_laplacian(L, fmt=fmt, device="cpu")
+        assert all(t.device.type == "cpu" for t in vars(op).values()
+                   if isinstance(t, torch.Tensor))
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        assert port_laplacian._resolve_device(None) == torch.device("cuda")
+
     @pytest.mark.parametrize("block_size", [64, (128, 64), (64, 64), 256])
     def test_banded_refuses_other_block_shapes(self, block_size):
         L, _ = graphs.city_graph(20, k=4, seed=0)
         with pytest.raises(ValueError, match="128x128"):
-            device_laplacian(L, fmt="banded", block_size=block_size)
+            device_laplacian(L, fmt="banded", block_size=block_size,
+                             device="cpu")
 
     @pytest.mark.parametrize("block_size", ["auto", 128, (128, 128)])
     def test_banded_takes_128_blocks(self, block_size):
         L, _ = graphs.city_graph(20, k=4, seed=0)
-        op = device_laplacian(L, fmt="banded", block_size=block_size)
+        op = device_laplacian(L, fmt="banded", block_size=block_size,
+                              device="cpu")
         assert op.band.shape[-2:] == (128, 128) and op.m_padded % 128 == 0
 
     def test_auto_with_other_blocks_still_goes_to_bsr(self):
         """JAX's rule: ``fmt="auto"`` with a block size other than 128
         skips the band (laplacian.py:1249-1277)."""
         L, _ = graphs.city_graph(48, k=8, seed=0)
-        op = device_laplacian(L, block_size=64)
+        op = device_laplacian(L, block_size=64, device="cpu")
         op_j = jax_device_laplacian(L, block_size=64, use_pallas=False)
         assert type(op).__name__ == type(op_j).__name__ == (
             "BlockSparseLaplacian")
@@ -109,7 +128,7 @@ class TestDeviceLaplacianArguments:
 
     def test_dense_without_rescale_is_jax_matrix(self):
         L, _ = graphs.city_graph(14, k=4, seed=0)
-        op = device_laplacian(L, fmt="dense", rescale=False)
+        op = device_laplacian(L, fmt="dense", rescale=False, device="cpu")
         op_j = jax_device_laplacian(L, fmt="dense", rescale=False)
         np.testing.assert_array_equal(op.mat.numpy(), np.asarray(op_j.mat))
         np.testing.assert_array_equal(op.mat[:196, :196].numpy(),
@@ -122,10 +141,11 @@ class TestDeviceLaplacianArguments:
         """196 nodes fall under ``dense_threshold=256``, 400 above it; the
         default threshold (2048) would take both dense."""
         L, _ = graphs.city_graph(side, k=4, seed=0)
-        op = device_laplacian(L, dense_threshold=256)
+        op = device_laplacian(L, dense_threshold=256, device="cpu")
         op_j = jax_device_laplacian(L, dense_threshold=256, use_pallas=False)
         assert type(op).__name__ == type(op_j).__name__ == want
-        assert type(device_laplacian(L)).__name__ == "DenseLaplacian"
+        op = device_laplacian(L, device="cpu")
+        assert type(op).__name__ == "DenseLaplacian"
 
 
 class TestPacking:
@@ -166,7 +186,7 @@ class TestPacking:
         G = 4
         op = device_laplacian(city96, fmt="banded",
                               dtype=getattr(torch, dtype), rows_per_step=G,
-                              use_pallas=True)
+                              use_pallas=True, device="cpu")
         op_j = jax_device_laplacian(city96, fmt="banded",
                                     dtype=getattr(jnp, dtype),
                                     use_pallas=True, rows_per_step=G)
@@ -186,7 +206,7 @@ class TestPacking:
         G = 2
         op = device_laplacian(city96, fmt="banded",
                               dtype=getattr(torch, dtype), rows_per_step=G,
-                              use_pallas=True)
+                              use_pallas=True, device="cpu")
         op_j = jax_device_laplacian(city96, fmt="banded",
                                     dtype=getattr(jnp, dtype),
                                     use_pallas=True, rows_per_step=G)

@@ -28,7 +28,7 @@ from cnn_graph_tpu.ops.laplacian import BandedLaplacian as JaxBanded
 from cnn_graph_tpu.ops.laplacian import BlockSparseLaplacian
 from cnn_graph_tpu_torch import graphs
 from cnn_graph_tpu_torch.convert import node_classifier_params_from_jax
-from cnn_graph_tpu_torch.models import NodeClassifier
+from cnn_graph_tpu_torch.models import ChebNet, NodeClassifier
 from cnn_graph_tpu_torch.models.common import quantize_model_operators
 from cnn_graph_tpu_torch.ops import (
     BandedLaplacian,
@@ -48,7 +48,7 @@ def city():
     port's with ``use_pallas`` so that its products run K1's plain
     version, as on the card."""
     L, _ = graphs.city_graph(96, k=8, seed=0)
-    op = device_laplacian(L, fmt="auto", use_pallas=True)
+    op = device_laplacian(L, fmt="auto", use_pallas=True, device="cpu")
     op_j = jax_device_laplacian(L, fmt="auto")
     rng = np.random.default_rng(11)
     feats = rng.normal(size=(op.m, FIN)).astype(np.float32)
@@ -117,7 +117,7 @@ class TestFloatSlice:
 
     def test_dense_conv_matches_jax(self):
         L, _ = graphs.city_graph(30, k=8, seed=2)  # 900 nodes: auto -> dense
-        op = device_laplacian(L)
+        op = device_laplacian(L, device="cpu")
         op_j = jax_device_laplacian(L)
         assert isinstance(op, DenseLaplacian)
         rng = np.random.default_rng(12)
@@ -210,7 +210,7 @@ class TestGuards:
     def test_unported_formats_raise(self, fmt):
         L, _ = graphs.city_graph(20, k=4, seed=0)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            device_laplacian(L, fmt=fmt)
+            device_laplacian(L, fmt=fmt, device="cpu")
 
     def test_auto_landing_on_bsr_builds_bsr(self):
         """A scattered (un-reordered) graph too wide for the band and over
@@ -222,14 +222,39 @@ class TestGuards:
         assert isinstance(
             jax_device_laplacian(L, use_pallas=False, dense_budget=1 << 20),
             BlockSparseLaplacian)
-        op = device_laplacian(L, dense_budget=1 << 20)
+        op = device_laplacian(L, dense_budget=1 << 20, device="cpu")
         assert type(op).__name__ == "BlockSparseLaplacian"
+
+    @pytest.mark.parametrize("model", ["node_classifier", "chebnet"])
+    def test_models_follow_the_operator_device(self, model):
+        """``device=None``: the weights live where the operator does (an
+        operator on the meta device gives meta weights), drawn on the CPU
+        from the caller's generator and moved, so that one seed gives the
+        same weights on every device."""
+        L, _ = graphs.city_graph(12, k=4, seed=0)
+
+        def build(dev, **kw):
+            op = device_laplacian(L, fmt="dense", device=dev)
+            gen = torch.Generator().manual_seed(3)
+            if model == "chebnet":
+                return ChebNet([op], F=[4], K=[3], p=[1], M=[5],
+                               generator=gen, **kw)
+            return NodeClassifier(op, 4, 2, hidden=[3], K=3, generator=gen,
+                                  **kw)
+
+        meta = build("meta")
+        assert {p.device.type for p in meta.parameters()} == {"meta"}
+        cpu, asked = build("cpu"), build("meta", device="cpu")
+        assert {p.device.type for p in cpu.parameters()} == {"cpu"}
+        for a, b in zip(cpu.parameters(), asked.parameters()):
+            assert torch.equal(a, b)
 
     def test_quantize_unported_format_raises(self):
         """The dense operator, once without a twin, quantizes now; an
         operator of a format with no twin still raises."""
         L, _ = graphs.city_graph(20, k=4, seed=0)
-        model = NodeClassifier(device_laplacian(L), 4, 2, hidden=[], K=2)
+        model = NodeClassifier(device_laplacian(L, device="cpu"), 4, 2,
+                               hidden=[], K=2)
         assert type(quantize_model_operators(model).op).__name__ == (
             "QuantDenseLaplacian")
         model.op = types.SimpleNamespace(m=L.shape[0])

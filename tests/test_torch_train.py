@@ -49,7 +49,8 @@ def city():
     """The 96-side city graph (9,216 nodes) as both packages' f32 banded
     operators, and node data from a NumPy seed."""
     L, _ = graphs.city_graph(96, k=8, seed=0)
-    op = device_laplacian(L, fmt="banded", rows_per_step=G, use_pallas=True)
+    op = device_laplacian(L, fmt="banded", rows_per_step=G, use_pallas=True,
+                          device="cpu")
     op_j = jax_device_laplacian(L, fmt="banded", dtype=jnp.float32,
                                 use_pallas=False, rows_per_step=G)
     rng = np.random.default_rng(21)
