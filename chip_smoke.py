@@ -9,15 +9,16 @@ Phases, each fatal on failure (no CPU path, no fallback):
    walk over the band's nonzeros row by row, for K1 on the deep-K-window
    layout, K5 on the uniform band and K6 on the flat ragged band), the
    fused Chebyshev kernels (csrc/cheby_fused.cu: ``cheby_conv_kernel``,
-   K2, and ``cheby_dw_kernel``, K3),
+   one template whose tap is K2's conv or K3's weight gradient, each in
+   2- and 3-stage rings),
    the BSR operators' row-sparse gather kernel (csrc/bsr.cu,
    ``bsr_rows_kernel``, launched as K4 by ``bsr_colstream`` and as
    K7/K8/K9 by ``bsr_csr``; it shares csrc/rows.cuh with
    ``band_rows_kernel``) and the probes P1-P3 (csrc/probes.cu) from
    source, one nvcc each, started together; print each kernel's
    registers and shared memory, and the tensor-core instructions
-   (``HMMA``/``HGMMA``) in K2's SASS (``cuobjdump -sass``), which its
-   bf16 instantiations must hold;
+   (``HMMA``/``HGMMA``) in K2's and K3's SASS (``cuobjdump -sass``),
+   which their bf16 instantiations must hold;
 3. hold the banded kernel K1 against both its plain PyTorch versions,
    the window product (``banded_dkw_reference``) and the row walk
    (``banded_rows_reference``), on the real 50,176-node serving operator
@@ -46,14 +47,15 @@ Phases, each fatal on failure (no CPU path, no fallback):
    with CUDA events after a warm-up;
 7. hold the fused kernels K2 (the conv) and K3 (its weight gradient)
    against their plain versions at the bench's dense_fused shape (x and
-   g [100, 976, 32], w [25, 32, 32] on the 976-node level-0 operator) in
-   f32 (1e-4 of the largest value) and bf16 (1e-2), and K2 also at
-   ChebNet layer 1's forward shape (x [100, 244, 32], w [25, 32, 64])
-   and dx shape (g [100, 244, 64], W^T [25, 64, 32]) in both; time K2
-   by device work (``device_ms``) beside its bound and K3 with CUDA
-   events; print K2's geometry, one CTA's shared memory and how many
-   clusters the card holds at once (``conv_resources``), and fail unless
-   the ring fits in 232,448 bytes and one cluster fits;
+   g [100, 976, 32], w [25, 32, 32] on the 976-node level-0 operator)
+   and ChebNet layer 1's shape (x [100, 244, 32], w [25, 32, 64], g
+   [100, 244, 64]) in f32 (1e-4 of the largest value) and bf16 (1e-2),
+   and K2 also at layer 1's dx shape (g [100, 244, 64], W^T [25, 64,
+   32]); time both by device work (``device_ms``) beside their bounds,
+   and K3's fold of its per-rank partials alone; print each geometry,
+   one CTA's shared memory and how many clusters the card holds at once
+   (``conv_resources``), and fail unless the ring fits in 232,448 bytes
+   and one cluster fits;
 8. serve the paper's ChebNet (MNIST grid, F=[32, 64], K=[25, 25], p=[4,
    4], M=[512, 10]; nips2016/mnist.ipynb cells 14-17) on its coarsened
    operators through compile_serving: 4 requests of 100 synthetic digits,
@@ -140,8 +142,9 @@ Phases, each fatal on failure (no CPU path, no fallback):
    activities); print the device time per request or step, its share
    of the measured time, the largest device kernels and aten ops, and
    for training the device time by part (K1, K5 or K4 by form, taps,
-   dW, injections, casts, adam; K2 forward, K2 dx, K3, the stacked basis
-   of ChebNet's layer 0, fc, adam); write each ``key_averages()`` table
+   dW, injections, casts, adam; K2 forward, K2 dx, K3, K3's fold, the
+   stacked basis of ChebNet's layer 0, fc, adam); write each
+   ``key_averages()`` table
    to ``DIR/profile_<mode>.txt``;
 18. the probes (utils/probes.py, csrc/probes.cu): hold P1 (``mxu_probe``)
    at every geometry of experiments/_probe.py main_mxu, P2
@@ -173,6 +176,7 @@ import copy
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -228,6 +232,10 @@ from cnn_graph_tpu_torch.ops import (  # noqa: E402
     quantize_block_sparse,
 )
 from cnn_graph_tpu_torch.ops.band import layout_call  # noqa: E402
+from cnn_graph_tpu_torch.ops.cheby import (  # noqa: E402
+    _fold_dw_partials,
+    _launch_dw,
+)
 from cnn_graph_tpu_torch.serve import compile_serving  # noqa: E402
 from cnn_graph_tpu_torch.train import (  # noqa: E402
     train_classifier,
@@ -889,9 +897,9 @@ def chebnet_profile_phase(run, step_ms: float, out_dir: str, gpu: str,
                           n: int = 2):
     """Device-time breakdown of ``n`` f32 ChebNet training steps.  Each
     step launches K2 for the forward, then K2 for dx, then K3, so the
-    K2 spans alternate forward and dx.  The fused conv's layout copies
-    are its ranges' aten kernels, to which the ctypes kernels are not
-    linked."""
+    K2 spans alternate forward and dx.  K3's fold and the fused conv's
+    layout copies are their ranges' aten kernels, to which the ctypes
+    kernels are not linked."""
     os.makedirs(out_dir, exist_ok=True)
     run(1)
     avg, prof = _trace(lambda: run(1), n, out_dir, "chebnet_train_f32")
@@ -905,13 +913,16 @@ def chebnet_profile_phase(run, step_ms: float, out_dir: str, gpu: str,
         return sum(events[k].device_time_total for k in keys
                    if k in events) / n / 1e3
 
+    fold = cpu_ms("cheby_fused.K3.fold")
     parts = (
         ("K2 forward", sum(k2[0::2]) / n),
         ("K2 dx", sum(k2[1::2]) / n),
         ("K3 dW", sum(_spans_ms(prof, "cheby_fused.K3")) / n),
+        ("K3 fold", fold),
+        # The conv's ranges hold the fold's range: counted once, above.
         ("K2/K3 layout copies", cpu_ms("cheby_conv_fused.forward",
                                        "cheby_conv_fused.dx",
-                                       "cheby_conv_fused.dW")),
+                                       "cheby_conv_fused.dW") - fold),
         ("layer 0 stacked basis", cpu_ms("cheby_conv.stacked")),
         ("fc forward", cpu_ms("fc")),
         ("adam", cpu_ms("Optimizer.step#Adam.step")),
@@ -1067,14 +1078,35 @@ K2_SHAPES = {"bench": (CHEB_B, 0, 32, 32), "layer1": (CHEB_B, 2, 32, 64),
              "dx": (CHEB_B, 2, 64, 32)}
 
 
+# The shapes at which K3 is held and timed: the bench's (x and g [100,
+# 976, 32]) and ChebNet layer 1's (x [100, 244, 32], g [100, 244, 64]).
+K3_SHAPES = ("bench", "layer1")
+
+
+def _fitted_geometry(kernel: str, lab: str, shape: str, B: int, op, F: int,
+                     O: int) -> dict:
+    """``kernel``'s geometry at a shape, with one CTA's shared memory and
+    the clusters the card holds at once; fails unless it fits."""
+    dev = op.mat.device
+    geo = conv_geometry(B, op.m_padded, F, O,
+                        torch.cuda.get_device_properties(
+                            dev).multi_processor_count)
+    geo.update(conv_resources(geo["rows"], op.mat.dtype, geo["cluster"],
+                              kernel))
+    check(0 < geo["smem"] <= 232_448 and geo["resident_clusters"] >= 1,
+          f"{kernel} {lab} {shape}: {geo} does not fit the card")
+    return geo
+
+
 def cheby_kernel_phase(Ls, dev, gen: torch.Generator) -> dict:
     """K2 against its plain version at the bench's dense_fused shape,
     ChebNet layer 1's forward shape and its dx shape, and K3 at the bench
-    shape, in f32 and bf16.  K2 is timed by device work (``device_ms``),
-    K3 by ``cuda_ms``.  Tolerances, of the largest plain entry: f32 1e-4,
-    the same products summed in another order through 24 hops; bf16
-    1e-2, a carry next to a bf16 rounding boundary may round one ulp
-    (2^-8) apart and later hops carry that along."""
+    and layer-1 shapes, in f32 and bf16, all timed by device work
+    (``device_ms``), and K3's fold of its partials alone.  Tolerances, of
+    the largest plain entry: f32 1e-4, the same products summed in
+    another order through 24 hops; bf16 1e-2, a carry next to a bf16
+    rounding boundary may round one ulp (2^-8) apart and later hops carry
+    that along."""
     rec = {}
     for lab, dt in DTYPES.items():
         tol = 1e-4 if lab == "f32" else 1e-2
@@ -1084,27 +1116,31 @@ def cheby_kernel_phase(Ls, dev, gen: torch.Generator) -> dict:
             x = torch.randn(B, op.m, F, generator=gen, device=dev)
             w = 0.05 * torch.randn(CHEB["K"][0], F, O, generator=gen,
                                    device=dev)
+            K_ = w.shape[0]
+            # K3's operands (x, g; dW) have K2's sizes (x, w; y): one bound.
+            bound = dense_cheby_bound(op, B, F, O, K_)
             rec[f"{lab}_{shape}"] = {
                 **_kernel_vs_plain(
                     lambda: fused_filter(x, op, w),
                     lambda: cheby_conv_fused_reference(x, op, w), tol,
                     f"K2 {lab} {shape}", timer=device_ms),
-                "bound": dense_cheby_bound(op, B, F, O, w.shape[0]),
-                "geometry": conv_geometry(B, op.m_padded, F, O,
-                                          torch.cuda.get_device_properties(
-                                              dev).multi_processor_count)}
-            geo = rec[f"{lab}_{shape}"]["geometry"]
-            geo.update(conv_resources(geo["rows"], dt, geo["cluster"]))
-            check(0 < geo["smem"] <= 232_448 and geo["resident_clusters"] >= 1,
-                  f"K2 {lab} {shape}: {geo} does not fit the card")
-            if shape == "bench":
-                g = torch.randn(B, op.m, F, generator=gen, device=dev)
-                # K3's operands (x, g; dW) have K2's sizes (x, w; y).
-                rec[lab + "_bound"] = rec[f"{lab}_{shape}"]["bound"]
-                rec[lab + "_K3"] = _kernel_vs_plain(
-                    lambda: cheby_dw_fused(x, op, g, w.shape[0]),
-                    lambda: cheby_dw_fused_reference(x, op, g, w.shape[0]),
-                    tol, f"K3 {lab}")
+                "bound": bound,
+                "geometry": _fitted_geometry("K2", lab, shape, B, op, F, O)}
+            if shape not in K3_SHAPES:
+                continue
+            g = torch.randn(B, op.m, O, generator=gen, device=dev)
+            parts = _launch_dw(op, x, g, K_)
+            rec[f"{lab}_{shape}_K3"] = {
+                **_kernel_vs_plain(
+                    lambda: cheby_dw_fused(x, op, g, K_),
+                    lambda: cheby_dw_fused_reference(x, op, g, K_), tol,
+                    f"K3 {lab} {shape}", timer=device_ms),
+                "bound": bound,
+                "fold_ms": device_ms(
+                    lambda: _fold_dw_partials(parts, op.compute_dtype), 10),
+                "parts_mb": parts.numel() * 4 / 1e6,
+                "geometry": _fitted_geometry("K3", lab, shape, B, op, F, O)}
+            del parts
     return rec
 
 
@@ -1590,25 +1626,33 @@ def probe_time_phase(errs: dict, gpu: str) -> list:
     return rows
 
 
-def k2_tensor_core_ops(lib) -> dict:
+# cheby_conv_kernel<T, BM, kStages, kTap>'s mangled template arguments.
+_CHEBY_INSTANCE = re.compile(
+    r"cheby_conv_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)ELi(\d+)EE")
+
+
+def cheby_tensor_core_ops(lib) -> dict:
     """The tensor-core instructions (``HMMA``, ``HGMMA``) in the SASS of
-    each instantiation of K2 (``cheby_conv_kernel``) in the built
-    library, by ``cuobjdump -sass``; fails unless every bf16 one has
-    some."""
+    each instantiation of ``cheby_conv_kernel`` (K2's tap and K3's, 64-
+    and 128-row tiles, 2- and 3-stage rings) in the built library, by
+    ``cuobjdump -sass``; fails unless all 16 are there and every bf16 one
+    has some."""
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True, check=True, timeout=120).stdout
     found = {}
     for block in sass.split("Function : ")[1:]:
         name, body = block.split("\n", 1)
-        if "cheby_conv_kernel" in name:
-            dt = "bf16" if "__nv_bfloat16" in name else "f32"
-            rows = "128" if "Li128E" in name else "64"
-            found[f"cheby_conv_kernel<{dt}, {rows}>"] = (
+        m = _CHEBY_INSTANCE.search(name)
+        if m:
+            dt = "f32" if m[1] == "f" else "bf16"
+            tap = ("K2", "K3")[int(m[4])]
+            found[f"cheby_conv_kernel<{dt}, {m[2]}, {m[3]}, {tap}>"] = (
                 body.count("HMMA") + body.count("HGMMA"))
     bf16 = [n for k, n in found.items() if "bf16" in k]
-    check(len(bf16) == 2 and all(n > 0 for n in bf16),
-          f"K2's bf16 SASS holds no tensor-core instruction: {found}")
+    check(len(found) == 16 and all(n > 0 for n in bf16),
+          f"cheby_conv_kernel's bf16 SASS holds no tensor-core instruction, "
+          f"or an instantiation is missing: {found}")
     return found
 
 
@@ -1637,7 +1681,7 @@ def main() -> int:
             if ("registers" in line or "Compiling entry" in line
                     or "spill" in line):
                 print(f"  ptxas {name}: {line.strip()}")
-    for kernel, n in k2_tensor_core_ops(logs["cheby_fused"][0]).items():
+    for kernel, n in cheby_tensor_core_ops(logs["cheby_fused"][0]).items():
         print(f"  sass cheby_fused: {kernel}: {n} HMMA/HGMMA")
 
     t0 = time.perf_counter()
@@ -1719,25 +1763,33 @@ def main() -> int:
     print(f"mnist graph: levels {[L.shape[0] for L in Ls]} nodes, set-up "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     kchecks = cheby_kernel_phase(Ls, dev, gen)
+
+    def kernel_line(r):
+        geo = r["geometry"]
+        return (f"max_abs_err {r['max_abs_err']:.3g} (of max "
+                f"{r['scale']:.3g}), {r['ms']:.4f} ms (plain "
+                f"{r['plain_ms']:.4f} ms; bound "
+                f"{r['bound']['bound_us'] / 1e3:.4f} ms "
+                f"{r['bound']['bound_by']}); {geo['groups']} clusters of "
+                f"{geo['cluster']} CTAs, {geo['rows']}-row tiles, "
+                f"{geo['smem']} B shared memory, "
+                f"{geo['resident_clusters']} clusters at once")
+
     for lab in DTYPES:
         for shape, (B, lvl, F, O) in K2_SHAPES.items():
-            r = kchecks[f"{lab}_{shape}"]
-            geo = r["geometry"]
-            print(f"kernel K2 {lab} {shape} x [{B}, {Ls[lvl].shape[0]}, {F}] "
-                  f"w [{CHEB['K'][0]}, {F}, {O}]: max_abs_err "
-                  f"{r['max_abs_err']:.3g} (of max {r['scale']:.3g}), "
-                  f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms; bound "
-                  f"{r['bound']['bound_us'] / 1e3:.4f} ms "
-                  f"{r['bound']['bound_by']}); {geo['groups']} clusters of "
-                  f"{geo['cluster']} CTAs, {geo['rows']}-row tiles, "
-                  f"{geo['smem']} B shared memory, "
-                  f"{geo['resident_clusters']} clusters at once [{gpu}]",
+            m = Ls[lvl].shape[0]
+            print(f"kernel K2 {lab} {shape} x [{B}, {m}, {F}] "
+                  f"w [{CHEB['K'][0]}, {F}, {O}]: "
+                  f"{kernel_line(kchecks[f'{lab}_{shape}'])} [{gpu}]",
                   flush=True)
-        r = kchecks[lab + "_K3"]
-        print(f"kernel K3 {lab} [100, 976, 32] K=25: max_abs_err "
-              f"{r['max_abs_err']:.3g} (of max {r['scale']:.3g}), "
-              f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms) [{gpu}]",
-              flush=True)
+            if shape in K3_SHAPES:
+                r = kchecks[f"{lab}_{shape}_K3"]
+                print(f"kernel K3 {lab} {shape} x [{B}, {m}, {F}] g [{B}, "
+                      f"{m}, {O}] K={CHEB['K'][0]}: {kernel_line(r)}; fold "
+                      f"of {r['parts_mb']:.1f} MB of partials "
+                      f"{r['fold_ms']:.4f} ms ("
+                      f"{100 * r['fold_ms'] / r['ms']:.1f}% of K3) [{gpu}]",
+                      flush=True)
 
     # Phases 8 and 9: the paper's ChebNet served and trained, its
     # operators in f32 (the paper's) and in bf16.
@@ -2161,7 +2213,7 @@ def main() -> int:
         for lab in ("int8", "bf16")
     ] + [
         {"name": f"cheby_conv_fused_{lab}", "route": "cuda",
-         "source": CHEB_SOURCE, "kernel": "cheby_conv_kernel",
+         "source": CHEB_SOURCE, "kernel": "cheby_conv_kernel<kConvTap>",
          "replaces": CHEB_REPLACES["K2"],
          "launches": (cheb[lab]["serve"]["launches"][0]
                       + cheb[lab]["train"]["launches"][0]),
@@ -2181,13 +2233,19 @@ def main() -> int:
         for lab in DTYPES
     ] + [
         {"name": f"cheby_dw_fused_{lab}", "route": "cuda",
-         "source": CHEB_SOURCE, "kernel": "cheby_dw_kernel",
+         "source": CHEB_SOURCE, "kernel": "cheby_conv_kernel<kDwTap>",
          "replaces": CHEB_REPLACES["K3"],
          "launches": cheb[lab]["train"]["launches"][1],
-         "max_abs_err": kchecks[lab + "_K3"]["max_abs_err"],
-         "ms": kchecks[lab + "_K3"]["ms"],
-         "plain_ms": kchecks[lab + "_K3"]["plain_ms"],
-         **bound_keys(kchecks[lab + "_bound"]), "library_ms": None}
+         "max_abs_err": kchecks[f"{lab}_bench_K3"]["max_abs_err"],
+         "ms": kchecks[f"{lab}_bench_K3"]["ms"],
+         "plain_ms": kchecks[f"{lab}_bench_K3"]["plain_ms"],
+         **bound_keys(kchecks[f"{lab}_bench_K3"]["bound"]),
+         "library_ms": None,
+         "fold_ms": kchecks[f"{lab}_bench_K3"]["fold_ms"],
+         **{f"layer1_{k}": kchecks[f"{lab}_layer1_K3"][k]
+            for k in ("ms", "plain_ms", "max_abs_err", "fold_ms")},
+         "layer1_bound_ms": kchecks[f"{lab}_layer1_K3"]["bound"][
+             "bound_us"] / 1e3}
         for lab in DTYPES
     ] + [
         {"name": f"{BSR_KERNEL}_K4_{lab}", "route": "cuda",

@@ -1,12 +1,14 @@
 // Fused dense Chebyshev convolution (K2) and its weight gradient (K3), for
-// Hopper (sm_90a).
+// Hopper (sm_90a): one kernel template, cheby_conv_kernel, whose tap kind
+// (kConvTap or kDwTap) is a template parameter.
 //
 // Replaces the TPU kernels cnn_graph_tpu/ops/pallas_cheby.py:_kernel (K2,
 // reached through cheby_conv_fused) and :_dw_kernel (K3, cheby_dw_fused):
 //   K2:  y[:, b*O + o]  = sum_k (T_k(L) x)[:, b*F + f] W_k[f, o]
-//   K3:  out[cta, k, f, s*O + o] = sum_m (T_k(L) x)[m, b*F + f] g[m, b*O + o]
-//        for the CTA's samples b = cta*S + s; the wrapper folds CTAs and
-//        samples with a plain sum, as the JAX package folds its tiles.
+//   K3:  parts[grp, rank, k, s, o, f] = sum_{m in the CTA's rows}
+//            g[m, b*O + o] (T_k(L) x)[m, b*F + f],  b = grp*S + s;
+//        the wrapper folds ranks, then samples and groups, with plain
+//        sums, as the JAX package folds its tiles.
 // with T_0 = x, T_1 = L x, T_k = 2 L T_{k-1} - T_{k-2}.  Columns are
 // batch-major (c = b*F + f), so a sample's F columns are contiguous.
 //
@@ -15,8 +17,7 @@
 // the operands of each product to bfloat16 and accumulates in float32.
 // float32 operators take every value as it is.
 //
-// ----------------------------------------------------------------- K2
-// cheby_conv_kernel.  The columns of the recurrence are independent, so
+// The recurrence, shared by both taps.  The columns are independent, so
 // the wrapper cuts them into column groups of S = 128 / F whole samples
 // (128 columns at F = 32 or 64), laid out as [G, mp, np] (np = S*F rounded
 // up to 8, pad columns zero).  One thread-block cluster owns a group and
@@ -26,63 +27,68 @@
 // T_k) is the cluster barrier: each thread writes its rows of T_k, fences,
 // arrives (barrier.cluster.arrive.release), runs its tap, and waits
 // (barrier.cluster.wait.acquire) before hop k+1.  No grid-wide sync and
-// no atomics; one launch.  The carries live in a scratch the wrapper
+// no atomics; one launch.  The carries live in buffers the wrapper
 // allocates, [G, 2, mp, np] float32 (T_k overwrites T_{k-2}, each element
 // read and written by one thread) and, for bfloat16, a second [G, 2, mp,
 // np] bfloat16 copy written once per hop beside the float32 one: the next
 // hop's and the tap's operand, rounded once as the TPU's src.astype(cdt).
-// A float32 operator keeps a transposed copy instead, [G, 2, np, mp], the
-// tap's A^T.  The carries of a group (1.9 MB at the bench shape) stay in
-// the 50 MB L2.
+// A float32 K2 keeps a transposed copy instead, [G, 2, np, mp], its tap's
+// A^T; a float32 K3 needs no copy (its tap reads the carry as it is).  The
+// carries of a group (1.9 MB at the bench shape) stay in the 50 MB L2.
 //
-// Every product (the hop L[rows] @ T_{k-1}[:, 128-column pass], and the
-// tap T_k[rows] @ Wbd_k, Wbd_k the wrapper's block-diagonal [np, S*O]
-// expansion of W_k, so that the S samples tap in one product; a
-// 128-column pass of it contracts over its own samples' rows only) is one
-// CTA tile GEMM (gemm) with a ring of kStages stages of kChunkBytes-deep A
-// and B chunks, loaded with 16-byte cp.async.cg (zero-filled past the
-// edges), one __syncthreads per chunk.  bfloat16 operands run
+// The taps, after hop k, over the CTA's own rows of T_k:
+//   K2: T_k[rows] @ Wbd_k, Wbd_k the wrapper's block-diagonal [np, S*O]
+// expansion of W_k, so that the S samples tap in one product; a 128-column
+// pass of it contracts over its own samples' rows only; added into y.
+//   K3: g[rows, S*O columns] and T_k[rows, np columns] contracted over
+// the CTA's rows (tiles_per_cta * BM, clipped to mp); the product's S
+// diagonal [O, F] blocks are dW_k^T's partials over those rows, written
+// to parts[G, CL, K, S, O, F] float32 (the off-diagonal blocks are
+// computed and dropped, as K2's tap computes its block-diagonal zeros).
+// bfloat16 computes P_k = g^T T_k [S*O, np], from the wrapper's rounded
+// transpose of g [G, nop, mp] (gemm's bf16 A is row-major) and the
+// rounded carry copy; float32 computes P_k^T = T_k^T g [np, S*O], its A^T
+// the f32 carry as it is and B g [G, mp, nop], so it copies nothing, and
+// its rows run over F (ChebNet's layer 1, F = 32 < O = 64: half P_k's
+// passes).  Row passes of BM rows take the columns of their own samples
+// only.  The wrapper sums the ranks in float32, rounds each (sample, hop)
+// sum to the operator's dtype (the TPU's (P * diag_mask).astype(cdt),
+// over all the nodes), then sums samples and groups.  No atomics: the
+// result is the same run to run.
+//
+// Every product (the hop L[rows] @ T_{k-1}[:, 128-column pass], and either
+// tap) is one CTA tile GEMM (gemm) with a ring of kStages stages of
+// kChunkBytes-deep A and B chunks, loaded with 16-byte cp.async.cg
+// (zero-filled past the edges), one __syncthreads per chunk.  The library
+// holds 2- and 3-stage rings of every kernel (tools/ring_depth.py times
+// them); the wrappers launch one.  bfloat16 operands run
 // mma.sync.m16n8k16 bf16 x bf16 -> f32 from ldmatrix fragments, 8 warps
 // as 2 x 4 of (BM/2) x 32.  float32 operands run IEEE FMA, an 8 x 8
 // register tile per thread (4 x 8 at BM = 64) from float4 reads of A^T
 // and B: the hop's A^T is L^T, which the wrapper passes in place of L
-// (so the kernel takes any L, as the TPU kernel does), the tap's the
-// transposed carry.  Split TF32 (three mma.sync.m16n8k8 per product) held
-// K2 to 2e-6 of the plain version's max but moved ChebNet's f32 training
-// gradients by 1.15e-3 of their max, past chip_smoke.py's 1e-3; FMA in
-// the plain version's summation order matches it exactly, so f32 stays
-// on FMA.  Two CTAs per SM (__launch_bounds__, 128 registers), so that
-// the bench shape's 25 clusters of 8 fit at once (cheby_conv_resident_
-// clusters; chip_smoke.py phase 7 prints it).
+// (so the kernel takes any L, as the TPU kernel does).  Split TF32 (three
+// mma.sync.m16n8k8 per product) held K2 to 2e-6 of the plain version's
+// max but moved ChebNet's f32 training gradients by 1.15e-3 of their max,
+// past chip_smoke.py's 1e-3; FMA in the plain version's summation order
+// matches it exactly, so f32 stays on FMA.  Two CTAs per SM
+// (__launch_bounds__, 128 registers), so that the bench shape's 25
+// clusters of 8 fit at once (cheby_resident_clusters; chip_smoke.py
+// phase 7 prints it).
 //
 // Bounds at the bench's dense_fused shape (976 nodes, B = 100, F = O =
 // 32, K = 25): the hops are 146 GFLOP, the taps 5 GFLOP (20 GFLOP with
-// the block-diagonal taps): 0.153 ms of bf16 tensor-core time, 2.26 ms of
-// float32 FMA time; the bytes (L, x, W, y once) are far less.  The
-// design's own limits: 25 groups x 8 CTAs = 200 CTAs of one 128 x 128
-// tile each on 132 SMs, so 68 SMs run two and the rest one; and each CTA
-// streams its L rows (250 KB bf16) and the group's carry (250 KB) from
-// L2 once per hop, 2.4 GB over the call (4.8 GB in f32).  Measured by
-// chip_smoke.py phase 7 on an H100 SXM at 700 W: bf16 1.65 ms (9% of its
-// bound; the first design took 25.56), f32 5.98 ms (38% of its bound;
-// the SMs that run two CTAs do 870M FMA each, 57% of the data sheet's
-// per-SM FMA rate; the first design took 15.57, torch's f32 matmul chain
-// 5.23).  Left for later:
-// sharing each carry chunk across the cluster (TMA multicast) instead of
-// 8 L2 reads, and the block-diagonal waste inside a tap pass (4x at the
-// bench shape).
-//
-// ----------------------------------------------------------------- K3
-// cheby_dw_kernel, the earlier design, to be moved onto K2's: one CTA owns
-// the columns of S whole samples (tc = S*F, S = max(1, 32 / F)) and runs
-// all K hops itself, with __syncthreads() between a hop and the next; the
-// carries live in a per-CTA scratch [n_ctas, 2, mp, tc] f32; every product
-// is one register-tiled FMA GEMM (gemm_tile: a 256-thread CTA covers a
-// (4096/BN) x BN output tile, 4 x 4 per thread, 16-deep chunks staged in
-// shared memory with the next chunk prefetched into registers).  A
-// bfloat16 operator rounds the carry and g when loaded; each (CTA, sample,
-// hop) partial is rounded to bfloat16 once, as the TPU kernel rounds P *
-// diag_mask before its fold.
+// the block-diagonal waste, in either tap): 0.153 ms of bf16 tensor-core
+// time, 2.26 ms of float32 FMA time; the bytes (L, x, W or g, y or dW
+// once) are far less.  The design's own limits: 25 groups x 8 CTAs = 200
+// CTAs of one 128 x 128 tile each on 132 SMs, so 68 SMs run two and the
+// rest one; and each CTA streams its L rows (250 KB bf16) and the group's
+// carry (250 KB) from L2 once per hop, 2.4 GB over the call (4.8 GB in
+// f32).  K2 measured by chip_smoke.py phase 7 on an H100 SXM at 700 W:
+// bf16 1.65 ms (9% of its bound; the first design took 25.56), f32 5.98
+// ms (38% of its bound; the first design took 15.57, torch's f32 matmul
+// chain 5.23); K3's times are in PERF.md.  Left for later: sharing each
+// carry chunk across the cluster (TMA multicast) instead of 8 L2 reads,
+// and the block-diagonal waste inside a tap pass (4x at the bench shape).
 //
 // Build without --use_fast_math: the rounding above is IEEE.
 
@@ -95,10 +101,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-
-// ================================================================== K2
-
-constexpr int kStages = 3;
 constexpr int kMinBlocks = 2;  // CTAs per SM (__launch_bounds__)
 constexpr int kCols = 128;     // columns of a CTA tile (B chunk width)
 // Contraction depth of a stage, in bytes (a multiple of 32: whole bf16
@@ -107,6 +109,9 @@ constexpr int kChunkBytes = 128;
 constexpr int kAPitch = kChunkBytes + 16;  // A row in shared memory, bytes
 constexpr int kBLd = kCols + 8;  // B row in shared memory, elements
 constexpr int kMaxCluster = 8;
+
+// The tap kinds, the kernel's last template parameter.
+enum : int { kConvTap = 0, kDwTap = 1 };
 
 template <typename T>
 constexpr int kDepth = kChunkBytes / (int)sizeof(T);
@@ -120,17 +125,24 @@ constexpr int kABytes = std::is_same<T, float>::value
                             : BM * kAPitch;
 template <typename T, int BM>
 constexpr int kStageBytes = kABytes<T, BM> + kChunkBytes * kBLd;
-template <typename T, int BM>
-constexpr int kSmem = kStages * kStageBytes<T, BM>;  // dynamic, per CTA
+template <typename T, int BM, int kStages>
+constexpr int kRingBytes = kStages * kStageBytes<T, BM>;  // dynamic, per CTA
 
 struct ConvArgs {
   const void* L;   // [mp, mp]: bf16 L, or f32 L^T (the hop's A^T)
   const float* x;  // [G, mp, np]: T_0 per column group
-  const void* xc;  // bf16: [G, mp, np], T_0 rounded; f32: [G, np, mp], T_0^T
-  const void* w;   // [K, np, nop]: block-diagonal tap weights, compute dtype
-  float* y;        // [G, mp, nop]
+  // T_0 in the compute dtype: bf16 [G, mp, np] rounded; f32 K2 [G, np, mp]
+  // transposed; unused by f32 K3.
+  const void* xc;
+  // The tap's other operand, compute dtype.  K2: [K, np, nop]
+  // block-diagonal tap weights.  K3: g, bf16 [G, nop, mp] rounded and
+  // transposed, or f32 [G, mp, nop].
+  const void* tap;
+  float* out;      // K2: y [G, mp, nop]; K3: parts [G, CL, K, S, O, F]
   float* carry;    // [G, 2, mp, np]
-  void* carryc;    // bf16: [G, 2, mp, np] rounded; f32: [G, 2, np, mp], T^T
+  // bf16: [G, 2, mp, np] rounded; f32 K2: [G, 2, np, mp], T^T; f32 K3:
+  // unused.
+  void* carryc;
   int mp, K, np, nop, tiles_per_cta;
   int S, F, O;  // samples per group, their input and output widths
 };
@@ -209,11 +221,12 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
 // accumulated by FMA from float4 reads of A^T and B: FMA_ACC((rq*4 + i)*8
 // + cq*4 + j).
 // Ends with every copy landed and __syncthreads().
-template <typename T, int BM>
+template <typename T, int BM, int kStages>
 __device__ __forceinline__ void gemm(const T* A, int lda, int a_rows,
                                      const T* B, int ldb, int b_cols, int Kd,
                                      unsigned char* smem,
                                      float (&acc)[BM / 32][4][4]) {
+  static_assert(kStages >= 2, "the ring overlaps one load with compute");
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   constexpr int kBK = kDepth<T>;
   constexpr int kVec = 16 / (int)sizeof(T);  // elements per 16-byte copy
@@ -395,20 +408,159 @@ __device__ __forceinline__ void for_blocks(float (&acc)[BM / 32][4][4],
     }
 }
 
-template <typename T, int BM>
+// Visit each element of a gemm tile: f(row, col, v), tile-relative.
+template <typename T, int BM, typename Fn>
+__device__ __forceinline__ void for_each(float (&acc)[BM / 32][4][4], Fn f) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    for_pairs<BM>(acc, [&](int r, int c, float v0, float v1) {
+      f(r, c, v0);
+      f(r, c + 1, v1);
+    });
+  } else {
+    for_blocks<BM>(acc, [&](int r, int c, float (&v)[4][4]) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) f(r + i, c + j, v[i][j]);
+    });
+  }
+}
+
+// K2's tap after hop k: y[rows, s*O + o] += T_k[rows, s*F + f] W_k[f, o]
+// for the group's samples s, one product with the block-diagonal W_k.  tk
+// is T_k (bf16) or T_k^T (f32); y the group's [mp, nop].
+template <typename T, int BM, int kStages>
+__device__ __forceinline__ void conv_tap(const ConvArgs& a, int k,
+                                         const T* tk, float* y, int t0,
+                                         int t1, unsigned char* smem,
+                                         float (&acc)[BM / 32][4][4]) {
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  const int mp = a.mp, np = a.np, nop = a.nop;
+  const T* wk = static_cast<const T*>(a.tap) + (size_t)k * np * nop;
+  for (int tile = t0; tile < t1; ++tile) {
+    const int row0 = tile * BM;
+    for (int c0 = 0; c0 < nop; c0 += kCols) {
+      // W_k's rows are nonzero in this pass only for the samples whose
+      // outputs it writes: contract over those, rounded out to whole
+      // 16-byte vectors (the rows added there are zero here).
+      const int first = c0 / a.O;
+      const int last = (min(c0 + kCols, a.S * a.O) - 1) / a.O;
+      const int q0 = first * a.F / 8 * 8;
+      const int q1 = min(np, ((last + 1) * a.F + 7) / 8 * 8);
+      const T* wq = wk + (size_t)q0 * nop + c0;
+      if constexpr (kBf16) {
+        gemm<T, BM, kStages>(tk + (size_t)row0 * np + q0, np, mp - row0, wq,
+                             nop, nop - c0, q1 - q0, smem, acc);
+      } else {
+        gemm<T, BM, kStages>(tk + (size_t)q0 * mp + row0, mp, mp - row0, wq,
+                             nop, nop - c0, q1 - q0, smem, acc);
+      }
+      auto tap = [&](int row, int col, int n, const float* v) {
+        float* yp = y + (size_t)row * nop + col;
+#pragma unroll
+        for (int j = 0; j < n; ++j) {
+          yp[j] = k == 0 ? v[j] : __fadd_rn(yp[j], v[j]);
+        }
+      };
+      if constexpr (kBf16) {
+        for_pairs<BM>(acc, [&](int r, int c, float v0, float v1) {
+          const int row = row0 + r, col = c0 + c;
+          if (row >= mp || col >= nop) return;
+          const float v[2] = {v0, v1};
+          tap(row, col, 2, v);
+        });
+      } else {
+        for_blocks<BM>(acc, [&](int r, int c, float (&v)[4][4]) {
+          const int row = row0 + r, col = c0 + c;
+          if (row >= mp || col >= nop) return;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) tap(row + i, col, 4, v[i]);
+        });
+      }
+    }
+  }
+}
+
+// n / d for 0 <= n, d < 2^16 by one multiply: with m = ceil(2^32 / d),
+// (n * m) >> 32 is exact in that range.  K3's emission divides every
+// element's row and column by a sample's width; a runtime division there
+// cost as much as the tap's product.
+struct FastDiv {
+  uint64_t m;
+  __device__ explicit FastDiv(int d) : m((0x100000000ull + d - 1) / d) {}
+  __device__ int operator()(int n) const {
+    return (int)(((uint64_t)n * m) >> 32);
+  }
+};
+
+// K3's tap after hop k: the CTA's rows [row_lo, row_hi) of T_k and g
+// contracted, and the S diagonal [O, F] blocks into part, this (group,
+// rank, hop)'s [S, O, F].  tk is T_k [mp, np] (bf16 rounded, or the f32
+// carry).  bf16 computes P = g^T T_k [nop, np] from gt, the group's
+// rounded g^T [nop, mp]: gemm's A is row-major in bf16.  f32 computes P^T
+// = T_k^T g [np, nop] from gt, the group's g [mp, nop]: its A^T is T_k
+// itself and B is g, so no operand is copied, and the tile's rows run
+// over the narrower F (layer 1: F = 32, O = 64, half the passes of P).
+template <typename T, int BM, int kStages>
+__device__ __forceinline__ void dw_tap(const ConvArgs& a, const T* tk,
+                                       const T* gt, float* part, int row_lo,
+                                       int row_hi, unsigned char* smem,
+                                       float (&acc)[BM / 32][4][4]) {
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  const int mp = a.mp, np = a.np, nop = a.nop, F = a.F, O = a.O;
+  // The tile's rows (A's side) and columns (B's side): a sample's width
+  // and the padded extent of each.
+  const int rw = kBf16 ? O : F, cw = kBf16 ? F : O;
+  const int rn = kBf16 ? nop : np, cn = kBf16 ? np : nop;
+  const int rows = a.S * rw;
+  const T* tr = tk + (size_t)row_lo * np;
+  const T* A = kBf16 ? gt + row_lo : tr;
+  const T* B = kBf16 ? tr : gt + (size_t)row_lo * nop;
+  const int lda = kBf16 ? mp : np, ldb = kBf16 ? np : nop;
+  const FastDiv by_rw(rw), by_cw(cw);
+  for (int r0 = 0; r0 < rows; r0 += BM) {
+    // The rows r0 + [0, BM) belong to samples first..last: only their
+    // columns hold diagonal blocks, and only those are loaded (whole
+    // 16-byte vectors; the rest of the tile is zero-filled).
+    const int first = r0 / rw;
+    const int last = (min(r0 + BM, rows) - 1) / rw;
+    const int q1 = min(cn, (last + 1) * cw);
+    const int c1 = min(cn, (q1 + 7) / 8 * 8);
+    for (int c0 = first * cw / 8 * 8; c0 < q1; c0 += kCols) {
+      gemm<T, BM, kStages>(A + (kBf16 ? (size_t)r0 * mp : r0), lda, rn - r0,
+                           B + c0, ldb, c1 - c0, row_hi - row_lo, smem, acc);
+      for_each<T, BM>(acc, [&](int r, int c, float v) {
+        // Row i = s*rw + i' and column j = s'*cw + j': kept where the
+        // samples match, at [s, o', f'] = o*F + f - s*F.
+        const int i = r0 + r, j = c0 + c, s = by_rw(i);
+        if (i >= rows || by_cw(j) != s) return;
+        const int o = kBf16 ? i : j, f = kBf16 ? j : i;
+        part[(size_t)o * F + f - s * F] = v;
+      });
+    }
+  }
+}
+
+template <typename T, int BM, int kStages, int kTap>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     cheby_conv_kernel(ConvArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
-  const int mp = a.mp, np = a.np, nop = a.nop;
+  // Whether the kernel keeps a compute-dtype copy of the carries: bf16's
+  // rounded operand, or f32 K2's transpose (its tap's A^T).
+  constexpr bool kCopy = kBf16 || kTap == kConvTap;
+  const int mp = a.mp, np = a.np;
   const size_t gs = (size_t)mp * np;  // one carry of one group
   const int grp = blockIdx.y;
   const T* L = static_cast<const T*>(a.L);
   const float* x = a.x + grp * gs;
-  const T* xc = static_cast<const T*>(a.xc) + grp * gs;
   float* buf = a.carry + grp * 2 * gs;
-  T* bufc = static_cast<T*>(a.carryc) + grp * 2 * gs;
-  float* y = a.y + (size_t)grp * mp * nop;
+  const T* xc = nullptr;
+  T* bufc = nullptr;
+  if constexpr (kCopy) {
+    xc = static_cast<const T*>(a.xc) + grp * gs;
+    bufc = static_cast<T*>(a.carryc) + grp * 2 * gs;
+  }
   const int n_tiles = (mp + BM - 1) / BM;
   const int t0 = blockIdx.x * a.tiles_per_cta;
   const int t1 = min(t0 + a.tiles_per_cta, n_tiles);
@@ -426,12 +578,13 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       }
       const float* prev = k == 2 ? x : buf + (k & 1) * gs;
       float* dst = buf + (k & 1) * gs;
-      T* dstc = bufc + (k & 1) * gs;
+      T* dstc = kCopy ? bufc + (k & 1) * gs : nullptr;
       for (int tile = t0; tile < t1; ++tile) {
         const int row0 = tile * BM;
         for (int c0 = 0; c0 < np; c0 += kCols) {
-          gemm<T, BM>(L + (kBf16 ? (size_t)row0 * mp : row0), mp, mp - row0,
-                      src + c0, np, np - c0, mp, smem, acc);
+          gemm<T, BM, kStages>(L + (kBf16 ? (size_t)row0 * mp : row0), mp,
+                               mp - row0, src + c0, np, np - c0, mp, smem,
+                               acc);
           if constexpr (kBf16) {
             for_pairs<BM>(acc, [&](int r, int c, float v0, float v1) {
               const int row = row0 + r, col = c0 + c;
@@ -448,8 +601,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
                   __floats2bfloat162_rn(v.x, v.y);
             });
           } else {
-            // Rows of T_k as float4s, and its transpose [np, mp], the
-            // tap's A^T, as float4 columns of 4 rows.
+            // Rows of T_k as float4s and, for K2, its transpose [np, mp],
+            // the tap's A^T, as float4 columns of 4 rows.
             for_blocks<BM>(acc, [&](int r, int c, float (&v)[4][4]) {
               const int row = row0 + r, col = c0 + c;
               if (row >= mp || col >= np) return;
@@ -467,11 +620,13 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
                 }
                 *d = make_float4(v[i][0], v[i][1], v[i][2], v[i][3]);
               }
+              if constexpr (kCopy) {
 #pragma unroll
-              for (int j = 0; j < 4; ++j) {
-                *reinterpret_cast<float4*>(dstc + (size_t)(col + j) * mp +
-                                           row) =
-                    make_float4(v[0][j], v[1][j], v[2][j], v[3][j]);
+                for (int j = 0; j < 4; ++j) {
+                  *reinterpret_cast<float4*>(dstc + (size_t)(col + j) * mp +
+                                             row) =
+                      make_float4(v[0][j], v[1][j], v[2][j], v[3][j]);
+                }
               }
             });
           }
@@ -483,326 +638,95 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       }
       __syncthreads();  // the tap below reads this CTA's rows of T_k
     }
-    // Tap: y[rows, s*O + o] += T_k[rows, s*F + f] W_k[f, o] for the
-    // group's samples s, one product with the block-diagonal W_k.  tk is
-    // T_k (bf16) or T_k^T (f32).
-    const T* tk = k == 0 ? xc : bufc + (k & 1) * gs;
-    const T* wk = static_cast<const T*>(a.w) + (size_t)k * np * nop;
-    for (int tile = t0; tile < t1; ++tile) {
-      const int row0 = tile * BM;
-      for (int c0 = 0; c0 < nop; c0 += kCols) {
-        // W_k's rows are nonzero in this pass only for the samples whose
-        // outputs it writes: contract over those, rounded out to whole
-        // 16-byte vectors (the rows added there are zero here).
-        const int first = c0 / a.O;
-        const int last = (min(c0 + kCols, a.S * a.O) - 1) / a.O;
-        const int q0 = first * a.F / 8 * 8;
-        const int q1 = min(np, ((last + 1) * a.F + 7) / 8 * 8);
-        const T* wq = wk + (size_t)q0 * nop + c0;
-        if constexpr (kBf16) {
-          gemm<T, BM>(tk + (size_t)row0 * np + q0, np, mp - row0, wq, nop,
-                      nop - c0, q1 - q0, smem, acc);
-        } else {
-          gemm<T, BM>(tk + (size_t)q0 * mp + row0, mp, mp - row0, wq, nop,
-                      nop - c0, q1 - q0, smem, acc);
-        }
-        auto tap = [&](int row, int col, int n, const float* v) {
-          float* yp = y + (size_t)row * nop + col;
-#pragma unroll
-          for (int j = 0; j < n; ++j) {
-            yp[j] = k == 0 ? v[j] : __fadd_rn(yp[j], v[j]);
-          }
-        };
-        if constexpr (kBf16) {
-          for_pairs<BM>(acc, [&](int r, int c, float v0, float v1) {
-            const int row = row0 + r, col = c0 + c;
-            if (row >= mp || col >= nop) return;
-            const float v[2] = {v0, v1};
-            tap(row, col, 2, v);
-          });
-        } else {
-          for_blocks<BM>(acc, [&](int r, int c, float (&v)[4][4]) {
-            const int row = row0 + r, col = c0 + c;
-            if (row >= mp || col >= nop) return;
-#pragma unroll
-            for (int i = 0; i < 4; ++i) tap(row + i, col, 4, v[i]);
-          });
-        }
-      }
+    // T_k as the tap reads it: the compute-dtype copy where there is one
+    // (T_0: xc), else the f32 carry (T_0: x).
+    const T* tk;
+    if constexpr (kCopy) {
+      tk = k == 0 ? xc : bufc + (k & 1) * gs;
+    } else {
+      tk = k == 0 ? x : buf + (k & 1) * gs;
+    }
+    if constexpr (kTap == kConvTap) {
+      conv_tap<T, BM, kStages>(a, k, tk, a.out + (size_t)grp * mp * a.nop,
+                               t0, t1, smem, acc);
+    } else {
+      float* part = a.out + (((size_t)grp * gridDim.x + blockIdx.x) * a.K +
+                             k) * a.S * a.O * a.F;
+      dw_tap<T, BM, kStages>(a, tk,
+                             static_cast<const T*>(a.tap) +
+                                 (size_t)grp * mp * a.nop,
+                             part, t0 * BM, min(t1 * BM, mp), smem, acc);
     }
     if (k >= 1 && k + 1 < a.K) cluster_wait();  // every row of T_k written
   }
 }
 
-template <typename T, int BM>
-cudaError_t launch_conv(const ConvArgs& a, int cluster, int groups,
-                        cudaStream_t s) {
-  auto kernel = cheby_conv_kernel<T, BM>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem<T, BM>);
-  if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster, groups, 1);
-  cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = kSmem<T, BM>;
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, a);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+// Every instantiation, looked up at run time: cheby_conv_kernel<T, BM,
+// kStages, kTap> for T = float (dtype 0) or bf16 (1), BM 64 or 128, 2 or 3
+// stages, either tap.
+using Kernel = void (*)(ConvArgs);
+
+template <typename T, int BM, int kStages>
+Kernel pick_tap(int tap) {
+  return tap == kConvTap ? cheby_conv_kernel<T, BM, kStages, kConvTap>
+                         : cheby_conv_kernel<T, BM, kStages, kDwTap>;
 }
 
 template <typename T, int BM>
-cudaError_t resident(int cluster, int* n) {
-  auto kernel = cheby_conv_kernel<T, BM>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem<T, BM>);
-  if (err != cudaSuccess) return err;
+Kernel pick_stages(int stages, int tap, int* smem) {
+  *smem = stages == 2 ? kRingBytes<T, BM, 2> : kRingBytes<T, BM, 3>;
+  return stages == 2 ? pick_tap<T, BM, 2>(tap) : pick_tap<T, BM, 3>(tap);
+}
+
+template <typename T>
+Kernel pick_rows(int rows, int stages, int tap, int* smem) {
+  return rows == 128 ? pick_stages<T, 128>(stages, tap, smem)
+                     : pick_stages<T, 64>(stages, tap, smem);
+}
+
+// The instantiation and its dynamic shared memory (*smem bytes), or null
+// for one that does not exist.
+Kernel pick(int tap, int rows, int stages, int dtype, int* smem) {
+  if ((tap != kConvTap && tap != kDwTap) || (rows != 64 && rows != 128) ||
+      (stages != 2 && stages != 3) || (dtype != 0 && dtype != 1)) {
+    return nullptr;
+  }
+  return dtype == 0 ? pick_rows<float>(rows, stages, tap, smem)
+                    : pick_rows<__nv_bfloat16>(rows, stages, tap, smem);
+}
+
+// A launch configuration of `cluster` x `groups` CTAs in clusters of
+// `cluster` along x.
+struct ClusterConfig {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster, 1, 1);
-  cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = kSmem<T, BM>;
   cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cudaOccupancyMaxActiveClusters(n, kernel, &cfg);
-}
-
-// ================================================================== K3
-
-constexpr int kDwDepth = 16;   // contraction chunk staged in shared memory
-constexpr int kMaxRows = 128;  // BM for BN = 32
-constexpr int kMaxCols = 64;   // BN for tc > 32
-
-struct DwArgs {
-  const void* L;   // [mp, mp], compute dtype
-  const float* x;  // [mp, B*F]
-  const float* g;  // [mp, B*O]
-  float* out;      // [n_ctas, K, F, S*O]
-  float* scratch;  // [n_ctas, 2, mp, S*F]
-  int mp, K, F, O, B, S;
+  ClusterConfig(int cluster, int groups, int smem, cudaStream_t s) {
+    cfg.gridDim = dim3(cluster, groups, 1);
+    cfg.blockDim = dim3(kThreads, 1, 1);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = s;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
 };
 
-struct Smem {
-  float a[kDwDepth][kMaxRows + 4];  // [k][row]
-  float b[kDwDepth][kMaxCols + 4];  // [k][col]
-};
-
-// An operand as the product sees it: bfloat16 storage is exact in f32;
-// f32 values are rounded to bfloat16 first when kRound.
-template <bool kRound>
-__device__ __forceinline__ float op(float v) {
-  return kRound ? __bfloat162float(__float2bfloat16_rn(v)) : v;
-}
-template <bool kRound>
-__device__ __forceinline__ float op(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-// acc[i][j] = sum_{q < Kd} A(r0 + ty*4 + i, q) * B(q, c0 + tx*4 + j) with
-// A(r, q) = A[r*sar + q*saq] (zero for r >= M) and B(q, c) = B[q*sbq + c]
-// (zero for c >= N).  Ends with __syncthreads(), so the caller may start
-// another tile at once.
-template <int BN, bool kRound, typename TA, typename TB>
-__device__ void gemm_tile(const TA* A, long sar, long saq, const TB* B,
-                          long sbq, int M, int N, int Kd, int r0, int c0,
-                          Smem& sm, float (&acc)[4][4]) {
-  constexpr int BM = kThreads * 16 / BN;
-  constexpr int NA = BM * kDwDepth / kThreads;
-  constexpr int NB = kDwDepth * BN / kThreads;
-  const int tid = threadIdx.x;
-  const int tx = tid % (BN / 4), ty = tid / (BN / 4);
-  // Neighbouring threads read neighbouring addresses of A along whichever
-  // axis is contiguous.
-  const bool q_fast = saq == 1;
-  float ra[NA], rb[NB];
-
-  auto load = [&](int q0) {
-#pragma unroll
-    for (int t = 0; t < NA; ++t) {
-      const int e = tid + t * kThreads;
-      const int r = q_fast ? e / kDwDepth : e % BM;
-      const int q = q_fast ? e % kDwDepth : e / BM;
-      const int gr = r0 + r, gq = q0 + q;
-      ra[t] = (gr < M && gq < Kd) ? op<kRound>(A[gr * sar + gq * saq]) : 0.0f;
-    }
-#pragma unroll
-    for (int t = 0; t < NB; ++t) {
-      const int e = tid + t * kThreads;
-      const int q = e / BN, c = e % BN;
-      const int gq = q0 + q, gc = c0 + c;
-      rb[t] = (gq < Kd && gc < N) ? op<kRound>(B[gq * sbq + gc]) : 0.0f;
-    }
-  };
-  auto store = [&]() {
-#pragma unroll
-    for (int t = 0; t < NA; ++t) {
-      const int e = tid + t * kThreads;
-      const int r = q_fast ? e / kDwDepth : e % BM;
-      const int q = q_fast ? e % kDwDepth : e / BM;
-      sm.a[q][r] = ra[t];
-    }
-#pragma unroll
-    for (int t = 0; t < NB; ++t) {
-      const int e = tid + t * kThreads;
-      sm.b[e / BN][e % BN] = rb[t];
-    }
-  };
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-  load(0);
-  store();
-  __syncthreads();
-  for (int q0 = 0; q0 < Kd; q0 += kDwDepth) {
-    const bool more = q0 + kDwDepth < Kd;
-    if (more) load(q0 + kDwDepth);
-#pragma unroll
-    for (int q = 0; q < kDwDepth; ++q) {
-      const float4 av = *reinterpret_cast<const float4*>(&sm.a[q][ty * 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&sm.b[q][tx * 4]);
-      const float a4[4] = {av.x, av.y, av.z, av.w};
-      const float b4[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a4[i], b4[j], acc[i][j]);
-    }
-    __syncthreads();
-    if (more) {
-      store();
-      __syncthreads();
-    }
-  }
-}
-
-// One CTA per S samples: the recurrence in the CTA's scratch, then K3's
-// emission per sample and hop.
-template <int BN, typename T>
-__global__ void __launch_bounds__(kThreads) cheby_dw_kernel(DwArgs a) {
-  constexpr bool kRound = std::is_same<T, __nv_bfloat16>::value;
-  constexpr int BM = kThreads * 16 / BN;
-  __shared__ __align__(16) Smem sm;
-  const int tid = threadIdx.x;
-  const int tx = tid % (BN / 4), ty = tid / (BN / 4);
-  const int cta = blockIdx.x;
-  const int mp = a.mp, F = a.F, O = a.O;
-  const int tc = a.S * F;
-  const long ldx = (long)a.B * F, ldo = (long)a.B * O;
-  const long col0 = (long)cta * tc;
-  const int ncols = ldx - col0 < tc ? (int)(ldx - col0) : tc;
-  const int nsamp = ncols / F;
-  const T* L = static_cast<const T*>(a.L);
-  const float* x = a.x + col0;
-  float* buf[2] = {a.scratch + (size_t)cta * 2 * mp * tc,
-                   a.scratch + ((size_t)cta * 2 + 1) * mp * tc};
-  float acc[4][4];
-
-  for (int k = 0; k < a.K; ++k) {
-    if (k >= 1) {
-      // T_k = L T_{k-1} (k = 1) or 2 L T_{k-1} - T_{k-2}, into buf[k % 2].
-      const float* src = k == 1 ? x : buf[(k - 1) % 2];
-      const long lds = k == 1 ? ldx : tc;
-      const float* prev = k == 2 ? x : buf[k % 2];
-      const long ldp = k == 2 ? ldx : tc;
-      float* dst = buf[k % 2];
-      for (int r0 = 0; r0 < mp; r0 += BM) {
-        for (int c0 = 0; c0 < ncols; c0 += BN) {
-          gemm_tile<BN, kRound>(L, mp, 1, src, lds, mp, ncols, mp, r0, c0,
-                                sm, acc);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int r = r0 + ty * 4 + i;
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              const int c = c0 + tx * 4 + j;
-              if (r < mp && c < ncols) {
-                float v = acc[i][j];
-                if (k >= 2) v = __fsub_rn(2.0f * v, prev[r * ldp + c]);
-                dst[(long)r * tc + c] = v;
-              }
-            }
-          }
-        }
-      }
-      __syncthreads();  // T_k complete before anyone reads it
-    }
-    const float* tk = k == 0 ? x : buf[k % 2];
-    const long ldt = k == 0 ? ldx : tc;
-    for (int s = 0; s < nsamp; ++s) {
-      // dW_k^T for sample b: rows o, columns f, contraction over nodes.
-      const long b = (long)cta * a.S + s;
-      const float* gb = a.g + b * O;
-      float* outk = a.out + ((long)cta * a.K + k) * F * a.S * O + s * O;
-      for (int r0 = 0; r0 < O; r0 += BM) {
-        for (int c0 = 0; c0 < F; c0 += BN) {
-          gemm_tile<BN, kRound>(gb, 1, ldo, tk + s * F, ldt, O, F, mp, r0,
-                                c0, sm, acc);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int o = r0 + ty * 4 + i;
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              const int f = c0 + tx * 4 + j;
-              if (o < O && f < F) {
-                outk[(long)f * a.S * O + o] = op<kRound>(acc[i][j]);
-              }
-            }
-          }
-        }
-      }
-    }
-  }
-}
-
-template <int BN>
-cudaError_t launch_dw(const DwArgs& a, int n_ctas, int dtype,
-                      cudaStream_t s) {
-  if (dtype == 0) {
-    cheby_dw_kernel<BN, float><<<n_ctas, kThreads, 0, s>>>(a);
-  } else {
-    cheby_dw_kernel<BN, __nv_bfloat16><<<n_ctas, kThreads, 0, s>>>(a);
-  }
-  return cudaGetLastError();
-}
-
-}  // namespace
-
-// K2.  L: [mp, mp], bfloat16 L or float32 L^T; x: [groups, mp, np] f32;
-// xc: bf16 [groups, mp, np], x rounded, or f32 [groups, np, mp], x
-// transposed; w: [K, np, nop] compute dtype, block-diagonal over the S
-// samples of a group (F inputs, O outputs each); y: [groups, mp, nop] f32;
-// carry: [groups, 2, mp, np] f32; carryc: [groups, 2, mp, np] bf16 or
-// [groups, 2, np, mp] f32.  np and nop are multiples of 8, at least S*F
-// and S*O; mp a multiple of 8.  rows_per_tile 64 or 128; the grid is
-// cluster x groups CTAs, one cluster (cluster <= 8 CTAs) per group, each
-// CTA tiles_per_cta row tiles.  dtype: 0 float32, 1 bfloat16.  Launches
-// on `stream`; returns the launch's error (a cluster the card cannot
-// place is refused, not run otherwise).
-extern "C" int cheby_conv_launch(const void* L, const void* x, const void* xc,
-                                 const void* w, void* y, void* carry,
-                                 void* carryc, int mp, int K, int np, int nop,
-                                 int S, int F, int O, int groups, int cluster,
-                                 int rows_per_tile, int tiles_per_cta,
-                                 int dtype, void* stream) {
-  if (K < 1 || mp < 8 || mp % 8 || np < 8 || np % 8 || nop < 8 || nop % 8 ||
-      S < 1 || F < 1 || O < 1 || (long)S * F > np || (long)S * O > nop ||
-      groups < 1 || cluster < 1 || cluster > kMaxCluster ||
-      tiles_per_cta < 1 || (dtype != 0 && dtype != 1) ||
-      (rows_per_tile != 64 && rows_per_tile != 128) ||
+int launch(int tap, const void* L, const void* x, const void* xc,
+           const void* tap_operand, void* out, void* carry, void* carryc,
+           int mp, int K, int np, int nop, int S, int F, int O, int groups,
+           int cluster, int rows_per_tile, int tiles_per_cta, int stages,
+           int dtype, void* stream) {
+  int smem = 0;
+  const Kernel kernel = pick(tap, rows_per_tile, stages, dtype, &smem);
+  if (kernel == nullptr || K < 1 || mp < 8 || mp % 8 || np < 8 || np % 8 ||
+      nop < 8 || nop % 8 ||
+      (tap == kDwTap && (np > 32768 || nop > 32768)) ||  // FastDiv's range
+      S < 1 || F < 1 || O < 1 || (long)S * F > np ||
+      (long)S * O > nop || groups < 1 || cluster < 1 ||
+      cluster > kMaxCluster || tiles_per_cta < 1 ||
       (long)cluster * tiles_per_cta * rows_per_tile < mp ||
       (long)(cluster - 1) * tiles_per_cta * rows_per_tile >= mp) {
     return (int)cudaErrorInvalidValue;
@@ -811,8 +735,8 @@ extern "C" int cheby_conv_launch(const void* L, const void* x, const void* xc,
   a.L = L;
   a.x = static_cast<const float*>(x);
   a.xc = xc;
-  a.w = w;
-  a.y = static_cast<float*>(y);
+  a.tap = tap_operand;
+  a.out = static_cast<float*>(out);
   a.carry = static_cast<float*>(carry);
   a.carryc = carryc;
   a.mp = mp;
@@ -823,73 +747,81 @@ extern "C" int cheby_conv_launch(const void* L, const void* x, const void* xc,
   a.S = S;
   a.F = F;
   a.O = O;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0) {
-    err = rows_per_tile == 128
-              ? launch_conv<float, 128>(a, cluster, groups, s)
-              : launch_conv<float, 64>(a, cluster, groups, s);
-  } else {
-    err = rows_per_tile == 128
-              ? launch_conv<__nv_bfloat16, 128>(a, cluster, groups, s)
-              : launch_conv<__nv_bfloat16, 64>(a, cluster, groups, s);
-  }
-  return (int)err;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  ClusterConfig c(cluster, groups, smem, static_cast<cudaStream_t>(stream));
+  err = cudaLaunchKernelEx(&c.cfg, kernel, a);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
-// How many clusters of `cluster` K2 CTAs the card holds at once
+}  // namespace
+
+// Both launches: L [mp, mp], bfloat16 L or float32 L^T; x [groups, mp,
+// np] f32; carry [groups, 2, mp, np] f32.  np and nop are multiples of 8,
+// at least S*F and S*O; mp a multiple of 8.  rows_per_tile 64 or 128; the
+// grid is cluster x groups CTAs, one cluster (cluster <= 8 CTAs) per
+// group, each CTA tiles_per_cta row tiles.  stages: the ring's depth, 2
+// or 3.  dtype: 0 float32, 1 bfloat16.  Launches on `stream`; returns the
+// launch's error (a cluster the card cannot place is refused, not run
+// otherwise).
+//
+// K2.  xc: bf16 [groups, mp, np], x rounded, or f32 [groups, np, mp], x
+// transposed; w: [K, np, nop] compute dtype, block-diagonal over the S
+// samples of a group (F inputs, O outputs each); y: [groups, mp, nop] f32;
+// carryc: [groups, 2, mp, np] bf16 or [groups, 2, np, mp] f32.
+extern "C" int cheby_conv_launch(const void* L, const void* x, const void* xc,
+                                 const void* w, void* y, void* carry,
+                                 void* carryc, int mp, int K, int np, int nop,
+                                 int S, int F, int O, int groups, int cluster,
+                                 int rows_per_tile, int tiles_per_cta,
+                                 int stages, int dtype, void* stream) {
+  return launch(kConvTap, L, x, xc, w, y, carry, carryc, mp, K, np, nop, S, F,
+                O, groups, cluster, rows_per_tile, tiles_per_cta, stages,
+                dtype, stream);
+}
+
+// K3 (np, nop <= 32768).  bf16: xc [groups, mp, np], x rounded; g
+// [groups, nop, mp], g rounded and transposed; carryc [groups, 2, mp, np].
+// f32: g [groups, mp, nop]; xc and carryc unused (null).  parts: [groups,
+// cluster, K, S, O, F] f32, every element written: rank c's sum over its
+// rows of g[m, s*O + o] T_k[m, s*F + f] for the group's sample s.
+extern "C" int cheby_dw_launch(const void* L, const void* x, const void* xc,
+                               const void* g, void* parts, void* carry,
+                               void* carryc, int mp, int K, int np, int nop,
+                               int S, int F, int O, int groups, int cluster,
+                               int rows_per_tile, int tiles_per_cta,
+                               int stages, int dtype, void* stream) {
+  if (dtype == 1 && (xc == nullptr || carryc == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return launch(kDwTap, L, x, xc, g, parts, carry, carryc, mp, K, np, nop, S,
+                F, O, groups, cluster, rows_per_tile, tiles_per_cta, stages,
+                dtype, stream);
+}
+
+// How many clusters of `cluster` CTAs of the instantiation for tap (0 K2,
+// 1 K3), rows_per_tile, stages and dtype the card holds at once
 // (cudaOccupancyMaxActiveClusters), or a negative CUDA error.
-extern "C" int cheby_conv_resident_clusters(int cluster, int rows_per_tile,
-                                            int dtype) {
-  int n = 0;
-  cudaError_t err;
-  if (dtype == 0) {
-    err = rows_per_tile == 128 ? resident<float, 128>(cluster, &n)
-                               : resident<float, 64>(cluster, &n);
-  } else {
-    err = rows_per_tile == 128 ? resident<__nv_bfloat16, 128>(cluster, &n)
-                               : resident<__nv_bfloat16, 64>(cluster, &n);
+extern "C" int cheby_resident_clusters(int tap, int cluster, int rows_per_tile,
+                                       int stages, int dtype) {
+  int smem = 0, n = 0;
+  const Kernel kernel = pick(tap, rows_per_tile, stages, dtype, &smem);
+  if (kernel == nullptr) return -(int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) {
+    ClusterConfig c(cluster, 1, smem, nullptr);
+    err = cudaOccupancyMaxActiveClusters(&n, kernel, &c.cfg);
   }
   return err == cudaSuccess ? n : -(int)err;
 }
 
-// The dynamic shared memory of one K2 CTA, in bytes (its ring of kStages
-// stages), or -1 for an instantiation that does not exist.
-extern "C" int cheby_conv_smem_bytes(int rows_per_tile, int dtype) {
-  if (rows_per_tile != 64 && rows_per_tile != 128) return -1;
-  if (dtype == 0) {
-    return rows_per_tile == 128 ? kSmem<float, 128> : kSmem<float, 64>;
-  }
-  if (dtype != 1) return -1;
-  return rows_per_tile == 128 ? kSmem<__nv_bfloat16, 128>
-                              : kSmem<__nv_bfloat16, 64>;
-}
-
-// K3.  out = [ceil(B/S), K, F, S*O], zeroed by the caller for the samples
-// past B.  dtype: 0 float32, 1 bfloat16 (L).  x, g and out are float32.
-// Launches on `stream`; returns cudaGetLastError().
-extern "C" int cheby_dw_launch(const void* L, const void* x, const void* g,
-                               void* out, void* scratch, int mp, int K, int F,
-                               int O, int B, int S, int dtype, void* stream) {
-  if (K < 1 || F < 1 || O < 1 || B < 1 || S < 1 || mp < 1 ||
-      (dtype != 0 && dtype != 1) || g == nullptr) {
-    return (int)cudaErrorInvalidValue;
-  }
-  DwArgs a;
-  a.L = L;
-  a.x = static_cast<const float*>(x);
-  a.g = static_cast<const float*>(g);
-  a.out = static_cast<float*>(out);
-  a.scratch = static_cast<float*>(scratch);
-  a.mp = mp;
-  a.K = K;
-  a.F = F;
-  a.O = O;
-  a.B = B;
-  a.S = S;
-  const int n_ctas = (B + S - 1) / S;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = S * F <= 32 ? launch_dw<32>(a, n_ctas, dtype, s)
-                                      : launch_dw<64>(a, n_ctas, dtype, s);
-  return (int)err;
+// The dynamic shared memory of one CTA, in bytes (its ring of `stages`
+// stages; the same for both taps), or -1 for an instantiation that does
+// not exist.
+extern "C" int cheby_smem_bytes(int rows_per_tile, int stages, int dtype) {
+  int smem = 0;
+  return pick(kConvTap, rows_per_tile, stages, dtype, &smem) ? smem : -1;
 }

@@ -12,9 +12,11 @@ Counterpart of ``cnn_graph_tpu/ops/pallas_cheby.py``:
   package applied the same way.
 * ``cheby_dw_fused`` launches K3 (``_dw_kernel`` :210): dW with the
   recurrence recomputed in the kernel, its per-CTA partials folded here
-  by a plain sum, as the JAX package folds its tiles (:304-305).
+  by plain sums (``_fold_dw_partials``), as the JAX package folds its
+  tiles (:304-305).
 
-Both kernels live in ``csrc/cheby_fused.cu``.  Beside each is its plain
+Both are one kernel template in ``csrc/cheby_fused.cu``, whose tap kind
+(K2's or K3's) is a template parameter.  Beside each is its plain
 PyTorch version (``cheby_conv_fused_reference``, ``cheby_dw_fused_
 reference``), which computes what the TPU kernel computes in its
 precision: float32 carries; for a bfloat16 operator the operands of
@@ -26,10 +28,11 @@ CUDA tensors, counting launches on ``cheby_conv_fused.launches`` and
 ``cheby_dw_fused.launches``.  The operator's ``fused_filter`` and
 ``fused_dw`` methods call them, so an operator may substitute either.
 
-K2's wrapper lays the columns out by cluster (``conv_geometry``: groups
-of ``128 // F`` samples) and expands each ``W_k`` block-diagonally over a
-group's samples, as ``expand_tap_weights`` (the TPU's lane fill) does,
-so that a group taps in one product.  ``zero_cotangent`` has no
+Both wrappers lay the columns out by cluster (``conv_geometry``: groups
+of ``128 // F`` samples).  K2's expands each ``W_k`` block-diagonally
+over a group's samples, as ``expand_tap_weights`` (the TPU's lane fill)
+does, so that a group taps in one product; K3's lays g out by the same
+groups, its tap's other operand.  ``zero_cotangent`` has no
 counterpart: the operator is not a differentiable argument.
 """
 
@@ -148,18 +151,25 @@ def cheby_dw_fused_reference(x: torch.Tensor, L, g: torch.Tensor,
 def _lib():
     lib = _build.load("cheby_fused")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.cheby_conv_launch.argtypes = [p] * 7 + [i] * 12 + [p]
-    lib.cheby_dw_launch.argtypes = [p] * 5 + [i] * 7 + [p]
-    lib.cheby_conv_resident_clusters.argtypes = [i, i, i]
-    lib.cheby_conv_smem_bytes.argtypes = [i, i]
+    lib.cheby_conv_launch.argtypes = [p] * 7 + [i] * 13 + [p]
+    lib.cheby_dw_launch.argtypes = [p] * 7 + [i] * 13 + [p]
+    lib.cheby_resident_clusters.argtypes = [i] * 5
+    lib.cheby_smem_bytes.argtypes = [i] * 3
     for f in (lib.cheby_conv_launch, lib.cheby_dw_launch,
-              lib.cheby_conv_resident_clusters, lib.cheby_conv_smem_bytes):
+              lib.cheby_resident_clusters, lib.cheby_smem_bytes):
         f.restype = i
     return lib
 
 
-# K2's geometry (csrc/cheby_fused.cu cheby_conv_kernel): a CTA tile is at
-# most 128 columns wide; clusters of at most 8 CTAs (the portable limit).
+# The depth of the cp.async ring the wrappers launch.  The library holds
+# 2- and 3-stage instantiations of both kernels; tools/ring_depth.py times
+# them against each other.
+RING_STAGES = 3
+_TAPS = {"K2": 0, "K3": 1}  # the kernel template's tap kind
+
+# The kernels' geometry (csrc/cheby_fused.cu cheby_conv_kernel): a CTA
+# tile is at most 128 columns wide; clusters of at most 8 CTAs (the
+# portable limit).
 _TILE_COLS = 128
 _MAX_CLUSTER = 8
 
@@ -169,7 +179,8 @@ def _round_up(n: int, m: int) -> int:
 
 
 def conv_geometry(B: int, mp: int, F: int, O: int, n_sms: int) -> dict:
-    """K2's launch geometry, a pure function of the shapes and the card's
+    """K2's and K3's launch geometry, a pure function of the shapes (x
+    ``[B, mp, F]``; w ``[K, F, O]`` or g ``[B, mp, O]``) and the card's
     ``n_sms``.
 
     ``samples`` whole samples per column group (``128 // F``, at least
@@ -195,15 +206,17 @@ def conv_geometry(B: int, mp: int, F: int, O: int, n_sms: int) -> dict:
             "tiles_per_cta": per, "ctas": cluster * G}
 
 
-def conv_resources(rows: int, dtype, cluster: int) -> dict:
-    """What the built K2 for ``rows``-row tiles and a ``dtype`` operator
-    asks of the card: ``smem``, one CTA's dynamic shared memory in bytes,
-    and ``resident_clusters``, how many clusters of ``cluster`` CTAs the
+def conv_resources(rows: int, dtype, cluster: int,
+                   kernel: str = "K2") -> dict:
+    """What the built ``kernel`` (K2 or K3) the wrappers launch, for
+    ``rows``-row tiles and a ``dtype`` operator, asks of the card:
+    ``smem``, one CTA's dynamic shared memory in bytes, and
+    ``resident_clusters``, how many clusters of ``cluster`` CTAs the
     current CUDA device holds at once (negative: a CUDA error)."""
     lib, code = _lib(), _DTYPE_CODE[dtype]
-    return {"smem": lib.cheby_conv_smem_bytes(rows, code),
-            "resident_clusters": lib.cheby_conv_resident_clusters(
-                cluster, rows, code)}
+    return {"smem": lib.cheby_smem_bytes(rows, RING_STAGES, code),
+            "resident_clusters": lib.cheby_resident_clusters(
+                _TAPS[kernel], cluster, rows, RING_STAGES, code)}
 
 
 @functools.lru_cache(maxsize=None)
@@ -227,10 +240,31 @@ def _check_operator(L, x, name: str, *others):
         raise ValueError(f"{name}: every tensor must be on {x.device}")
 
 
-def _launch_conv(L, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """One launch of K2 on CUDA tensors: ``[B, M, O]`` f32.  The f32
-    kernel reads the hop's operand as its transpose, so it is given
-    ``L^T``; L need not be symmetric."""
+def _grouped(t: torch.Tensor, mp: int, S: int, G: int,
+             width: int) -> torch.Tensor:
+    """``[B, M, C]`` -> f32 ``[G, mp, width]``: the batch-major columns of
+    ``S`` samples per group, node axis and columns zero-padded."""
+    B, _, C = t.shape
+    tg = nnf.pad(_columns(t, mp).reshape(mp, B, C),
+                 (0, 0, 0, G * S - B)).reshape(mp, G, S * C)
+    return nnf.pad(tg, (0, width - S * C)).permute(1, 0, 2).contiguous()
+
+
+def _hop_operator(L) -> torch.Tensor:
+    """The operator as the kernels' hop reads it: L in bf16; the f32 hop
+    reads its A operand transposed, so it is given ``L^T`` (one copy per
+    call), and L need not be symmetric."""
+    return L.mat.t().contiguous() if L.mat.dtype == torch.float32 else L.mat
+
+
+def _raise_on(rc: int, name: str):
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
+def _launch_conv(L, x: torch.Tensor, w: torch.Tensor,
+                 stages: int = RING_STAGES) -> torch.Tensor:
+    """One launch of K2 on CUDA tensors: ``[B, M, O]`` f32."""
     _check_operator(L, x, "cheby_fused.K2", w)
     B, M, F = x.shape
     K, _, O = w.shape
@@ -238,10 +272,7 @@ def _launch_conv(L, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     dt = L.mat.dtype
     geo = conv_geometry(B, mp, F, O, _sms(x.device.index or 0))
     S, G, np_, nop = geo["samples"], geo["groups"], geo["np"], geo["nop"]
-    # Columns grouped [G, mp, np]: S samples per group, pads zero.
-    xg = nnf.pad(_columns(x, mp).reshape(mp, B, F),
-                 (0, 0, 0, G * S - B)).reshape(mp, G, S * F)
-    xg = nnf.pad(xg, (0, np_ - S * F)).permute(1, 0, 2).contiguous()
+    xg = _grouped(x, mp, S, G, np_)
     # T_0 as the tap reads it: rounded (bf16) or transposed (f32).
     xc = (xg.transpose(1, 2).contiguous() if dt == torch.float32
           else xg.to(dt))
@@ -250,7 +281,7 @@ def _launch_conv(L, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     wbd = torch.einsum("st,kfo->ksfto", eye, w.to(torch.float32))
     wbd = nnf.pad(wbd.reshape(K, S * F, S * O),
                   (0, nop - S * O, 0, np_ - S * F)).to(dt).contiguous()
-    mat = L.mat.t().contiguous() if dt == torch.float32 else L.mat
+    mat = _hop_operator(L)
     y = torch.empty(G, mp, nop, dtype=torch.float32, device=x.device)
     carry = torch.empty(G, 2, mp, np_, dtype=torch.float32, device=x.device)
     carryc = torch.empty_like(carry, dtype=dt)  # f32: [G, 2, np, mp]
@@ -260,45 +291,58 @@ def _launch_conv(L, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
             mat.data_ptr(), xg.data_ptr(), xc.data_ptr(), wbd.data_ptr(),
             y.data_ptr(), carry.data_ptr(), carryc.data_ptr(), mp, K, np_,
             nop, S, F, O, G, geo["cluster"], geo["rows"],
-            geo["tiles_per_cta"], _DTYPE_CODE[dt], stream)
-    if rc != 0:
-        raise RuntimeError(f"cheby_fused.K2 kernel launch failed: CUDA "
-                           f"error {rc}")
+            geo["tiles_per_cta"], stages, _DTYPE_CODE[dt], stream)
+    _raise_on(rc, "cheby_fused.K2")
     y = y[:, :M, :S * O].reshape(G, M, S, O).permute(0, 2, 1, 3)
     return y.reshape(G * S, M, O)[:B]
 
 
-def _dw_samples_per_cta(F: int) -> int:
-    """K3's whole samples per CTA: enough to fill 32 columns when F is
-    small, else one, so that a batch of B gives B CTAs."""
-    return max(1, 32 // F)
-
-
-def _launch_dw(L, x: torch.Tensor, g: torch.Tensor, K: int):
-    """One launch of K3 on CUDA tensors; returns the per-CTA partials
-    ``[n_ctas, K, F, S*O]`` and S."""
+def _launch_dw(L, x: torch.Tensor, g: torch.Tensor, K: int,
+               stages: int = RING_STAGES) -> torch.Tensor:
+    """One launch of K3 on CUDA tensors, on K2's geometry: the per-rank
+    partials ``[G, CL, K, S, O, F]`` f32, rank ``c`` of a group's cluster
+    summing ``g[m, s*O + o] T_k[m, s*F + f]`` over its rows ``m``."""
     _check_operator(L, x, "cheby_fused.K3", g)
     B, M, F = x.shape
     O = g.shape[2]
     mp = L.m_padded
-    S = _dw_samples_per_cta(F)
-    n_ctas = -(-B // S)
-    xt = _columns(x, mp)
-    scratch = torch.empty(n_ctas, 2, mp, S * F, dtype=torch.float32,
-                          device=x.device)
-    out = torch.zeros(n_ctas, K, F, S * O, dtype=torch.float32,
-                      device=x.device)
-    gt = _columns(g, mp)
+    dt = L.mat.dtype
+    geo = conv_geometry(B, mp, F, O, _sms(x.device.index or 0))
+    S, G, np_, nop = geo["samples"], geo["groups"], geo["np"], geo["nop"]
+    xg = _grouped(x, mp, S, G, np_)
+    gg = _grouped(g, mp, S, G, nop)
+    carry = torch.empty(G, 2, mp, np_, dtype=torch.float32, device=x.device)
+    if dt == torch.float32:
+        # The f32 tap reads the carry as its A^T and g as its B: no
+        # copies.
+        xc = carryc = None
+    else:
+        # T_0 and g^T rounded once, and the rounded carries' scratch.
+        xc, gg = xg.to(dt), gg.transpose(1, 2).to(dt).contiguous()
+        carryc = torch.empty_like(carry, dtype=dt)
+    parts = torch.empty(G, geo["cluster"], K, S, O, F, dtype=torch.float32,
+                        device=x.device)
     with torch.cuda.device(x.device), record_function("cheby_fused.K3"):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _lib().cheby_dw_launch(
-            L.mat.data_ptr(), xt.data_ptr(), gt.data_ptr(), out.data_ptr(),
-            scratch.data_ptr(), mp, K, F, O, B, S, _DTYPE_CODE[L.mat.dtype],
-            stream)
-    if rc != 0:
-        raise RuntimeError(f"cheby_fused.K3 kernel launch failed: CUDA "
-                           f"error {rc}")
-    return out, S
+            _hop_operator(L).data_ptr(), xg.data_ptr(),
+            None if xc is None else xc.data_ptr(), gg.data_ptr(),
+            parts.data_ptr(), carry.data_ptr(),
+            None if carryc is None else carryc.data_ptr(), mp, K, np_, nop,
+            S, F, O, G, geo["cluster"], geo["rows"], geo["tiles_per_cta"],
+            stages, _DTYPE_CODE[dt], stream)
+    _raise_on(rc, "cheby_fused.K3")
+    return parts
+
+
+def _fold_dw_partials(parts: torch.Tensor, dtype) -> torch.Tensor:
+    """K3's fold: per-rank partials ``[G, CL, K, S, O, F]`` -> f32 dW
+    ``[K, F, O]``.  The ranks are summed in f32 first, so that each
+    (sample, hop) sum runs over all the nodes before it is rounded to the
+    operator's ``dtype``, as the TPU rounds ``P * diag_mask``; then the
+    groups and samples are summed in f32."""
+    per_sample = _rounder(dtype)(parts.sum(1))  # [G, K, S, O, F]
+    return per_sample.sum((0, 2)).transpose(1, 2).contiguous()
 
 
 def _plain_or_kernel(name: str, x: torch.Tensor, w=None, g=None) -> bool:
@@ -340,10 +384,10 @@ def cheby_dw_fused(x: torch.Tensor, L, g: torch.Tensor,
     tensors, the plain version for CPU ones.  No backward."""
     if _plain_or_kernel("cheby_dw_fused", x, g=g):
         return cheby_dw_fused_reference(x, L, g, K)
-    F, O = x.shape[2], g.shape[2]
-    parts, S = _launch_dw(L, x, g, K)
+    parts = _launch_dw(L, x, g, K)
     cheby_dw_fused.launches += 1
-    return parts.reshape(-1, K, F, S, O).sum(dim=(0, 3))
+    with record_function("cheby_fused.K3.fold"):
+        return _fold_dw_partials(parts, L.compute_dtype)
 
 
 cheby_dw_fused.launches = 0

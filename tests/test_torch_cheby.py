@@ -3,7 +3,9 @@ the JAX package's Pallas kernels in interpret mode, on the same NumPy
 inputs: K2 (``cheby_conv_fused_reference``) and K3
 (``cheby_dw_fused_reference``) in f32 and bf16, the autograd Function's
 dx and dW against ``jax.grad``, the dispatch rules ``_fused_eligible``,
-``_dw_eligible`` and ``fused_vmem_ok`` against JAX's, and pooling.
+``_dw_eligible`` and ``fused_vmem_ok`` against JAX's, K3's fold of the
+per-rank partials its kernel writes (``_fold_dw_partials``) against
+K3's plain version, and pooling.
 
 Tolerances: K2 f32 ``atol=1e-4`` (the bound of tests/test_pallas_cheby.py
 :50; f32 sums in another order); K2 bf16 ``atol=1e-3``: both round the
@@ -11,7 +13,10 @@ same operands, and only a carry that lands next to a bf16 boundary can
 round one ulp apart; K3 ``1e-5`` of the largest entry in f32 (sums over
 B*M products in another order) and ``2**-8`` of it in bf16 (one bf16
 ulp of a partial); dx ``atol=1e-4`` and dW ``atol=1e-3``, the bounds of
-tests/test_pallas_cheby.py:78-79."""
+tests/test_pallas_cheby.py:78-79.  K3's fold: f32 ``1e-5`` of the largest
+entry (the ranks' sums in another order), bf16 one bf16 ulp of the
+largest entry (a per-sample sum next to a rounding boundary may round
+the other way)."""
 
 import dataclasses
 import types
@@ -46,8 +51,13 @@ from cnn_graph_tpu_torch.ops import (
     fused_filter,
     max_pool,
 )
+from cnn_graph_tpu_torch.ops.band import full_f32_matmul
 from cnn_graph_tpu_torch.ops.cheby import (
+    _columns,
     _dw_eligible,
+    _fold_dw_partials,
+    _hops,
+    _rounder,
     conv_geometry,
     fused_vmem_ok,
 )
@@ -143,6 +153,23 @@ class TestPlainVersions:
                                          torch.from_numpy(w)).numpy()
         np.testing.assert_allclose(got, want, rtol=0,
                                    atol=1e-4 if dtype == "float32" else 1e-3)
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_k3_takes_a_nonsymmetric_operator(self, knn200, dtype):
+        """K3 recomputes ``T_k(L) x`` for any L, as the Pallas kernel
+        does; its plain version, which the CUDA kernel is held to,
+        multiplies by L and not by L^T."""
+        L = (knn200 + 0.5 * scipy.sparse.triu(knn200, 1)).tocsr()
+        assert (L != L.T).nnz
+        op, op_j = _ops(L, dtype)
+        x, _, g = _inputs(13, 3, 5, 32, 64)
+        want = np.asarray(jax_cheby_dw_fused(
+            jnp.asarray(x), op_j, jnp.asarray(g), 5, interpret=True))
+        got = cheby_dw_fused_reference(torch.from_numpy(x), op,
+                                       torch.from_numpy(g), 5).numpy()
+        tol = 1e-5 if dtype == "float32" else 2**-8
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=tol * np.abs(want).max())
 
     def test_cpu_wrappers_take_the_plain_versions(self, knn200):
         """On CPU tensors the wrappers compute the plain versions and
@@ -296,6 +323,89 @@ def test_conv_geometry_covers_every_element_once(shape):
     assert (count == 1).all()
     if shape == "bench":
         assert geo["ctas"] >= 120
+
+
+def _rank_partials(x, L, g, K, n_sms=132):
+    """What K3's kernel writes, in torch: ``[G, CL, K, S, O, F]``, rank
+    ``c`` of group ``G``'s cluster contracting its rows (``conv_geometry``'s
+    split) of the rounded g and T_k, per sample and hop, in f32."""
+    B, _, F = x.shape
+    O = g.shape[2]
+    mp = L.m_padded
+    geo = conv_geometry(B, mp, F, O, n_sms)
+    S, G, CL = geo["samples"], geo["groups"], geo["cluster"]
+    span = geo["tiles_per_cta"] * geo["rows"]
+    pad = (0, 0, 0, 0, 0, G * S - B)
+    rnd = _rounder(L.compute_dtype)
+    gc = rnd(_columns(torch.nn.functional.pad(g, pad), mp)).reshape(
+        mp, G, S, O)
+    parts = torch.zeros(G, CL, K, S, O, F)
+    with full_f32_matmul():
+        for k, t in enumerate(_hops(
+                L, _columns(torch.nn.functional.pad(x, pad), mp), K)):
+            tk = rnd(t).reshape(mp, G, S, F)
+            for c in range(CL):
+                rows = slice(c * span, min((c + 1) * span, mp))
+                parts[:, c, k] = torch.einsum("mgsf,mgso->gsof", tk[rows],
+                                              gc[rows])
+    return parts
+
+
+# K3's fold shapes (nodes, B, F, O): 208 padded nodes on 64-row tiles
+# (tests/test_torch_gpu.py's knn203), the bench's 976 nodes at B = 4 (one
+# cluster of 8, two tiles each) and 7, F = 8 (np 40) and F = 200 (S = 1,
+# two 128-column passes).
+FOLD_SHAPES = {"knn203": (203, 3, 32, 64), "n976_b4": (976, 4, 32, 32),
+               "n976_b7": (976, 7, 32, 32), "narrow": (203, 5, 8, 12),
+               "wide": (203, 2, 200, 24)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", FOLD_SHAPES)
+def test_k3_fold_of_rank_partials_matches_plain_version(shape, dtype):
+    """``_fold_dw_partials`` (sum the ranks, round each per-sample sum to
+    the operator's dtype, sum samples and groups) on the partials K3's
+    kernel writes, at ``conv_geometry``'s split of the rows, gives K3's
+    plain version: the rounding comes after the sum over all the
+    nodes."""
+    n, B, F, O = FOLD_SHAPES[shape]
+    z = np.random.default_rng(n).uniform(size=(n, 2)).astype(np.float32)
+    op, _ = _ops(gc.laplacian(gc.knn_graph(z, k=6), normalized=True), dtype)
+    geo = conv_geometry(B, op.m_padded, F, O, 132)
+    if shape == "knn203":
+        assert op.m_padded == 208 and geo["rows"] == 64
+    if shape == "wide":
+        assert geo["samples"] == 1 and geo["np"] > 128
+    if shape == "narrow":
+        assert geo["np"] == 40
+    x, _, g = (torch.from_numpy(a) for a in _inputs(n + B, B, 4, F, O, n))
+    got = _fold_dw_partials(_rank_partials(x, op, g, 4), op.compute_dtype)
+    want = cheby_dw_fused_reference(x, op, g, 4)
+    assert got.shape == want.shape == (4, F, O)
+    top = float(want.abs().max())
+    tol = (1e-5 * top if dtype == "float32"
+           else 2.0 ** (np.floor(np.log2(top)) - 7))
+    torch.testing.assert_close(got, want, rtol=0, atol=tol)
+
+
+def test_k3_fold_rounds_after_the_rank_sum():
+    """One bf16 sample over 8 ranks (976 nodes): each entry of dW is one
+    rounded sum over all the nodes, so it lies on the bf16 grid and
+    within one ulp of the plain version's entry.  Rounding each rank's
+    partial before the sum, which the tolerance of the test above cannot
+    see, fails both."""
+    z = np.random.default_rng(976).uniform(size=(976, 2)).astype(np.float32)
+    op, _ = _ops(gc.laplacian(gc.knn_graph(z, k=6), normalized=True),
+                 "bfloat16")
+    x, _, g = (torch.from_numpy(a) for a in _inputs(977, 1, 4, 32, 32, 976))
+    parts = _rank_partials(x, op, g, 4)
+    assert parts.shape[1] == 8
+    got = _fold_dw_partials(parts, op.compute_dtype)
+    want = cheby_dw_fused_reference(x, op, g, 4)
+    assert torch.equal(got.to(torch.bfloat16).float(), got)
+    ulp = torch.pow(2.0, torch.floor(torch.log2(want.abs().clamp_min(
+        2.0**-100))) - 7)
+    assert bool(((got - want).abs() <= ulp).all())
 
 
 @pytest.mark.parametrize("p", [1, 2, 4])

@@ -335,6 +335,46 @@ def test_cheby_conv_kernel_takes_a_nonsymmetric_operator(knn203, cuda_device,
            dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cheby_dw_kernel_takes_a_nonsymmetric_operator(knn203, cuda_device,
+                                                       dtype):
+    """K3 recomputes T_k(L) x, not T_k(L^T) x, in both dtypes: its f32
+    hop reads the operator transposed and is given L^T, as K2's."""
+    L = (knn203 + 0.5 * scipy.sparse.triu(knn203, 1)).tocsr()
+    op = _dense(L, dtype, cuda_device)
+    assert not torch.equal(op.mat, op.mat.T)
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    x = torch.randn(3, op.m, 32, generator=g, device=cuda_device)
+    gy = torch.randn(3, op.m, 64, generator=g, device=cuda_device)
+    _close(cheby_dw_fused(x, op, gy, 6),
+           cheby_dw_fused_reference(x, op, gy, 6), dtype)
+
+
+@pytest.mark.parametrize("stages", [2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cheby_kernels_at_both_ring_depths(knn203, cuda_device, dtype,
+                                           stages):
+    """The library's 2- and 3-stage instantiations of K2 and K3, which
+    tools/ring_depth.py times against each other, both compute the plain
+    versions' results."""
+    from cnn_graph_tpu_torch.ops.cheby import (
+        _fold_dw_partials,
+        _launch_conv,
+        _launch_dw,
+    )
+
+    op = _dense(knn203, dtype, cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(stages)
+    x = torch.randn(5, op.m, 32, generator=g, device=cuda_device)
+    w = 0.1 * torch.randn(6, 32, 64, generator=g, device=cuda_device)
+    gy = torch.randn(5, op.m, 64, generator=g, device=cuda_device)
+    _close(_launch_conv(op, x, w, stages), cheby_conv_fused_reference(
+        x, op, w), dtype)
+    _close(_fold_dw_partials(_launch_dw(op, x, gy, 6, stages),
+                             op.compute_dtype),
+           cheby_dw_fused_reference(x, op, gy, 6), dtype)
+
+
 # K2's launch shapes (B, Mp, F, O), as tests/test_torch_cheby.py's
 # geometry test: the bench's dense_fused conv, ChebNet layer 1's forward
 # and dx, knn203's, and a wide F.
@@ -359,6 +399,20 @@ def test_conv_geometry_fits_the_card(cuda_device, dtype):
     bench = conv_geometry(100, 976, 32, 32, n_sms)
     assert conv_resources(bench["rows"], dtype, bench["cluster"])[
         "resident_clusters"] >= bench["groups"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dw_geometry_fits_the_card(cuda_device, dtype):
+    """K3 runs on K2's geometry: at every shape, its ring fits in the
+    232,448 bytes of shared memory a CTA can have and the card holds at
+    least one of its clusters at once."""
+    n_sms = torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count
+    for B, mp, F, O in _GEOMETRY_SHAPES:
+        geo = conv_geometry(B, mp, F, O, n_sms)
+        res = conv_resources(geo["rows"], dtype, geo["cluster"], "K3")
+        assert 0 < res["smem"] <= 232_448, (B, mp, F, O, res)
+        assert res["resident_clusters"] >= 1, (B, mp, F, O, res)
 
 
 def test_cheby_conv_fused_gradients_through_kernels(knn203, cuda_device):
