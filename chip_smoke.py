@@ -143,7 +143,8 @@ Phases, each fatal on failure (no CPU path, no fallback):
    of the measured time, the largest device kernels and aten ops, and
    for training the device time by part (K1, K5 or K4 by form, taps,
    dW, injections, casts, adam; K2 forward, K2 dx, K3, K3's fold, the
-   stacked basis of ChebNet's layer 0, fc, adam); write each
+   stacked basis of ChebNet's layer 0, fc, adam), and the same for 2
+   steps of phase 19's Trainer (its optimizer chain for adam); write each
    ``key_averages()`` table
    to ``DIR/profile_<mode>.txt``;
 18. the probes (utils/probes.py, csrc/probes.cu): hold P1 (``mxu_probe``)
@@ -159,6 +160,39 @@ Phases, each fatal on failure (no CPU path, no fallback):
    for two CTAs per SM, with its launches counted, and print each rate
    with its share of the data sheet's peak and of the measured cuBLAS
    peak.
+
+19. train through ``Trainer.fit`` (``train/trainer.py``): (a) the paper's
+   ChebNet of phase 8 (f32 operators, K2 and K3) with
+   experiments/mnist.py's configuration (lr 1e-3, decay 0.95 each epoch,
+   staircase) for 60 steps of 100 synthetic digits, an evaluation of 250
+   every 20 steps, checkpoints and the JSONL stream in a temporary
+   directory: check 2 K2 and 1 K3 launches per step and 2 K2 per
+   evaluated batch (prediction and loss) over the whole fit, the JSONL
+   lines, a finite EMA that falls, a second Trainer that resumes at step
+   60 with equal parameters and runs nothing, and ``evaluate``/
+   ``predict`` with a ragged last batch against ``apply``; print ms per
+   step from fit's ``t_step`` and from CUDA events beside phase 9's; (b)
+   ``experiments/text20news.py --synthetic`` (GC32, Fin = 1: the stacked
+   route, no kernel) for 2 epochs: its test accuracy and step time;
+20. the 20NEWS topology cell (bench.py:619-741): 4,000 synthetic
+   documents, the 10,000 most frequent words, 64-D PPMI-SVD embeddings,
+   16-NN (``algorithm="auto"``), RCM, normalized Laplacian; check that
+   ``device_laplacian(fmt="auto", dtype=bf16)`` gives a 10,000-node
+   ``DenseLaplacian``; run the K=5 ``cheby_finals`` chains (bf16 with the
+   renormalisation, against the same chain in f32 on the f32 copy of
+   the matrix within 2e-2 of its max; int8 through ``quantize_dense``'s
+   int32 ``_int_mm``, bit-identical to the float64 accumulator it
+   replaced), each timed by ``slope_time`` over 4 and 32 K-blocks, the
+   float64 one too; train the planted-partition NodeClassifier (64
+   features, 8 classes, K=5) 80 adam steps on the bf16 operator and
+   check its float test accuracy at least 0.9 and the int8 one within
+   0.01 of it;
+21. right after phase 11, on its bf16 BSR operator: bench.py's 50k
+   scattered K=25 chain (:764-826) in bf16 and int8 (``quantize_block_
+   sparse(sample_x=3.0)``), timed over 2 and 6 K-blocks: check K-1 K4
+   launches per K-block, int8 bit-identical to the plain twin's chain
+   and bf16 within 2e-2 of its max; print us per SpMM, ns per block,
+   Gedges/s and the sparse bound beside phase 16's ``torch.sparse.mm``.
 
 Each 50k scattered operator is freed after its phase.
 
@@ -179,6 +213,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
@@ -194,7 +229,9 @@ from cnn_graph_tpu_torch import _build, graphs  # noqa: E402
 from cnn_graph_tpu_torch.data import (  # noqa: E402
     mnist_graph_data,
     synthetic_mnist,
+    synthetic_text_dataset,
 )
+from cnn_graph_tpu_torch.experiments import text20news  # noqa: E402
 from cnn_graph_tpu_torch.models import ChebNet, NodeClassifier  # noqa: E402
 from cnn_graph_tpu_torch.models.common import (  # noqa: E402
     map_operators,
@@ -230,6 +267,7 @@ from cnn_graph_tpu_torch.ops import (  # noqa: E402
     packing,
     quantize_banded,
     quantize_block_sparse,
+    quantize_dense,
 )
 from cnn_graph_tpu_torch.ops.band import layout_call  # noqa: E402
 from cnn_graph_tpu_torch.ops.cheby import (  # noqa: E402
@@ -238,8 +276,13 @@ from cnn_graph_tpu_torch.ops.cheby import (  # noqa: E402
 )
 from cnn_graph_tpu_torch.serve import compile_serving  # noqa: E402
 from cnn_graph_tpu_torch.train import (  # noqa: E402
+    TrainConfig,
+    Trainer,
     train_classifier,
     train_node_classifier,
+)
+from cnn_graph_tpu_torch.train.checkpoint import (  # noqa: E402
+    CheckpointManager,
 )
 from cnn_graph_tpu_torch.utils import (  # noqa: E402
     probes,
@@ -296,6 +339,26 @@ BSR_REPLACES = {"K4": "cnn_graph_tpu/ops/pallas_spmm.py:129",  # colstream
 # 1 L@x and K-2 hops; layer 1's backward K-1 L@x (one per hop and one
 # for its L@x); layer 0's features need no gradient.
 BSR_STEP_FORMS = {"spmm": 2 + (K - 1), "hop": 2 * (K - 2)}
+# Phase 19: the Trainer with experiments/mnist.py's configuration (lr
+# 1e-3, decay 0.95 every epoch, staircase) on the paper's ChebNet: 2
+# epochs of 3,000 digits in batches of 100 (60 steps), an evaluation
+# every 20 steps on 250 digits and a test set of 250 (both end in a
+# ragged batch); then the GC32 text driver for 2 epochs.
+TRAINER_N, TRAINER_EPOCHS, TRAINER_EVAL, TRAINER_HELD = 3000, 2, 20, 250
+TEXT_EPOCHS = 2
+# Phase 20: the 20NEWS topology cell (bench.py:619-741): 4,000 synthetic
+# documents over 12,000 words, the 10,000 most frequent kept, 64-D
+# embeddings, 16-NN; K=5 chains at C = 512 over 4 and 32 K-blocks; the
+# planted-partition NodeClassifier (64 features, 8 classes) trained 80
+# adam steps at lr 1e-2.
+NEWS_DOCS, NEWS_VOCAB, NEWS_WORDS, NEWS_DIM, NEWS_KNN = 4000, 12000, \
+    10000, 64, 16
+NEWS_K, NEWS_UNITS = 5, (4, 32)
+NEWS_CLASSES, NEWS_FIN, NEWS_STEPS, NEWS_LR = 8, 64, 80, 1e-2
+NEWS_JAX_NNZ = 271470  # the JAX package's graph (BENCH_LAST_GOOD.json)
+# Phase 21: the 50k scattered K=25 chain on BSR (bench.py:764-826), over
+# 2 and 6 K-blocks.
+SCAT_CHAIN_UNITS = (2, 6)
 # The probes (phase 18) and the Pallas probe each replaces.
 PROBE_SOURCE = "cnn_graph_tpu_torch/csrc/probes.cu"
 PROBE_REPLACES = {"mxu": "experiments/_probe.py:154",       # _mxu_probe
@@ -547,9 +610,9 @@ def inplace_phase(op, gen, what: str) -> dict:
             "hop_inplace_ms": (t[1] + t[2]) / 2}
 
 
-def make_chain(op, u: int):
+def make_chain(op, u: int, k: int = K):
     """bench.py's chain (:461-474, :497-506): ``u`` K-blocks of
-    ``cheby_finals(op, ., K)``; float carries renormalised to unit RMS
+    ``cheby_finals(op, ., k)``; float carries renormalised to unit RMS
     after each block, int8 carries kept (one quantize in, one dequantize
     out).  Returns the final carry in float."""
     quant = op.compute_dtype == torch.int8
@@ -559,10 +622,10 @@ def make_chain(op, u: int):
             if quant:
                 q = op.quantize(x.float())
                 for _ in range(u):
-                    q = cheby_finals(op, q, K)
+                    q = cheby_finals(op, q, k)
                 return op.dequantize(q)
             for _ in range(u):
-                y = cheby_finals(op, x, K).float()
+                y = cheby_finals(op, x, k).float()
                 x = (y * torch.rsqrt(y.pow(2).mean() + 1e-6)).to(x.dtype)
             return x
 
@@ -761,8 +824,17 @@ class _PlainQuantBsr(_PlainBsrMixin, QuantBlockSparseLaplacian):
     pass
 
 
+class _PlainQuantDense(QuantDenseLaplacian):
+    """The dense int8 twin with its float64 accumulator, the route that
+    the int32 ``_int_mm`` replaced."""
+
+    def _acc(self, x_q):
+        return self._acc_f64(x_q)
+
+
 _PLAIN = {BlockSparseLaplacian: _PlainBsr,
-          QuantBlockSparseLaplacian: _PlainQuantBsr}
+          QuantBlockSparseLaplacian: _PlainQuantBsr,
+          QuantDenseLaplacian: _PlainQuantDense}
 
 
 def _plain_twin(op):
@@ -894,17 +966,19 @@ def _spans_ms(prof, name: str) -> list:
 
 
 def chebnet_profile_phase(run, step_ms: float, out_dir: str, gpu: str,
-                          n: int = 2):
+                          n: int = 2, mode: str = "chebnet_train_f32",
+                          optimizer=("adam", "Optimizer.step#Adam.step")):
     """Device-time breakdown of ``n`` f32 ChebNet training steps.  Each
     step launches K2 for the forward, then K2 for dx, then K3, so the
     K2 spans alternate forward and dx.  K3's fold and the fused conv's
     layout copies are their ranges' aten kernels, to which the ctypes
-    kernels are not linked."""
+    kernels are not linked.  ``optimizer``: the update's label and
+    range (``train_classifier``'s torch adam, or the Trainer's chain)."""
     os.makedirs(out_dir, exist_ok=True)
     run(1)
-    avg, prof = _trace(lambda: run(1), n, out_dir, "chebnet_train_f32")
+    avg, prof = _trace(lambda: run(1), n, out_dir, mode)
     busy = _busy_ms(avg, n)
-    print(f"profile chebnet train f32: device {busy:.3f} ms per step, "
+    print(f"profile {mode}: device {busy:.3f} ms per step, "
           f"{100 * busy / step_ms:.1f}% of the {step_ms:.3f} ms step [{gpu}]")
     k2 = _spans_ms(prof, "cheby_fused.K2")
     events = {e.key: e for e in avg if e.device_type == DeviceType.CPU}
@@ -925,7 +999,7 @@ def chebnet_profile_phase(run, step_ms: float, out_dir: str, gpu: str,
                                        "cheby_conv_fused.dW") - fold),
         ("layer 0 stacked basis", cpu_ms("cheby_conv.stacked")),
         ("fc forward", cpu_ms("fc")),
-        ("adam", cpu_ms("Optimizer.step#Adam.step")),
+        (optimizer[0], cpu_ms(optimizer[1])),
     )
     for label, ms in parts:
         print(f"  part {label}: {ms:.3f} ms ({_pct(ms, busy):.1f}%)")
@@ -1267,8 +1341,11 @@ def chebnet_int8_phase(model, params, reqs, f32_serving) -> dict:
         chain_cpu = cheby_finals(q.to("cpu"), xq.cpu(), K)
     check(chain.dtype == torch.int8 and torch.equal(chain.cpu(), chain_cpu),
           "chebnet int8: the K=25 chain differs between card and CPU")
+    f64 = compile_serving(map_operators(serving.model, _plain_twin), params,
+                          reqs[0])
     return {"launches": launches, "max_abs_err": err, "agreement": agree,
-            "max_rel_diff": rel, "ms": cuda_ms(lambda: serving(reqs[0]), 5)}
+            "max_rel_diff": rel, "ms": cuda_ms(lambda: serving(reqs[0]), 5),
+            "f64_ms": cuda_ms(lambda: f64(reqs[0]), 5)}
 
 
 # ------------------------------------------------ scattered BSR, K4, K7-K9
@@ -1502,6 +1579,285 @@ def bsr_train_phase(op, data) -> dict:
             "grad_rel_err": grad_err, "run": run,
             "ms": cuda_ms(lambda: run(TRAIN_STEPS), 1) / TRAIN_STEPS,
             "plain_ms": cuda_ms(lambda: run(1, m=twin), 1)}
+
+
+# ------------------------------------------------ the Trainer, phase 19
+
+
+def trainer_phase(Ls, perm, dev, gpu: str, step_ms: float) -> dict:
+    """Phase 19 (a): the paper's ChebNet (f32 operators, K2 and K3)
+    through ``Trainer.fit`` with experiments/mnist.py's configuration,
+    checkpoints and the JSONL stream in a temporary directory.  Checks
+    2 K2 and 1 K3 launches per step (and 2 K2 per evaluated batch: the
+    prediction and the loss each run the forward), the JSONL lines, an
+    EMA that stays finite and falls, a second Trainer that resumes at
+    the last step with equal parameters and runs nothing, and
+    ``evaluate``/``predict`` with a ragged last batch against ``apply``.
+    ``step_ms`` is phase 9's ``train_classifier`` step, printed beside."""
+    splits = synthetic_mnist(n_train=TRAINER_N, n_val=TRAINER_HELD,
+                             n_test=TRAINER_HELD, seed=CHEB_SEED + 1)
+    data = {k: graphs.perm_data(v, perm).astype(np.float32)
+            if k.endswith("_data") else v for k, v in splits.items()}
+    model, _ = chebnet_model(Ls, torch.float32, dev)
+    steps = TRAINER_EPOCHS * TRAINER_N // CHEB_B
+    evals = steps // TRAINER_EVAL
+    held_batches = -(-TRAINER_HELD // CHEB_B)
+    train = (data["train_data"], data["train_labels"], data["val_data"],
+             data["val_labels"])
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = TrainConfig(
+            num_epochs=TRAINER_EPOCHS, learning_rate=LEARNING_RATE,
+            decay_rate=0.95, decay_steps=TRAINER_N // CHEB_B,
+            batch_size=CHEB_B, eval_frequency=TRAINER_EVAL, seed=CHEB_SEED,
+            checkpoint_dir=os.path.join(tmp, "ckpt"),
+            log_path=os.path.join(tmp, "metrics.jsonl"))
+        trainer = Trainer(model, cfg, task="classification")
+        reset_cheby_launches()
+        t0 = time.perf_counter()
+        hist, val_losses, t_step = trainer.fit(*train, verbose=False)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = cheby_launches()
+        want = (2 * steps + 2 * evals * held_batches, steps)
+        check(launches == want, f"trainer: launches (K2, K3) {launches}, "
+              f"want {want} for {steps} steps and {evals} evaluations")
+        lines = [json.loads(s) for s in open(cfg.log_path)]
+        logged = lines[1:-1]
+        check(lines[0] == {"event": "start", "run": "run"}
+              and lines[-1] == {"event": "end"}
+              and [r["step"] for r in logged]
+              == list(range(TRAINER_EVAL, steps + 1, TRAINER_EVAL))
+              and all(list(r) == ["step", "time", "loss_ema", "val_metric",
+                                  "val_loss"] for r in logged)
+              and [r["val_metric"] for r in logged] == hist
+              and [r["val_loss"] for r in logged] == val_losses,
+              f"trainer: JSONL lines {lines}")
+        ema = [r["loss_ema"] for r in logged]
+        check(all(np.isfinite(ema)) and ema[-1] < ema[0],
+              f"trainer: EMA {ema} not finite and falling")
+        saved = CheckpointManager(cfg.checkpoint_dir).all_steps()
+        check(saved == [r["step"] for r in logged],
+              f"trainer: checkpoints at {saved}")
+        resumed = Trainer(model, cfg, task="classification")
+        reset_cheby_launches()
+        resumed.fit(*train, verbose=False)
+        torch.cuda.synchronize()
+        check(cheby_launches() == (0, 0)
+              and int(resumed.opt_state["count"]) == steps
+              and all(torch.equal(a, b) for a, b in zip(
+                  tree_leaves(resumed.params), tree_leaves(trainer.params))),
+              "trainer: the resumed Trainer's state differs from the first's")
+    reset_cheby_launches()
+    string, metrics = trainer.evaluate(data["test_data"],
+                                       data["test_labels"])
+    torch.cuda.synchronize()
+    check(cheby_launches() == (2 * held_batches, 0)
+          and len(metrics["predictions"]) == TRAINER_HELD,
+          f"trainer: evaluate launched {cheby_launches()}")
+    logits = trainer.predict(data["test_data"])
+    x = torch.from_numpy(data["test_data"]).to(dev)
+    last = x.new_zeros((CHEB_B,) + x.shape[1:])
+    tail = TRAINER_HELD - (held_batches - 1) * CHEB_B
+    last[:tail] = x[TRAINER_HELD - tail:]
+    with torch.inference_mode():
+        direct = torch.cat([model.apply(trainer.params, x[:CHEB_B]),
+                            model.apply(trainer.params, last)[:tail]])
+    got = torch.from_numpy(np.concatenate([logits[:CHEB_B],
+                                           logits[-tail:]]))
+    diff = float((got - direct.cpu()).abs().max())
+    check(logits.shape == (TRAINER_HELD, CHEB["M"][-1])
+          and np.isfinite(logits).all()
+          and diff <= 1e-5 * float(direct.abs().max()),
+          f"trainer: predict off apply on its batches by {diff:.3g}")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    xb = torch.from_numpy(data["train_data"][:CHEB_B]).to(dev)
+    yb = torch.from_numpy(data["train_labels"][:CHEB_B]).to(dev)
+    ema0 = torch.tensor(-1.0, device=dev)
+
+    def run(n_steps):
+        for _ in range(n_steps):
+            trainer._train_step(trainer.params, trainer.opt_state, ema0, gen,
+                                xb, yb)
+
+    ms = cuda_ms(lambda: run(1), 10)
+    print(f"trainer chebnet f32 (phase 19): Trainer.fit {steps} steps of "
+          f"{CHEB_B} in {fit_s:.1f} s, launches (K2, K3) {launches} = "
+          f"(2, 1) per step + (2, 0) per evaluated batch; EMA "
+          f"{[round(v, 4) for v in ema]}; validation accuracy {hist}; "
+          f"checkpoints {saved}, resumed at step {steps} with equal "
+          f"parameters; test {string}; ms per step: fit's t_step "
+          f"{1e3 * t_step:.3f} (evaluations and checkpoints included), "
+          f"CUDA events {ms:.3f} (Trainer step), phase 9's "
+          f"train_classifier {step_ms:.3f} [{gpu}]", flush=True)
+    return {"launches": launches, "steps": steps,
+            "eval_launches": 2 * evals * held_batches,
+            "t_step_ms": 1e3 * t_step, "ms": ms, "run": run}
+
+
+def text_trainer_phase(gpu: str):
+    """Phase 19 (b): experiments/text20news.py --synthetic, GC32 for
+    ``TEXT_EPOCHS`` epochs on the card through ``Trainer.fit``.  Its
+    layer has Fin = 1, which ``_fused_eligible`` refuses: the stacked
+    route, no K2 or K3."""
+    reset_cheby_launches()
+    t0 = time.perf_counter()
+    metrics, t_step = text20news.main(["--synthetic", "--epochs",
+                                       str(TEXT_EPOCHS)])
+    torch.cuda.synchronize()
+    check(cheby_launches() == (0, 0) and np.isfinite(metrics["loss"])
+          and 0 <= metrics["accuracy"] <= 100,
+          f"text20news: launches {cheby_launches()}, metrics {metrics}")
+    print(f"text20news GC32 (phase 19): {TEXT_EPOCHS} epochs through "
+          f"Trainer.fit, test accuracy {metrics['accuracy']:.2f}%, "
+          f"{1e3 * t_step:.3f} ms per step (fit's t_step), "
+          f"{time.perf_counter() - t0:.1f} s with the text set-up [{gpu}]",
+          flush=True)
+
+
+# --------------------------------------- the 20NEWS topology cell, phase 20
+
+
+def news_graph():
+    """bench.py:637-650: the 20NEWS-shape 10k-word embedding-kNN graph,
+    RCM-ordered, its normalized Laplacian.  Also returns how many words
+    have an identical twin embedding (where the tree kNN and JAX's
+    scikit-learn kNN may order neighbours differently) and the seconds
+    the host took."""
+    t0 = time.perf_counter()
+    ds = synthetic_text_dataset(n_docs=NEWS_DOCS, vocab_size=NEWS_VOCAB,
+                                seed=0)
+    ds.clean_text()
+    ds.vectorize()
+    ds.remove_short_documents(nwords=5)
+    ds.keep_top_words(NEWS_WORDS, Mprint=0)
+    ds.embed(size=NEWS_DIM, seed=0)
+    dist, idx = graphs.knn(ds.embeddings.astype(np.float32), k=NEWS_KNN,
+                           algorithm="auto")
+    W = graphs.adjacency(dist, idx)
+    perm = graphs.bandwidth_reducing_permutation(W)
+    W = W[perm][:, perm].tocsr()
+    return (graphs.laplacian(W, normalized=True),
+            int((dist[:, 0] == 0).sum()), time.perf_counter() - t0)
+
+
+def news_phase(dev, gpu: str):
+    """Phase 20: the 10,000-node graph served as a ``DenseLaplacian`` in
+    bf16 (the format JAX chose), its K=5 chains in bf16 (against the
+    same chain in f32 on the f32 copy of the bf16 matrix, within 2e-2 of
+    the max) and int8 (the int32 ``_int_mm`` accumulator against the
+    float64 one, bit-identical), each timed by ``slope_time``, and the
+    planted-partition NodeClassifier's float and int8 accuracy."""
+    L, twins, setup = news_graph()
+    op = device_laplacian(L, fmt="auto", dtype=torch.bfloat16, device=dev)
+    check(isinstance(op, DenseLaplacian) and op.m == NEWS_WORDS,
+          f"20news: auto format gave {type(op).__name__} of {op.m} nodes")
+    qop = quantize_dense(op, sample_x=3.0)
+    print(f"20news graph (phase 20): {op.m} nodes, nnz {op.nnz} (JAX's "
+          f"graph {NEWS_JAX_NNZ}), {twins} words with a twin embedding, "
+          f"{type(op).__name__} {op.m_padded}^2 bf16; set-up {setup:.1f} s",
+          flush=True)
+    rng = np.random.default_rng(0)
+    X = torch.from_numpy(rng.normal(size=(op.m_padded, FIN))).to(
+        dev, torch.bfloat16)
+    ref = DenseLaplacian(mat=op.mat.float(), m=op.m, m_padded=op.m_padded,
+                         nnz=op.nnz)
+    plain_q = _plain_twin(qop)
+    got = make_chain(op, 1, NEWS_K)(X)
+    want = make_chain(ref, 1, NEWS_K)(X.float())
+    err = float((got - want).abs().max())
+    check(err <= 2e-2 * float(want.abs().max()), f"20news bf16 chain off "
+          f"the f32 copy's by {err:.3g}")
+    print(f"20news bf16 chain: max |bf16 - f32 chain| {err:.3g} of "
+          f"{float(want.abs().max()):.3g}", flush=True)
+    got_q, want_q = (make_chain(o, 1, NEWS_K)(X) for o in (qop, plain_q))
+    check(torch.equal(got_q, want_q), "20news int8 chain: the int32 "
+          "accumulator differs from the float64 one")
+    for lab, o in (("bf16", op), ("int8", qop), ("int8_f64", plain_q)):
+        per, _ = slope_time(lambda u, o=o: make_chain(o, u, NEWS_K), (X,),
+                            units=NEWS_UNITS)
+        dt = per / (NEWS_K - 1)
+        print(f"20news chain {lab} K={NEWS_K} C={FIN}: {dt * 1e6:.2f} us "
+              f"per SpMM, {op.nnz / dt / 1e9:.4f} Gedges/s [{gpu}]",
+              flush=True)
+    # bench.py:697-741: labels by node index, a class signature plus
+    # unit noise, 10% of the nodes labelled; trained on the bf16 operator.
+    m, mp = op.m, op.m_padded
+    labels = (np.arange(m) * NEWS_CLASSES // m).astype(np.int64)
+    sig = rng.normal(0, 1, (NEWS_CLASSES, NEWS_FIN)).astype(np.float32)
+    feats = sig[labels] + rng.normal(0, 1.0, (m, NEWS_FIN)).astype(
+        np.float32)
+    fp = np.zeros((mp, NEWS_FIN), np.float32)
+    fp[:m] = feats
+    yp = np.zeros((mp,), np.int64)
+    yp[:m] = labels
+    train = np.zeros(mp, bool)
+    train[:m] = rng.random(m) < 0.1
+    test = np.zeros(mp, bool)
+    test[:m] = ~train[:m]
+    f, y, tm, em = (torch.from_numpy(a).to(dev) for a in (fp, yp, train,
+                                                          test))
+    model = NodeClassifier(op, NEWS_FIN, NEWS_CLASSES, hidden=[], K=NEWS_K,
+                           generator=torch.Generator().manual_seed(0))
+    params, losses = train_node_classifier(
+        model, model.param_tree(), f, y, tm, steps=NEWS_STEPS,
+        learning_rate=NEWS_LR)
+    losses = losses.tolist()
+    check(np.isfinite(losses[-1]) and losses[-1] < losses[0],
+          f"20news: adam losses {losses[0]:.4f} -> {losses[-1]:.4f}")
+    with torch.inference_mode():
+        acc = {lab: float(map_operators(model, lambda _, o=o: o).accuracy(
+            params, f, y, em)) for lab, o in (("f32", op), ("int8", qop))}
+    check(acc["f32"] >= 0.9 and abs(acc["int8"] - acc["f32"]) <= 0.01,
+          f"20news accuracy: {acc}")
+    print(f"20news NodeClassifier: {NEWS_STEPS} adam steps on the bf16 "
+          f"operator, loss {losses[0]:.4f} -> {losses[-1]:.4f}; test "
+          f"accuracy float {acc['f32']:.4f}, int8 {acc['int8']:.4f} "
+          f"(delta {acc['int8'] - acc['f32']:+.4f}) [{gpu}]", flush=True)
+
+
+# ------------------------------------- the 50k scattered K=25 chain, phase 21
+
+
+def bsr_chain_phase(op, X, what: str, gpu: str, lib_ms=None) -> dict:
+    """bench.py's 50k scattered chain on BSR: K-1 K4 launches per K-block
+    and no other, the int8 chain bit-identical to the plain twin's and
+    bf16 within 2e-2 of its max (one K-block), then us per SpMM by slope
+    fit over ``SCAT_CHAIN_UNITS``, ns per block, Gedges/s and the sparse
+    bound of the hop, beside phase 16's ``torch.sparse.mm`` (``lib_ms``,
+    one L@x)."""
+    reset_bsr_launches()
+    got = make_chain(op, 1)(X)
+    torch.cuda.synchronize()
+    launches = bsr_launches()
+    check(launches["K4"] == K - 1 and sum(launches.values()) == K - 1,
+          f"chain {what}: launches {launches}, want {K - 1} of K4")
+    want = make_chain(_plain_twin(op), 1)(X)
+    torch.cuda.synchronize()
+    check(sum(bsr_launches().values()) == K - 1,
+          f"chain {what}: the plain chain launched kernels")
+    err = float((got - want).abs().max())
+    if op.compute_dtype == torch.int8:
+        check(torch.equal(got, want), f"chain {what}: int8 chain not "
+              "bit-identical to the plain chain")
+    else:
+        check(err <= 2e-2 * float(want.abs().max()), f"chain {what}: off "
+              f"the plain chain by {err:.3g}")
+    per, fixed = slope_time(lambda u: make_chain(op, u), (X,),
+                            units=SCAT_CHAIN_UNITS)
+    t = per / (K - 1)
+    nb = op.block_cols.numel()
+    roof = sparse_roofline(op, t, X.shape[1], extra_inputs=1)
+    rec = {"launches": launches["K4"], "us_per_spmm": t * 1e6,
+           "ns_per_block": t / nb * 1e9, "gedges_per_s": op.nnz / t / 1e9,
+           "max_abs_err": err, "roofline": roof}
+    lib = "" if lib_ms is None else f"; torch.sparse.mm L@x {lib_ms:.4f} ms"
+    print(f"chain {what} (K4) K={K} C={X.shape[1]}: {rec['us_per_spmm']:.2f} "
+          f"us per SpMM, {rec['ns_per_block']:.2f} ns per block ({nb} "
+          f"blocks), {rec['gedges_per_s']:.4f} Gedges/s, "
+          f"{roof['achieved_frac_of_bound']:.3f} of the {roof['bound_by']} "
+          f"bound {roof['bound_us']:.2f} us{lib}; max |kernel - plain| "
+          f"{err:.3g} [{gpu}]", flush=True)
+    return rec
 
 
 # ------------------------------------------------------- the probes P1-P3
@@ -1759,7 +2115,7 @@ def main() -> int:
     t0 = time.perf_counter()
     splits = synthetic_mnist(n_train=CHEB_B, n_val=0,
                              n_test=N_REQUESTS * CHEB_B, seed=CHEB_SEED)
-    data, Ls, _ = mnist_graph_data(splits, seed=CHEB_SEED)
+    data, Ls, perm = mnist_graph_data(splits, seed=CHEB_SEED)
     print(f"mnist graph: levels {[L.shape[0] for L in Ls]} nodes, set-up "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     kchecks = cheby_kernel_phase(Ls, dev, gen)
@@ -1814,7 +2170,8 @@ def main() -> int:
                   f"{q8['agreement']:.4f} (JAX's {CHEB_INT8_AGREEMENT}; "
                   f"max |int8 - f32| "
                   f"{q8['max_rel_diff']:.3g} of the f32 max); "
-                  f"{q8['ms']:.3f} ms per request [{gpu}]", flush=True)
+                  f"{q8['ms']:.3f} ms per request (the float64 "
+                  f"accumulator's {q8['f64_ms']:.3f}) [{gpu}]", flush=True)
         print(f"chebnet serve {lab}: {N_REQUESTS} requests of {CHEB_B}, "
               f"launches (K2, K3) {srv['launches']}, max |served - plain| "
               f"{srv['max_abs_err']:.3g}; {srv['ms']:.3f} ms per request "
@@ -1825,6 +2182,12 @@ def main() -> int:
               f"loss rel err {trn['loss_rel_err']:.3g}, gradient err "
               f"{trn['grad_rel_err']:.3g} of max; {trn['ms']:.3f} ms per "
               f"step (plain {trn['plain_ms']:.3f} ms) [{gpu}]", flush=True)
+
+    # Phase 19: the Trainer on the card: the paper's ChebNet (K2, K3)
+    # and the GC32 text driver.
+    trainer_rec = trainer_phase(Ls, perm, dev, gpu,
+                                cheb["f32"]["train"]["ms"])
+    text_trainer_phase(gpu)
 
     # Phase 10: the bench's 50k scattered graph, K4 against its plain
     # version.  fmt="auto" must give the column-streamed BSR operator.
@@ -1885,6 +2248,18 @@ def main() -> int:
           f"{s_train['grad_rel_err']:.3g} of max; {s_train['ms']:.3f} ms per "
           f"step (plain {s_train['plain_ms']:.3f} ms), peak memory "
           f"{s_train['peak_gb']:.2f} GiB [{gpu}]", flush=True)
+
+    # Phase 21: bench.py's 50k scattered K=25 chain on the same BSR
+    # operator (K4), bf16 and int8.
+    Xs = torch.randn(s_bf16.m_padded, FIN, generator=gen,
+                     device=dev).to(torch.bfloat16)
+    s_chains = {
+        "bf16": bsr_chain_phase(s_bf16, Xs, "50k scattered bf16", gpu,
+                                lib["scattered"]["bf16"]),
+        "int8": bsr_chain_phase(quantize_block_sparse(s_bf16, sample_x=3.0),
+                                Xs, "50k scattered int8", gpu)}
+    del Xs
+    torch.cuda.empty_cache()
 
     # Phase 12: bsr_csr through each route it ports, then one request
     # through each route's operator.
@@ -2074,6 +2449,10 @@ def main() -> int:
         chebnet_profile_phase(cheb["f32"]["train"]["run"],
                               cheb["f32"]["train"]["ms"], args.profile_dir,
                               gpu)
+        chebnet_profile_phase(trainer_rec["run"], trainer_rec["ms"],
+                              args.profile_dir, gpu,
+                              mode="trainer_chebnet_f32",
+                              optimizer=("optax chain", "trainer.optimizer"))
         profile_phase({f"scattered_{m}": r["serving"]
                        for m, r in s_served.items()}, s_reqs[0],
                       {f"scattered_{m}": r["ms"] for m, r in s_served.items()},
@@ -2107,6 +2486,9 @@ def main() -> int:
     print(f"probes: checks and timing {time.perf_counter() - t0:.1f} s",
           flush=True)
 
+    # Phase 20: the 20NEWS topology cell.
+    news_phase(dev, gpu)
+
     def band_row(name, lay, lab, rec, launches, **extra):
         """A banded kernel's row: the sparse bound as ``bound_ms``, the
         block format's work and the row walk's plain version beside."""
@@ -2122,6 +2504,17 @@ def main() -> int:
                 "hop_plain_ms": rec["hop_plain_ms"],
                 "hop_bound_ms": rec["hop_roofline"]["bound_us"] / 1e3,
                 **rows, **extra}
+
+    def trainer_keys(i):
+        """Phase 19's Trainer: launches of K2 (i = 0) or K3 (i = 1) per
+        training step, its step time from CUDA events and fit's."""
+        r = trainer_rec
+        per_step = (r["launches"][i] - (r["eval_launches"] if i == 0
+                                        else 0)) / r["steps"]
+        return {"trainer_launches": r["launches"][i],
+                "trainer_launches_per_step": per_step,
+                "trainer_ms_per_step": r["ms"],
+                "trainer_fit_ms_per_step": r["t_step_ms"]}
 
     def chain_keys(lay, lab):
         c = chains[lay][lab]
@@ -2216,7 +2609,9 @@ def main() -> int:
          "source": CHEB_SOURCE, "kernel": "cheby_conv_kernel<kConvTap>",
          "replaces": CHEB_REPLACES["K2"],
          "launches": (cheb[lab]["serve"]["launches"][0]
-                      + cheb[lab]["train"]["launches"][0]),
+                      + cheb[lab]["train"]["launches"][0]
+                      + (trainer_rec["launches"][0] if lab == "f32" else 0)),
+         **(trainer_keys(0) if lab == "f32" else {}),
          "max_abs_err": kchecks[f"{lab}_bench"]["max_abs_err"],
          "ms": kchecks[f"{lab}_bench"]["ms"],
          "plain_ms": kchecks[f"{lab}_bench"]["plain_ms"],
@@ -2235,7 +2630,9 @@ def main() -> int:
         {"name": f"cheby_dw_fused_{lab}", "route": "cuda",
          "source": CHEB_SOURCE, "kernel": "cheby_conv_kernel<kDwTap>",
          "replaces": CHEB_REPLACES["K3"],
-         "launches": cheb[lab]["train"]["launches"][1],
+         "launches": (cheb[lab]["train"]["launches"][1]
+                      + (trainer_rec["launches"][1] if lab == "f32" else 0)),
+         **(trainer_keys(1) if lab == "f32" else {}),
          "max_abs_err": kchecks[f"{lab}_bench_K3"]["max_abs_err"],
          "ms": kchecks[f"{lab}_bench_K3"]["ms"],
          "plain_ms": kchecks[f"{lab}_bench_K3"]["plain_ms"],
@@ -2255,6 +2652,10 @@ def main() -> int:
                       + (s_train["launches"] if lab == "bf16" else 0)),
          **bsr_keys(k4[lab], lib["scattered"][lab]),
          "long_rows_max_abs_err": long_rows[lab],
+         "chain_launches_per_block": s_chains[lab]["launches"],
+         "chain_us_per_spmm": s_chains[lab]["us_per_spmm"],
+         "chain_ns_per_block": s_chains[lab]["ns_per_block"],
+         "chain_gedges_per_s": s_chains[lab]["gedges_per_s"],
          "request_ms": s_served[lab]["ms"],
          "request_plain_ms": s_served[lab]["plain_ms"],
          **({"train_ms_per_step": s_train["ms"],

@@ -11,8 +11,11 @@ the coarsened MNIST grid graph (``graphs``, ``data``), served and
 trained, its fused dense Chebyshev conv and weight gradient on the CUDA
 kernels of ``csrc/cheby_fused.cu``; the NodeClassifier on scattered
 graphs through the BSR kernels of ``csrc/bsr.cu``;
-``serve.compile_serving``, the adam loops of ``train``, and the timers
-of ``utils.profiling``.  ROADMAP.md lists what is still to come.
+``serve.compile_serving``; the ``Trainer`` with its optax-equal
+optimizer chain, checkpoints and metrics stream (``train``,
+``utils.metrics``, ``utils.logging``); the 20NEWS/RCV1 text pipeline
+(``data.text``); the drivers of ``experiments``; and the timers of
+``utils.profiling``.  ROADMAP.md lists what is still to come.
 """
 
 __version__ = "0.1.0"

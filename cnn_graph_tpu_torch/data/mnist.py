@@ -54,7 +54,7 @@ def mnist_graph_data(splits: dict, k: int = 8, levels: int = 4,
     if edge_noise:
         raise NotImplementedError(
             "edge_noise needs replace_random_edges, not ported to "
-            "cnn_graph_tpu_torch yet (ROADMAP queue 1 item 1)")
+            "cnn_graph_tpu_torch yet (ROADMAP queue 1 item 3)")
     W = gc.knn_graph(gc.grid(28), k=k)
     graphs, perm = coarsening.coarsen(W, levels=levels, seed=seed)
     Ls = [gc.laplacian(g, normalized=True) for g in graphs]

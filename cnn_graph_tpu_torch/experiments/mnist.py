@@ -1,0 +1,96 @@
+"""MNIST grid-graph classification: the reference's headline experiment.
+
+The JAX package's ``experiments/mnist.py`` on the port: the 28x28 8-NN
+grid graph, 4-level Graclus coarsening, ChebNet with the paper's
+configuration (F=[32, 64], K=[25, 25], p=[4, 4], M=[512, 10];
+nips2016/mnist.ipynb cells 14-17; the paper's Table 2 reports 99.14%),
+trained by ``Trainer`` on the synthetic class-structured digits.
+
+Not ported yet, and raising rather than ignored: ``--data-dir`` (the IDX
+reader ``load_mnist``), ``--edge-noise`` above 0
+(``replace_random_edges``) and ``--filter`` other than ``chebyshev``
+(ROADMAP queue 1 item 3), and ``--mesh-data`` (batch data parallelism,
+item 6).  ``--n-val`` and ``--n-test`` size the synthetic validation and
+test sets (the JAX script's are fixed at 5,000 and 10,000).
+
+Run:  python -m cnn_graph_tpu_torch.experiments.mnist [--epochs 20]
+          [--device cpu]
+"""
+
+from __future__ import annotations
+
+import argparse
+
+
+def main(argv=None):
+    """Run the experiment; returns the test metrics and ``fit``'s
+    seconds per step."""
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--data-dir", default=None)
+    p.add_argument("--epochs", type=int, default=20)
+    p.add_argument("--batch-size", type=int, default=100)
+    p.add_argument("--learning-rate", type=float, default=1e-3)
+    p.add_argument("--K", type=int, default=25)
+    p.add_argument("--filter", default="chebyshev",
+                   choices=["chebyshev", "fourier", "spline", "lanczos"])
+    p.add_argument("--mesh-data", type=int, default=0,
+                   help="batch data parallelism over N devices (not ported)")
+    p.add_argument("--n-train", type=int, default=55000,
+                   help="synthetic-data size when no --data-dir")
+    p.add_argument("--n-val", type=int, default=5000)
+    p.add_argument("--n-test", type=int, default=10000)
+    p.add_argument("--edge-noise", dest="edge_noise", type=float,
+                   default=0.0,
+                   help="fraction of graph edges replaced with random ones "
+                        "(not ported)")
+    p.add_argument("--seed", type=int, default=2017)
+    p.add_argument("--device", default=None,
+                   help="torch device (default: the CUDA device)")
+    args = p.parse_args(argv)
+    unported = {
+        "--data-dir (load_mnist) is not ported to cnn_graph_tpu_torch yet "
+        "(ROADMAP queue 1 item 3)": args.data_dir,
+        "--edge-noise (replace_random_edges) is not ported to "
+        "cnn_graph_tpu_torch yet (ROADMAP queue 1 item 3)":
+            args.edge_noise > 0,
+        f"--filter {args.filter} is not ported to cnn_graph_tpu_torch yet "
+        "(ROADMAP queue 1 item 3)": args.filter != "chebyshev",
+        "--mesh-data (TrainConfig.mesh) is not ported to cnn_graph_tpu_torch "
+        "yet (ROADMAP queue 1 item 6)": args.mesh_data,
+    }
+    for message, given in unported.items():
+        if given:
+            raise NotImplementedError(message)
+
+    from cnn_graph_tpu_torch.data import mnist_graph_data, synthetic_mnist
+    from cnn_graph_tpu_torch.models import ChebNet
+    from cnn_graph_tpu_torch.ops import device_laplacian
+    from cnn_graph_tpu_torch.train import TrainConfig, Trainer
+
+    print("no --data-dir: using synthetic class-structured digits")
+    splits = synthetic_mnist(n_train=args.n_train, n_val=args.n_val,
+                             n_test=args.n_test, seed=args.seed)
+    splits, Ls, perm = mnist_graph_data(splits, k=8, levels=4,
+                                        seed=args.seed)
+    ops = [device_laplacian(L, device=args.device) for L in Ls]
+
+    model = ChebNet(ops, F=[32, 64], K=[args.K, args.K], p=[4, 4],
+                    M=[512, 10], dropout=0.5, regularization=5e-4)
+    n = splits["train_data"].shape[0]
+    cfg = TrainConfig(
+        num_epochs=args.epochs, learning_rate=args.learning_rate,
+        decay_rate=0.95, decay_steps=n // args.batch_size,
+        batch_size=args.batch_size, eval_frequency=200, seed=args.seed)
+    trainer = Trainer(model, cfg, task="classification")
+    hist, losses, t_step = trainer.fit(
+        splits["train_data"], splits["train_labels"],
+        splits["val_data"], splits["val_labels"])
+    string, metrics = trainer.evaluate(splits["test_data"],
+                                       splits["test_labels"])
+    print(f"test  {string}")
+    print(f"time per step: {t_step * 1000:.2f} ms")
+    return metrics, t_step
+
+
+if __name__ == "__main__":
+    main()

@@ -54,8 +54,9 @@ def knn(z: np.ndarray, k: int = 4, metric: str = "euclidean",
     ``algorithm="dense"`` builds the full distance matrix with ``pdist``
     (any SciPy metric, ``"cosine"`` included) and argsorts it (O(M^2)
     memory), exactly as the JAX package does, ties included.  Any other
-    value queries a ``cKDTree``, which scales to millions of points but
-    serves ``"euclidean"`` only: the JAX package takes scikit-learn's
+    value queries a ``cKDTree`` (on every host core; each point's query
+    is independent, so the result is the serial one), which scales to
+    millions of points but serves ``"euclidean"`` only: the JAX package takes scikit-learn's
     metrics there, and scikit-learn is not on the card's machine, so
     another metric raises rather than fall back to Euclidean.
     Returns ``(dist, idx)`` of shape ``(M, k)``, nearest first."""
@@ -70,7 +71,7 @@ def knn(z: np.ndarray, k: int = 4, metric: str = "euclidean",
             f"not {metric!r}: the JAX package takes scikit-learn's metrics "
             "there, and scikit-learn is not on the card's machine; use "
             "algorithm='dense' for other metrics")
-    dist, idx = scipy.spatial.cKDTree(z).query(z, k=k + 1)
+    dist, idx = scipy.spatial.cKDTree(z).query(z, k=k + 1, workers=-1)
     return dist[:, 1:], idx[:, 1:]
 
 

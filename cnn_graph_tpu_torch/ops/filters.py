@@ -238,5 +238,70 @@ def cheby_conv(x: torch.Tensor, L, w: torch.Tensor,
     with record_function("cheby_conv.stacked"):
         basis = cheby_basis(x, L, K)
         with full_f32_matmul(), record_function("cheby_conv.taps"):
-            y = torch.einsum("kbmf,kfo->bmo", basis, w.to(basis.dtype))
-    return y.to(x.dtype)
+            return stacked_taps(basis, w, x.dtype)
+
+
+def stacked_taps(basis: torch.Tensor, w: torch.Tensor,
+                 out_dtype: torch.dtype) -> torch.Tensor:
+    """The stacked route's tap contraction ``sum_k basis[k] W_k``:
+    ``[K, B, M, F]`` x ``[K, F, O]`` -> ``[B, M, O]`` in ``out_dtype``.
+    As JAX's ``einsum(basis, w.astype(basis.dtype),
+    preferred_element_type=x.dtype)`` (filters.py:373-378): w is rounded
+    to the basis dtype first, and a bf16 (or f16) basis with f32
+    activations is contracted in f32 (``_NarrowTaps``), so the products
+    of the bf16 values are summed and returned unrounded."""
+    if (basis.dtype in (torch.bfloat16, torch.float16)
+            and out_dtype == torch.float32):
+        return _NarrowTaps.apply(basis, w)
+    return torch.einsum("kbmf,kfo->bmo", basis,
+                        w.to(basis.dtype)).to(out_dtype)
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of narrow operands, summed and returned in f32: on the
+    card one ``torch.mm(..., out_dtype=float32)``, which reads the
+    operands as they are (the CPU build refuses it); on the CPU on f32
+    copies."""
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+class _NarrowTaps(torch.autograd.Function):
+    """``sum_k basis[k] W_k`` for a narrow basis, in f32: one product per
+    k, accumulated into one f32 output, with no f32 copy of the basis
+    (at the 50k scattered request the copy took 7.7 ms of device time
+    where the K products take 0.75; ``tools/stacked_contract.py``).
+    ``torch.mm``'s ``out_dtype`` form has no derivative, so the backward
+    is written out, and gives the gradients of the upcast einsum: the
+    basis's rounded to its dtype, W's rounded to the basis dtype (JAX's
+    cotangent through ``w.astype``)."""
+
+    @staticmethod
+    def forward(ctx, basis, w):
+        K, B, M, F = basis.shape
+        wb = w.to(basis.dtype)
+        y = _mm_f32(basis[0].reshape(B * M, F), wb[0])
+        for k in range(1, K):
+            y += _mm_f32(basis[k].reshape(B * M, F), wb[k])
+        ctx.save_for_backward(basis, wb)
+        ctx.w_dtype = w.dtype
+        return y.reshape(B, M, -1)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        basis, wb = ctx.saved_tensors
+        K, B, M, F = basis.shape
+        g2 = g.reshape(B * M, -1).to(torch.float32)
+        d_basis = d_w = None
+        with full_f32_matmul():
+            if ctx.needs_input_grad[0]:
+                d_basis = torch.stack([
+                    (g2 @ wb[k].to(torch.float32).t()).to(basis.dtype)
+                    for k in range(K)]).reshape(K, B, M, F)
+            if ctx.needs_input_grad[1]:
+                d_w = torch.stack([
+                    basis[k].reshape(B * M, F).to(torch.float32).t() @ g2
+                    for k in range(K)]).to(basis.dtype).to(ctx.w_dtype)
+        return d_basis, d_w

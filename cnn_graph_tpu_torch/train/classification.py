@@ -5,9 +5,9 @@ The loop that ``cnn_graph_tpu/train/trainer.py`` runs with
 gradient on one batch at the current parameters, then one adam update.
 ``torch.optim.Adam`` with ``betas=(0.9, 0.999)`` and ``eps=1e-8`` (added
 outside the square root) is ``optax.adam``'s update, so the JAX
-trajectory is the reference.  The ``TrainConfig``/``Trainer`` surface
-(learning-rate decay, EMA, evaluation, checkpoints; trainer.py:38-238)
-is not ported yet.
+trajectory is the reference.  ``train.Trainer`` is the full loop
+(decay, EMA, evaluation, checkpoints); chip_smoke.py times this core
+one beside it.
 """
 
 from __future__ import annotations

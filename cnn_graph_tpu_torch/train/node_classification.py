@@ -4,8 +4,7 @@ Counterpart of the loop that ``experiments/node_classification.py:146-176``
 and ``bench.py:276-297`` run with ``optax.adam``: each step takes the
 masked cross-entropy and its gradient at the current parameters, then
 one adam update.  ``train.adam_steps`` runs the update, ``optax.adam``'s, so
-the JAX trajectory is the reference.  The full ``TrainConfig`` /
-``Trainer`` surface (trainer.py:38-238) is not ported yet.
+the JAX trajectory is the reference.
 """
 
 from __future__ import annotations

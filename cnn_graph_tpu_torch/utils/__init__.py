@@ -1,4 +1,6 @@
-"""Measurement helpers: device timing and rooflines."""
+"""Measurement helpers: device timing and rooflines (``profiling``);
+the evaluation metrics (``metrics``) and the JSONL metrics stream
+(``logging``) are imported from their modules."""
 
 from cnn_graph_tpu_torch.utils.profiling import (
     H100_BYTES_PER_S,

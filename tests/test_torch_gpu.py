@@ -961,7 +961,8 @@ def test_probes_reject_bad_arguments(cuda_device):
 def test_dense_int8_twin_bit_identical_on_card_and_cpu(knn203, cuda_device):
     """``QuantDenseLaplacian``: spmm_q, cheby_hop_q and a cheby_finals
     chain on the card equal the same calls on the CPU bit for bit (exact
-    float64 accumulation, one f32 emission)."""
+    int32 accumulation by ``_int_mm``, one f32 emission), and the int32
+    accumulator equals the float64 one on both."""
     op = device_laplacian(knn203, fmt="dense", device="cpu")
     q = quantize_dense(op, sample_x=3.0)
     qc = q.to(cuda_device)
@@ -972,3 +973,31 @@ def test_dense_int8_twin_bit_identical_on_card_and_cpu(knn203, cuda_device):
     assert torch.equal(qc.spmm_q(xc).cpu(), q.spmm_q(x))
     assert torch.equal(qc.cheby_hop_q(xc, x0c).cpu(), q.cheby_hop_q(x, x0))
     assert torch.equal(cheby_finals(qc, xc, 9).cpu(), cheby_finals(q, x, 9))
+    for o, v in ((q, x), (qc, xc)):
+        assert torch.equal(o._acc(v).double(), o._acc_f64(v))
+
+
+@pytest.mark.parametrize("B", [1, 3])
+def test_stacked_taps_on_the_card_match_the_cpu(cuda_device, B):
+    """The stacked route's f32 contraction of a bf16 basis: the card's
+    ``mm(out_dtype=float32)`` products against the CPU's f32 copies,
+    output and both gradients within 1e-5 of their largest entries (f32
+    sums in another order; the gradients rounded to bf16 alike, up to
+    one bf16 ulp)."""
+    from cnn_graph_tpu_torch.ops.filters import stacked_taps
+
+    g = torch.Generator().manual_seed(7)
+    basis = torch.randn(5, B, 300, 24, generator=g).to(torch.bfloat16)
+    w = 0.1 * torch.randn(5, 24, 6, generator=g)
+    gy = torch.randn(B, 300, 6, generator=g)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        b = basis.detach().to(dev).requires_grad_()
+        ww = w.detach().to(dev).requires_grad_()
+        y = stacked_taps(b, ww, torch.float32)
+        y.backward(gy.to(dev))
+        out[str(dev)] = [t.detach().float().cpu() for t in (y, b.grad,
+                                                             ww.grad)]
+    for name, a, c in zip(("y", "d_basis", "d_w"), *out.values()):
+        tol = 1e-5 if name == "y" else 2 ** -8
+        assert float((a - c).abs().max()) <= tol * float(c.abs().max()), name

@@ -179,8 +179,9 @@ class TestInt8Serving:
 
 class TestGuards:
     def test_port_never_imports_jax(self):
-        """Neither the port nor chip_smoke.py pulls in JAX or the JAX
-        package: the card's machine has neither."""
+        """Neither the port nor chip_smoke.py pulls in JAX, the JAX
+        package, scikit-learn, optax or Orbax: the card's machine has
+        none of them."""
         code = (
             "import sys, cnn_graph_tpu_torch, cnn_graph_tpu_torch.graphs, "
             "cnn_graph_tpu_torch.graphs.construction, "
@@ -194,11 +195,23 @@ class TestGuards:
             "cnn_graph_tpu_torch.serve, cnn_graph_tpu_torch.convert, "
             "cnn_graph_tpu_torch.train, "
             "cnn_graph_tpu_torch.train.classification, "
+            "cnn_graph_tpu_torch.train.trainer, "
+            "cnn_graph_tpu_torch.train.optim, "
+            "cnn_graph_tpu_torch.train.checkpoint, "
+            "cnn_graph_tpu_torch.data.text, "
+            "cnn_graph_tpu_torch.data.stop_words, "
+            "cnn_graph_tpu_torch.experiments, "
+            "cnn_graph_tpu_torch.experiments.mnist, "
+            "cnn_graph_tpu_torch.experiments.text20news, "
+            "cnn_graph_tpu_torch.experiments.rcv1, "
             "cnn_graph_tpu_torch.utils, cnn_graph_tpu_torch.utils.profiling, "
             "cnn_graph_tpu_torch.utils.probes, "
+            "cnn_graph_tpu_torch.utils.metrics, "
+            "cnn_graph_tpu_torch.utils.logging, "
             "cnn_graph_tpu_torch._build, chip_smoke\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'cnn_graph_tpu')]\n"
+            "('jax', 'jaxlib', 'cnn_graph_tpu', 'sklearn', 'optax', "
+            "'orbax')]\n"
             "assert not bad, bad\n"
         )
         root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
