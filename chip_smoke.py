@@ -144,7 +144,9 @@ Phases, each fatal on failure (no CPU path, no fallback):
    for training the device time by part (K1, K5 or K4 by form, taps,
    dW, injections, casts, adam; K2 forward, K2 dx, K3, K3's fold, the
    stacked basis of ChebNet's layer 0, fc, adam), and the same for 2
-   steps of phase 19's Trainer (its optimizer chain for adam); write each
+   steps of phase 19's Trainer (its optimizer chain for adam) and of
+   phase 22's ResGNN Trainer step (K2 forward and dx, K3, the stacked
+   init and output convs); write each
    ``key_averages()`` table
    to ``DIR/profile_<mode>.txt``;
 18. the probes (utils/probes.py, csrc/probes.cu): hold P1 (``mxu_probe``)
@@ -194,6 +196,45 @@ Phases, each fatal on failure (no CPU path, no fallback):
    and bf16 within 2e-2 of its max; print us per SpMM, ns per block,
    Gedges/s and the sparse bound beside phase 16's ``torch.sparse.mm``.
 
+22. flow forecasting on 1,024 regions (TaxiBJ's 32 x 32 Beijing grid,
+   which the fork's bj loaders read): ``synthetic_flow(n_nodes=1024,
+   n_steps=1400, seed=0)`` written as experiments/humanflow.py's
+   ``build_dataset`` writes it and loaded by ``HumanTraffic.
+   load_ln_data_period(4, 1, 1)`` (train [672, 1024, 12]); check that
+   ``device_laplacian`` gives a 1,024-node f32 ``DenseLaplacian``, built
+   with ``use_pallas=True`` (the fused conv is opt-in, as in JAX; the
+   humanflow.py's default operator takes the stacked route, timed
+   beside).
+   (a) ResGNN (K=2, nfilter 64, nres 4) through ``Trainer(task=
+   "regression").fit`` for 2 epochs (26 steps) at batch 50, lr 1e-3,
+   decay 0.95: 16 K2 and 8 K3 launches per step and 16 K2 per evaluated
+   batch (8 a forward), one step's loss and gradients against the plain
+   twin within 1e-3 of their max, a finite EMA that falls, ``evaluate``
+   with RMSE and MAPE after ``reverse_normalize``, ms per step by CUDA
+   events and ``fit``'s ``t_step``; (b) ``GConvForecaster``
+   glstm_gconv (H 64, K=2, its gLSTM dropout 0.8) for 10 steps: the
+   gates' h-conv is K2 at (64 -> 256), its dx at (256 -> 64) and its dW
+   K3 at (64, 256): 25 K2 and 13 K3 launches per step, the same checks;
+   (c) ResGNN with the Fourier filter and the per-node LSTM
+   (``load_lstm_data``), no kernel: 4 steps each, finite losses, ms per
+   step;
+23. K2 and K3 at those geometries on the 1,024-region operator, B = 50,
+   K = 2, in f32 (1e-4 of the largest value) and bf16 (1e-2) against
+   their plain versions: K2 (64 -> 64), (64 -> 256), (256 -> 64),
+   (64 -> 32), (32 -> 32); K3 (64, 64), (64, 256), (32, 32); each timed
+   by device work beside ``dense_cheby_bound`` and printed with its
+   geometry (``np``, ``nop``, samples a group, clusters, rows, shared
+   memory, clusters at once), failing where the ring or a cluster does
+   not fit;
+24. (a) the paper's other filters: ChebNet with ``filter="fourier"``,
+   ``"spline"`` and ``"lanczos"`` on phase 7's MNIST-grid operators as
+   experiments/mnist.py builds it, 8 adam steps each on one batch of 100
+   (finite losses, the last under the first, the evaluation loss
+   falling; no kernel launch) and one step against the CPU's; (b)
+   ``lanczos_conv`` at K=5, B=2, Fin=16 on the f32 copy of phase 3's
+   50,176-node deep-K-window operator: 5 K1 launches per call, the basis
+   within 1e-3 of the plain operator's max.
+
 Each 50k scattered operator is freed after its phase.
 
 The last three lines are the kernel record as one JSON object (each
@@ -219,6 +260,7 @@ import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+import scipy.sparse
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
@@ -227,12 +269,20 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from cnn_graph_tpu_torch import _build, graphs  # noqa: E402
 from cnn_graph_tpu_torch.data import (  # noqa: E402
+    HumanTraffic,
     mnist_graph_data,
     synthetic_mnist,
     synthetic_text_dataset,
 )
-from cnn_graph_tpu_torch.experiments import text20news  # noqa: E402
-from cnn_graph_tpu_torch.models import ChebNet, NodeClassifier  # noqa: E402
+from cnn_graph_tpu_torch.experiments import humanflow, text20news  # noqa
+from cnn_graph_tpu_torch.models import (  # noqa: E402
+    ChebNet,
+    GConvForecaster,
+    NodeClassifier,
+    PerNodeLSTM,
+    ResGNN,
+    stack_lstm_collection,
+)
 from cnn_graph_tpu_torch.models.common import (  # noqa: E402
     map_operators,
     tree_leaves,
@@ -264,6 +314,8 @@ from cnn_graph_tpu_torch.ops import (  # noqa: E402
     conv_resources,
     device_laplacian,
     fused_filter,
+    lanczos_basis_device,
+    lanczos_conv,
     packing,
     quantize_banded,
     quantize_block_sparse,
@@ -291,6 +343,7 @@ from cnn_graph_tpu_torch.utils import (  # noqa: E402
     sparse_roofline,
     spmm_roofline,
 )
+from cnn_graph_tpu_torch.utils.metrics import mape, rmse  # noqa: E402
 
 SIDE, KNN, FIN, CLASSES, K = 224, 8, 512, 16, 25
 N_REQUESTS = 4  # per serving mode
@@ -359,6 +412,35 @@ NEWS_JAX_NNZ = 271470  # the JAX package's graph (BENCH_LAST_GOOD.json)
 # Phase 21: the 50k scattered K=25 chain on BSR (bench.py:764-826), over
 # 2 and 6 K-blocks.
 SCAT_CHAIN_UNITS = (2, 6)
+# Phase 22: flow forecasting on TaxiBJ's 32 x 32 Beijing region grid
+# (Zhang et al., AAAI 2017; the fork's bj loaders, humantraffic.py
+# :290-349): experiments/humanflow.py's synthetic data at 1,024 regions
+# and 1,400 half-hour steps, 4 closeness steps and one period and one
+# trend step (12 channels), batch 50, lr 1e-3.
+FLOW_NODES, FLOW_STEPS, FLOW_SEED, FLOW_SEQ = 1024, 1400, 0, 4
+FLOW_B, FLOW_LR = 50, 1e-3
+# humanflow.py's ResGNN (K=2, nfilter 64, nres 4), 2 epochs (26 steps); per
+# training step on the fused operator its 8 residual convs (64 -> 64) run
+# K2 forward and for dx, and K3: (16, 8); 8 K2 a forward.
+RESGNN = dict(K=2, nfilter=64, nres_layer_count=4)
+RESGNN_EPOCHS, RESGNN_STEP_LAUNCHES, RESGNN_FWD_K2 = 2, (16, 8), 8
+# glstm_gconv (H 64, Hc 32, 4 conv blocks), 10 steps: per forward the
+# h-conv (64 -> 256) on each of the 4 steps and the conv stack's 9 convs
+# (64 -> 32, 8 x (32, 32)) run K2 (13); the backward runs K2 for dx on 3
+# h-convs (the first step's h is the zero state, no gradient) and on the
+# 9 stack convs, and K3 for all 13: (25, 13) a step.
+GLSTM_STEPS, GLSTM_STEP_LAUNCHES, GLSTM_FWD_K2 = 10, (25, 13), 13
+FLOW_FEW_STEPS = 4  # phase 22 (c): ResGNN Fourier and the per-node LSTM
+# Phase 23: K2's and K3's (F, O) at the forecasting convs, B = 50, K = 2:
+# ResGNN's residual conv, the gLSTM gates' h-conv and its dx, the conv
+# stack's first and residual convs.
+FLOW_K2_SHAPES = {"64->64": (64, 64), "64->256": (64, 256),
+                  "256->64": (256, 64), "64->32": (64, 32),
+                  "32->32": (32, 32)}
+FLOW_K3_SHAPES = {"64,64": (64, 64), "64,256": (64, 256), "32,32": (32, 32)}
+# Phase 24: the paper's other filters on the MNIST ChebNet, 8 adam steps
+# each; lanczos_conv at K=5 through K1.
+FILTERS, FILTER_STEPS, LANCZOS_K = ("fourier", "spline", "lanczos"), 8, 5
 # The probes (phase 18) and the Pallas probe each replaces.
 PROBE_SOURCE = "cnn_graph_tpu_torch/csrc/probes.cu"
 PROBE_REPLACES = {"mxu": "experiments/_probe.py:154",       # _mxu_probe
@@ -967,13 +1049,18 @@ def _spans_ms(prof, name: str) -> list:
 
 def chebnet_profile_phase(run, step_ms: float, out_dir: str, gpu: str,
                           n: int = 2, mode: str = "chebnet_train_f32",
-                          optimizer=("adam", "Optimizer.step#Adam.step")):
-    """Device-time breakdown of ``n`` f32 ChebNet training steps.  Each
-    step launches K2 for the forward, then K2 for dx, then K3, so the
-    K2 spans alternate forward and dx.  K3's fold and the fused conv's
-    layout copies are their ranges' aten kernels, to which the ctypes
-    kernels are not linked.  ``optimizer``: the update's label and
-    range (``train_classifier``'s torch adam, or the Trainer's chain)."""
+                          optimizer=("adam", "Optimizer.step#Adam.step"),
+                          k2_forward: int = 1,
+                          stacked="layer 0 stacked basis"):
+    """Device-time breakdown of ``n`` f32 training steps of a model whose
+    ``k2_forward`` fused convs all take dx: each step launches K2 for
+    their forwards, then K2 for each dx (each followed by its K3), so
+    of each step's 2 * ``k2_forward`` K2 spans the first half are
+    forwards (ChebNet: 1, they alternate; ResGNN: 8).  K3's fold and the
+    fused conv's layout copies are their ranges' aten kernels, to which
+    the ctypes kernels are not linked.  ``optimizer``: the update's label
+    and range (``train_classifier``'s torch adam, or the Trainer's
+    chain); ``stacked``: the label of the convs on the stacked route."""
     os.makedirs(out_dir, exist_ok=True)
     run(1)
     avg, prof = _trace(lambda: run(1), n, out_dir, mode)
@@ -988,16 +1075,17 @@ def chebnet_profile_phase(run, step_ms: float, out_dir: str, gpu: str,
                    if k in events) / n / 1e3
 
     fold = cpu_ms("cheby_fused.K3.fold")
+    forward = [i % (2 * k2_forward) < k2_forward for i in range(len(k2))]
     parts = (
-        ("K2 forward", sum(k2[0::2]) / n),
-        ("K2 dx", sum(k2[1::2]) / n),
+        ("K2 forward", sum(t for t, f in zip(k2, forward) if f) / n),
+        ("K2 dx", sum(t for t, f in zip(k2, forward) if not f) / n),
         ("K3 dW", sum(_spans_ms(prof, "cheby_fused.K3")) / n),
         ("K3 fold", fold),
         # The conv's ranges hold the fold's range: counted once, above.
         ("K2/K3 layout copies", cpu_ms("cheby_conv_fused.forward",
                                        "cheby_conv_fused.dx",
                                        "cheby_conv_fused.dW") - fold),
-        ("layer 0 stacked basis", cpu_ms("cheby_conv.stacked")),
+        (stacked, cpu_ms("cheby_conv.stacked")),
         ("fc forward", cpu_ms("fc")),
         (optimizer[0], cpu_ms(optimizer[1])),
     )
@@ -1714,6 +1802,360 @@ def text_trainer_phase(gpu: str):
           flush=True)
 
 
+# ------------------------------- flow forecasting and the filters, 22-24
+
+
+def flow_data():
+    """Phase 22's data: ``synthetic_flow(n_nodes=1024, n_steps=1400,
+    seed=0)`` written as experiments/humanflow.py's ``build_dataset``
+    writes it, loaded with ``load_ln_data_period(4, 1, 1)`` (train [672,
+    1024, 12], validation and test [168, 1024, 12]) and, for the per-node
+    LSTM, ``load_lstm_data``.  Returns the HumanTraffic instance (its
+    scale undoes the normalization), the splits, the normalized
+    Laplacian, the stacked per-node series and the host set-up
+    seconds."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        humanflow.write_synthetic(tmp, FLOW_NODES, FLOW_SEED)
+        ht = HumanTraffic(tmp)
+        *splits, edges = ht.load_ln_data_period(FLOW_SEQ, 1, 1)
+        lstm = stack_lstm_collection(HumanTraffic(tmp).load_lstm_data(
+            FLOW_SEQ, 0, "ln_data.mat"))
+    L = graphs.laplacian(scipy.sparse.csr_matrix(edges), normalized=True)
+    return {"ht": ht, "splits": [a.astype(np.float32) for a in splits],
+            "L": L, "lstm": lstm, "setup_s": time.perf_counter() - t0}
+
+
+def flow_fit(model, train, held, steps: int, evals: int, what: str,
+             per_step=(0, 0), per_forward: int = 0,
+             falling: bool = True) -> dict:
+    """``Trainer(task="regression").fit`` for ``steps`` steps with
+    ``evals`` evaluations of ``held`` (experiments/humanflow.py's
+    configuration: lr 1e-3, decay 0.95 every epoch, batch 50), the JSONL
+    stream in a temporary directory.  Checks the K2 and K3 launches of
+    the fit, ``per_step`` a training step and ``per_forward`` K2 a
+    forward (an evaluated batch runs two: the prediction and the loss),
+    and an EMA that stays finite and, with ``falling``, falls.  Then times one step
+    (``Trainer._train_step``, CUDA events) on the first batch and checks
+    its launches alone."""
+    n = train[0].shape[0]
+    held_batches = -(-held[0].shape[0] // FLOW_B)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = TrainConfig(
+            num_epochs=(steps + 0.5) * FLOW_B / n, learning_rate=FLOW_LR,
+            decay_rate=0.95, decay_steps=max(n // FLOW_B, 1),
+            batch_size=FLOW_B, eval_frequency=-(-steps // evals),
+            seed=FLOW_SEED, log_path=os.path.join(tmp, "metrics.jsonl"))
+        trainer = Trainer(model, cfg, task="regression")
+        reset_cheby_launches()
+        t0 = time.perf_counter()
+        hist, _, t_step = trainer.fit(*train, *held, verbose=False)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = cheby_launches()
+        logged = [json.loads(s) for s in open(cfg.log_path)][1:-1]
+    want = (per_step[0] * steps + 2 * evals * held_batches * per_forward,
+            per_step[1] * steps)
+    check(len(logged) == evals and launches == want,
+          f"{what}: {len(logged)} evaluations, launches (K2, K3) "
+          f"{launches}; want {evals} and {want} for {steps} steps")
+    ema = [r["loss_ema"] for r in logged]
+    check(all(np.isfinite(ema)) and (ema[-1] < ema[0] or not falling),
+          f"{what}: EMA {ema} not finite and falling")
+    dev = trainer.device
+    xb = torch.from_numpy(train[0][:FLOW_B]).to(dev)
+    yb = torch.from_numpy(train[1][:FLOW_B]).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ema0 = torch.tensor(-1.0, device=dev)
+
+    def run(n_steps):
+        for _ in range(n_steps):
+            trainer._train_step(trainer.params, trainer.opt_state, ema0, gen,
+                                xb, yb)
+
+    run(1)
+    reset_cheby_launches()
+    run(1)
+    torch.cuda.synchronize()
+    check(cheby_launches() == tuple(per_step),
+          f"{what}: one step launched (K2, K3) {cheby_launches()}, want "
+          f"{tuple(per_step)}")
+    return {"trainer": trainer, "launches": launches, "steps": steps,
+            "eval_launches": want[0] - per_step[0] * steps, "ema": ema,
+            "hist": hist, "fit_s": fit_s, "t_step_ms": 1e3 * t_step,
+            "ms": cuda_ms(lambda: run(1), 5), "run": run}
+
+
+def flow_phase(flow: dict, dev, gpu: str) -> dict:
+    """Phase 22: flow forecasting on 1,024 regions at experiments/
+    humanflow.py's widths.
+    (a) ResGNN (K=2, nfilter 64, nres 4) through ``Trainer.fit`` for 2
+    epochs on the fused dense operator: 16 K2 and 8 K3 launches a step,
+    one step's loss and gradients against the plain twin within 1e-3,
+    ``evaluate`` and its RMSE and MAPE in real units; the same step on
+    the operator humanflow.py builds by default (``use_pallas`` unset, the
+    stacked route as in JAX), timed beside.  (b) GConvForecaster
+    glstm_gconv (H 64, Hc 32, K=2) for 10 steps with its gLSTM dropout:
+    25 K2 and 13 K3 a step, the same checks.  (c) ResGNN with the Fourier
+    filter and the per-node LSTM, no kernel: a few steps, finite losses,
+    ms per step."""
+    ht, splits, L, lstm = (flow[k] for k in ("ht", "splits", "L", "lstm"))
+    tr, va, te, trl, val, tel = splits
+    check(tr.shape == (672, FLOW_NODES, 12) and va.shape == te.shape
+          == (168, FLOW_NODES, 12), f"flow splits {[a.shape for a in splits]}")
+    op = device_laplacian(L, device=dev, use_pallas=True)
+    stacked_op = device_laplacian(L, device=dev)
+    for o in (op, stacked_op):
+        check(isinstance(o, DenseLaplacian) and o.m == FLOW_NODES
+              and o.mat.dtype == torch.float32,
+              f"flow operator {type(o).__name__} {o.m} {o.mat.dtype}")
+    check(op.use_fused and not stacked_op.use_fused, "flow operators' route")
+    print(f"flow data (phase 22): synthetic_flow({FLOW_NODES} regions, "
+          f"{FLOW_STEPS} steps), load_ln_data_period({FLOW_SEQ}, 1, 1): "
+          f"train {tr.shape}, validation {va.shape}, test {te.shape}; "
+          f"{L.nnz} nonzeros, a {op.m}-node f32 DenseLaplacian; per-node "
+          f"series {lstm['train_data'].shape}; host set-up "
+          f"{flow['setup_s']:.1f} s",
+          flush=True)
+    train, held = (tr, trl), (va, val)
+    rec = {}
+    gen = torch.Generator().manual_seed(FLOW_SEED)
+    batch = (torch.from_numpy(tr[:FLOW_B]).to(dev),
+             torch.from_numpy(trl[:FLOW_B]).to(dev))
+
+    # (a) ResGNN.
+    model = ResGNN(op, 12, **RESGNN, generator=gen)
+    steps = int(RESGNN_EPOCHS * tr.shape[0] / FLOW_B)
+    r = rec["resgnn"] = flow_fit(model, train, held, steps, 2, "resgnn",
+                                 RESGNN_STEP_LAUNCHES, RESGNN_FWD_K2)
+    twin = copy.copy(model)
+    twin.op = _plain_dense(op)
+    params = _on(r["trainer"].params, dev)
+    r["loss_rel_err"], r["grad_rel_err"] = check_step(
+        model, twin, params, batch, 1e-3, "resgnn",
+        lambda: sum(cheby_launches()))
+    reset_cheby_launches()
+    string, metrics = r["trainer"].evaluate(te, tel)
+    torch.cuda.synchronize()
+    held_batches = -(-te.shape[0] // FLOW_B)
+    check(cheby_launches() == (2 * held_batches * RESGNN_FWD_K2, 0)
+          and np.isfinite(metrics["predictions"]).all(),
+          f"resgnn: evaluate launched {cheby_launches()}")
+    preds = ht.reverse_normalize(metrics["predictions"])
+    targets = ht.reverse_normalize(tel)
+    r["rmse"], r["mape"] = rmse(targets, preds), mape(targets, preds)
+    stacked = copy.copy(model)
+    stacked.op = stacked_op
+    r["stacked_ms"] = cuda_ms(lambda: loss_and_grads(
+        stacked, params, batch, seed=0), 5)
+    r["step_ms"] = cuda_ms(lambda: loss_and_grads(model, params, batch,
+                                                  seed=0), 5)
+    print(f"flow resgnn (phase 22a): Trainer.fit {steps} steps of {FLOW_B} "
+          f"in {r['fit_s']:.1f} s, launches (K2, K3) {r['launches']} = "
+          f"{RESGNN_STEP_LAUNCHES} per step + ({r['eval_launches']}, 0) in "
+          f"2 evaluations; EMA {[round(v, 5) for v in r['ema']]}; one step "
+          f"vs plain: loss rel err {r['loss_rel_err']:.3g}, gradient err "
+          f"{r['grad_rel_err']:.3g} of max; test {string}; RMSE "
+          f"{r['rmse']:.4f}, MAPE {r['mape']:.4f} (real units); ms per "
+          f"step: CUDA events {r['ms']:.3f} (Trainer step), fit's t_step "
+          f"{r['t_step_ms']:.3f}; loss and gradients alone: fused "
+          f"{r['step_ms']:.3f}, the stacked route (use_pallas unset) "
+          f"{r['stacked_ms']:.3f} [{gpu}]", flush=True)
+
+    # (b) glstm_gconv, its gLSTM output dropout on.
+    model = GConvForecaster(op, FLOW_SEQ, 1, 1, variant="glstm_gconv",
+                            num_hidden=64, K=2, generator=gen)
+    g = rec["glstm"] = flow_fit(model, train, held, GLSTM_STEPS, 2,
+                                "glstm_gconv", GLSTM_STEP_LAUNCHES,
+                                GLSTM_FWD_K2)
+    twin = copy.copy(model)
+    twin.op = _plain_dense(op)
+    g["loss_rel_err"], g["grad_rel_err"] = check_step(
+        model, twin, _on(g["trainer"].params, dev), batch, 1e-3,
+        "glstm_gconv", lambda: sum(cheby_launches()))
+    string, metrics = g["trainer"].evaluate(te, tel)
+    preds = ht.reverse_normalize(metrics["predictions"])
+    g["rmse"], g["mape"] = rmse(targets, preds), mape(targets, preds)
+    print(f"flow glstm_gconv (phase 22b): {model.to_string()}: Trainer.fit "
+          f"{GLSTM_STEPS} steps in {g['fit_s']:.1f} s, launches (K2, K3) "
+          f"{g['launches']} = {GLSTM_STEP_LAUNCHES} per step + "
+          f"({g['eval_launches']}, 0) in 2 evaluations; EMA "
+          f"{[round(v, 5) for v in g['ema']]}; one step vs plain (dropout "
+          f"masks from one seed): loss rel err {g['loss_rel_err']:.3g}, "
+          f"gradient err {g['grad_rel_err']:.3g} of max; test {string}; "
+          f"RMSE {g['rmse']:.4f}, MAPE {g['mape']:.4f}; ms per step: CUDA "
+          f"events {g['ms']:.3f}, fit's t_step {g['t_step_ms']:.3f} [{gpu}]",
+          flush=True)
+
+    # (c) No kernel: ResGNN with the Fourier filter, and the per-node LSTM.
+    U = graphs.fourier(L)[1]
+    model = ResGNN(op, 12, **RESGNN, filter="fourier", fourier_u=U,
+                   generator=gen)
+    f = rec["fourier"] = flow_fit(model, train, held, FLOW_FEW_STEPS, 2,
+                                  "resgnn fourier", falling=False)
+    model = PerNodeLSTM(FLOW_NODES, FLOW_SEQ, num_hidden=64, generator=gen,
+                        device=dev)
+    lt = rec["lstm"] = flow_fit(
+        model, (lstm["train_data"], lstm["train_labels"]),
+        (lstm["test_data"], lstm["test_labels"]), FLOW_FEW_STEPS, 2, "lstm",
+        falling=False)
+    for name, x in (("resgnn fourier", f), ("per-node lstm", lt)):
+        string, metrics = x["trainer"].evaluate(*(
+            (te, tel) if name != "per-node lstm"
+            else (lstm["test_data"], lstm["test_labels"])))
+        check(np.isfinite(metrics["loss"]), f"{name}: test loss")
+        print(f"flow {name} (phase 22c): {FLOW_FEW_STEPS} Trainer steps, "
+              f"EMA {[round(v, 5) for v in x['ema']]}, test {string}; "
+              f"{x['ms']:.3f} ms per step (CUDA events), fit's t_step "
+              f"{x['t_step_ms']:.3f} [{gpu}]", flush=True)
+    return rec
+
+
+def flow_kernel_phase(L, dev, gen, gpu: str) -> dict:
+    """Phase 23: K2 and K3 at the forecasting models' geometries on the
+    1,024-region operator at B = 50, K = 2, in f32 and bf16, against their
+    plain versions with phase 7's tolerances, each timed by device work
+    beside its bound and printed with its launch geometry."""
+    rec = {}
+    for lab, dt in DTYPES.items():
+        tol = 1e-4 if lab == "f32" else 1e-2
+        op = device_laplacian(L, fmt="dense", dtype=dt, device=dev,
+                              use_pallas=True)
+        for kernel, shapes in (("K2", FLOW_K2_SHAPES),
+                               ("K3", FLOW_K3_SHAPES)):
+            for name, (F, O) in shapes.items():
+                x = torch.randn(FLOW_B, op.m, F, generator=gen, device=dev)
+                if kernel == "K2":
+                    w = 0.05 * torch.randn(2, F, O, generator=gen,
+                                           device=dev)
+                    pair = (lambda: fused_filter(x, op, w),
+                            lambda: cheby_conv_fused_reference(x, op, w))
+                else:
+                    g = torch.randn(FLOW_B, op.m, O, generator=gen,
+                                    device=dev)
+                    pair = (lambda: cheby_dw_fused(x, op, g, 2),
+                            lambda: cheby_dw_fused_reference(x, op, g, 2))
+                r = rec[f"{lab}_{kernel}_{name}"] = {
+                    **_kernel_vs_plain(*pair, tol, f"{kernel} {lab} {name}",
+                                       timer=device_ms),
+                    "bound": dense_cheby_bound(op, FLOW_B, F, O, 2),
+                    "geometry": _fitted_geometry(kernel, lab, name, FLOW_B,
+                                                 op, F, O)}
+                geo = r["geometry"]
+                print(f"kernel {kernel} {lab} flow {name} (phase 23) x "
+                      f"[{FLOW_B}, {op.m}, {F}], K=2: max_abs_err "
+                      f"{r['max_abs_err']:.3g} (of max {r['scale']:.3g}), "
+                      f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms; "
+                      f"bound {r['bound']['bound_us'] / 1e3:.4f} ms "
+                      f"{r['bound']['bound_by']}); np {geo['np']}, nop "
+                      f"{geo['nop']}, {geo['samples']} samples a group, "
+                      f"{geo['groups']} clusters of {geo['cluster']} CTAs, "
+                      f"{geo['rows']}-row tiles, {geo['smem']} B shared "
+                      f"memory, {geo['resident_clusters']} clusters at once "
+                      f"[{gpu}]", flush=True)
+    return rec
+
+
+def filters_phase(Ls, data, dev, gpu: str) -> dict:
+    """Phase 24 (a): the paper's other filters on the MNIST grid's
+    operators, ChebNet built as experiments/mnist.py builds it (F=[32,
+    64], K=[25, 25], dropout 0.5, L2 5e-4).  For each of fourier, spline
+    and lanczos: 8 adam steps through ``train_classifier`` on one batch of
+    100 (3 land in Adam's first overshoot), finite losses whose last is
+    under the first and an evaluation loss that falls; one step's loss and
+    gradients (dropout off) on the card against the same step on the CPU:
+    loss within 1e-4, gradients within 1e-3 of their max, Lanczos's
+    within 5e-2 (its gradient passes through ``eigh`` of 25 x 25 Krylov
+    matrices: f32 and float64 on the CPU alone differ by 9.0e-3 of the
+    max).  None of the three runs a kernel."""
+    x = torch.from_numpy(data["train_data"]).to(dev)
+    y = torch.from_numpy(data["train_labels"]).to(dev)
+    rec = {}
+    for filt in FILTERS:
+        ops = {d: [device_laplacian(L, device=d) for L in Ls]
+               for d in (dev, "cpu")}
+        model = ChebNet(ops[dev], **CHEB, laplacians=Ls, filter=filt,
+                        generator=torch.Generator().manual_seed(0))
+        params = _on(model.param_tree(), dev)
+        reset_cheby_launches()
+        with torch.no_grad():
+            before = float(model.loss(params, x, y))
+        trained, losses = train_classifier(
+            model, params, x, y, batch_size=CHEB_B, steps=FILTER_STEPS,
+            learning_rate=LEARNING_RATE,
+            generator=torch.Generator(device=dev).manual_seed(0))
+        with torch.no_grad():
+            after = float(model.loss(trained, x, y))
+        torch.cuda.synchronize()
+        losses = losses.tolist()
+        check(cheby_launches() == (0, 0) and all(np.isfinite(losses))
+              and losses[-1] < losses[0] and after < before,
+              f"chebnet {filt}: losses {losses}, evaluation loss {before} -> "
+              f"{after}, launches {cheby_launches()}")
+        cpu = ChebNet(ops["cpu"], **CHEB, laplacians=Ls, filter=filt,
+                      generator=torch.Generator().manual_seed(0))
+        out = []
+        for m, d in ((model, dev), (cpu, "cpu")):
+            p = tree_map(lambda t: t.detach().to(d).requires_grad_(),
+                         trained)
+            loss = m.loss(p, x.to(d), y.to(d))
+            loss.backward()
+            out.append((float(loss.detach()),
+                        [t.grad.cpu() for t in tree_leaves(p)]))
+        (loss, grads), (loss_c, grads_c) = out
+        tol = 5e-2 if filt == "lanczos" else 1e-3
+        grad_err = max(float((a - b).abs().max())
+                       / max(float(b.abs().max()), 1e-30)
+                       for a, b in zip(grads, grads_c))
+        loss_err = abs(loss - loss_c) / abs(loss_c)
+        check(loss_err <= 1e-4 and grad_err <= tol,
+              f"chebnet {filt}: card vs CPU loss {loss_err:.3g}, gradients "
+              f"{grad_err:.3g} of max (limit {tol})")
+        ms = cuda_ms(lambda: train_classifier(
+            model, trained, x, y, batch_size=CHEB_B, steps=1,
+            learning_rate=LEARNING_RATE,
+            generator=torch.Generator(device=dev).manual_seed(1)), 3)
+        rec[filt] = {"losses": losses, "ms": ms, "grad_err": grad_err}
+        print(f"chebnet {filt} (phase 24a): {FILTER_STEPS} adam steps, "
+              f"losses {[round(v, 4) for v in losses]}, evaluation loss "
+              f"{before:.4f} -> {after:.4f}; one step vs the CPU: loss rel "
+              f"err {loss_err:.3g}, gradient err {grad_err:.3g} of max; "
+              f"{ms:.3f} ms per step, no kernel launch [{gpu}]", flush=True)
+    return rec
+
+
+def lanczos_k1_phase(op, gen, gpu: str) -> dict:
+    """Phase 24 (b): ``lanczos_conv`` at K=5, B=2, Fin=16 on the f32 copy
+    of the 50,176-node deep-K-window operator, its ``L @ v`` products
+    through K1: K launches a call (K-1 in the recurrence, one for the last
+    diagonal term), the basis within 1e-3 of the plain operator's max."""
+    x = torch.randn(2, op.m, 16, generator=gen, device=op.base.device)
+    w = 0.1 * torch.randn(LANCZOS_K, 16, 8, generator=gen,
+                          device=op.base.device)
+    plain = _plain_banded(op)
+    reset_band_launches()
+    with torch.no_grad():
+        basis = lanczos_basis_device(x, op, LANCZOS_K)
+        torch.cuda.synchronize()
+        launches = banded_dkw.launches
+        check(launches == LANCZOS_K and sum(band_launches().values())
+              == launches, f"lanczos: {band_launches()} launches, want "
+              f"{LANCZOS_K} of K1")
+        want = lanczos_basis_device(x, plain, LANCZOS_K)
+        err = float((basis - want).abs().max())
+        scale = float(want.abs().max())
+        check(bool(torch.isfinite(basis).all()) and err <= 1e-3 * scale,
+              f"lanczos: max |kernel - plain| {err:.3g} of {scale:.3g}")
+        ms = cuda_ms(lambda: lanczos_conv(x, op, w), 5)
+        plain_ms = cuda_ms(lambda: lanczos_conv(x, plain, w), 2)
+    print(f"lanczos_conv (phase 24b) K={LANCZOS_K}, x [2, {op.m}, 16] on the "
+          f"f32 dkw operator: {launches} K1 launches, basis max_abs_err "
+          f"{err:.3g} (of max {scale:.3g}); {ms:.3f} ms per call (plain "
+          f"operator {plain_ms:.3f} ms) [{gpu}]", flush=True)
+    return {"launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms}
+
+
 # --------------------------------------- the 20NEWS topology cell, phase 20
 
 
@@ -2189,6 +2631,18 @@ def main() -> int:
                                 cheb["f32"]["train"]["ms"])
     text_trainer_phase(gpu)
 
+    # Phases 22-24: flow forecasting on 1,024 regions (K2 and K3 at the
+    # gLSTM's 256-wide gates), K2 and K3 at the forecasting geometries,
+    # and the paper's other filters (Lanczos through K1).
+    t0 = time.perf_counter()
+    flow = flow_data()
+    flow_rec = flow_phase(flow, dev, gpu)
+    flow_k = flow_kernel_phase(flow["L"], dev, gen, gpu)
+    del flow
+    filters_phase(Ls, data, dev, gpu)
+    lanczos = lanczos_k1_phase(ops["f32"], gen, gpu)
+    print(f"phases 22-24: {time.perf_counter() - t0:.1f} s", flush=True)
+
     # Phase 10: the bench's 50k scattered graph, K4 against its plain
     # version.  fmt="auto" must give the column-streamed BSR operator.
     t0 = time.perf_counter()
@@ -2453,6 +2907,12 @@ def main() -> int:
                               args.profile_dir, gpu,
                               mode="trainer_chebnet_f32",
                               optimizer=("optax chain", "trainer.optimizer"))
+        chebnet_profile_phase(flow_rec["resgnn"]["run"],
+                              flow_rec["resgnn"]["ms"], args.profile_dir,
+                              gpu, mode="trainer_resgnn_f32",
+                              optimizer=("optax chain", "trainer.optimizer"),
+                              k2_forward=RESGNN_FWD_K2,
+                              stacked="conv_init, conv_out (stacked)")
         profile_phase({f"scattered_{m}": r["serving"]
                        for m, r in s_served.items()}, s_reqs[0],
                       {f"scattered_{m}": r["ms"] for m, r in s_served.items()},
@@ -2516,6 +2976,33 @@ def main() -> int:
                 "trainer_ms_per_step": r["ms"],
                 "trainer_fit_ms_per_step": r["t_step_ms"]}
 
+    def flow_keys(kernel, lab):
+        """Phase 23's forecasting geometries of K2 or K3 in ``lab`` and,
+        in f32, phase 22's launches and ms per training step."""
+        out = {}
+        shapes = FLOW_K2_SHAPES if kernel == "K2" else FLOW_K3_SHAPES
+        for name in shapes:
+            r = flow_k[f"{lab}_{kernel}_{name}"]
+            key = "flow_" + name.replace("->", "_to_").replace(",", "_")
+            out.update({f"{key}_{k}": r[k] for k in ("ms", "plain_ms",
+                                                     "max_abs_err")})
+            out[f"{key}_bound_ms"] = r["bound"]["bound_us"] / 1e3
+            out[f"{key}_geometry"] = {k: r["geometry"][k] for k in (
+                "np", "nop", "samples", "groups", "cluster", "rows")}
+        if lab == "f32":
+            i = 0 if kernel == "K2" else 1
+            for model in ("resgnn", "glstm"):
+                r = flow_rec[model]
+                out[f"{model}_launches_per_step"] = (
+                    RESGNN_STEP_LAUNCHES if model == "resgnn"
+                    else GLSTM_STEP_LAUNCHES)[i]
+                out[f"{model}_ms_per_step"] = r["ms"]
+        return out
+
+    def flow_launches(i):
+        """Phase 22's launches of K2 (i = 0) or K3 (i = 1) in its fits."""
+        return sum(flow_rec[m]["launches"][i] for m in ("resgnn", "glstm"))
+
     def chain_keys(lay, lab):
         c = chains[lay][lab]
         return {"chain_launches_per_block": c["launches"],
@@ -2559,7 +3046,12 @@ def main() -> int:
                  **k1_inplace[lab],
                  **({"train_launches_per_step":
                      trains["bf16"]["launches"] // TRAIN_STEPS,
-                     **f32_keys(checks["f32"])} if lab == "bf16" else {}))
+                     **f32_keys(checks["f32"]),
+                     "lanczos_f32_launches_per_call": lanczos["launches"],
+                     "lanczos_f32_ms": lanczos["ms"],
+                     "lanczos_f32_plain_ms": lanczos["plain_ms"],
+                     "lanczos_f32_max_abs_err": lanczos["max_abs_err"]}
+                    if lab == "bf16" else {}))
         for lab in ("int8", "bf16")
     ] + [
         {"name": f"band_dkw_hop_c_{lab}", "route": "cuda", "source": SOURCE,
@@ -2610,8 +3102,10 @@ def main() -> int:
          "replaces": CHEB_REPLACES["K2"],
          "launches": (cheb[lab]["serve"]["launches"][0]
                       + cheb[lab]["train"]["launches"][0]
-                      + (trainer_rec["launches"][0] if lab == "f32" else 0)),
+                      + (trainer_rec["launches"][0] + flow_launches(0)
+                         if lab == "f32" else 0)),
          **(trainer_keys(0) if lab == "f32" else {}),
+         **flow_keys("K2", lab),
          "max_abs_err": kchecks[f"{lab}_bench"]["max_abs_err"],
          "ms": kchecks[f"{lab}_bench"]["ms"],
          "plain_ms": kchecks[f"{lab}_bench"]["plain_ms"],
@@ -2631,8 +3125,10 @@ def main() -> int:
          "source": CHEB_SOURCE, "kernel": "cheby_conv_kernel<kDwTap>",
          "replaces": CHEB_REPLACES["K3"],
          "launches": (cheb[lab]["train"]["launches"][1]
-                      + (trainer_rec["launches"][1] if lab == "f32" else 0)),
+                      + (trainer_rec["launches"][1] + flow_launches(1)
+                         if lab == "f32" else 0)),
          **(trainer_keys(1) if lab == "f32" else {}),
+         **flow_keys("K3", lab),
          "max_abs_err": kchecks[f"{lab}_bench_K3"]["max_abs_err"],
          "ms": kchecks[f"{lab}_bench_K3"]["ms"],
          "plain_ms": kchecks[f"{lab}_bench_K3"]["plain_ms"],

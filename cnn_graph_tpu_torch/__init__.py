@@ -14,8 +14,11 @@ graphs through the BSR kernels of ``csrc/bsr.cu``;
 ``serve.compile_serving``; the ``Trainer`` with its optax-equal
 optimizer chain, checkpoints and metrics stream (``train``,
 ``utils.metrics``, ``utils.logging``); the 20NEWS/RCV1 text pipeline
-(``data.text``); the drivers of ``experiments``; and the timers of
-``utils.profiling``.  ROADMAP.md lists what is still to come.
+(``data.text``); the Fourier, spline and Lanczos filters
+(``ops.filters``, ``models.ChebNet``); the flow-forecasting family
+(``models`` ResGNN, the gLSTM cell and forecasters, GConvRNN,
+PerNodeLSTM; ``data.humantraffic``, ``data.stl``, ``data.rdata``); the
+drivers of ``experiments``; and the timers of ``utils.profiling``.  ROADMAP.md lists what is still to come.
 """
 
 __version__ = "0.1.0"

@@ -4,14 +4,15 @@ The JAX package's ``experiments/mnist.py`` on the port: the 28x28 8-NN
 grid graph, 4-level Graclus coarsening, ChebNet with the paper's
 configuration (F=[32, 64], K=[25, 25], p=[4, 4], M=[512, 10];
 nips2016/mnist.ipynb cells 14-17; the paper's Table 2 reports 99.14%),
-trained by ``Trainer`` on the synthetic class-structured digits.
+trained by ``Trainer`` on the real IDX files of ``--data-dir`` or else
+on the synthetic class-structured digits, with the ``--filter``
+(chebyshev, fourier, spline or lanczos) and ``--edge-noise`` (a fraction
+of the grid's edges replaced by random ones) of the JAX script.
 
-Not ported yet, and raising rather than ignored: ``--data-dir`` (the IDX
-reader ``load_mnist``), ``--edge-noise`` above 0
-(``replace_random_edges``) and ``--filter`` other than ``chebyshev``
-(ROADMAP queue 1 item 3), and ``--mesh-data`` (batch data parallelism,
-item 6).  ``--n-val`` and ``--n-test`` size the synthetic validation and
-test sets (the JAX script's are fixed at 5,000 and 10,000).
+Not ported yet, and raising rather than ignored: ``--mesh-data`` (batch
+data parallelism, ROADMAP queue 1 item 6).  ``--n-val`` and ``--n-test``
+size the synthetic validation and test sets (the JAX script's are fixed
+at 5,000 and 10,000).
 
 Run:  python -m cnn_graph_tpu_torch.experiments.mnist [--epochs 20]
           [--device cpu]
@@ -42,40 +43,45 @@ def main(argv=None):
     p.add_argument("--edge-noise", dest="edge_noise", type=float,
                    default=0.0,
                    help="fraction of graph edges replaced with random ones "
-                        "(not ported)")
+                        "(robustness experiment, mnist.ipynb cell 3)")
     p.add_argument("--seed", type=int, default=2017)
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA device)")
     args = p.parse_args(argv)
-    unported = {
-        "--data-dir (load_mnist) is not ported to cnn_graph_tpu_torch yet "
-        "(ROADMAP queue 1 item 3)": args.data_dir,
-        "--edge-noise (replace_random_edges) is not ported to "
-        "cnn_graph_tpu_torch yet (ROADMAP queue 1 item 3)":
-            args.edge_noise > 0,
-        f"--filter {args.filter} is not ported to cnn_graph_tpu_torch yet "
-        "(ROADMAP queue 1 item 3)": args.filter != "chebyshev",
-        "--mesh-data (TrainConfig.mesh) is not ported to cnn_graph_tpu_torch "
-        "yet (ROADMAP queue 1 item 6)": args.mesh_data,
-    }
-    for message, given in unported.items():
-        if given:
-            raise NotImplementedError(message)
+    if args.mesh_data:
+        raise NotImplementedError(
+            "--mesh-data (TrainConfig.mesh) is not ported to "
+            "cnn_graph_tpu_torch yet (ROADMAP queue 1 item 6)")
 
-    from cnn_graph_tpu_torch.data import mnist_graph_data, synthetic_mnist
+    from cnn_graph_tpu_torch.data import (
+        load_mnist,
+        mnist_graph_data,
+        synthetic_mnist,
+    )
     from cnn_graph_tpu_torch.models import ChebNet
     from cnn_graph_tpu_torch.ops import device_laplacian
     from cnn_graph_tpu_torch.train import TrainConfig, Trainer
 
-    print("no --data-dir: using synthetic class-structured digits")
-    splits = synthetic_mnist(n_train=args.n_train, n_val=args.n_val,
-                             n_test=args.n_test, seed=args.seed)
+    if args.data_dir:
+        tr_x, tr_y, te_x, te_y = load_mnist(args.data_dir)
+        # The reference's 55k / 5k split; a smaller drop keeps a tenth
+        # (at least one sample) for validation, as the JAX script does.
+        n_tr = min(55000, max(len(tr_x) - max(len(tr_x) // 10, 1), 1))
+        splits = {"train_data": tr_x[:n_tr], "train_labels": tr_y[:n_tr],
+                  "val_data": tr_x[n_tr:], "val_labels": tr_y[n_tr:],
+                  "test_data": te_x, "test_labels": te_y}
+    else:
+        print("no --data-dir: using synthetic class-structured digits")
+        splits = synthetic_mnist(n_train=args.n_train, n_val=args.n_val,
+                                 n_test=args.n_test, seed=args.seed)
     splits, Ls, perm = mnist_graph_data(splits, k=8, levels=4,
-                                        seed=args.seed)
+                                        seed=args.seed,
+                                        edge_noise=args.edge_noise)
     ops = [device_laplacian(L, device=args.device) for L in Ls]
 
     model = ChebNet(ops, F=[32, 64], K=[args.K, args.K], p=[4, 4],
-                    M=[512, 10], dropout=0.5, regularization=5e-4)
+                    M=[512, 10], laplacians=Ls, filter=args.filter,
+                    dropout=0.5, regularization=5e-4)
     n = splits["train_data"].shape[0]
     cfg = TrainConfig(
         num_epochs=args.epochs, learning_rate=args.learning_rate,

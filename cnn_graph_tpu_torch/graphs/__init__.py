@@ -17,11 +17,16 @@ from cnn_graph_tpu_torch.graphs.coarsening import (
 from cnn_graph_tpu_torch.graphs.construction import (
     adjacency,
     bandwidth_reducing_permutation,
+    chebyshev_basis,
     city_graph,
+    fourier,
     grid,
     knn,
     knn_graph,
+    lanczos_basis,
     laplacian,
+    lmax,
+    replace_random_edges,
     rescale_laplacian,
 )
 
@@ -36,10 +41,15 @@ __all__ = [
     "perm_data",
     "adjacency",
     "bandwidth_reducing_permutation",
+    "chebyshev_basis",
     "city_graph",
+    "fourier",
     "grid",
     "knn",
     "knn_graph",
+    "lanczos_basis",
     "laplacian",
+    "lmax",
+    "replace_random_edges",
     "rescale_laplacian",
 ]

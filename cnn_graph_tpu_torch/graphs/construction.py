@@ -5,8 +5,10 @@ benchmark.
 NumPy/SciPy copies of the counterparts in ``cnn_graph_tpu/graphs/
 construction.py`` (``grid`` :36, ``knn`` :48, ``adjacency`` :77,
 ``knn_graph`` :108, ``laplacian`` :148, ``rescale_laplacian`` :197,
-``bandwidth_reducing_permutation`` :264) and ``cnn_graph_tpu/data/
-synthetic.py:89 city_graph``.  The port carries its own copies so that it
+``bandwidth_reducing_permutation`` :264, ``replace_random_edges`` :116,
+``lmax`` :168, ``fourier`` :178, ``chebyshev_basis`` :212,
+``lanczos_basis`` :227) and ``cnn_graph_tpu/data/synthetic.py:89
+city_graph``.  The port carries its own copies so that it
 runs where the JAX package is not installed; ``tests/test_torch_graphs.py``
 and ``tests/test_torch_chebnet.py`` hold them equal to the originals.
 
@@ -23,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import scipy.sparse
 import scipy.sparse.csgraph
+import scipy.sparse.linalg
 import scipy.spatial
 import scipy.spatial.distance
 
@@ -31,8 +34,13 @@ __all__ = [
     "knn",
     "knn_graph",
     "adjacency",
+    "replace_random_edges",
     "laplacian",
+    "lmax",
+    "fourier",
     "rescale_laplacian",
+    "chebyshev_basis",
+    "lanczos_basis",
     "bandwidth_reducing_permutation",
     "city_graph",
 ]
@@ -100,6 +108,33 @@ def knn_graph(z: np.ndarray, k: int = 8,
     return adjacency(*knn(z, k=k, metric=metric))
 
 
+def replace_random_edges(A: scipy.sparse.spmatrix, noise_level: float,
+                         seed: int | None = None) -> scipy.sparse.csr_matrix:
+    """Replace a fraction ``noise_level`` of the undirected edges with
+    uniformly random unit-weight edges; the same graph as the JAX
+    package's from the same seed (the same draws in the same order)."""
+    M, _ = A.shape
+    n = int(noise_level * A.nnz // 2)
+    rng = np.random.default_rng(seed)
+    upper = scipy.sparse.triu(A, format="coo")
+    if upper.nnz != A.nnz // 2 or upper.nnz < n:
+        raise ValueError("A must be symmetric with a zero diagonal and at "
+                         f"least {n} edges")
+    victims = rng.permutation(upper.nnz)[:n]
+    new_rows = rng.integers(0, M, n)
+    new_cols = rng.integers(0, M, n)
+    A = A.tolil()
+    for v, r, c in zip(victims, new_rows, new_cols):
+        A[upper.row[v], upper.col[v]] = 0
+        A[upper.col[v], upper.row[v]] = 0
+        A[r, c] = 1
+        A[c, r] = 1
+    A.setdiag(0)
+    A = A.tocsr()
+    A.eliminate_zeros()
+    return A
+
+
 def laplacian(W: scipy.sparse.spmatrix,
               normalized: bool = True) -> scipy.sparse.csr_matrix:
     """``D - W``, or ``I - D^-1/2 W D^-1/2`` with the epsilon degree guard
@@ -118,6 +153,35 @@ def laplacian(W: scipy.sparse.spmatrix,
     return L
 
 
+def lmax(L: scipy.sparse.spmatrix, normalized: bool = True) -> float:
+    """Upper bound of the spectrum: 2 for a normalized Laplacian, else the
+    largest-magnitude eigenvalue (``eigsh``)."""
+    if normalized:
+        return 2.0
+    return float(scipy.sparse.linalg.eigsh(
+        L, k=1, which="LM", return_eigenvectors=False)[0])
+
+
+def fourier(L: scipy.sparse.spmatrix, algo: str = "eigh", k: int = 1):
+    """The graph Fourier basis ``(lam, U)``, eigenvalues ascending, the
+    eigenvectors U's columns: the same call as the JAX package's for each
+    ``algo`` (``eigh`` by default, on the dense Laplacian)."""
+
+    def _sorted(lamb, U):
+        order = lamb.argsort()
+        return lamb[order], U[:, order]
+
+    if algo == "eig":
+        return _sorted(*np.linalg.eig(L.toarray()))
+    if algo == "eigh":
+        return np.linalg.eigh(L.toarray())
+    if algo == "eigs":
+        return _sorted(*scipy.sparse.linalg.eigs(L, k=k, which="SM"))
+    if algo == "eigsh":
+        return scipy.sparse.linalg.eigsh(L, k=k, which="SM")
+    raise ValueError(f"unknown EVD algorithm {algo!r}")
+
+
 def rescale_laplacian(L: scipy.sparse.spmatrix,
                       lmax: float = 2.0) -> scipy.sparse.csr_matrix:
     """Map the spectrum from ``[0, lmax]`` to ``[-1, 1]``:
@@ -125,6 +189,49 @@ def rescale_laplacian(L: scipy.sparse.spmatrix,
     M = L.shape[0]
     return (L * (2.0 / lmax)
             - scipy.sparse.identity(M, format="csr", dtype=L.dtype)).tocsr()
+
+
+def chebyshev_basis(L: scipy.sparse.spmatrix, X: np.ndarray,
+                    K: int) -> np.ndarray:
+    """NumPy oracle of the Chebyshev recurrence: ``T_k(L) X`` for k < K,
+    ``(K, M, N)``; L already rescaled to ``[-1, 1]``."""
+    M, N = X.shape
+    Xt = np.empty((K, M, N), X.dtype)
+    Xt[0] = X
+    if K > 1:
+        Xt[1] = L @ X
+    for k in range(2, K):
+        Xt[k] = 2 * (L @ Xt[k - 1]) - Xt[k - 2]
+    return Xt
+
+
+def lanczos_basis(L: scipy.sparse.spmatrix, X: np.ndarray,
+                  K: int) -> np.ndarray:
+    """NumPy oracle of the per-signal K-step Lanczos basis, ``(K, M, N)``:
+    Lanczos on each column of X, the tridiagonal H diagonalized, the
+    rotated basis scaled back by the columns' norms."""
+    M, N = X.shape
+    norms = np.linalg.norm(X, axis=0)
+    a = np.empty((K, N), X.dtype)
+    b = np.zeros((K, N), X.dtype)
+    V = np.empty((K, M, N), X.dtype)
+    V[0] = X / norms
+    for k in range(K - 1):
+        W = L @ V[k]
+        a[k] = np.sum(W * V[k], axis=0)
+        W = W - a[k] * V[k] - (b[k] * V[k - 1] if k > 0 else 0)
+        b[k + 1] = np.linalg.norm(W, axis=0)
+        V[k + 1] = W / b[k + 1]
+    a[K - 1] = np.sum((L @ V[K - 1]) * V[K - 1], axis=0)
+    H = np.zeros((N, K, K), a.dtype)
+    rows = np.arange(K)
+    H[:, rows, rows] = a.T
+    H[:, rows[1:], rows[:-1]] = b[1:].T
+    Q = np.linalg.eigh(H, UPLO="L")[1]
+    Xt = np.einsum("njk,jmn->kmn", Q, V)
+    Xt *= Q[:, 0, :].T[:, np.newaxis, :]
+    Xt *= norms
+    return Xt
 
 
 def bandwidth_reducing_permutation(W: scipy.sparse.spmatrix) -> np.ndarray:

@@ -1,10 +1,15 @@
 """ChebNet: spectral graph-CNN classifier (conv -> pool stacks, fc head).
 
 Counterpart of ``cnn_graph_tpu/models/chebnet.py:70``, the reference's
-``cgcnn`` (nips2016/mnist.ipynb): per layer a Chebyshev filter over that
+``cgcnn`` (nips2016/mnist.ipynb): per layer a spectral filter over that
 layer's coarsened Laplacian, bias + activation and binary-tree pooling,
 then fully-connected layers with dropout and a softmax cross-entropy
-head whose fc weights carry an L2 penalty.
+head whose fc weights carry an L2 penalty.  The filter is Chebyshev
+(``[K, Fin, Fout]`` weights), Lanczos (the same weights, a per-signal
+Krylov basis computed on the device), Fourier (``[M, Fout, Fin]``
+per-frequency weights in the Laplacian's eigenbasis) or spline (``[K,
+Fout, Fin]`` control points interpolated over the eigenvalues by
+``bspline_basis``, chebnet.py:34).
 
 Parameters use the JAX package's layout, ``{"gconv": [{"w": [K, Fin,
 Fout], "b": [1, 1, Fout]}], "fc": [{"w": [m_in, m_out], "b":
@@ -12,8 +17,7 @@ Fout], "b": [1, 1, Fout]}], "fc": [{"w": [m_in, m_out], "b":
 (``convert.chebnet_params_from_jax`` makes one from JAX weights) and
 ``forward(x)`` on the module's own parameters, in eval mode.  On dense
 operators built with ``use_pallas=True`` the convs that ``cheby_conv``
-finds eligible run the fused kernels K2 and K3.  Only
-``filter="chebyshev"`` is ported.
+finds eligible run the fused kernels K2 and K3.
 """
 
 from __future__ import annotations
@@ -22,11 +26,51 @@ import numpy as np
 import torch
 from torch import nn
 
+from cnn_graph_tpu_torch.graphs import construction as gc
 from cnn_graph_tpu_torch.models import common
-from cnn_graph_tpu_torch.ops.filters import cheby_conv
+from cnn_graph_tpu_torch.ops.band import full_f32_matmul
+from cnn_graph_tpu_torch.ops.filters import (
+    cheby_conv,
+    fourier_conv,
+    lanczos_conv,
+)
 from cnn_graph_tpu_torch.ops.pooling import avg_pool, max_pool
 
-__all__ = ["ChebNet"]
+__all__ = ["ChebNet", "bspline_basis"]
+
+FILTERS = ("chebyshev", "fourier", "spline", "lanczos")
+
+
+def bspline_basis(K: int, x: np.ndarray, degree: int = 3) -> np.ndarray:
+    """Cox-de Boor B-spline basis: K basis functions of ``degree`` at the
+    points ``x`` (the Laplacian's eigenvalues), on the open uniform knot
+    vector over ``[x.min(), x.max()]``; float32 ``[len(x), K]``.  The
+    same float64 arithmetic as the JAX package's."""
+    x = np.asarray(x, np.float64)
+    lo, hi = float(x.min()), float(x.max())
+    n_inner = K - degree + 1
+    inner = np.linspace(lo, hi, max(n_inner, 2))
+    knots = np.concatenate([[lo] * degree, inner, [hi] * degree])
+    B = np.zeros((len(x), len(knots) - 1))
+    for j in range(len(knots) - 1):
+        B[:, j] = (x >= knots[j]) & (x < knots[j + 1])
+    B[x == hi, np.searchsorted(knots, hi, "left") - 1] = 1.0
+    for d in range(1, degree + 1):
+        nb = len(knots) - 1 - d
+        Bn = np.zeros((len(x), nb))
+        for j in range(nb):
+            left_den = knots[j + d] - knots[j]
+            right_den = knots[j + d + 1] - knots[j + 1]
+            left = ((x - knots[j]) / left_den * B[:, j] if left_den > 0
+                    else 0.0)
+            right = ((knots[j + d + 1] - x) / right_den * B[:, j + 1]
+                     if right_den > 0 else 0.0)
+            Bn[:, j] = left + right
+        B = Bn
+    if B.shape[1] != K:
+        raise ValueError(f"{K} spline basis functions of degree {degree} "
+                         f"need K > degree, got a basis of {B.shape[1]}")
+    return B.astype(np.float32)
 
 
 class ChebNet(nn.Module):
@@ -35,7 +79,11 @@ class ChebNet(nn.Module):
     ``operators``: one device operator per coarsening level, finest
     first; layer i uses level ``sum(log2 p[:i])``.  ``F``, ``K``, ``p``:
     per-layer filter counts, polynomial orders and pooling sizes (powers
-    of two).  ``M``: fc widths, ``M[-1]`` the class count.  ``brelu``:
+    of two).  ``M``: fc widths, ``M[-1]`` the class count.
+    ``laplacians``: the host Laplacians per level (SciPy), which the
+    Fourier and spline filters need for their eigenbases (``graphs.
+    fourier``, computed here once).  ``filter``: ``chebyshev``,
+    ``fourier``, ``spline`` (``spline_degree``) or ``lanczos``.  ``brelu``:
     ``b1relu``, ``b2relu`` or ``b1tanh``; ``pool``: ``max`` or
     ``average``; ``dropout``: keep probability on the fc layers in
     training; ``regularization``: weight of the fc L2 term.  Weights are
@@ -52,15 +100,17 @@ class ChebNet(nn.Module):
     """
 
     def __init__(self, operators, F, K, p, M, input_features: int = 1,
-                 filter: str = "chebyshev", brelu: str = "b1relu",
-                 pool: str = "max", dropout: float = 1.0,
-                 regularization: float = 0.0, input_grad: bool = False, *,
+                 laplacians=None, filter: str = "chebyshev",
+                 brelu: str = "b1relu", pool: str = "max",
+                 dropout: float = 1.0, regularization: float = 0.0,
+                 spline_degree: int = 3, input_grad: bool = False, *,
                  generator: torch.Generator | None = None, device=None):
         super().__init__()
-        if filter != "chebyshev":
-            raise NotImplementedError(
-                f"filter {filter!r} is not ported to cnn_graph_tpu_torch yet "
-                "(ROADMAP queue 1 item 6)")
+        if filter not in FILTERS:
+            raise ValueError(f"unknown filter {filter!r}; one of {FILTERS}")
+        if filter in ("fourier", "spline") and laplacians is None:
+            raise ValueError(f"the {filter} filter needs the host "
+                             "laplacians for its eigenbases")
         if not len(operators) >= len(F) == len(K) == len(p):
             raise ValueError("need one F, K and p per layer and an operator "
                              "per level")
@@ -75,17 +125,30 @@ class ChebNet(nn.Module):
         self.operators = [operators[j] for j in levels]
         self.F, self.K, self.p, self.M = list(F), list(K), list(p), list(M)
         self.input_features = input_features
+        self.filter = filter
         self.brelu = brelu
         self.pool_fn = {"max": max_pool, "average": avg_pool}[pool]
         self.dropout = dropout
         self.regularization = regularization
         self.input_grad = input_grad
 
+        # The eigenbasis U (and the spline interpolation) of each layer's
+        # level: graph data, not parameters.
+        self._bases = []
+        if filter in ("fourier", "spline"):
+            for j, k in zip(levels, K):
+                lam, U = gc.fourier(laplacians[j])
+                Bmat = (torch.from_numpy(bspline_basis(k, lam, spline_degree))
+                        .to(device) if filter == "spline" else None)
+                self._bases.append((torch.as_tensor(
+                    U, dtype=torch.float32).to(device), Bmat))
+
         self.gconv = nn.ModuleList()
         fin = input_features
         for op, fout, k in zip(self.operators, self.F, self.K):
-            layer = {"w": common.trunc_normal((k, fin, fout),
-                                              generator=generator,
+            shape = {"fourier": (op.m, fout, fin),
+                     "spline": (k, fout, fin)}.get(filter, (k, fin, fout))
+            layer = {"w": common.trunc_normal(shape, generator=generator,
                                               device=device)}
             layer.update(common.bias_act_init(brelu, op.m, fout,
                                               device=device))
@@ -111,8 +174,7 @@ class ChebNet(nn.Module):
         if x.dim() == 2:
             x = x[:, :, None]
         for i, layer in enumerate(params["gconv"]):
-            x = cheby_conv(x, self.operators[i], layer["w"],
-                           input_grad=(i > 0 or self.input_grad))
+            x = self._filter(i, x, layer["w"])
             x = common.bias_act(layer, x, self.brelu)
             x = self.pool_fn(x, self.p[i])
         x = x.reshape(x.shape[0], -1)
@@ -123,6 +185,19 @@ class ChebNet(nn.Module):
             if not last:
                 x = common.dropout(x, self.dropout, train, generator)
         return x
+
+    def _filter(self, i: int, x: torch.Tensor, w: torch.Tensor):
+        if self.filter == "chebyshev":
+            return cheby_conv(x, self.operators[i], w,
+                              input_grad=(i > 0 or self.input_grad))
+        if self.filter == "lanczos":
+            return lanczos_conv(x, self.operators[i], w)
+        U, Bmat = self._bases[i]
+        if self.filter == "spline":
+            # K control points -> per-frequency weights [M, Fout, Fin].
+            with full_f32_matmul():
+                w = torch.einsum("mk,kof->mof", Bmat, w)
+        return fourier_conv(x, U, w)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.apply(self.param_tree(), x)

@@ -3,10 +3,12 @@ fully-connected layers, dropout, the one-call int8 conversion of a
 model's graph operators, and maps over parameter trees.
 
 Counterpart of ``cnn_graph_tpu/models/common.py`` (``trunc_normal`` :125,
-``bias_init`` :136, ``bias_act_init`` :140, ``bias_act`` :155,
+``uniform_init`` :131, ``bias_init`` :136, ``bias_act_init`` :140, ``bias_act`` :155,
 ``fc_init`` :163, ``fc_apply`` :171, ``dropout`` :176,
 ``quantize_model_operators`` :63).  Parameter trees are the JAX
-package's: nested dicts and lists with tensors at the leaves.
+package's: nested dicts and lists with tensors at the leaves;
+``ParamTree`` registers such a tree's leaves as an ``nn.Module``'s
+parameters.
 """
 
 from __future__ import annotations
@@ -16,12 +18,15 @@ import dataclasses
 import math
 
 import torch
+from torch import nn
 from torch.profiler import record_function
 
 from cnn_graph_tpu_torch.ops.band import full_f32_matmul
 
 __all__ = [
+    "ParamTree",
     "trunc_normal",
+    "uniform_init",
     "operator_device",
     "bias_init",
     "bias_act_init",
@@ -66,6 +71,43 @@ def trunc_normal(shape, std: float = 0.1, *, generator=None,
     t.uniform_(lo, hi, generator=generator)
     t = t.erfinv_().mul_(std * math.sqrt(2.0)).clamp_(-2.0 * std, 2.0 * std)
     return t if device is None else t.to(device)
+
+
+def uniform_init(shape, scale: float = 0.1, *, generator=None,
+                 device=None) -> torch.Tensor:
+    """Uniform(-scale, scale), the gLSTM family's weight initializer, drawn
+    from ``generator`` on its device (the CPU without one), then moved to
+    ``device``."""
+    src = "cpu" if generator is None else generator.device
+    t = torch.empty(shape, dtype=torch.float32, device=src)
+    t.uniform_(-scale, scale, generator=generator)
+    return t if device is None else t.to(device)
+
+
+class ParamTree(nn.Module):
+    """A parameter tree (dicts and lists with tensors at the leaves) whose
+    leaves are this module's parameters, named by their path joined with
+    ``__`` (``res__0__w1``); ``tree()`` gives the tree back, holding the
+    parameters themselves."""
+
+    def __init__(self, tree):
+        super().__init__()
+
+        def register(node, prefix):
+            if isinstance(node, dict):
+                return {k: register(v, f"{prefix}{k}__")
+                        for k, v in node.items()}
+            if isinstance(node, (list, tuple)):
+                return [register(v, f"{prefix}{i}__")
+                        for i, v in enumerate(node)]
+            name = prefix[:-2]
+            self.register_parameter(name, nn.Parameter(node))
+            return name
+
+        self._names = register(tree, "")
+
+    def tree(self):
+        return tree_map(lambda name: getattr(self, name), self._names)
 
 
 def operator_device(op) -> torch.device:

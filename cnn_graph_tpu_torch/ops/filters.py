@@ -1,12 +1,18 @@
-"""Chebyshev spectral graph convolution.
+"""Spectral graph convolutions: Chebyshev, Lanczos and Fourier.
 
 Counterpart of ``cnn_graph_tpu/ops/filters.py``: ``cheby_conv`` (:323)
 with the same dispatch (:344-378) and fused-kernel eligibility rule
 ``_fused_eligible`` (:47), ``cheby_conv_banded`` (:180-320) with
 its streaming forward and fused adjoint backward, the int8 streaming
 conv ``_cheby_conv_quant_stream`` (:74) and the stacked ``cheby_basis``
-(:138) of the dense path.  Activations are ``[B, M, F]``, weights
-``[K, Fin, Fout]``.
+(:138) of the dense path; the Lanczos filter ``lanczos_basis_device``
+(:381) and ``lanczos_conv`` (:446), whose ``L @ v`` products go through
+the operator's ``matmul`` (a banded or BSR operator's kernel on the
+card); ``cheby_weights_from_flat`` (:466); and the Fourier filter
+``fourier_conv`` (:473), three dense contractions with the eigenbasis
+U, plain ``torch.einsum`` as the JAX package leaves them to XLA.
+Activations are ``[B, M, F]``, Chebyshev and Lanczos weights ``[K,
+Fin, Fout]``, Fourier weights ``[M, Fout, Fin]``.
 
 The per-tap products ``T_k x W_k`` and dW are plain ``torch.matmul``s on
 f32-upcast operands, accumulated in f32, as the JAX package's taps
@@ -24,7 +30,9 @@ from cnn_graph_tpu_torch.ops.band import full_f32_matmul, profiled
 from cnn_graph_tpu_torch.ops.cheby import cheby_conv_fused, fused_vmem_ok
 from cnn_graph_tpu_torch.ops.laplacian import BandedLaplacian
 
-__all__ = ["cheby_basis", "cheby_conv", "cheby_conv_banded"]
+__all__ = ["cheby_basis", "cheby_conv", "cheby_conv_banded",
+           "cheby_weights_from_flat", "fourier_conv", "lanczos_basis_device",
+           "lanczos_conv"]
 
 
 def _fused_eligible(L, fin: int, fout: int, col_tile: int = 512) -> bool:
@@ -305,3 +313,81 @@ class _NarrowTaps(torch.autograd.Function):
                     basis[k].reshape(B * M, F).to(torch.float32).t() @ g2
                     for k in range(K)]).to(basis.dtype).to(ctx.w_dtype)
         return d_basis, d_w
+
+
+def lanczos_basis_device(x: torch.Tensor, L, K: int,
+                         eps: float = 1e-12) -> torch.Tensor:
+    """Per-signal K-step Lanczos basis, ``[B, M, F]`` -> ``[K, B, M, F]``:
+    K-step Lanczos on every signal column (the ``F*B`` columns, one wide
+    ``L @ V`` product per step through the operator's ``matmul``), one
+    batched ``torch.linalg.eigh`` of the N tridiagonal ``K x K``
+    matrices, and the rotation back.  The orthogonalisation runs in f32,
+    the products in the operator's compute dtype.  A breakdown (``b_k <=
+    eps``) zeroes the remaining directions.  The eigenvectors' signs
+    cancel (each basis vector carries its column twice).  Differentiable;
+    the gradient through ``eigh`` is undefined at degenerate Ritz values,
+    as in JAX."""
+    B, M, F = x.shape
+    cdt = getattr(L, "compute_dtype", x.dtype)
+    xt = _pad_nodes(x.permute(1, 2, 0).reshape(M, F * B),
+                    L.m_padded).to(torch.float32)
+    N = F * B
+
+    def lmul(v):
+        return L.matmul(v.to(cdt)).to(torch.float32)
+
+    norms = torch.linalg.vector_norm(xt, dim=0)
+    V = [xt / norms.clamp_min(eps)]
+    a, b = [], [xt.new_zeros(N)]
+    for k in range(K - 1):
+        w = lmul(V[k])
+        a.append((w * V[k]).sum(0))
+        w = w - a[k] * V[k] - (b[k] * V[k - 1] if k > 0 else 0.0)
+        bk = torch.linalg.vector_norm(w, dim=0)
+        b.append(bk)
+        V.append(torch.where(bk > eps, w / bk.clamp_min(eps), 0.0))
+    a.append((lmul(V[K - 1]) * V[K - 1]).sum(0))
+
+    H = torch.diag_embed(torch.stack(a, dim=1))           # [N, K, K]
+    if K > 1:
+        off = torch.stack(b[1:], dim=1)                    # [N, K-1]
+        H = H + torch.diag_embed(off, -1) + torch.diag_embed(off, 1)
+    Q = torch.linalg.eigh(H)[1]                            # [N, K, K]
+    with full_f32_matmul():
+        Xt = torch.einsum("njk,jmn->kmn", Q, torch.stack(V))
+    Xt = Xt * Q[:, 0, :].t()[:, None, :] * norms
+    Xt = Xt[:, :M].reshape(K, M, F, B)
+    return Xt.permute(0, 3, 1, 2).to(x.dtype)
+
+
+def lanczos_conv(x: torch.Tensor, L, w: torch.Tensor) -> torch.Tensor:
+    """Lanczos-basis spectral graph convolution ``y = sum_k (Lanczos_k x)
+    W_k``: ``x`` ``[B, M, Fin]``, ``w`` ``[K, Fin, Fout]`` -> ``[B, M,
+    Fout]``, the taps one contraction as in ``cheby_conv``."""
+    K, Fin, Fout = w.shape
+    if x.shape[2] != Fin:
+        raise ValueError(f"feature mismatch: x has {x.shape[2]}, w expects "
+                         f"{Fin}")
+    basis = lanczos_basis_device(x, L, K)
+    with full_f32_matmul():
+        return torch.einsum("kbmf,kfo->bmo", basis,
+                            w.to(basis.dtype)).to(x.dtype)
+
+
+def cheby_weights_from_flat(w_flat: torch.Tensor, K: int,
+                            Fin: int) -> torch.Tensor:
+    """The reference's ``[K*Fin, Fout]`` weights (Fin-major: row ``fin*K +
+    k``, graph_conv.py:171-174) as ``[K, Fin, Fout]``."""
+    return w_flat.reshape(Fin, K, w_flat.shape[1]).permute(1, 0, 2)
+
+
+def fourier_conv(x: torch.Tensor, U: torch.Tensor,
+                 w: torch.Tensor) -> torch.Tensor:
+    """Non-parametric spectral filter in the full Fourier basis: ``x`` ``[B,
+    M, Fin]``, ``U`` ``[M, M]`` (eigenvectors as columns, eigenvalues
+    ascending), ``w`` ``[M, Fout, Fin]`` -> ``U (W_lambda . (U^T x))``,
+    ``[B, M, Fout]`` (lib/filter.py:11-27)."""
+    with full_f32_matmul():
+        xhat = torch.einsum("ml,bmf->blf", U, x)
+        filtered = torch.einsum("lof,blf->blo", w, xhat)
+        return torch.einsum("ml,blo->bmo", U, filtered)

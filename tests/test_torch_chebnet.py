@@ -138,8 +138,15 @@ class TestMnistGraph:
             np.testing.assert_array_equal(data[k], data_j[k])
         for a, b in zip(Ls, Ls_j):
             _same_sparse(a, b)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            mnist_graph_data(synthetic_mnist(2, 1, 1), edge_noise=0.1)
+        # edge_noise: replace_random_edges draws the same random edges.
+        noisy, Ls_n, perm_n = mnist_graph_data(splits_j, edge_noise=0.1)
+        noisy_j, Ls_nj, perm_nj = jax_mnist_graph_data(splits_j,
+                                                       edge_noise=0.1)
+        assert perm_n == perm_nj and perm_n != perm
+        for a, b in zip(Ls_n, Ls_nj):
+            _same_sparse(a, b)
+        np.testing.assert_array_equal(noisy["train_data"],
+                                      noisy_j["train_data"])
 
 
 class TestChebNet:
@@ -248,9 +255,19 @@ class TestChebNet:
 
     @pytest.mark.parametrize("filt", ["fourier", "spline", "lanczos"])
     def test_unported_filters_raise(self, mnist, filt):
-        *_, ops, _ = mnist
-        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-            ChebNet(ops, **ARCH, filter=filt)
+        """The three filters are ported (tests/test_torch_filters.py holds
+        them against JAX): what still raises is a filter that needs the
+        host Laplacians built without them, or an unknown filter."""
+        _, Ls, _, ops, _ = mnist
+        if filt == "lanczos":
+            assert ChebNet(ops, **ARCH, filter=filt).filter == filt
+        else:
+            with pytest.raises(ValueError, match="laplacians"):
+                ChebNet(ops, **ARCH, filter=filt)
+            assert ChebNet(ops, **ARCH, laplacians=Ls, filter=filt,
+                           spline_degree=2).filter == filt
+        with pytest.raises(ValueError, match="unknown filter"):
+            ChebNet(ops, **ARCH, filter=filt + "2")
 
     def test_bad_pooling_raises(self, mnist):
         *_, ops, _ = mnist

@@ -1001,3 +1001,83 @@ def test_stacked_taps_on_the_card_match_the_cpu(cuda_device, B):
     for name, a, c in zip(("y", "d_basis", "d_w"), *out.values()):
         tol = 1e-5 if name == "y" else 2 ** -8
         assert float((a - c).abs().max()) <= tol * float(c.abs().max()), name
+
+
+@pytest.fixture(scope="module")
+def flow_graph():
+    """A synthetic HumanTraffic region graph's normalized Laplacian: the
+    fork's 1,024-region cell (TaxiBJ's 32 x 32 grid) in full, and a
+    64-region one."""
+    from cnn_graph_tpu_torch.data import synthetic_flow
+
+    def laplacian(n):
+        edges = synthetic_flow(n_nodes=n, n_steps=96, seed=0)[2]
+        return graphs.laplacian(scipy.sparse.csr_matrix(edges))
+
+    return {1024: laplacian(1024), 64: laplacian(64)}
+
+
+@pytest.mark.parametrize("F,O", [(64, 256), (256, 64), (32, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cheby_kernels_at_the_forecasting_widths(flow_graph, cuda_device,
+                                                 dtype, F, O):
+    """K2 and K3 at the gLSTM's gate conv (64 -> 256: two samples a group,
+    nop = 512, four 128-column tap passes), its dx (256 -> 64: np = 256,
+    two 128-column hop passes) and the conv stack's (32, 32), on the
+    1,024-region operator, against their plain versions within 1e-4
+    (f32) or 1e-2 (bf16) of the largest entry, chip_smoke.py phase 23's
+    tolerances: the sums run over 1,024 nodes, so an f32 y reaches about
+    8 and dW about 10^3, past ``_close``'s absolute 1e-4."""
+
+    def close(got, want):
+        err = float((got - want).abs().max())
+        tol = 1e-4 if dtype == torch.float32 else 1e-2
+        assert err <= tol * float(want.abs().max()), err
+
+    op = _dense(flow_graph[1024], dtype, cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(F * O)
+    B = 6
+    x = torch.randn(B, op.m, F, generator=g, device=cuda_device)
+    w = 0.1 * torch.randn(2, F, O, generator=g, device=cuda_device)
+    gy = torch.randn(B, op.m, O, generator=g, device=cuda_device)
+    geo = conv_geometry(B, op.m_padded, F, O, torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count)
+    assert (geo["np"], geo["nop"]) == {(64, 256): (128, 512),
+                                       (256, 64): (256, 64),
+                                       (32, 32): (128, 128)}[(F, O)]
+    close(fused_filter(x, op, w), cheby_conv_fused_reference(x, op, w))
+    close(cheby_dw_fused(x, op, gy, 2), cheby_dw_fused_reference(x, op, gy,
+                                                                 2))
+
+
+def test_resgnn_step_on_the_card_matches_the_cpu(flow_graph, cuda_device):
+    """One ResGNN training step (nfilter 64, nres 4, the fused operator):
+    16 K2 launches (8 forward, 8 dx) and 8 K3, and the loss and every
+    gradient equal the same step on the CPU (plain versions) within 1e-3
+    of each one's largest entry (f32, sums in another order)."""
+    from cnn_graph_tpu_torch.models import ResGNN
+    from cnn_graph_tpu_torch.models.common import tree_leaves, tree_map
+
+    rng = np.random.default_rng(11)
+    x = rng.uniform(size=(4, 64, 12)).astype(np.float32)
+    y = rng.uniform(size=(4, 64, 2)).astype(np.float32)
+    out = []
+    for dev in (cuda_device, "cpu"):
+        op = _dense(flow_graph[64], torch.float32, dev)
+        model = ResGNN(op, 12, generator=torch.Generator().manual_seed(0))
+        params = tree_map(lambda t: t.detach().requires_grad_(),
+                          model.param_tree())
+        before = (cheby_conv_fused.launches, cheby_dw_fused.launches)
+        loss = model.loss(params, torch.from_numpy(x).to(dev),
+                          torch.from_numpy(y).to(dev))
+        loss.backward()
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert (cheby_conv_fused.launches - before[0],
+                    cheby_dw_fused.launches - before[1]) == (16, 8)
+        out.append((float(loss.detach()), [p.grad.cpu() for p in
+                                           tree_leaves(params)]))
+    (loss, grads), (loss_c, grads_c) = out
+    assert abs(loss - loss_c) <= 1e-5 * abs(loss_c)
+    for a, b in zip(grads, grads_c):
+        assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())

@@ -180,18 +180,29 @@ class TestInt8Serving:
 class TestGuards:
     def test_port_never_imports_jax(self):
         """Neither the port nor chip_smoke.py pulls in JAX, the JAX
-        package, scikit-learn, optax or Orbax: the card's machine has
-        none of them."""
+        package, scikit-learn, optax, Orbax, statsmodels, stldecompose or
+        rpy2: the card's machine has none of them."""
         code = (
             "import sys, cnn_graph_tpu_torch, cnn_graph_tpu_torch.graphs, "
             "cnn_graph_tpu_torch.graphs.construction, "
             "cnn_graph_tpu_torch.graphs.coarsening, "
             "cnn_graph_tpu_torch.data, cnn_graph_tpu_torch.data.mnist, "
+            "cnn_graph_tpu_torch.data.synthetic, "
+            "cnn_graph_tpu_torch.data.stl, "
+            "cnn_graph_tpu_torch.data.humantraffic, "
+            "cnn_graph_tpu_torch.data.rdata, "
             "cnn_graph_tpu_torch.ops, cnn_graph_tpu_torch.ops.cheby, "
             "cnn_graph_tpu_torch.ops.band, cnn_graph_tpu_torch.ops.laplacian, "
             "cnn_graph_tpu_torch.ops.bsr, cnn_graph_tpu_torch.ops.packing, "
             "cnn_graph_tpu_torch.ops.pooling, cnn_graph_tpu_torch.models, "
             "cnn_graph_tpu_torch.models.chebnet, "
+            "cnn_graph_tpu_torch.models.common, "
+            "cnn_graph_tpu_torch.models.resgnn, "
+            "cnn_graph_tpu_torch.models.gconv_lstm, "
+            "cnn_graph_tpu_torch.models.forecasting, "
+            "cnn_graph_tpu_torch.models.gconv_rnn, "
+            "cnn_graph_tpu_torch.models.node_lstm, "
+            "cnn_graph_tpu_torch.ops.filters, "
             "cnn_graph_tpu_torch.serve, cnn_graph_tpu_torch.convert, "
             "cnn_graph_tpu_torch.train, "
             "cnn_graph_tpu_torch.train.classification, "
@@ -204,6 +215,7 @@ class TestGuards:
             "cnn_graph_tpu_torch.experiments.mnist, "
             "cnn_graph_tpu_torch.experiments.text20news, "
             "cnn_graph_tpu_torch.experiments.rcv1, "
+            "cnn_graph_tpu_torch.experiments.humanflow, "
             "cnn_graph_tpu_torch.utils, cnn_graph_tpu_torch.utils.profiling, "
             "cnn_graph_tpu_torch.utils.probes, "
             "cnn_graph_tpu_torch.utils.metrics, "
@@ -211,7 +223,7 @@ class TestGuards:
             "cnn_graph_tpu_torch._build, chip_smoke\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'cnn_graph_tpu', 'sklearn', 'optax', "
-            "'orbax')]\n"
+            "'orbax', 'statsmodels', 'stldecompose', 'rpy2')]\n"
             "assert not bad, bad\n"
         )
         root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

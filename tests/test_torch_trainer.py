@@ -368,9 +368,7 @@ def test_driver_runs_on_the_cpu(name):
     assert len(line) == 1 and "accuracy: " in line[0], proc.stdout[-2000:]
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--filter", "fourier"], "item 3"), (["--data-dir", "/x"], "item 3"),
-    (["--edge-noise", "0.1"], "item 3"), (["--mesh-data", "2"], "item 6")])
+@pytest.mark.parametrize("argv,item", [(["--mesh-data", "2"], "item 6")])
 def test_mnist_driver_refuses_unported_flags(argv, item):
     from cnn_graph_tpu_torch.experiments import mnist
 
