@@ -233,7 +233,28 @@ Phases, each fatal on failure (no CPU path, no fallback):
    falling; no kernel launch) and one step against the CPU's; (b)
    ``lanczos_conv`` at K=5, B=2, Fin=16 on the f32 copy of phase 3's
    50,176-node deep-K-window operator: 5 K1 launches per call, the basis
-   within 1e-3 of the plain operator's max.
+   within 1e-3 of the plain operator's max;
+25. the serving artifact (``serve.export_serving``/``load_serving``,
+   the kernels as the custom ops of ``ops/library.py``): (a) right after
+   phase 6, phase 4's int8 model (the bench's 50k request: K=25,
+   Fin=512, 16 classes, dkw) exported, then loaded and served in a
+   fresh ``python3`` that only runs ``python -m cnn_graph_tpu_torch.
+   serve`` on the artifact and phase 4's int8 requests (written as
+   ``.npy``): logits bit-identical to ``CompiledServing``'s, 24 K1
+   launches per request and no other, the load seconds, and the loaded
+   and compiled latencies (CUDA events); the same artifact loaded in
+   this process, and one request of each handle's device kernels by
+   name, where they differ; (b) loaded in this process, after phase 11
+   the scattered NodeClassifier's int8 artifact (24 K4 launches a
+   request, bit-identical) and after phases 8-9 the f32 ChebNet's on
+   the fused operator (1 K2 launch a request, within 1e-6 of the max),
+   each against its ``CompiledServing`` with the same launches; (c)
+   after phase 20, the node-classification driver (``python -m
+   cnn_graph_tpu_torch.experiments.node_classification --int8 --export
+   DIR``: 100,000 nodes, K=3, hidden 64, 200 steps), its test accuracy
+   above 0.5 and the int8 one within 0.05; its artifact loaded and
+   served on the driver's own features: 4 K1 launches, and the int8
+   test accuracy the driver printed.
 
 Each 50k scattered operator is freed after its phase.
 
@@ -274,7 +295,11 @@ from cnn_graph_tpu_torch.data import (  # noqa: E402
     synthetic_mnist,
     synthetic_text_dataset,
 )
-from cnn_graph_tpu_torch.experiments import humanflow, text20news  # noqa
+from cnn_graph_tpu_torch.experiments import (  # noqa: E402
+    humanflow,
+    node_classification,
+    text20news,
+)
 from cnn_graph_tpu_torch.models import (  # noqa: E402
     ChebNet,
     GConvForecaster,
@@ -321,12 +346,17 @@ from cnn_graph_tpu_torch.ops import (  # noqa: E402
     quantize_block_sparse,
     quantize_dense,
 )
+from cnn_graph_tpu_torch.ops import library  # noqa: E402
 from cnn_graph_tpu_torch.ops.band import layout_call  # noqa: E402
 from cnn_graph_tpu_torch.ops.cheby import (  # noqa: E402
     _fold_dw_partials,
     _launch_dw,
 )
-from cnn_graph_tpu_torch.serve import compile_serving  # noqa: E402
+from cnn_graph_tpu_torch.serve import (  # noqa: E402
+    compile_serving,
+    export_serving,
+    load_serving,
+)
 from cnn_graph_tpu_torch.train import (  # noqa: E402
     TrainConfig,
     Trainer,
@@ -446,6 +476,12 @@ PROBE_SOURCE = "cnn_graph_tpu_torch/csrc/probes.cu"
 PROBE_REPLACES = {"mxu": "experiments/_probe.py:154",       # _mxu_probe
                   "pred": "experiments/_probe.py:253",      # _pred_probe
                   "loopcost": "experiments/_probe.py:393"}  # main_loopcost
+# Phase 25 (c): the node-classification driver at its defaults (JAX's:
+# 100,000 nodes, 16 classes, 32 features, hidden 64, K=3, 200 steps);
+# K-1 K1 launches per layer of a request.
+DRIVER_NODES, DRIVER_CLASSES, DRIVER_FEATURES = 100000, 16, 32
+DRIVER_REQUEST_K1 = 2 * (3 - 1)
+HERE = os.path.dirname(os.path.abspath(__file__))
 # Reduced counts: P1/P2 iterations of the longer timed chain (sq1024 an
 # eighth, at least 32), cuBLAS chain links, P3 chained calls of 2048
 # dots in the longer chain, and the plain versions' longer chains.
@@ -1669,6 +1705,202 @@ def bsr_train_phase(op, data) -> dict:
             "plain_ms": cuda_ms(lambda: run(1, m=twin), 1)}
 
 
+# ------------------------------------------- the serving artifact, phase 25
+
+
+def _kernel_counts(fn) -> tuple:
+    """The device kernels of one call of ``fn`` by name and count (after
+    a warm-up), and the number of aten ops it called on the host (nested
+    ones included), from torch.profiler."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    avg = prof.key_averages()
+    return ({e.key: e.count for e in _device_kernels(avg)},
+            sum(e.count for e in avg if e.device_type == DeviceType.CPU
+                and e.key.startswith("aten::")))
+
+
+def _print_kernel_diff(what: str, compiled, loaded, x):
+    """One request's device kernels of each handle, compared by name
+    and count: an extra kernel in the loaded program (a copy the export
+    put in) shows here."""
+    (kc, oc), (kl, ol) = (_kernel_counts(lambda h=h: h(x))
+                          for h in (compiled, loaded))
+    diff = {k: (kc.get(k, 0), kl.get(k, 0))
+            for k in sorted(set(kc) | set(kl))
+            if kc.get(k, 0) != kl.get(k, 0)}
+    print(f"artifact {what}: device kernels per request, compiled "
+          f"{sum(kc.values())}, loaded {sum(kl.values())}; where they "
+          f"differ (compiled, loaded): {diff or 'nowhere'}; aten ops on "
+          f"the host, compiled {oc}, loaded {ol}", flush=True)
+
+
+def artifact_subprocess_phase(model, params, reqs, want, compiled,
+                              tmp: str, gpu: str) -> dict:
+    """Phase 25 (a): export the int8 request of ``model``, serve
+    ``reqs`` from the artifact in a fresh ``python3`` that loads it and
+    builds no model (``python -m cnn_graph_tpu_torch.serve``), and hold
+    its logits bit-identical to ``want`` (``compiled``'s, the
+    CompiledServing of the same request, on the same requests) with K-1
+    K1 launches per request and no other; then the same artifact in this
+    process, and one request's device kernels of each handle compared by
+    name."""
+    d = os.path.join(tmp, "k1_int8")
+    t0 = time.perf_counter()
+    export_serving(model, params, reqs[0], d, int8=True)
+    export_s = time.perf_counter() - t0
+    paths = []
+    for i, x in enumerate(reqs):
+        paths.append(os.path.join(tmp, f"request_{i}.npy"))
+        np.save(paths[-1], x.cpu().numpy())
+    out = os.path.join(tmp, "k1_out")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "cnn_graph_tpu_torch.serve", d, *paths,
+         "--out", out],
+        cwd=HERE, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, "the artifact's fresh process failed:\n"
+          + proc.stderr[-4000:])
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    n = len(reqs)
+    k1 = rec["launches"].get("band_dkw", 0)
+    check(rec["launches"] == {"band_dkw": n * (K - 1)},
+          f"artifact in a fresh process: launches {rec['launches']} for "
+          f"{n} requests, want {n * (K - 1)} K1")
+    for i, y in enumerate(want):
+        got = np.load(os.path.join(out, f"out_{i}.npy"))
+        check(np.array_equal(got, y.cpu().numpy()), f"artifact request {i}:"
+              " loaded logits not bit-identical to CompiledServing's")
+    loaded = load_serving(d)
+    library.reset_launch_counts()
+    y = loaded(reqs[0])
+    torch.cuda.synchronize()
+    check(library.launch_counts()["band_dkw"] == K - 1
+          and torch.equal(y, want[0]), "artifact in this process: launches "
+          f"{library.launch_counts()} or logits off CompiledServing's")
+    turns = [cuda_ms(lambda f=f: f(reqs[0]), 5)
+             for f in (compiled, loaded, loaded, compiled)]
+    inproc_ms, compiled_ms = (turns[1] + turns[2]) / 2, (turns[0]
+                                                         + turns[3]) / 2
+    mib = {f: os.path.getsize(os.path.join(d, f)) / 2**20
+           for f in sorted(os.listdir(d))}
+    print(f"artifact 50k int8 (K1): exported in {export_s:.2f} s "
+          f"({', '.join(f'{f} {v:.1f} MiB' for f, v in mib.items())}); a "
+          f"fresh process loaded it in {rec['load_s']:.3f} s and served {n} "
+          f"requests ({wall:.1f} s with its start), {k1} K1 launches, "
+          f"logits bit-identical to CompiledServing's; request latency "
+          f"there {rec['ms']:.3f} ms; in this process, in turns, loaded "
+          f"{inproc_ms:.3f} ms, compiled {compiled_ms:.3f} ms [{gpu}]",
+          flush=True)
+    _print_kernel_diff("50k int8 (K1)", compiled, loaded, reqs[0])
+    return {"launches": k1, "load_s": rec["load_s"],
+            "ms": rec["ms"], "inprocess_ms": inproc_ms,
+            "compiled_ms": compiled_ms, "export_s": export_s}
+
+
+def artifact_phase(model, params, example, reqs, compiled, kernel: str,
+                   per_request: int, int8: bool, what: str, tmp: str,
+                   gpu: str) -> dict:
+    """Phase 25 (b): export ``model`` as ``compiled`` serves it, load it
+    in this process and serve ``reqs`` with the counts set to 0 just
+    before: ``per_request`` launches of ``kernel`` a request and no
+    other, as ``compiled`` launches; int8 logits bit-identical, float
+    within 1e-6 of the max."""
+    d = os.path.join(tmp, what.replace(" ", "_"))
+    export_serving(model, params, example, d, int8=int8)
+    loaded = load_serving(d)
+    library.reset_launch_counts()
+    got = [loaded(x) for x in reqs]
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in library.launch_counts().items() if v}
+    library.reset_launch_counts()
+    want = [compiled(x) for x in reqs]
+    torch.cuda.synchronize()
+    n = len(reqs)
+    check(launches == {kernel: per_request * n} and launches == {
+        k: v for k, v in library.launch_counts().items() if v},
+        f"artifact {what}: launches {launches}, compiled "
+        f"{library.launch_counts()}, want {per_request * n} {kernel}")
+    err = 0.0
+    for y, yw in zip(got, want):
+        check(y.shape == yw.shape and bool(torch.isfinite(y).all()),
+              f"artifact {what}: bad logits")
+        e = float((y - yw).abs().max())
+        err = max(err, e)
+        check(torch.equal(y, yw) if int8 else e <= 1e-6 * float(
+            yw.abs().max()), f"artifact {what}: loaded logits off "
+            f"CompiledServing's by {e:.3g}")
+    turns = [cuda_ms(lambda f=f: f(reqs[0]), 5)
+             for f in (compiled, loaded, loaded, compiled)]
+    ms, cms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+    print(f"artifact {what}: {n} requests, {launches.get(kernel, 0)} "
+          f"{kernel} launches as compiled, max |loaded - compiled| {err:.3g}; "
+          f"request latency in turns, loaded {ms:.3f} ms, compiled "
+          f"{cms:.3f} ms [{gpu}]", flush=True)
+    _print_kernel_diff(what, compiled, loaded, reqs[0])
+    return {"launches": launches.get(kernel, 0), "ms": ms,
+            "compiled_ms": cms, "max_abs_err": err}
+
+
+def driver_phase(tmp: str, gpu: str) -> dict:
+    """Phase 25 (c): the node-classification driver at its defaults with
+    ``--int8 --export``: test accuracy above 0.5 (16 classes) and the
+    int8 one within 0.05; then its artifact served on the driver's own
+    features: ``DRIVER_REQUEST_K1`` K1 launches, and the int8 test
+    accuracy the driver printed."""
+    d = os.path.join(tmp, "driver")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m",
+         "cnn_graph_tpu_torch.experiments.node_classification", "--int8",
+         "--export", d], cwd=HERE, capture_output=True, text=True,
+        timeout=900)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, "the node-classification driver failed:\n"
+          + proc.stderr[-4000:])
+    for line in proc.stdout.strip().splitlines():
+        print(f"  driver: {line}")
+    out = proc.stdout
+    acc = re.search(r"train acc ([\d.]+) \| test acc ([\d.]+)", out)
+    q = re.search(r"int8 test acc ([\d.]+) \(delta vs f32 ([-+][\d.]+)\)",
+                  out)
+    check(acc is not None and q is not None, "driver: no accuracy lines")
+    test_acc, int8_acc = float(acc.group(2)), float(q.group(1))
+    check(test_acc > 0.5 and abs(float(q.group(2))) < 0.05,
+          f"driver: test accuracy {test_acc}, int8 delta {q.group(2)}")
+    loaded = load_serving(d)
+    check(loaded.meta["int8"] is True and loaded.meta["platforms"] ==
+          ["cuda"], f"driver artifact meta {loaded.meta}")
+    _, feats, labels = node_classification.build_graph(
+        DRIVER_NODES, DRIVER_CLASSES, DRIVER_FEATURES, 0)
+    fp, yp, _, test = node_classification.node_data(
+        feats, labels, loaded.input_spec.shape[0], 0.1, 0)
+    x = torch.from_numpy(fp).to(loaded.input_spec.device)
+    library.reset_launch_counts()
+    logits = loaded(x)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in library.launch_counts().items() if v}
+    check(launches == {"band_dkw": DRIVER_REQUEST_K1},
+          f"driver artifact: launches {launches}")
+    served_acc = float((logits.argmax(1).cpu().numpy() == yp)[test].mean())
+    check(f"{served_acc:.4f}" == f"{int8_acc:.4f}", f"driver artifact: "
+          f"test accuracy {served_acc:.4f}, the driver's int8 {int8_acc}")
+    ms = cuda_ms(lambda: loaded(x), 5)
+    print(f"driver (phase 25 c): {wall:.1f} s; test acc {test_acc}, int8 "
+          f"{int8_acc}; its artifact served the driver's features with "
+          f"{launches.get('band_dkw', 0)} K1 launches and the same int8 "
+          "accuracy, "
+          f"{ms:.3f} ms per request [{gpu}]", flush=True)
+    return {"launches": launches.get("band_dkw", 0), "ms": ms,
+            "seconds": wall,
+            "test_acc": test_acc, "int8_test_acc": int8_acc}
+
+
 # ------------------------------------------------ the Trainer, phase 19
 
 
@@ -2553,6 +2785,15 @@ def main() -> int:
         print(f"request latency {mode}: {ms:.3f} ms "
               f"({K - 1} SpMMs, {op.m} nodes, Fin {FIN}) [{gpu}]")
 
+    # Phase 25 (a): the int8 request as a serving artifact, loaded and
+    # served in a fresh process.
+    tmp = tempfile.TemporaryDirectory()
+    t0 = time.perf_counter()
+    art_k1 = artifact_subprocess_phase(model, params, reqs[N_REQUESTS:],
+                                       logits["int8"], served["int8"],
+                                       tmp.name, gpu)
+    art_s = time.perf_counter() - t0
+
     # Phase 7: K2 and K3 against their plain versions, and timed.
     t0 = time.perf_counter()
     splits = synthetic_mnist(n_train=CHEB_B, n_val=0,
@@ -2600,7 +2841,7 @@ def main() -> int:
         model, cparams = chebnet_model(Ls, dt, dev)
         srv = chebnet_serve_phase(model, cparams, creqs, lab)
         trn = chebnet_train_phase(model, cparams, batch, lab)
-        cheb[lab] = {"serve": srv, "train": trn}
+        cheb[lab] = {"serve": srv, "train": trn, "net": (model, cparams)}
         if lab == "f32":
             q8 = cheb["int8"] = chebnet_int8_phase(model, cparams, creqs,
                                                    srv["serving"])
@@ -2624,6 +2865,14 @@ def main() -> int:
               f"loss rel err {trn['loss_rel_err']:.3g}, gradient err "
               f"{trn['grad_rel_err']:.3g} of max; {trn['ms']:.3f} ms per "
               f"step (plain {trn['plain_ms']:.3f} ms) [{gpu}]", flush=True)
+
+    # Phase 25 (b): the f32 ChebNet's artifact (K2), in this process.
+    t0 = time.perf_counter()
+    art_k2 = artifact_phase(*cheb["f32"]["net"], creqs[0], creqs,
+                            cheb["f32"]["serve"]["serving"],
+                            "cheby_conv_fused", 1, False, "chebnet f32 (K2)",
+                            tmp.name, gpu)
+    art_s += time.perf_counter() - t0
 
     # Phase 19: the Trainer on the card: the paper's ChebNet (K2, K3)
     # and the GC32 text driver.
@@ -2692,6 +2941,14 @@ def main() -> int:
               f"{tuple(rec['logits'][0].shape)}, max |served - plain| "
               f"{rec['max_abs_err']:.3g}; {rec['ms']:.3f} ms per request "
               f"(plain {rec['plain_ms']:.3f} ms) [{gpu}]", flush=True)
+    # Phase 25 (b): the scattered int8 request's artifact (K4).
+    t0 = time.perf_counter()
+    art_k4 = artifact_phase(s_model, s_model.param_tree(), s_reqs[0],
+                            s_reqs[N_REQUESTS:], s_served["int8"]["serving"],
+                            "bsr_colstream", K - 1, True,
+                            "50k scattered int8 (K4)", tmp.name, gpu)
+    torch.cuda.empty_cache()
+    art_s += time.perf_counter() - t0
     s_data = (s_feats[-1].to(dev), s_labels.to(dev),
               torch.ones(s_bf16.m, dtype=torch.bool, device=dev))
     s_train = bsr_train_phase(s_bf16, s_data)
@@ -2949,6 +3206,13 @@ def main() -> int:
     # Phase 20: the 20NEWS topology cell.
     news_phase(dev, gpu)
 
+    # Phase 25 (c): the node-classification driver and its artifact.
+    t0 = time.perf_counter()
+    art_driver = driver_phase(tmp.name, gpu)
+    art_s += time.perf_counter() - t0
+    tmp.cleanup()
+    print(f"phase 25 (serving artifacts): {art_s:.1f} s", flush=True)
+
     def band_row(name, lay, lab, rec, launches, **extra):
         """A banded kernel's row: the sparse bound as ``bound_ms``, the
         block format's work and the row walk's plain version beside."""
@@ -3044,6 +3308,15 @@ def main() -> int:
                      "launches"],
                  chain_100k_us_per_spmm=chains["100k"][lab]["us_per_spmm"],
                  **k1_inplace[lab],
+                 **({"artifact_launches": art_k1["launches"],
+                     "artifact_load_s": art_k1["load_s"],
+                     "artifact_export_s": art_k1["export_s"],
+                     "loaded_request_ms": art_k1["ms"],
+                     "loaded_inprocess_request_ms": art_k1["inprocess_ms"],
+                     "compiled_in_turns_request_ms": art_k1["compiled_ms"],
+                     "driver_artifact_launches": art_driver["launches"],
+                     "driver_artifact_request_ms": art_driver["ms"]}
+                    if lab == "int8" else {}),
                  **({"train_launches_per_step":
                      trains["bf16"]["launches"] // TRAIN_STEPS,
                      **f32_keys(checks["f32"]),
@@ -3117,6 +3390,10 @@ def main() -> int:
              "bound_us"] / 1e3 for shape in ("layer1", "dx")},
          "request_ms": cheb[lab]["serve"]["ms"],
          "request_plain_ms": cheb[lab]["serve"]["plain_ms"],
+         **({"artifact_launches": art_k2["launches"],
+             "loaded_request_ms": art_k2["ms"],
+             "compiled_in_turns_request_ms": art_k2["compiled_ms"]}
+            if lab == "f32" else {}),
          "train_ms_per_step": cheb[lab]["train"]["ms"],
          "train_plain_ms_per_step": cheb[lab]["train"]["plain_ms"]}
         for lab in DTYPES
@@ -3154,6 +3431,10 @@ def main() -> int:
          "chain_gedges_per_s": s_chains[lab]["gedges_per_s"],
          "request_ms": s_served[lab]["ms"],
          "request_plain_ms": s_served[lab]["plain_ms"],
+         **({"artifact_launches": art_k4["launches"],
+             "loaded_request_ms": art_k4["ms"],
+             "compiled_in_turns_request_ms": art_k4["compiled_ms"]}
+            if lab == "int8" else {}),
          **({"train_ms_per_step": s_train["ms"],
              "train_plain_ms_per_step": s_train["plain_ms"],
              **{"f32_" + k: v for k, v in bsr_keys(

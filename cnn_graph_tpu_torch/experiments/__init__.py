@@ -4,6 +4,7 @@
     python -m cnn_graph_tpu_torch.experiments.text20news --synthetic
     python -m cnn_graph_tpu_torch.experiments.rcv1
     python -m cnn_graph_tpu_torch.experiments.humanflow
+    python -m cnn_graph_tpu_torch.experiments.node_classification
 
 Each is the JAX package's driver of the same name (``experiments/``)
 on the port, on the card unless ``--device cpu`` is given.

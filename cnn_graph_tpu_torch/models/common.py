@@ -1,10 +1,12 @@
 """Shared model building blocks: initializers, bias+activation variants,
 fully-connected layers, dropout, the one-call int8 conversion of a
-model's graph operators, and maps over parameter trees.
+model's graph operators, a model's graph data as leaves, and maps over
+parameter trees.
 
 Counterpart of ``cnn_graph_tpu/models/common.py`` (``trunc_normal`` :125,
 ``uniform_init`` :131, ``bias_init`` :136, ``bias_act_init`` :140, ``bias_act`` :155,
 ``fc_init`` :163, ``fc_apply`` :171, ``dropout`` :176,
+``graph_arrays`` :43, ``with_graph_arrays`` :52,
 ``quantize_model_operators`` :63).  Parameter trees are the JAX
 package's: nested dicts and lists with tensors at the leaves;
 ``ParamTree`` registers such a tree's leaves as an ``nn.Module``'s
@@ -34,6 +36,8 @@ __all__ = [
     "fc_init",
     "fc_apply",
     "dropout",
+    "graph_arrays",
+    "with_graph_arrays",
     "map_operators",
     "quantize_model_operators",
     "tree_map",
@@ -169,6 +173,48 @@ def dropout(x: torch.Tensor, keep_prob: float, train: bool,
     keep = torch.rand(x.shape, generator=generator, device=x.device,
                       dtype=torch.float32) < keep_prob
     return torch.where(keep, x / keep_prob, 0.0)
+
+
+# Model attributes holding graph data (operators, Fourier eigenbases,
+# spline bases), as in JAX (common.py:40): a trace takes them as inputs,
+# never as constants baked into the program.
+GRAPH_ARRAY_FIELDS = ("op", "operators", "fourier_u", "_bases")
+
+
+def graph_arrays(model) -> dict:
+    """The model's graph data as a tree of tensors: each operator as its
+    ``operator_leaves`` (a list of them for ``operators``), the bases as
+    they are.  Pair with ``with_graph_arrays`` inside the trace."""
+    from cnn_graph_tpu_torch.ops.laplacian import operator_leaves
+
+    out = {}
+    for f in GRAPH_ARRAY_FIELDS:
+        v = getattr(model, f, None)
+        if v is None:
+            continue
+        if f == "op":
+            v = operator_leaves(v)
+        elif f == "operators":
+            v = [operator_leaves(o) for o in v]
+        out[f] = v
+    return out
+
+
+def with_graph_arrays(model, tree: dict):
+    """A shallow copy of ``model`` whose graph data are ``tree``'s
+    (``graph_arrays``' layout, possibly traced tensors).  The models read
+    their operators per call, so the swap reaches every layer."""
+    from cnn_graph_tpu_torch.ops.laplacian import with_operator_leaves
+
+    clone = copy.copy(model)
+    for f, v in tree.items():
+        if f == "op":
+            v = with_operator_leaves(model.op, v)
+        elif f == "operators":
+            v = [with_operator_leaves(o, t)
+                 for o, t in zip(model.operators, v)]
+        setattr(clone, f, v)
+    return clone
 
 
 def map_operators(model, fn):

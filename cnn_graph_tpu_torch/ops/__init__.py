@@ -1,5 +1,6 @@
-"""Device operators, the kernel wrappers, the spectral filters
-(Chebyshev, Lanczos, Fourier) and pooling."""
+"""Device operators, the kernel wrappers and their custom ops
+(``library``), the spectral filters (Chebyshev, Lanczos, Fourier) and
+pooling."""
 
 from cnn_graph_tpu_torch.ops.band import (
     band_cheby_hop,
@@ -55,6 +56,9 @@ from cnn_graph_tpu_torch.ops.laplacian import (
     quantize_dense,
 )
 from cnn_graph_tpu_torch.ops.pooling import avg_pool, max_pool
+
+# Registers the kernels as torch custom ops, which the wrappers call.
+from cnn_graph_tpu_torch.ops import library  # noqa: E402,F401
 
 __all__ = [
     "band_cheby_hop",

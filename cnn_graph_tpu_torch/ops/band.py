@@ -20,13 +20,18 @@ the layout's own band.  Their plain version as the kernel computes it is
 ``banded_rows_reference``, the same row walk; tests and chip_smoke.py
 hold the kernel against it and against the layout's window product.
 
-Each wrapper launches its kernel for CUDA tensors and runs its layout's
-plain window version (``*_reference``) for CPU tensors; the device of
-``x`` is the only thing that chooses.  ``launches`` counts kernel
-launches, ``form_launches`` the same launches by form (``spmm``,
-``hop``, ``hop_c``).  ``x`` may have more rows than the output (the
-sharded halo operators' extended columns): the output has ``128 *
-len(base)`` rows and ``base`` indexes x's block rows.  ``donate_x0``
+Each wrapper checks its arguments' shapes and calls the custom op
+``cnn_graph_torch::band_rows`` (``band_rows_`` for the in-place form;
+``ops/library.py``), whose CUDA implementation launches the kernel and
+whose CPU implementation is the layout's plain window version
+(``*_reference``); the device of ``x`` is the only thing that chooses.
+So a program that ``torch.export`` traced through a wrapper keeps the
+kernel as one node.  ``launches`` counts kernel launches,
+``form_launches`` the same launches by form (``spmm``, ``hop``,
+``hop_c``); the CUDA implementation adds to both where it launches.
+``x`` may have more rows than the output (the sharded halo operators'
+extended columns): the output has ``128 * len(base)`` rows and ``base``
+indexes x's block rows.  ``donate_x0``
 writes the hop's output over ``x0`` and returns ``x0``: the in-place
 form that ``cheby_finals`` uses.  It is inference-only, like the raw
 calls themselves.
@@ -147,7 +152,9 @@ def _windows_reference(x, base, parts, x0, c, band_scale, donate_x0):
     """The plain version shared by the three layouts.  ``parts`` yields
     ``(rows, operand, W)``: block-rows ``rows`` multiply their ``[n, 128,
     W*128]`` band operands by their x windows (rows past the end of x
-    read as zero) in one batched product; then the emission.
+    read as zero) in one batched product; then the emission.  The row
+    lists' lengths are their shapes, never their values, so that
+    ``torch.export`` traces this with the operator's tables as inputs.
 
     Float bands accumulate in f32.  Int8 accumulates in float64, which is
     exact here (|acc| <= 127^2 * W*128 << 2^53) on every device, unlike
@@ -184,6 +191,21 @@ def _step_rows(sched, nbr, G, device):
     return rows, sched[1][step], sched[0][step]
 
 
+def level_rows_of(sched, nbr: int, G: int, n_levels: int) -> tuple:
+    """The block rows of each width level, one int64 tensor per level on
+    ``sched``'s device, read from ``sched`` on the host.  The operators
+    build them once, beside their tables, so that the plain versions
+    never size a tensor by the tables' values."""
+    lvl = sched[1].cpu().to(torch.int64)[torch.arange(nbr) // G]
+    return tuple(torch.nonzero(lvl == li).flatten().to(sched.device)
+                 for li in range(n_levels))
+
+
+def _level_rows(level_rows, sched, nbr, G, n_levels):
+    return (level_rows if level_rows is not None
+            else level_rows_of(sched, nbr, G, n_levels))
+
+
 def _taps(blocks: torch.Tensor) -> torch.Tensor:
     """``[n, W, 128, 128]`` taps side by side: ``[n, 128, W*128]``."""
     n, w = blocks.shape[:2]
@@ -191,16 +213,18 @@ def _taps(blocks: torch.Tensor) -> torch.Tensor:
 
 
 def banded_dkw_reference(bands, base, sched, x, x0=None, c=None, *, levels,
-                         G, band_scale=None,
-                         donate_x0=False) -> torch.Tensor:
+                         G, band_scale=None, donate_x0=False,
+                         level_rows=None) -> torch.Tensor:
     """Plain PyTorch version of ``banded_dkw``: per width level, gather
     each block-row's x window, one batched product, scatter to the output
-    rows, then the emission (``_windows_reference``)."""
+    rows, then the emission (``_windows_reference``).  ``level_rows``:
+    each level's block rows (``level_rows_of``), found from ``sched``
+    when None."""
     rows, lvl, off = _step_rows(sched, base.numel(), G, x.device)
     local = off + rows % G
     parts = []
-    for li, w in enumerate(levels):
-        sel = torch.nonzero(lvl == li).flatten()
+    for li, (w, sel) in enumerate(zip(levels, _level_rows(
+            level_rows, sched, base.numel(), G, len(levels)))):
         parts.append((sel, bands[li][local[sel]], w))
     return _windows_reference(x, base, parts, x0, c, band_scale, donate_x0)
 
@@ -216,14 +240,15 @@ def banded_uniform_reference(band, base, x, x0=None, c=None, *,
 
 
 def banded_ragged_reference(band, base, sched, x, x0=None, c=None, *,
-                            levels, G, band_scale=None,
-                            donate_x0=False) -> torch.Tensor:
+                            levels, G, band_scale=None, donate_x0=False,
+                            level_rows=None) -> torch.Tensor:
     """Plain PyTorch version of ``banded_ragged``: per width level, each
-    block-row's ``W_s`` blocks from the flat band as one operand."""
+    block-row's ``W_s`` blocks from the flat band as one operand.
+    ``level_rows`` as for ``banded_dkw_reference``."""
     rows, lvl, off = _step_rows(sched, base.numel(), G, x.device)
     parts = []
-    for li, w in enumerate(levels):
-        sel = torch.nonzero(lvl == li).flatten()
+    for w, sel in zip(levels, _level_rows(level_rows, sched, base.numel(),
+                                          G, len(levels))):
         first = off[sel] + (sel % G) * w
         idx = first[:, None] + torch.arange(w, device=x.device)[None, :]
         parts.append((sel, _taps(band[idx]), w))
@@ -362,13 +387,26 @@ def check_band_index(nz_rowptr, nz_win, base, sched, levels, G):
 
 def _check_kernel_args(bands, base, sched, x, x0, c, levels, G, band_scale,
                        layout="dkw", index=None):
-    """The shapes, dtypes, devices and alignment the kernel takes on
-    trust, checked before a launch (the table values are
-    ``check_band_tables``'s and the row index's ``check_band_index``'s).
-    ``bands``: the dkw layout's arrays, or ``(band,)`` for the tap
-    layouts; ``levels``: the uniform layout's ``(W,)``; ``index``: the
-    row walk's ``(nz_rowptr, nz_win)``.  Returns the
-    number of G-row steps (the block rows for the uniform layout)."""
+    """Everything the kernel takes on trust but the table values
+    (``check_band_tables``'s) and the row index's
+    (``check_band_index``'s): the shapes, dtypes and devices
+    (``_check_kernel_shapes``, which the wrappers run before they call
+    the op) and the alignment (``_check_alignment``, which the launch
+    runs).  Returns the number of G-row steps."""
+    nsb = _check_kernel_shapes(bands, base, sched, x, x0, c, levels, G,
+                               band_scale, layout, index)
+    _check_alignment(bands, x, x0, c)
+    return nsb
+
+
+def _check_kernel_shapes(bands, base, sched, x, x0, c, levels, G,
+                         band_scale, layout="dkw", index=None):
+    """The shapes, dtypes and devices the kernel takes on trust, from
+    metadata alone, so also while ``torch.export`` traces.  ``bands``:
+    the dkw layout's arrays, or ``(band,)`` for the tap layouts;
+    ``levels``: the uniform layout's ``(W,)``; ``index``: the row walk's
+    ``(nz_rowptr, nz_win)``.  Returns the number of G-row steps (the
+    block rows for the uniform layout)."""
     dev = x.device
     x_rows, C = x.shape
     if x.dtype not in _DTYPE_CODE:
@@ -430,13 +468,6 @@ def _check_kernel_args(bands, base, sched, x, x0, c, levels, G, band_scale,
     for b in bands:
         if b.dtype != x.dtype:
             raise TypeError(f"banded kernel: band {b.dtype} vs x {x.dtype}")
-    # The kernel loads bands and x in 16-byte vectors; x0 and c are held
-    # to the same rule.
-    for t in list(bands) + rows:
-        if t.data_ptr() % 16:
-            raise ValueError("banded kernel: bands, x, x0 and c must start "
-                             "on a 16-byte boundary (a view with a storage "
-                             "offset may not)")
     for name, t in (("x0", x0), ("c", c)):
         if t is not None and (t.dtype != x.dtype
                               or tuple(t.shape) != (nbr * BLOCK, C)):
@@ -445,26 +476,27 @@ def _check_kernel_args(bands, base, sched, x, x0, c, levels, G, band_scale,
     return nsb
 
 
-def _launch(fn, layout, bands, widths, base, sched, x, x0, c, G,
-            band_scale, donate_x0, index):
-    """Check, then one launch of ``csrc/band.cu`` in ``layout``, counted
-    on ``fn``; ``index`` is the row walk's ``(nz_rowptr, nz_win)``,
-    required.  Returns the output (``x0`` itself when donated)."""
-    _check_no_grad(x, x0, c)
-    if x.device.type != "cuda":
-        raise ValueError(f"{fn.__name__}: no kernel for device {x.device}")
-    if index[0] is None or index[1] is None:
-        raise ValueError(f"{fn.__name__}: the kernel walks the operator's "
-                         "row index; pass nz_rowptr and nz_win "
-                         "(ops.packing.band_row_index)")
-    nsb = _check_kernel_args(bands, base, sched, x, x0, c, widths, G,
-                             band_scale, layout, index)
-    if donate_x0:
-        _check_donate(x, x0, c)
+def _check_alignment(bands, x, x0, c):
+    # The kernel loads bands and x in 16-byte vectors; x0 and c are held
+    # to the same rule.  Reads addresses: run where the kernel launches.
+    for t in list(bands) + [t for t in (x, x0, c) if t is not None]:
+        if t.data_ptr() % 16:
+            raise ValueError("banded kernel: bands, x, x0 and c must start "
+                             "on a 16-byte boundary (a view with a storage "
+                             "offset may not)")
+
+
+def _launch(layout, bands, widths, base, sched, index, x, x0, c, G,
+            band_scale, y):
+    """One launch of ``csrc/band.cu`` in ``layout`` writing ``y`` (``x0``
+    itself for the in-place form), counted on the layout's wrapper: the
+    CUDA implementation of ``cnn_graph_torch::band_rows`` and
+    ``band_rows_`` (``ops/library.py``), reached through the wrappers'
+    shape checks."""
+    _check_alignment(bands, x, x0, c)
     nbr = base.numel()
+    nsb = nbr if layout == "uniform" else nbr // G
     x_rows, C = x.shape
-    y = x0 if donate_x0 else torch.empty(nbr * BLOCK, C, dtype=x.dtype,
-                                         device=x.device)
     ptrs = [b.data_ptr() for b in bands] + [None] * (MAX_LEVELS - len(bands))
     widths = list(widths) + [0] * (MAX_LEVELS - len(widths))
     form = "spmm" if x0 is None else "hop" if c is None else "hop_c"
@@ -483,13 +515,50 @@ def _launch(fn, layout, bands, widths, base, sched, x, x0, c, G,
     if rc != 0:
         raise RuntimeError(f"band_{layout} kernel launch failed: CUDA "
                            f"error {rc}")
-    if donate_x0 and not x0.is_inference():
-        # As an in-place torch op would: autograd then refuses a graph
-        # that saved x0 before the kernel overwrote it.
-        torch.autograd.graph.increment_version(x0)
+    fn = _WRAPPERS[layout]
     fn.launches += 1
     fn.form_launches[form] += 1
-    return y
+
+
+def window_reference(layout, bands, base, sched, x, x0, c, levels, G,
+                     band_scale):
+    """The plain window version of ``layout`` (``bands`` as the kernel
+    takes them): the CPU implementation of ``cnn_graph_torch::
+    band_rows``."""
+    if layout == "dkw":
+        return banded_dkw_reference(bands, base, sched, x, x0, c,
+                                    levels=levels, G=G,
+                                    band_scale=band_scale)
+    if layout == "uniform":
+        return banded_uniform_reference(bands[0], base, x, x0, c,
+                                        band_scale=band_scale)
+    return banded_ragged_reference(bands[0], base, sched, x, x0, c,
+                                   levels=levels, G=G, band_scale=band_scale)
+
+
+def _call(name, layout, bands, widths, base, sched, x, x0, c, G,
+          band_scale, donate_x0, index):
+    """Check the arguments, then one call of the custom op: the kernel
+    for a CUDA ``x``, the plain window version for a CPU one.  Returns
+    the output (``x0`` itself when donated)."""
+    _check_no_grad(x, x0, c)
+    if x.device.type == "cuda":
+        if index[0] is None or index[1] is None:
+            raise ValueError(f"{name}: the kernel walks the operator's "
+                             "row index; pass nz_rowptr and nz_win "
+                             "(ops.packing.band_row_index)")
+        _check_kernel_shapes(bands, base, sched, x, x0, c, widths, G,
+                             band_scale, layout, index)
+    elif x.device.type != "cpu":
+        raise ValueError(f"{name}: no kernel for device {x.device}")
+    elif donate_x0 and x0 is None:
+        raise ValueError("donate_x0 needs the hop form (x0)")
+    args = (list(bands), base, sched, *index, x)
+    static = (layout, list(widths), G, band_scale)
+    if donate_x0:
+        torch.ops.cnn_graph_torch.band_rows_(*args, x0, c, *static)
+        return x0
+    return torch.ops.cnn_graph_torch.band_rows(*args, x0, c, *static)
 
 
 def banded_dkw(bands, base, sched, x, x0=None, c=None, *, levels, G,
@@ -505,14 +574,8 @@ def banded_dkw(bands, base, sched, x, x0=None, c=None, *, levels, G,
     scale.  ``nz_rowptr``/``nz_win``: the operator's row index, which the
     kernel walks (required for a CUDA x, unread on the CPU).  Returns
     ``[nbr*128, C]`` in x's dtype."""
-    if x.device.type == "cpu":
-        _check_no_grad(x, x0, c)
-        return banded_dkw_reference(bands, base, sched, x, x0, c,
-                                    levels=levels, G=G,
-                                    band_scale=band_scale,
-                                    donate_x0=donate_x0)
-    return _launch(banded_dkw, "dkw", bands, levels, base, sched, x, x0, c,
-                   G, band_scale, donate_x0, (nz_rowptr, nz_win))
+    return _call("banded_dkw", "dkw", bands, levels, base, sched, x, x0, c,
+                 G, band_scale, donate_x0, (nz_rowptr, nz_win))
 
 
 def banded_uniform(band, base, x, x0=None, c=None, *, band_scale=None,
@@ -521,14 +584,9 @@ def banded_uniform(band, base, x, x0=None, c=None, *, band_scale=None,
     """``banded_dkw``'s forms on the uniform band ``[nbr, W, 128, 128]``
     (K5): block-row r multiplies ``band[r, d]`` by x block-row ``base[r] +
     d`` for d < W.  The row index as for ``banded_dkw``."""
-    if x.device.type == "cpu":
-        _check_no_grad(x, x0, c)
-        return banded_uniform_reference(band, base, x, x0, c,
-                                        band_scale=band_scale,
-                                        donate_x0=donate_x0)
-    return _launch(banded_uniform, "uniform", (band,), (band.shape[1],),
-                   base, None, x, x0, c, 1, band_scale, donate_x0,
-                   (nz_rowptr, nz_win))
+    return _call("banded_uniform", "uniform", (band,), (band.shape[1],),
+                 base, None, x, x0, c, 1, band_scale, donate_x0,
+                 (nz_rowptr, nz_win))
 
 
 def banded_ragged(band, base, sched, x, x0=None, c=None, *, levels, G,
@@ -538,19 +596,15 @@ def banded_ragged(band, base, sched, x, x0=None, c=None, *, levels, G,
     (K6): block-row r = s*G + g multiplies ``band[sched[0, s] + g*W_s +
     d]``, ``W_s = levels[sched[1, s]]``, by x block-row ``base[r] + d``.
     The row index as for ``banded_dkw``."""
-    if x.device.type == "cpu":
-        _check_no_grad(x, x0, c)
-        return banded_ragged_reference(band, base, sched, x, x0, c,
-                                       levels=levels, G=G,
-                                       band_scale=band_scale,
-                                       donate_x0=donate_x0)
-    return _launch(banded_ragged, "ragged", (band,), levels, base, sched, x,
-                   x0, c, G, band_scale, donate_x0, (nz_rowptr, nz_win))
+    return _call("banded_ragged", "ragged", (band,), levels, base, sched, x,
+                 x0, c, G, band_scale, donate_x0, (nz_rowptr, nz_win))
 
 
 for _fn in (banded_dkw, banded_uniform, banded_ragged):
     _fn.launches = 0
     _fn.form_launches = collections.Counter()
+_WRAPPERS = {"dkw": banded_dkw, "uniform": banded_uniform,
+             "ragged": banded_ragged}
 
 
 def layout_call(L, x, x0=None, c=None, *, band_scale=None, donate=False):
@@ -559,7 +613,8 @@ def layout_call(L, x, x0=None, c=None, *, band_scale=None, donate=False):
     ``bands_dkw`` is present (K1), else the flat ragged one where
     ``levels`` is set (K6), else the uniform one (K5).  With
     ``L.use_pallas`` the kernel's wrapper, without it the layout's plain
-    window version.  Every kernel walks the band's nonzeros row by row
+    window version on the operator's row lists per level
+    (``L.level_rows``).  Every kernel walks the band's nonzeros row by row
     through the operator's row index (``L.nz_rowptr``, ``L.nz_win``),
     reading each value from the layout's band."""
     if L.bands_dkw is not None:
@@ -576,6 +631,8 @@ def layout_call(L, x, x0=None, c=None, *, band_scale=None, donate=False):
         kw = {}
     index = dict(nz_rowptr=L.nz_rowptr, nz_win=L.nz_win)
     if not L.use_pallas:
+        if kw:
+            kw["level_rows"] = L.level_rows
         return fns[1](*args, x, x0, c, band_scale=band_scale,
                       donate_x0=donate, **kw)
     return fns[0](*args, x, x0, c, band_scale=band_scale, donate_x0=donate,

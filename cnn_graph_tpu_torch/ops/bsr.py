@@ -14,14 +14,17 @@ wrappers launch it, under the names of the TPU kernels they stand for:
   three a call stands for, for the launch counts.
 
 Beside the kernel, its plain PyTorch version ``bsr_rows_reference`` (the
-same row walk); the wrappers run it for CPU tensors, and the device of
-``x`` is the only thing that chooses.  The plain versions of the block
-walks the TPU kernels do, ``bsr_colstream_reference`` and
-``bsr_csr_reference``, stay as what the CPU tests hold against the Pallas
-kernels in interpret mode, and as a second check of the kernel on the
-card.  ``launches`` counts kernel launches, ``form_launches`` the same by
-form (``spmm``, ``hop``) and, on ``bsr_csr``, ``route_launches`` by route
-(``K7``, ``K8``, ``K9``).
+same row walk).  Both wrappers check their arguments' shapes and call the
+custom op ``cnn_graph_torch::bsr_rows`` (``ops/library.py``), whose CUDA
+implementation launches the kernel and whose CPU implementation is the
+plain version; the device of ``x`` is the only thing that chooses.  The
+plain versions of the block walks the TPU kernels do,
+``bsr_colstream_reference`` and ``bsr_csr_reference``, stay as what the
+CPU tests hold against the Pallas kernels in interpret mode, and as a
+second check of the kernel on the card.  ``launches`` counts kernel
+launches, ``form_launches`` the same by form (``spmm``, ``hop``) and, on
+``bsr_csr``, ``route_launches`` by route (``K7``, ``K8``, ``K9``); the
+CUDA implementation adds to them where it launches.
 
 The operator-level wrappers route as the JAX package does: ``bsr_spmm``
 (:580, backward ``dx = L g``) takes K4 for a column-streamed layout, K7
@@ -58,7 +61,7 @@ __all__ = [
 ]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_ROUTES = ("K7", "K8", "K9")
+_ROUTES = ("K7", "K8", "K9")  # bsr_csr's; bsr_colstream's is K4
 
 
 def block_products(blocks, brow, bcol, x, n_rb: int, block_shape,
@@ -180,8 +183,9 @@ def _check_no_grad(name, *ts):
 
 def _check_rows(name, blocks, nz_rowptr, nz_cols, nz_pos, x, x0,
                 block_scale):
-    """What the kernel takes: dtypes, the row index's shape and types,
-    one device, contiguity, and x and x0 on 16-byte boundaries."""
+    """What the kernel takes, from metadata alone (so also while
+    ``torch.export`` traces): dtypes, the row index's shape and types,
+    one device, contiguity.  The alignment is ``_launch``'s."""
     dev = x.device
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"{name}: unsupported dtype {x.dtype}")
@@ -208,19 +212,23 @@ def _check_rows(name, blocks, nz_rowptr, nz_cols, nz_pos, x, x0,
         if t.device != dev or not t.is_contiguous():
             raise ValueError(f"{name}: every tensor must be contiguous on "
                              f"{dev}")
+
+
+def _launch(blocks, nz_rowptr, nz_cols, nz_pos, x, x0, route, block_scale):
+    """One launch of the row kernel as ``route`` (K4: ``bsr_colstream``,
+    else ``bsr_csr``), counted on its wrapper: the CUDA implementation of
+    ``cnn_graph_torch::bsr_rows`` (``ops/library.py``), reached through
+    the wrappers' checks."""
+    name = "bsr_colstream" if route == "K4" else "bsr_csr"
     # The kernel loads x and x0 in 16-byte vectors.
     for t in (x,) + (() if x0 is None else (x0,)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: x and x0 must start on a 16-byte "
                              "boundary (a view with a storage offset may "
                              "not)")
-
-
-def _launch(name, blocks, nz_rowptr, nz_cols, nz_pos, x, x0, block_scale,
-            span):
-    """One launch of the row kernel under the profiler range ``span``."""
-    _check_rows(name, blocks, nz_rowptr, nz_cols, nz_pos, x, x0,
-                block_scale)
+    form = "spmm" if x0 is None else "hop"
+    span = (f"bsr_colstream.{form}" if route == "K4"
+            else f"bsr_csr.{route}.{form}")
     mp, C = x.shape
     y = torch.empty_like(x)
     with torch.cuda.device(x.device), record_function(span):
@@ -232,17 +240,26 @@ def _launch(name, blocks, nz_rowptr, nz_cols, nz_pos, x, x0, block_scale,
             _DTYPE_CODE[x.dtype], torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    fn = bsr_colstream if route == "K4" else bsr_csr
+    fn.launches += 1
+    fn.form_launches[form] += 1
+    if route != "K4":
+        fn.route_launches[route] += 1
     return y
 
 
-def _on_device(name, x):
-    """True for a CUDA tensor (launch), False for a CPU one (the plain
-    version); any other device raises."""
-    if x.device.type == "cpu":
-        return False
-    if x.device.type != "cuda":
+def _call(name, blocks, nz_rowptr, nz_cols, nz_pos, x, x0, block_scale,
+          route):
+    """Check, then one call of the custom op: the kernel for a CUDA
+    ``x``, the plain version for a CPU one; any other device raises."""
+    _check_no_grad(name, x, x0)
+    if x.device.type == "cuda":
+        _check_rows(name, blocks, nz_rowptr, nz_cols, nz_pos, x, x0,
+                    block_scale)
+    elif x.device.type != "cpu":
         raise ValueError(f"{name}: no kernel for device {x.device}")
-    return True
+    return torch.ops.cnn_graph_torch.bsr_rows(
+        blocks, nz_rowptr, nz_cols, nz_pos, x, x0, route, block_scale)
 
 
 def bsr_colstream(blocks, nz_rowptr, nz_cols, nz_pos, x, x0=None, *,
@@ -254,16 +271,8 @@ def bsr_colstream(blocks, nz_rowptr, nz_cols, nz_pos, x, x0=None, *,
     ``x0`` ``[Mp, C]`` in the blocks' dtype.  ``block_scale`` (int8 only)
     is the blocks' dequant scale; the result is then requantized int8 in
     x's scale.  Returns ``[Mp, C]`` in x's dtype."""
-    _check_no_grad("bsr_colstream", x, x0)
-    if not _on_device("bsr_colstream", x):
-        return bsr_rows_reference(blocks, nz_rowptr, nz_cols, nz_pos, x, x0,
-                                  block_scale=block_scale)
-    form = "spmm" if x0 is None else "hop"
-    y = _launch("bsr_colstream", blocks, nz_rowptr, nz_cols, nz_pos, x, x0,
-                block_scale, f"bsr_colstream.{form}")
-    bsr_colstream.launches += 1
-    bsr_colstream.form_launches[form] += 1
-    return y
+    return _call("bsr_colstream", blocks, nz_rowptr, nz_cols, nz_pos, x, x0,
+                 block_scale, "K4")
 
 
 bsr_colstream.launches = 0
@@ -275,19 +284,10 @@ def bsr_csr(blocks, nz_rowptr, nz_cols, nz_pos, x, x0=None, *,
     """K7, K8 or K9 (``route``, for the counts): the same product as
     ``bsr_colstream``, by the same row kernel, on a block-CSR operator's
     nonzero index."""
-    _check_no_grad("bsr_csr", x, x0)
     if route not in _ROUTES:
         raise ValueError(f"bsr_csr: route {route!r} not in {_ROUTES}")
-    if not _on_device("bsr_csr", x):
-        return bsr_rows_reference(blocks, nz_rowptr, nz_cols, nz_pos, x, x0,
-                                  block_scale=block_scale)
-    form = "spmm" if x0 is None else "hop"
-    y = _launch("bsr_csr", blocks, nz_rowptr, nz_cols, nz_pos, x, x0,
-                block_scale, f"bsr_csr.{route}.{form}")
-    bsr_csr.launches += 1
-    bsr_csr.form_launches[form] += 1
-    bsr_csr.route_launches[route] += 1
-    return y
+    return _call("bsr_csr", blocks, nz_rowptr, nz_cols, nz_pos, x, x0,
+                 block_scale, route)
 
 
 bsr_csr.launches = 0

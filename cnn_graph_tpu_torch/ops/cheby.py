@@ -23,10 +23,13 @@ precision: float32 carries; for a bfloat16 operator the operands of
 every product (L, the carry, W_k, g) rounded to bfloat16 and the sums in
 float32, and K3's per-(sample, hop) partial rounded to bfloat16 once.
 (The stacked path's ``cheby_basis`` keeps bfloat16 carries instead.)
-The wrappers run the plain version for CPU tensors and the kernel for
-CUDA tensors, counting launches on ``cheby_conv_fused.launches`` and
-``cheby_dw_fused.launches``.  The operator's ``fused_filter`` and
-``fused_dw`` methods call them, so an operator may substitute either.
+The wrappers check their arguments and call the custom ops
+``cnn_graph_torch::cheby_conv`` and ``cheby_dw`` (``ops/library.py``) on
+the operator's matrix: their CUDA implementations launch the kernel and
+count it on ``cheby_conv_fused.launches`` and
+``cheby_dw_fused.launches``, their CPU implementations are the plain
+versions.  The operator's ``fused_filter`` and ``fused_dw`` methods call
+the wrappers, so an operator may substitute either.
 
 Both wrappers lay the columns out by cluster (``conv_geometry``: groups
 of ``128 // F`` samples).  K2's expands each ``W_k`` block-diagonally
@@ -40,6 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import types
 
 import torch
 import torch.nn.functional as nnf
@@ -345,9 +349,10 @@ def _fold_dw_partials(parts: torch.Tensor, dtype) -> torch.Tensor:
     return per_sample.sum((0, 2)).transpose(1, 2).contiguous()
 
 
-def _plain_or_kernel(name: str, x: torch.Tensor, w=None, g=None) -> bool:
-    """Check a wrapper's arguments; True for CPU tensors (plain version),
-    False for CUDA ones (kernel)."""
+def _check_call(name: str, x: torch.Tensor, w=None, g=None):
+    """Check a wrapper's arguments from their metadata: no gradient
+    wanted, the shapes, and a CPU (plain version) or CUDA (kernel)
+    ``x``."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, w, g)):
         raise RuntimeError(f"{name} has no backward: use cheby_conv_fused, "
@@ -358,11 +363,32 @@ def _plain_or_kernel(name: str, x: torch.Tensor, w=None, g=None) -> bool:
     if g is not None and (g.dim() != 3 or g.shape[:2] != x.shape[:2]):
         raise ValueError(f"{name}: g {tuple(g.shape)} does not match x "
                          f"{tuple(x.shape)}")
-    if x.device.type == "cpu":
-        return True
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: no kernel for device {x.device}")
-    return False
+
+
+def dense_view(mat: torch.Tensor):
+    """A dense operator as the kernels and their plain versions read it,
+    from its ``[Mp, Mp]`` matrix alone: what the custom ops receive."""
+    return types.SimpleNamespace(mat=mat, m_padded=mat.shape[0],
+                                 compute_dtype=mat.dtype)
+
+
+def conv_kernel(mat, x, w) -> torch.Tensor:
+    """K2's launch, counted: the CUDA implementation of
+    ``cnn_graph_torch::cheby_conv``."""
+    y = _launch_conv(dense_view(mat), x, w)
+    cheby_conv_fused.launches += 1
+    return y.to(x.dtype)
+
+
+def dw_kernel(mat, x, g, K: int) -> torch.Tensor:
+    """K3's launch, counted, and its fold: the CUDA implementation of
+    ``cnn_graph_torch::cheby_dw``."""
+    parts = _launch_dw(dense_view(mat), x, g, K)
+    cheby_dw_fused.launches += 1
+    with record_function("cheby_fused.K3.fold"):
+        return _fold_dw_partials(parts, mat.dtype)
 
 
 def fused_filter(x: torch.Tensor, L, w: torch.Tensor) -> torch.Tensor:
@@ -370,11 +396,8 @@ def fused_filter(x: torch.Tensor, L, w: torch.Tensor) -> torch.Tensor:
     F, O]`` on a DenseLaplacian -> ``[B, M, O]`` in x's dtype.  The
     kernel for CUDA tensors, the plain version for CPU ones.  No
     backward: ``cheby_conv_fused`` differentiates it."""
-    if _plain_or_kernel("fused_filter", x, w=w):
-        return cheby_conv_fused_reference(x, L, w)
-    y = _launch_conv(L, x, w)
-    cheby_conv_fused.launches += 1
-    return y.to(x.dtype)
+    _check_call("fused_filter", x, w=w)
+    return torch.ops.cnn_graph_torch.cheby_conv(L.mat, x, w)
 
 
 def cheby_dw_fused(x: torch.Tensor, L, g: torch.Tensor,
@@ -382,12 +405,8 @@ def cheby_dw_fused(x: torch.Tensor, L, g: torch.Tensor,
     """K3: ``dW[k, f, o] = sum_{b, m} (T_k x)[b, m, f] g[b, m, o]`` as f32
     ``[K, F, O]`` without storing the basis.  The kernel for CUDA
     tensors, the plain version for CPU ones.  No backward."""
-    if _plain_or_kernel("cheby_dw_fused", x, g=g):
-        return cheby_dw_fused_reference(x, L, g, K)
-    parts = _launch_dw(L, x, g, K)
-    cheby_dw_fused.launches += 1
-    with record_function("cheby_fused.K3.fold"):
-        return _fold_dw_partials(parts, L.compute_dtype)
+    _check_call("cheby_dw_fused", x, g=g)
+    return torch.ops.cnn_graph_torch.cheby_dw(L.mat, x, g, K)
 
 
 cheby_dw_fused.launches = 0

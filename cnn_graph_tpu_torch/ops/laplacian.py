@@ -25,12 +25,15 @@ Counterpart of ``cnn_graph_tpu/ops/laplacian.py``.  Ported so far:
   its banded and BSR layouts.
 
 Operators are frozen dataclasses of tensors; ``.to(device)`` returns a
-copy on another device.  The BCOO format is not ported: ROADMAP queue 1
-item 7.
+copy on another device.  ``operator_leaves`` and ``with_operator_leaves``
+take an operator's tensors out as leaves and put others in (the tables
+``torch.export`` traces as inputs); its ints and floats stay static.
+The BCOO format is not ported: ROADMAP queue 1 item 7.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import inspect
 
@@ -49,6 +52,7 @@ from cnn_graph_tpu_torch.ops.band import (
     check_band_index,
     check_band_tables,
     layout_call,
+    level_rows_of,
 )
 from cnn_graph_tpu_torch.ops.bsr import (
     block_products,
@@ -72,6 +76,8 @@ __all__ = [
     "QuantDenseLaplacian",
     "quantize_dense",
     "device_laplacian",
+    "operator_leaves",
+    "with_operator_leaves",
 ]
 
 # Auto-format thresholds of the JAX package (laplacian.py:1240-1277),
@@ -141,6 +147,11 @@ class _BandedMixin:
             check_band_index(self.nz_rowptr, self.nz_win, self.base,
                              self.sched, self.levels or (self.band_width,),
                              self.rows_per_step)
+        # Not a field: derived from sched, so every build recomputes it.
+        object.__setattr__(self, "level_rows", None if (
+            not self.levels or self.sched.is_meta) else level_rows_of(
+                self.sched, self.base.numel(), self.rows_per_step,
+                len(self.levels)))
 
     @property
     def band_width(self) -> int:
@@ -178,7 +189,10 @@ class BandedLaplacian(_BandedMixin):
     each nonzero's offset in its block-row's window;
     ``ops.packing.band_row_index``): K1, K5 and K6 walk it and read each
     value from the layout's own band, so one index serves every layout
-    of a graph, the int8 twin and shifted bases.
+    of a graph, the int8 twin and shifted bases.  ``level_rows``, an
+    attribute derived from ``sched`` at build (one int64 tensor per
+    level), lists each width level's block rows, which the plain
+    versions take.
 
     With ``use_pallas`` the products run the layout's kernel, without it
     the kernel's plain version, which computes what JAX's fallback does
@@ -594,6 +608,34 @@ def quantize_dense(op: DenseLaplacian, headroom: float = 2.0,
     return QuantDenseLaplacian(
         mat=q, m=op.m, m_padded=op.m_padded, nnz=op.nnz, mat_scale=s,
         act_scale=float(sample_x) * headroom / 127.0, headroom=headroom)
+
+
+def _is_leaf(v) -> bool:
+    return isinstance(v, torch.Tensor) or (
+        isinstance(v, tuple) and len(v) > 0
+        and all(isinstance(t, torch.Tensor) for t in v))
+
+
+def operator_leaves(op) -> dict:
+    """The operator's tensor fields by name (a tuple of tensors, as
+    ``bands_dkw``, stays a tuple), and the banded operators'
+    ``level_rows``: the graph data that a trace takes as inputs, the
+    counterpart of the JAX operators' pytree leaves.  Ints, floats, flags
+    and ``levels`` stay on the operator, static."""
+    names = [f.name for f in dataclasses.fields(op)] + ["level_rows"]
+    return {n: getattr(op, n) for n in names
+            if _is_leaf(getattr(op, n, None))}
+
+
+def with_operator_leaves(op, leaves: dict):
+    """A copy of ``op`` holding ``leaves`` (``operator_leaves``' fields,
+    possibly traced tensors) in place of its own.  The copy skips the
+    build-time checks, which read the tables' values."""
+    clone = copy.copy(op)
+    for name, v in leaves.items():
+        object.__setattr__(clone, name,
+                           tuple(v) if isinstance(v, (list, tuple)) else v)
+    return clone
 
 
 def _resolve_device(device=None) -> torch.device:

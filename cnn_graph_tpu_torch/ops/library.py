@@ -1,0 +1,201 @@
+"""The port's hand-written CUDA kernels as torch custom ops.
+
+Each kernel family is one op in the ``cnn_graph_torch`` namespace, so
+that ``torch.export`` keeps a kernel as one node of the program it
+traces (a ``ctypes`` launch reads ``data_ptr()``s, which the fake
+tensors of a trace do not have) and a program loaded in another process
+launches the same kernels:
+
+* ``band_rows``: K1, K5 and K6 (``csrc/band.cu band_rows_kernel``), the
+  layout an argument; every form (``L@x``, ``2L@x - x0``, ``+c``) in
+  f32, bf16 and int8 (with ``band_scale``).  ``band_rows_`` is the
+  in-place form, which writes its output over ``x0``
+  (``mutates_args=("x0",)``) and returns nothing.
+* ``bsr_rows``: K4, K7, K8 and K9 (``csrc/bsr.cu bsr_rows_kernel``),
+  the route an argument.
+* ``cheby_conv``: K2 (``csrc/cheby_fused.cu``), on the dense operator's
+  matrix.
+* ``cheby_dw``: K3 and its fold, on K2's launch template.
+
+Each op has three implementations: CUDA, the ``ctypes`` launch of
+``ops/band.py``, ``ops/bsr.py`` or ``ops/cheby.py``, which counts the
+launch on its wrapper (``launches``, ``form_launches``,
+``route_launches``) and names it in a profiler range, so a loaded
+program counts and names its launches as the eager path does; CPU, the
+kernel's plain PyTorch version; and a fake one that gives the output's
+shape and dtype (int8 in, int8 out) and counts nothing.  There is no
+fallback: a CUDA op that cannot build or launch raises.  The wrappers
+(``banded_dkw``, ``bsr_colstream``, ``fused_filter``, ...) check their
+arguments' shapes before they call an op, so the checks run while
+``torch.export`` traces too.
+
+Importing ``cnn_graph_tpu_torch.ops`` imports this module, which
+registers the ops; ``serve.load_serving`` needs them registered before
+``torch.export.load``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from cnn_graph_tpu_torch.ops import band, bsr, cheby
+from cnn_graph_tpu_torch.ops.packing import BLOCK
+
+__all__ = ["NAMESPACE", "launch_counts", "reset_launch_counts"]
+
+NAMESPACE = "cnn_graph_torch"
+Tensor = torch.Tensor
+
+
+# ----------------------------------------------------------- K1, K5, K6
+
+
+@torch.library.custom_op(f"{NAMESPACE}::band_rows", mutates_args=(),
+                         device_types="cpu")
+def band_rows(bands: list[Tensor], base: Tensor, sched: Optional[Tensor],
+              nz_rowptr: Optional[Tensor], nz_win: Optional[Tensor],
+              x: Tensor, x0: Optional[Tensor], c: Optional[Tensor],
+              layout: str, levels: list[int], G: int,
+              band_scale: Optional[float]) -> Tensor:
+    """The banded product in ``layout`` (``dkw``, ``uniform`` or
+    ``ragged``): ``[len(base) * 128, C]`` in x's dtype.  CPU: the
+    layout's plain window version."""
+    return band.window_reference(layout, bands, base, sched, x, x0, c,
+                                 levels, G, band_scale)
+
+
+@band_rows.register_kernel("cuda")
+def _(bands, base, sched, nz_rowptr, nz_win, x, x0, c, layout, levels, G,
+      band_scale):
+    y = x.new_empty((base.shape[0] * BLOCK, x.shape[1]))
+    band._launch(layout, bands, levels, base, sched, (nz_rowptr, nz_win),
+                 x, x0, c, G, band_scale, y)
+    return y
+
+
+@band_rows.register_fake
+def _(bands, base, sched, nz_rowptr, nz_win, x, x0, c, layout, levels, G,
+      band_scale):
+    return x.new_empty((base.shape[0] * BLOCK, x.shape[1]))
+
+
+@torch.library.custom_op(f"{NAMESPACE}::band_rows_", mutates_args=("x0",),
+                         device_types="cpu")
+def band_rows_(bands: list[Tensor], base: Tensor, sched: Optional[Tensor],
+               nz_rowptr: Optional[Tensor], nz_win: Optional[Tensor],
+               x: Tensor, x0: Tensor, c: Optional[Tensor], layout: str,
+               levels: list[int], G: int,
+               band_scale: Optional[float]) -> None:
+    """``band_rows``' hop written over ``x0``, which x and c must not
+    alias.  CPU: the plain window version, copied into x0."""
+    band._check_donate(x, x0, c)
+    x0.copy_(band.window_reference(layout, bands, base, sched, x, x0, c,
+                                   levels, G, band_scale))
+
+
+@band_rows_.register_kernel("cuda")
+def _(bands, base, sched, nz_rowptr, nz_win, x, x0, c, layout, levels, G,
+      band_scale):
+    band._check_donate(x, x0, c)
+    band._launch(layout, bands, levels, base, sched, (nz_rowptr, nz_win),
+                 x, x0, c, G, band_scale, x0)
+
+
+@band_rows_.register_fake
+def _(bands, base, sched, nz_rowptr, nz_win, x, x0, c, layout, levels, G,
+      band_scale):
+    return None
+
+
+# ------------------------------------------------------ K4, K7, K8, K9
+
+
+@torch.library.custom_op(f"{NAMESPACE}::bsr_rows", mutates_args=(),
+                         device_types="cpu")
+def bsr_rows(blocks: Tensor, nz_rowptr: Tensor, nz_cols: Tensor,
+             nz_pos: Tensor, x: Tensor, x0: Optional[Tensor], route: str,
+             block_scale: Optional[float]) -> Tensor:
+    """The BSR row walk as ``route`` (``K4``, ``K7``, ``K8`` or ``K9``):
+    ``[Mp, C]`` in x's dtype.  CPU: ``bsr_rows_reference``."""
+    return bsr.bsr_rows_reference(blocks, nz_rowptr, nz_cols, nz_pos, x, x0,
+                                  block_scale=block_scale)
+
+
+@bsr_rows.register_kernel("cuda")
+def _(blocks, nz_rowptr, nz_cols, nz_pos, x, x0, route, block_scale):
+    return bsr._launch(blocks, nz_rowptr, nz_cols, nz_pos, x, x0, route,
+                       block_scale)
+
+
+@bsr_rows.register_fake
+def _(blocks, nz_rowptr, nz_cols, nz_pos, x, x0, route, block_scale):
+    return torch.empty_like(x)
+
+
+# --------------------------------------------------------------- K2, K3
+
+
+@torch.library.custom_op(f"{NAMESPACE}::cheby_conv", mutates_args=(),
+                         device_types="cpu")
+def cheby_conv(mat: Tensor, x: Tensor, w: Tensor) -> Tensor:
+    """K2: ``sum_k T_k(L) x W_k`` on the dense matrix ``mat``; ``x`` ``[B,
+    M, F]``, ``w`` ``[K, F, O]`` -> ``[B, M, O]`` in x's dtype.  CPU:
+    ``cheby_conv_fused_reference``, made contiguous as the kernel's
+    output is."""
+    return cheby.cheby_conv_fused_reference(x, cheby.dense_view(mat),
+                                            w).contiguous()
+
+
+@cheby_conv.register_kernel("cuda")
+def _(mat, x, w):
+    # Contiguous as the fake output is: a copy only where one sample
+    # fills a group and O is not a multiple of 8 (a view of the padding).
+    return cheby.conv_kernel(mat, x, w).contiguous()
+
+
+@cheby_conv.register_fake
+def _(mat, x, w):
+    return x.new_empty((x.shape[0], x.shape[1], w.shape[2]))
+
+
+@torch.library.custom_op(f"{NAMESPACE}::cheby_dw", mutates_args=(),
+                         device_types="cpu")
+def cheby_dw(mat: Tensor, x: Tensor, g: Tensor, K: int) -> Tensor:
+    """K3: ``dW[k, f, o] = sum_{b, m} (T_k x)[b, m, f] g[b, m, o]``, f32
+    ``[K, F, O]``.  CPU: ``cheby_dw_fused_reference``."""
+    return cheby.cheby_dw_fused_reference(x, cheby.dense_view(mat), g, K)
+
+
+@cheby_dw.register_kernel("cuda")
+def _(mat, x, g, K):
+    return cheby.dw_kernel(mat, x, g, K)
+
+
+@cheby_dw.register_fake
+def _(mat, x, g, K):
+    return x.new_empty((K, x.shape[2], g.shape[2]), dtype=torch.float32)
+
+
+# ------------------------------------------------------------ the counts
+
+_COUNTED = {"band_dkw": band.banded_dkw, "band_uniform": band.banded_uniform,
+            "band_ragged": band.banded_ragged,
+            "bsr_colstream": bsr.bsr_colstream, "bsr_csr": bsr.bsr_csr,
+            "cheby_conv_fused": cheby.cheby_conv_fused,
+            "cheby_dw_fused": cheby.cheby_dw_fused}
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch count, by wrapper."""
+    return {name: fn.launches for name, fn in _COUNTED.items()}
+
+
+def reset_launch_counts():
+    """Set every launch count, by form and route too, to 0."""
+    for fn in _COUNTED.values():
+        fn.launches = 0
+        for attr in ("form_launches", "route_launches"):
+            if hasattr(fn, attr):
+                getattr(fn, attr).clear()

@@ -1081,3 +1081,66 @@ def test_resgnn_step_on_the_card_matches_the_cpu(flow_graph, cuda_device):
     assert abs(loss - loss_c) <= 1e-5 * abs(loss_c)
     for a, b in zip(grads, grads_c):
         assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())
+
+
+# ------------------------------------------------------ serving artifacts
+
+
+def _artifact_model(city96, fmt, dev):
+    op = device_laplacian(city96, fmt=fmt, device=dev)
+    model = NodeClassifier(op, 16, 4, hidden=[8], K=5,
+                           generator=torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.default_rng(12).normal(
+        size=(op.m, 16)).astype(np.float32)).to(dev)
+    return model, model.param_tree(), x
+
+
+def _counted(fn, x):
+    """``fn(x)`` with the launch counts set to 0 just before, and the
+    counts just after."""
+    from cnn_graph_tpu_torch.ops import library
+
+    library.reset_launch_counts()
+    y = fn(x)
+    torch.cuda.synchronize()
+    return y, {k: v for k, v in library.launch_counts().items() if v}
+
+
+@pytest.mark.parametrize("fmt,kernel", [("banded", "band_dkw"),
+                                        ("bsr", "bsr_colstream")])
+def test_exported_int8_artifact_matches_compiled(city96, cuda_device,
+                                                 tmp_path, fmt, kernel):
+    """An int8 artifact on the card (K1 through the dkw layout, K4
+    through the column-streamed one) is bit-identical to
+    ``CompiledServing`` with the same launches: 2 layers x (K-1)."""
+    from cnn_graph_tpu_torch.serve import export_serving, load_serving
+
+    model, params, x = _artifact_model(city96, fmt, cuda_device)
+    compiled = compile_serving(model, params, x)
+    export_serving(model, params, x, str(tmp_path / fmt))
+    loaded = load_serving(str(tmp_path / fmt))
+    assert loaded.meta["platforms"] == ["cuda"] and loaded.meta["int8"]
+    want, counts = _counted(compiled, x)
+    got, loaded_counts = _counted(loaded, x)
+    assert counts == loaded_counts == {kernel: 8}
+    assert torch.equal(got, want)
+
+
+def test_loaded_f32_artifact_ignores_tf32(city96, cuda_device, tmp_path):
+    """The program does not record the TF32 switch: loaded and called
+    after ``allow_tf32 = True`` the f32 artifact still gives the compiled
+    handle's logits within 1e-6 of their max (TF32 taps would be off by
+    about 1e-3)."""
+    from cnn_graph_tpu_torch.serve import export_serving, load_serving
+
+    model, params, x = _artifact_model(city96, "banded", cuda_device)
+    want = compile_serving(model, params, x, int8=False)(x)
+    export_serving(model, params, x, str(tmp_path / "f32"), int8=False)
+    old = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        got = load_serving(str(tmp_path / "f32"))(x)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+    assert float((got - want).abs().max()) <= 1e-6 * float(
+        want.abs().max())

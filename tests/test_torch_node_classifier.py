@@ -194,6 +194,7 @@ class TestGuards:
             "cnn_graph_tpu_torch.ops, cnn_graph_tpu_torch.ops.cheby, "
             "cnn_graph_tpu_torch.ops.band, cnn_graph_tpu_torch.ops.laplacian, "
             "cnn_graph_tpu_torch.ops.bsr, cnn_graph_tpu_torch.ops.packing, "
+            "cnn_graph_tpu_torch.ops.library, "
             "cnn_graph_tpu_torch.ops.pooling, cnn_graph_tpu_torch.models, "
             "cnn_graph_tpu_torch.models.chebnet, "
             "cnn_graph_tpu_torch.models.common, "
@@ -216,6 +217,7 @@ class TestGuards:
             "cnn_graph_tpu_torch.experiments.text20news, "
             "cnn_graph_tpu_torch.experiments.rcv1, "
             "cnn_graph_tpu_torch.experiments.humanflow, "
+            "cnn_graph_tpu_torch.experiments.node_classification, "
             "cnn_graph_tpu_torch.utils, cnn_graph_tpu_torch.utils.profiling, "
             "cnn_graph_tpu_torch.utils.probes, "
             "cnn_graph_tpu_torch.utils.metrics, "
