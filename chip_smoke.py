@@ -256,6 +256,33 @@ Phases, each fatal on failure (no CPU path, no fallback):
    served on the driver's own features: 4 K1 launches, and the int8
    test accuracy the driver printed.
 
+26. the node-sharded operators (``cnn_graph_tpu_torch/parallel``), K1,
+   K5 and K6 on halo-extended x, after phase 25 (c): (a) in this
+   process, a world of one rank over NCCL (a ``file://`` rendezvous):
+   ``banded_halo_laplacian`` of the 50k city graph on a ``nodes=1``
+   mesh in bf16 and int8, with and without ``force_boundary`` (the
+   prefix, interior and suffix passes): L@x, the hop and the K=25
+   chain against phase 3's single-chip operator, bf16 within one ulp
+   and int8 bit-identical, each hop 1 K1 launch a region and no other
+   kernel; the chain's us per SpMM (``cuda_ms``) beside phase 14's;
+   (b) 4 ranks on the card over gloo (``torch.distributed.run``), the
+   same graph sharded 4 ways, C = 512: each rank's rows of L@x, the hop
+   and the K=25 chain on K1 (f32 within 1e-5 of the max, bf16 one ulp,
+   int8 bit-identical) and of the chain's adjoint (1e-4) against the
+   single-chip operator's, K5 on the uniform operator and K6 on the
+   ragged one without the dkw twin (L@x and the hop), each kernel also
+   against the row walk's plain version on the same halo-extended x;
+   launches per rank, halo bytes per hop beside (h_l + h_r)*128*C*
+   itemsize and the exchange's ms (gloo on one card); (c) the
+   node-classification driver on 4 ranks (``--mesh-nodes 4 --halo banded
+   --int8`` at its defaults): test accuracy within 0.01 of phase 25
+   (c)'s, int8 within 0.05 of its float one, the K1 launches per step
+   of every rank; (d) ``Trainer.fit`` with ``TrainConfig(mesh=
+   make_mesh(data=2, nodes=2))`` on 4 ranks, phase 22's ResGNN on the
+   dense halo operator, 4 steps: the parameters within 1e-4 of a
+   one-process fit with the same config and data.  A rank that fails
+   fails the run.
+
 Each 50k scattered operator is freed after its phase.
 
 The last three lines are the kernel record as one JSON object (each
@@ -351,6 +378,13 @@ from cnn_graph_tpu_torch.ops.band import layout_call  # noqa: E402
 from cnn_graph_tpu_torch.ops.cheby import (  # noqa: E402
     _fold_dw_partials,
     _launch_dw,
+)
+from cnn_graph_tpu_torch.parallel import (  # noqa: E402
+    banded_halo_laplacian,
+    halo_sharded_laplacian,
+    init_distributed,
+    make_mesh,
+    quantize_banded_halo,
 )
 from cnn_graph_tpu_torch.serve import (  # noqa: E402
     compile_serving,
@@ -651,12 +685,13 @@ def print_band_kernel(what: str, rec: dict, gpu: str):
 # ------------------------------------- K5, K6, in place, bench's chains
 
 
-def to_f32(op):
-    """A float banded operator's f32 copy, every band array converted."""
+def cast_op(op, dt=torch.float32):
+    """A float banded operator (single-chip or sharded) in ``dt``, every
+    band array converted."""
     return dataclasses.replace(
-        op, band=op.band.float(),
+        op, band=op.band.to(dt),
         bands_dkw=None if op.bands_dkw is None else tuple(
-            b.float() for b in op.bands_dkw))
+            b.to(dt) for b in op.bands_dkw))
 
 
 def band_launches() -> dict:
@@ -2686,13 +2721,407 @@ def cheby_tensor_core_ops(lib) -> dict:
     return found
 
 
+# ------------------------------------------- the node-sharded operators, 26
+
+# Phase 26: 4 ranks share the card over gloo (NCCL takes one rank per
+# device); the chains and products at C = FIN, K = K.
+HALO_RANKS = 4
+HALO_ROWS = (2, 2)  # (d)'s mesh: data x nodes
+HALO_FIT_STEPS = 4
+HALO_EXCHANGES = 10  # exchanges timed per rank
+
+
+def _halo_close(got, want, what: str) -> float:
+    """Phase 26's tolerances: f32 within 1e-5 of the largest value, bf16
+    one bf16 ulp (``_check_close``), int8 bit-identical.  Returns the
+    largest absolute difference."""
+    check(got.shape == want.shape, f"{what}: shape")
+    if got.numel() == 0:  # a shard of padding alone
+        return 0.0
+    if got.dtype == torch.float32:
+        err = float((got - want).abs().max())
+        top = float(want.abs().max())
+        check(err <= 1e-5 * max(top, 1e-30), f"{what}: max_abs_err {err:.3g}"
+              f" over 1e-5 of the max {top:.3g}")
+        return err
+    return _check_close(got, want, what)
+
+
+def _chain_of(op, x, k: int, quant: bool):
+    """The K-term basis through ``op``'s per-hop calls, stacked."""
+    first, hop = ((op.spmm_q, op.cheby_hop_q) if quant
+                  else (op.matmul, op.cheby_hop))
+    b = [x, first(x)]
+    for _ in range(2, k):
+        b.append(hop(b[-1], b[-2]))
+    return torch.stack(b)
+
+
+def _no_dkw(op):
+    """A ragged banded operator (single-chip or sharded) without its
+    deep-K-window twin: its products run K6."""
+    names = {f.name for f in dataclasses.fields(op)}
+    return dataclasses.replace(op, **{k: None for k in (
+        "bands_dkw", "sched_dkw", "sched_dkw_int", "sched_dkw_suf")
+        if k in names})
+
+
+def _launched() -> dict:
+    torch.cuda.synchronize()
+    return {k: v for k, v in library.launch_counts().items() if v}
+
+
+def sharded_one_rank_phase(L, single, chains, dev, gpu: str,
+                           tmp: str) -> dict:
+    """Phase 26 (a): the banded halo operator at a world of one rank
+    (NCCL) against phase 3's single-chip bf16 operator ``single`` and
+    its int8 twin, with and without ``force_boundary``; the chain's us
+    per SpMM beside phase 14's ``chains``."""
+    t0 = time.perf_counter()
+    init_distributed(dev, init_method=f"file://{tmp}/store26a", rank=0,
+                     world_size=1)
+    mesh = make_mesh(data=1, nodes=1, device=dev)
+    check(mesh.backend == "nccl" and not mesh.staged,
+          f"phase 26a: backend {mesh.backend}, staged {mesh.staged}")
+    gen = torch.Generator(device=dev).manual_seed(26)
+    xs = {"bf16": [torch.randn(single.m_padded, FIN, generator=gen,
+                               device=dev).to(torch.bfloat16)
+                   for _ in range(2)],
+          "int8": [torch.randint(-100, 100, (single.m_padded, FIN),
+                                 generator=gen, device=dev,
+                                 dtype=torch.int8) for _ in range(2)]}
+    singles = {"bf16": single, "int8": quantize_banded(single, sample_x=3.0)}
+    rec = {"max_abs_err": {}, "us_per_spmm": {}, "regions": {}}
+    with torch.no_grad():
+        want = {lab: (s.spmm_q(xs[lab][0]) if lab == "int8"
+                      else s.matmul(xs[lab][0]),
+                      (s.cheby_hop_q if lab == "int8" else s.cheby_hop)(
+                          *xs[lab]),
+                      _chain_of(s, xs[lab][0], K, lab == "int8"))
+                for lab, s in singles.items()}
+        for fb in (0, 8):
+            hb = banded_halo_laplacian(L, mesh, dtype=torch.bfloat16,
+                                       rows_per_step=single.rows_per_step,
+                                       force_boundary=fb)
+            check(hb.bands_dkw is not None and hb.split == bool(fb)
+                  and hb.m_padded == single.m_padded
+                  and (hb.halo_left, hb.halo_right) == (0, 0),
+                  f"phase 26a: operator (force_boundary {fb}) split "
+                  f"{hb.split}, m_padded {hb.m_padded}")
+            regions = len(hb.regions) - 1 if hb.split else 1
+            ops = {"bf16": hb, "int8": quantize_banded_halo(hb,
+                                                            sample_x=3.0)}
+            check(ops["int8"].band_scale == singles["int8"].band_scale,
+                  "phase 26a: int8 band scale")
+            for lab, h in ops.items():
+                q = lab == "int8"
+                x, x0 = xs[lab]
+                library.reset_launch_counts()
+                y = h.spmm_q(x) if q else h.matmul(x)
+                check(_launched() == {"band_dkw": regions},
+                      f"phase 26a {lab}: L@x launched {_launched()}")
+                library.reset_launch_counts()
+                yh = (h.cheby_hop_q if q else h.cheby_hop)(x, x0)
+                check(_launched() == {"band_dkw": regions},
+                      f"phase 26a {lab}: the hop launched {_launched()}")
+                yc = h.cheby_chain_q(x, K) if q else h.cheby_chain(x, K)
+                what = f"phase 26a {lab} force_boundary {fb}"
+                err = max(_halo_close(g, w, f"{what} {form}") for g, w, form
+                          in zip((y, yh, yc), want[lab],
+                                 ("L@x", "hop", "chain")))
+                key = f"{lab}{'_split' if fb else ''}"
+                rec["max_abs_err"][key] = err
+                rec["regions"][key] = regions
+                ms = cuda_ms(lambda h=h, x=x, q=q: h.cheby_chain_q(x, K) if q
+                             else h.cheby_chain(x, K), 3)
+                rec["us_per_spmm"][key] = ms * 1e3 / (K - 1)
+    torch.distributed.destroy_process_group()
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"sharded one rank (phase 26a): backend nccl, world 1; bf16 and "
+          f"int8 against phase 3's single-chip operator, max_abs_err "
+          f"{rec['max_abs_err']}, K1 launches a hop "
+          f"{rec['regions']}; K={K} chain at C={FIN}: us per SpMM "
+          + ", ".join(f"{k} {v:.2f}" for k, v in rec["us_per_spmm"].items())
+          + " (phase 14's single-chip cheby_finals: bf16 "
+          f"{chains['dkw']['bf16']['us_per_spmm']:.2f}, int8 "
+          f"{chains['dkw']['int8']['us_per_spmm']:.2f}); "
+          f"{rec['seconds']:.1f} s [{gpu}]", flush=True)
+    return rec
+
+
+def _launch_ranks(argv: list, what: str, timeout: float):
+    """``argv`` on HALO_RANKS ranks through ``torch.distributed.run``;
+    fails the run unless every rank exits 0.  Returns its stdout and
+    seconds."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(HALO_RANKS), *argv],
+        cwd=HERE, capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        # Each rank's last lines: the first rank to fail says why, the
+        # others that a peer closed.
+        tails = []
+        for r in range(HALO_RANKS):
+            lines = [s for s in proc.stderr.splitlines()
+                     if s.startswith(f"[rank{r}]:")]
+            tails.append("\n".join(lines[-12:]))
+        check(False, f"{what}: a rank failed (exit {proc.returncode}):\n"
+              f"{proc.stdout[-2000:]}\n" + "\n".join(tails))
+    return proc.stdout, time.perf_counter() - t0
+
+
+def sharded_ranks_phase(L, d: str, gpu: str) -> dict:
+    """Phase 26 (b): ``halo_rank_kernels`` on HALO_RANKS ranks sharing
+    the card; each rank checks its rows and writes its record."""
+    scipy.sparse.save_npz(os.path.join(d, "L.npz"), L)
+    out, sec = _launch_ranks([os.path.join(HERE, "chip_smoke.py"),
+                              "--halo-rank", "kernels", "--halo-dir", d],
+                             "phase 26b", 600)
+    for line in out.splitlines():
+        if line.startswith("distributed:"):
+            print(f"  {line}")
+    recs = [json.load(open(os.path.join(d, f"kernels{r}.json")))
+            for r in range(HALO_RANKS)]
+    for r in recs:
+        print(f"  rank {r['rank']} (phase 26b): rows {r['rows']}, halo "
+              f"{r['halo']} block rows, max_abs_err {r['max_abs_err']}, "
+              f"kernel vs row-walk plain {r['rows_max_abs_err']}, launches "
+              f"{r['launches']}, halo bytes a bf16 hop {r['bytes_per_hop']}"
+              f" (want {r['bytes_want']}), exchange "
+              f"{r['exchange_ms_gloo_one_card']:.3f} ms (gloo, one card)",
+              flush=True)
+    print(f"sharded ranks (phase 26b): {HALO_RANKS} ranks on one card over "
+          f"gloo, {sec:.1f} s [{gpu}]", flush=True)
+    return {"ranks": recs, "seconds": sec}
+
+
+def halo_rank_kernels(d: str):
+    """One rank of phase 26 (b)."""
+    dev = init_distributed()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(data=1, nodes=HALO_RANKS)
+    check(mesh.backend == "gloo" and mesh.staged, "phase 26b: backend")
+    rank = mesh.coord("nodes")
+    L = scipy.sparse.load_npz(os.path.join(d, "L.npz"))
+    f32 = device_laplacian(L, fmt="banded", device=dev)
+    G = f32.rows_per_step
+    h32 = banded_halo_laplacian(L, mesh, rows_per_step=G)
+    singles = {"f32": f32, "bf16": cast_op(f32, torch.bfloat16)}
+    halos = {"f32": h32, "bf16": cast_op(h32, torch.bfloat16)}
+    singles["int8"] = quantize_banded(singles["bf16"], sample_x=3.0)
+    halos["int8"] = quantize_banded_halo(halos["bf16"], sample_x=3.0)
+    singles["K5"] = device_laplacian(L, fmt="banded", ragged=False,
+                                     dtype=torch.bfloat16, device=dev)
+    halos["K5"] = banded_halo_laplacian(L, mesh, ragged=False,
+                                        dtype=torch.bfloat16,
+                                        rows_per_step=G)
+    singles["K6"] = _no_dkw(singles["bf16"])
+    halos["K6"] = _no_dkw(halos["bf16"])
+    lo, hi = h32.row_range
+    real = h32.real_rows
+    gen = torch.Generator(device=dev).manual_seed(261)
+    xg = [torch.randn(L.shape[0], FIN, generator=gen, device=dev)
+          for _ in range(2)]
+
+    def padded(x, rows):
+        return torch.cat([x, x.new_zeros(rows - x.shape[0], x.shape[1])])
+
+    rec = {"rank": rank, "rows": [lo, hi], "max_abs_err": {},
+           "rows_max_abs_err": {}, "launches": {},
+           "halo": [h32.halo_left, h32.halo_right]}
+    kernel = {"f32": "band_dkw", "bf16": "band_dkw", "int8": "band_dkw",
+              "K5": "band_uniform", "K6": "band_ragged"}
+    for lab in ("f32", "bf16", "int8", "K5", "K6"):
+        s, h = singles[lab], halos[lab]
+        q = lab == "int8"
+        dt = s.compute_dtype
+        if q:
+            xs = [torch.clamp(torch.round(x * 40), -127, 127).to(torch.int8)
+                  for x in xg]
+        else:
+            xs = [x.to(dt) for x in xg]
+        x_s = [padded(x, s.m_padded) for x in xs]
+        x_h = [padded(x, h.m_padded)[lo:hi].contiguous() for x in xs]
+        what = f"phase 26b rank {rank} {lab}"
+        first = "spmm_q" if q else "matmul"
+        hop = "cheby_hop_q" if q else "cheby_hop"
+        with torch.no_grad():
+            library.reset_launch_counts()
+            got = [getattr(h, first)(x_h[0]), getattr(h, hop)(*x_h)]
+            if lab != "K6":
+                got.append(h.cheby_chain_q(x_h[0], K) if q
+                           else h.cheby_chain(x_h[0], K))
+            launched = rec["launches"][lab] = _launched()
+            check(set(launched) == {kernel[lab]},
+                  f"{what}: launched {launched}")
+            want = [getattr(s, first)(x_s[0]), getattr(s, hop)(*x_s)]
+            if lab != "K6":
+                want.append(_chain_of(s, x_s[0], K, q))
+            forms = zip(got, want, ("L@x", "hop", "chain"))
+            err = 0.0
+            for got, want, form in forms:
+                got = got[..., :real, :] if got.dim() == 3 else got[:real]
+                want = (want[:, lo:lo + real] if want.dim() == 3
+                        else want[lo:lo + real])
+                err = max(err, _halo_close(got, want, f"{what} {form}"))
+            rec["max_abs_err"][lab] = err
+            # The kernel against the row walk's plain version on this
+            # rank's halo-extended x.
+            reg = h.regions["full"]
+            x_ext = h._extended(x_h[0], h._exchange(x_h[0]))
+            scale = h.band_scale if q else None
+            rec["rows_max_abs_err"][lab] = _check_close(
+                layout_call(reg, x_ext, band_scale=scale),
+                rows_plain(reg, (x_ext,), scale),
+                f"{what}: kernel vs plain on x [{x_ext.shape[0]}, {FIN}]")
+    # The chain's adjoint in f32: the gradient of the basis' sum.
+    xa = xg[0]
+    u = padded(xa, h32.m_padded)[lo:hi].clone().requires_grad_()
+    h32.cheby_chain(u, K).sum().backward()
+    v = padded(xa, f32.m_padded).clone().requires_grad_()
+    _chain_of(f32, v, K, False).sum().backward()
+    want = v.grad[lo:lo + real]
+    err = float((u.grad[:real] - want).abs().max()) if real else 0.0
+    check(not real or err <= 1e-4 * float(want.abs().max()),
+          f"phase 26b rank {rank}: the chain's adjoint err {err:.3g}")
+    rec["max_abs_err"]["adjoint_f32"] = err
+    # The exchange: its bytes per bf16 hop and its time.
+    hb = halos["bf16"]
+    xb = padded(xg[0].to(torch.bfloat16), hb.m_padded)[lo:hi].contiguous()
+    sent = sum(mesh.traffic.values())
+    with torch.no_grad():
+        hb.matmul(xb)
+    rec["bytes_per_hop"] = sum(mesh.traffic.values()) - sent
+    n = HALO_RANKS
+    rec["bytes_want"] = ((rank > 0) * hb.halo_right
+                         + (rank < n - 1) * hb.halo_left) * 128 * FIN * 2
+    check(rec["bytes_per_hop"] == rec["bytes_want"],
+          f"phase 26b rank {rank}: {rec['bytes_per_hop']} halo bytes a hop")
+    rec["bytes_formula"] = (hb.halo_left + hb.halo_right) * 128 * FIN * 2
+    torch.cuda.synchronize()
+    torch.distributed.barrier()
+    t0 = time.perf_counter()
+    for _ in range(HALO_EXCHANGES):
+        hb._exchange(xb)()
+    torch.cuda.synchronize()
+    rec["exchange_ms_gloo_one_card"] = ((time.perf_counter() - t0) * 1e3
+                                        / HALO_EXCHANGES)
+    json.dump(rec, open(os.path.join(d, f"kernels{rank}.json"), "w"))
+    torch.distributed.destroy_process_group()
+
+
+def sharded_driver_phase(single_acc: float, gpu: str) -> dict:
+    """Phase 26 (c): the node-classification driver on HALO_RANKS ranks
+    at its defaults with ``--mesh-nodes 4 --halo banded --int8``."""
+    out, sec = _launch_ranks(
+        ["-m", "cnn_graph_tpu_torch.experiments.node_classification",
+         "--mesh-nodes", str(HALO_RANKS), "--halo", "banded", "--int8"],
+        "phase 26c", 600)
+    for line in out.strip().splitlines():
+        print(f"  driver: {line}")
+    acc = re.search(r"train acc ([\d.]+) \| test acc ([\d.]+)", out)
+    q = re.search(r"int8 test acc ([\d.]+) \(delta vs f32 ([-+][\d.]+)\)",
+                  out)
+    k1 = re.search(r"K1 launches per training step by rank: \[([^\]]*)\]",
+                   out)
+    step = re.search(r"\(([\d.]+) ms/step\)", out)
+    check(acc and q and k1 and step, "phase 26c: driver lines missing")
+    test_acc, delta = float(acc.group(2)), float(q.group(2))
+    per_rank = [float(v) for v in k1.group(1).split(",")]
+    check(abs(test_acc - single_acc) <= 0.01,
+          f"phase 26c: test accuracy {test_acc}, one card {single_acc}")
+    check(abs(delta) < 0.05, f"phase 26c: int8 delta {delta}")
+    check(len(per_rank) == HALO_RANKS and all(v > 0 for v in per_rank),
+          f"phase 26c: K1 launches per step {per_rank}")
+    print(f"sharded driver (phase 26c): {HALO_RANKS} ranks, {sec:.1f} s; "
+          f"test acc {test_acc} (one card {single_acc}), int8 delta "
+          f"{delta:+.4f}, K1 launches per step by rank {per_rank}, "
+          f"{float(step.group(1))} ms per step (gloo, one card) [{gpu}]",
+          flush=True)
+    return {"test_acc": test_acc, "int8_delta": delta,
+            "k1_per_step": per_rank, "ms_per_step": float(step.group(1)),
+            "seconds": sec}
+
+
+def _fit_config(mesh=None):
+    return TrainConfig(num_epochs=1, batch_size=FLOW_B, eval_frequency=
+                       HALO_FIT_STEPS, learning_rate=FLOW_LR,
+                       decay_steps=None, seed=FLOW_SEED, mesh=mesh)
+
+
+def _fit_data(d: str):
+    a = np.load(os.path.join(d, "flow.npz"))
+    return [a[k] for k in ("x", "y", "vx", "vy")]
+
+
+def _fit_resgnn(op, d: str, mesh=None) -> list:
+    model = ResGNN(op, 12, **RESGNN,
+                   generator=torch.Generator().manual_seed(FLOW_SEED))
+    trainer = Trainer(model, _fit_config(mesh), task="regression")
+    trainer.fit(*_fit_data(d), verbose=False)
+    return [t.detach().cpu().numpy() for t in tree_leaves(trainer.params)]
+
+
+def sharded_trainer_phase(flow: dict, dev, d: str, gpu: str) -> dict:
+    """Phase 26 (d): ``Trainer.fit`` on a (2, 2) mesh, phase 22's ResGNN
+    over the dense halo operator, against the same fit in this process
+    on a single-chip operator."""
+    tr, _, _, trl, val, _ = flow["splits"]
+    n = HALO_FIT_STEPS * FLOW_B
+    np.savez(os.path.join(d, "flow.npz"), x=tr[:n], y=trl[:n],
+             vx=flow["splits"][1][:FLOW_B], vy=val[:FLOW_B])
+    scipy.sparse.save_npz(os.path.join(d, "Lflow.npz"),
+                          scipy.sparse.csr_matrix(flow["L"]))
+    want = _fit_resgnn(device_laplacian(flow["L"], device=dev), d)
+    _, sec = _launch_ranks([os.path.join(HERE, "chip_smoke.py"),
+                            "--halo-rank", "trainer", "--halo-dir", d],
+                           "phase 26d", 600)
+    got = np.load(os.path.join(d, "trainer.npz"))
+    check(len(got.files) == len(want), "phase 26d: parameter count")
+    err = max(float(np.abs(got[f"p{i}"] - w).max())
+              for i, w in enumerate(want))
+    check(err <= 1e-4, f"phase 26d: parameters {err:.3g} from the one-"
+          "process fit")
+    print(f"sharded Trainer (phase 26d): ResGNN {RESGNN} on "
+          f"{FLOW_NODES} regions, {HALO_FIT_STEPS} steps of {FLOW_B} on a "
+          f"(data, nodes) = {HALO_ROWS} mesh over the dense halo operator: "
+          f"parameters within {err:.3g} of the one-process fit; {sec:.1f} s "
+          f"[{gpu}]", flush=True)
+    return {"max_abs_err": err, "seconds": sec}
+
+
+def halo_rank_trainer(d: str):
+    """One rank of phase 26 (d)."""
+    init_distributed()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(*HALO_ROWS)
+    L = scipy.sparse.load_npz(os.path.join(d, "Lflow.npz"))
+    params = _fit_resgnn(halo_sharded_laplacian(L, mesh), d, mesh)
+    if torch.distributed.get_rank() == 0:
+        np.savez(os.path.join(d, "trainer.npz"),
+                 **{f"p{i}": p for i, p in enumerate(params)})
+    torch.distributed.destroy_process_group()
+
+
+HALO_RANK_TASKS = {"kernels": halo_rank_kernels,
+                   "trainer": halo_rank_trainer}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile-dir", help="also trace requests and training "
                     "steps with torch.profiler and write the tables here")
+    # One rank of phase 26's worlds, which this script launches itself.
+    ap.add_argument("--halo-rank", choices=sorted(HALO_RANK_TASKS),
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--halo-dir", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke needs a CUDA device; none is visible")
+    if args.halo_rank:
+        HALO_RANK_TASKS[args.halo_rank](args.halo_dir)
+        return 0
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2727,7 +3156,7 @@ def main() -> int:
     labels, feats = request_features(positions, 2 * N_REQUESTS + 1)
     sample = float(max(f.abs().max() for f in feats[:2 * N_REQUESTS]))
     ops = {"bf16": op, "int8": quantize_banded(op, sample_x=sample),
-           "f32": to_f32(op)}
+           "f32": cast_op(op)}
     n_blocks = sum(b.shape[0] * b.shape[2] // 128 for b in op.bands_dkw)
     setup = time.perf_counter() - t0
     print(f"graph: {op.m} nodes, nnz {op.nnz}, levels {op.levels}, "
@@ -2887,6 +3316,7 @@ def main() -> int:
     flow = flow_data()
     flow_rec = flow_phase(flow, dev, gpu)
     flow_k = flow_kernel_phase(flow["L"], dev, gen, gpu)
+    flow26 = {k: flow[k] for k in ("splits", "L")}  # phase 26 (d)'s data
     del flow
     filters_phase(Ls, data, dev, gpu)
     lanczos = lanczos_k1_phase(ops["f32"], gen, gpu)
@@ -3046,10 +3476,10 @@ def main() -> int:
     # (so without the dkw twin), then given it; int8 quantized first.
     lay_ops = {
         "uniform": {"int8": quantize_banded(uni, sample_x=sample),
-                    "bf16": uni, "f32": to_f32(uni)},
+                    "bf16": uni, "f32": cast_op(uni)},
         "ragged": {lab: dataclasses.replace(o, use_pallas=True) for lab, o in
                    (("int8", quantize_banded(rag, sample_x=sample)),
-                    ("bf16", rag), ("f32", to_f32(rag)))},
+                    ("bf16", rag), ("f32", cast_op(rag)))},
     }
     for lay, by in lay_ops.items():
         for lab, o in by.items():
@@ -3213,6 +3643,53 @@ def main() -> int:
     tmp.cleanup()
     print(f"phase 25 (serving artifacts): {art_s:.1f} s", flush=True)
 
+    # Phase 26: the node-sharded operators, K1/K5/K6 on halo-extended x.
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d26:
+        halo_a = sharded_one_rank_phase(L, op, chains, dev, gpu, d26)
+        halo_b = sharded_ranks_phase(L, d26, gpu)
+        halo_c = sharded_driver_phase(art_driver["test_acc"], gpu)
+        halo_d = sharded_trainer_phase(flow26, dev, d26, gpu)
+    print(f"phase 26 (node-sharded operators): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    def halo_keys(lab):
+        """Phase 26's numbers for one kernel row: ``lab`` is phase 26
+        (b)'s label of the kernel and dtype."""
+        ranks = halo_b["ranks"]
+        out = {
+            "halo_launches_per_rank": [
+                sum(r["launches"].get(lab, {}).values()) for r in ranks],
+            "halo_max_abs_err": max(r["max_abs_err"][lab] for r in ranks),
+            "halo_rows_max_abs_err": max(r["rows_max_abs_err"][lab]
+                                         for r in ranks),
+            "halo_exchange_ms_gloo_one_card": [
+                r["exchange_ms_gloo_one_card"] for r in ranks],
+            "halo_bytes_per_hop_bf16": [r["bytes_per_hop"] for r in ranks],
+            "halo_bytes_formula_bf16": ranks[0]["bytes_formula"]}
+        if lab in halo_a["us_per_spmm"]:
+            out.update({
+                "halo_one_rank_chain_us_per_spmm": halo_a["us_per_spmm"][lab],
+                "halo_one_rank_split_chain_us_per_spmm":
+                    halo_a["us_per_spmm"][lab + "_split"],
+                "halo_one_rank_max_abs_err": max(
+                    halo_a["max_abs_err"][lab],
+                    halo_a["max_abs_err"][lab + "_split"])})
+        if lab == "bf16":
+            out.update({
+                "halo_f32_max_abs_err": max(r["max_abs_err"]["f32"]
+                                            for r in ranks),
+                "halo_f32_rows_max_abs_err": max(
+                    r["rows_max_abs_err"]["f32"] for r in ranks),
+                "halo_adjoint_f32_max_abs_err": max(
+                    r["max_abs_err"]["adjoint_f32"] for r in ranks),
+                "halo_driver_k1_launches_per_step": halo_c["k1_per_step"],
+                "halo_driver_ms_per_step_gloo_one_card":
+                    halo_c["ms_per_step"],
+                "halo_driver_test_acc": halo_c["test_acc"],
+                "halo_trainer_max_abs_err": halo_d["max_abs_err"]})
+        return out
+
     def band_row(name, lay, lab, rec, launches, **extra):
         """A banded kernel's row: the sparse bound as ``bound_ms``, the
         block format's work and the row walk's plain version beside."""
@@ -3317,6 +3794,7 @@ def main() -> int:
                      "driver_artifact_launches": art_driver["launches"],
                      "driver_artifact_request_ms": art_driver["ms"]}
                     if lab == "int8" else {}),
+                 **halo_keys(lab),
                  **({"train_launches_per_step":
                      trains["bf16"]["launches"] // TRAIN_STEPS,
                      **f32_keys(checks["f32"]),
@@ -3350,6 +3828,7 @@ def main() -> int:
                  request_plain_ms=u_lat[lab]["plain_ms"],
                  hop_inplace_ms=lay_checks["uniform"][lab]["hop_inplace_ms"],
                  **chain_keys("uniform", lab),
+                 **(halo_keys("K5") if lab == "bf16" else {}),
                  **({"hop_c_ms": lay_checks["uniform"][lab]["hop_c_ms"],
                      "train_launches_per_step":
                          u_train["launches"] // TRAIN_STEPS,
@@ -3365,6 +3844,7 @@ def main() -> int:
                  request_ms=r_lat[lab],
                  hop_inplace_ms=lay_checks["ragged"][lab]["hop_inplace_ms"],
                  **chain_keys("ragged", lab),
+                 **(halo_keys("K6") if lab == "bf16" else {}),
                  **({"hop_c_ms": lay_checks["ragged"][lab]["hop_c_ms"],
                      **f32_keys(lay_checks["ragged"]["f32"])}
                     if lab == "bf16" else {}))

@@ -186,7 +186,10 @@ void start_rows(const Args& a, int n_block_rows, cudaStream_t s) {
 
 template <int L>
 int launch_rows(const Args& a, int n_block_rows, int dtype, cudaStream_t s) {
-  if (a.nz_rowptr == nullptr || a.nz_win == nullptr) {
+  // nz_win may be null: an index without a nonzero (a block of padding
+  // rows, as the last shard of a sharded operator can hold) is an empty
+  // tensor, whose data pointer is null, and the walk then never reads it.
+  if (a.nz_rowptr == nullptr) {
     return (int)cudaErrorInvalidValue;
   }
   switch (dtype) {
@@ -210,7 +213,8 @@ int launch_rows(const Args& a, int n_block_rows, int dtype, cudaStream_t s) {
 // layout: 0 dkw, 1 uniform, 2 ragged.  dtype: 0 float32, 1 bfloat16,
 // 2 int8.  Unused band slots take a null pointer and width 0 (uniform and
 // ragged pass one band; uniform one width, W).  nz_rowptr (int32) and
-// nz_win (int16) are the row index that every layout walks.  The output
+// nz_win (int16) are the row index that every layout walks (nz_win null
+// when the index holds no nonzero).  The output
 // has n_block_rows * 128 rows; y may equal x0.  c needs x0 and a float
 // dtype.  Launches on `stream` and
 // returns cudaGetLastError() (cudaErrorInvalidValue for bad arguments).

@@ -9,10 +9,15 @@ on the synthetic class-structured digits, with the ``--filter``
 (chebyshev, fourier, spline or lanczos) and ``--edge-noise`` (a fraction
 of the grid's edges replaced by random ones) of the JAX script.
 
-Not ported yet, and raising rather than ignored: ``--mesh-data`` (batch
-data parallelism, ROADMAP queue 1 item 6).  ``--n-val`` and ``--n-test``
-size the synthetic validation and test sets (the JAX script's are fixed
-at 5,000 and 10,000).
+``--mesh-data N`` trains data-parallel over a ``(data = N, nodes = 1)``
+mesh through ``TrainConfig.mesh`` (JAX :31-33, :76-87), one process per
+rank, each batch split over the ranks:
+
+    python -m torch.distributed.run --standalone --nproc-per-node N \\
+        -m cnn_graph_tpu_torch.experiments.mnist --mesh-data N
+
+``--n-val`` and ``--n-test`` size the synthetic validation and test sets
+(the JAX script's are fixed at 5,000 and 10,000).
 
 Run:  python -m cnn_graph_tpu_torch.experiments.mnist [--epochs 20]
           [--device cpu]
@@ -35,7 +40,8 @@ def main(argv=None):
     p.add_argument("--filter", default="chebyshev",
                    choices=["chebyshev", "fourier", "spline", "lanczos"])
     p.add_argument("--mesh-data", type=int, default=0,
-                   help="batch data parallelism over N devices (not ported)")
+                   help="batch data parallelism: split each batch over an "
+                   "N-rank 'data' mesh axis (TrainConfig.mesh)")
     p.add_argument("--n-train", type=int, default=55000,
                    help="synthetic-data size when no --data-dir")
     p.add_argument("--n-val", type=int, default=5000)
@@ -48,10 +54,17 @@ def main(argv=None):
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA device)")
     args = p.parse_args(argv)
+    mesh, say = None, print
     if args.mesh_data:
-        raise NotImplementedError(
-            "--mesh-data (TrainConfig.mesh) is not ported to "
-            "cnn_graph_tpu_torch yet (ROADMAP queue 1 item 6)")
+        import torch.distributed as dist
+
+        from cnn_graph_tpu_torch.parallel import make_mesh
+
+        mesh = make_mesh(data=args.mesh_data, nodes=1, device=args.device)
+        if dist.get_rank():
+            def say(*a, **k):
+                return None
+        say(f"data-parallel training over mesh {dict(mesh.shape)}")
 
     from cnn_graph_tpu_torch.data import (
         load_mnist,
@@ -71,13 +84,14 @@ def main(argv=None):
                   "val_data": tr_x[n_tr:], "val_labels": tr_y[n_tr:],
                   "test_data": te_x, "test_labels": te_y}
     else:
-        print("no --data-dir: using synthetic class-structured digits")
+        say("no --data-dir: using synthetic class-structured digits")
         splits = synthetic_mnist(n_train=args.n_train, n_val=args.n_val,
                                  n_test=args.n_test, seed=args.seed)
     splits, Ls, perm = mnist_graph_data(splits, k=8, levels=4,
                                         seed=args.seed,
                                         edge_noise=args.edge_noise)
-    ops = [device_laplacian(L, device=args.device) for L in Ls]
+    ops = [device_laplacian(L, device=mesh.device if mesh else args.device)
+           for L in Ls]
 
     model = ChebNet(ops, F=[32, 64], K=[args.K, args.K], p=[4, 4],
                     M=[512, 10], laplacians=Ls, filter=args.filter,
@@ -86,15 +100,18 @@ def main(argv=None):
     cfg = TrainConfig(
         num_epochs=args.epochs, learning_rate=args.learning_rate,
         decay_rate=0.95, decay_steps=n // args.batch_size,
-        batch_size=args.batch_size, eval_frequency=200, seed=args.seed)
+        batch_size=args.batch_size, eval_frequency=200, seed=args.seed,
+        mesh=mesh)
     trainer = Trainer(model, cfg, task="classification")
     hist, losses, t_step = trainer.fit(
         splits["train_data"], splits["train_labels"],
         splits["val_data"], splits["val_labels"])
     string, metrics = trainer.evaluate(splits["test_data"],
                                        splits["test_labels"])
-    print(f"test  {string}")
-    print(f"time per step: {t_step * 1000:.2f} ms")
+    say(f"test  {string}")
+    say(f"time per step: {t_step * 1000:.2f} ms")
+    if mesh is not None:
+        dist.destroy_process_group()
     return metrics, t_step
 
 

@@ -12,10 +12,22 @@ K=3, keep probability 0.8) trained full-batch by
 accuracy delta and the f32 and int8 inference times with Gedges/s over
 20 chained calls (CUDA events on the card, the host clock on the CPU);
 ``--export DIR`` writes the trained model as a serving artifact
-(``serve.export_serving``, int8 with ``--int8``).
+(``serve.export_serving``, int8 with ``--int8``; single chip only).
 
-Not ported yet, and raising rather than ignored: ``--mesh-nodes`` and
-``--halo`` (the node-sharded operators, ROADMAP queue 1 item 6).
+``--mesh-nodes N`` shards the operator's rows over a ``(data = world //
+N, nodes = N)`` mesh (JAX :108-111) with ``--halo banded``, the default:
+``parallel.banded_halo_laplacian``, its hops K1 on halo-extended x.
+Every rank builds the graph, keeps its rows of the features, labels and
+masks, and trains; rank 0 prints, and also the per-rank K1 launches per
+training step.  ``--halo sparse`` and ``sparse-banded`` (the sparse halo
+operators, ROADMAP queue 1 item 6b) raise.  Launch one process per rank:
+
+    python -m torch.distributed.run --standalone --nproc-per-node W \\
+        -m cnn_graph_tpu_torch.experiments.node_classification \\
+        --mesh-nodes N [--int8]
+
+Each rank takes ``cuda:(LOCAL_RANK % device_count())``; ranks that share
+a card exchange over gloo (``parallel.mesh``).
 
 Run:  python -m cnn_graph_tpu_torch.experiments.node_classification
           [--nodes 100000] [--int8] [--export DIR] [--device cpu]
@@ -102,8 +114,8 @@ def _chain_ms(model, params, features, dev) -> float:
         return (time.perf_counter() - t0) * 1e3 / CHAIN
 
 
-def main(argv=None) -> dict:
-    """Run the driver; returns its accuracies and times."""
+def parser() -> argparse.ArgumentParser:
+    """The driver's arguments, with the JAX driver's defaults."""
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--nodes", type=int, default=100000)
     p.add_argument("--classes", type=int, default=16)
@@ -114,24 +126,34 @@ def main(argv=None) -> dict:
     p.add_argument("--learning-rate", type=float, default=1e-2)
     p.add_argument("--train-frac", type=float, default=0.1)
     p.add_argument("--mesh-nodes", type=int, default=0,
-                   help="node-sharded operator over N devices (not ported)")
+                   help=">0: shard the operator's rows over a (data = "
+                   "world // N, nodes = N) mesh")
     p.add_argument("--halo", choices=["sparse", "banded", "sparse-banded"],
-                   default=None, help="the sharded operator's halo (not "
+                   default="banded", help="the sharded operator: the "
+                   "banded ring halo (sparse and sparse-banded are not "
                    "ported)")
     p.add_argument("--int8", action="store_true",
                    help="after training, quantize the operator to int8 and "
                    "report the accuracy delta and inference timing")
     p.add_argument("--export", metavar="DIR", default=None,
                    help="write the trained model as a serving artifact "
-                   "(serve.export_serving; int8 with --int8)")
+                   "(serve.export_serving; int8 with --int8; single chip)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA device)")
-    args = p.parse_args(argv)
-    if args.mesh_nodes > 0 or args.halo is not None:
+    return p
+
+
+def main(argv=None) -> dict:
+    """Run the driver; returns its accuracies and times."""
+    args = parser().parse_args(argv)
+    if args.mesh_nodes > 0 and args.halo != "banded":
         raise NotImplementedError(
-            "--mesh-nodes and --halo (the node-sharded operators) are not "
-            "ported to cnn_graph_tpu_torch yet (ROADMAP queue 1 item 6)")
+            f"--halo {args.halo} (the sparse halo operators) is not ported "
+            "to cnn_graph_tpu_torch yet (ROADMAP queue 1 item 6b)")
+    if args.mesh_nodes > 0 and args.export:
+        raise ValueError("--export writes the single-chip artifact; it "
+                         "takes no --mesh-nodes")
 
     import torch
 
@@ -141,25 +163,53 @@ def main(argv=None) -> dict:
         operator_device,
         quantize_model_operators,
     )
-    from cnn_graph_tpu_torch.ops import device_laplacian
+    from cnn_graph_tpu_torch.ops import banded_dkw, device_laplacian
     from cnn_graph_tpu_torch.train import train_node_classifier
+
+    mesh = None
+    if args.mesh_nodes > 0:
+        import torch.distributed as dist
+
+        from cnn_graph_tpu_torch.parallel import (
+            banded_halo_laplacian,
+            init_distributed,
+            make_mesh,
+        )
+
+        init_distributed(args.device)
+        mesh = make_mesh(data=dist.get_world_size() // args.mesh_nodes,
+                         nodes=args.mesh_nodes, device=args.device)
+    lead = mesh is None or dist.get_rank() == 0
+    say = print if lead else (lambda *a, **k: None)
 
     t0 = time.perf_counter()
     L, feats, labels = build_graph(args.nodes, args.classes, args.features,
                                    args.seed)
-    print(f"graph: {L.shape[0]} nodes, {L.nnz} nnz "
-          f"({time.perf_counter() - t0:.1f}s host precompute)")
-    op = device_laplacian(L, fmt="auto", device=args.device)
+    say(f"graph: {L.shape[0]} nodes, {L.nnz} nnz "
+        f"({time.perf_counter() - t0:.1f}s host precompute)")
+    if mesh is None:
+        op = device_laplacian(L, fmt="auto", device=args.device)
+        say(f"operator: {type(op).__name__} on {operator_device(op)}")
+    else:
+        op = banded_halo_laplacian(L, mesh)
+        say(f"banded-halo operator: band {tuple(op.band.shape[1:])} /shard, "
+            f"halo {op.halo_left}+{op.halo_right} block-rows, mesh "
+            f"{dict(mesh.shape)}, rank 0 on {mesh.device}")
     dev = operator_device(op)
-    print(f"operator: {type(op).__name__} on {dev}")
     fp, yp, train, test = node_data(feats, labels, op.m_padded,
                                     args.train_frac, args.seed)
+    sample = float(np.abs(fp).max())
+    if mesh is not None:
+        fp, yp, train, test = (op.local_rows(a) for a in (fp, yp, train,
+                                                          test))
     features, y, train_mask, test_mask = (
-        torch.from_numpy(a).to(dev) for a in (fp, yp, train, test))
+        torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        for a in (fp, yp, train, test))
 
     model = NodeClassifier(op, args.features, args.classes,
                            hidden=args.hidden, K=args.K, dropout=0.8,
                            generator=torch.Generator().manual_seed(args.seed))
+    k1_before = banded_dkw.launches
     t0 = time.perf_counter()
     params, losses = train_node_classifier(
         model, model.param_tree(), features, y, train_mask,
@@ -167,41 +217,48 @@ def main(argv=None) -> dict:
         generator=torch.Generator(device=dev).manual_seed(1))
     losses = losses.tolist()  # waits for the device
     wall = time.perf_counter() - t0
+    k1_per_step = (banded_dkw.launches - k1_before) / args.steps
     with torch.inference_mode():
         train_acc = float(model.accuracy(params, features, y, train_mask))
         test_acc = float(model.accuracy(params, features, y, test_mask))
-    print(f"trained {args.steps} steps in {wall:.1f}s "
-          f"({wall / args.steps * 1000:.1f} ms/step)")
-    print(f"loss {losses[0]:.3f} -> {losses[-1]:.3f} | "
-          f"train acc {train_acc:.3f} | test acc {test_acc:.3f}")
+    say(f"trained {args.steps} steps in {wall:.1f}s "
+        f"({wall / args.steps * 1000:.1f} ms/step)")
+    say(f"loss {losses[0]:.3f} -> {losses[-1]:.3f} | "
+        f"train acc {train_acc:.3f} | test acc {test_acc:.3f}")
     out = {"train_acc": train_acc, "test_acc": test_acc, "losses": losses,
            "ms_per_step": wall / args.steps * 1e3}
+    if mesh is not None:
+        ranks = mesh.all_gather(torch.tensor(
+            [k1_per_step], dtype=torch.float64, device=dev), "nodes").tolist()
+        say(f"K1 launches per training step by rank: {ranks}")
+        out["k1_launches_per_step"] = ranks
 
     if args.int8:
-        sample = float(np.abs(fp).max())
         qmodel = quantize_model_operators(model, sample_x=sample)
         with torch.inference_mode():
             int8_acc = float(qmodel.accuracy(params, features, y,
                                              test_mask))
-        print(f"int8 test acc {int8_acc:.4f} "
-              f"(delta vs f32 {int8_acc - test_acc:+.4f})")
+        say(f"int8 test acc {int8_acc:.4f} "
+            f"(delta vs f32 {int8_acc - test_acc:+.4f})")
         out["int8_test_acc"] = int8_acc
         n_spmm = (len(args.hidden) + 1) * (args.K - 1)
         where = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                  else "cpu")
         for name, m in (("f32 ", model), ("int8", qmodel)):
             ms = _chain_ms(m, params, features, dev)
-            print(f"{name} inference {ms:7.2f} ms/graph  "
-                  f"{op.nnz * n_spmm / ms / 1e6:6.3f} Gedges/s "
-                  f"({n_spmm} spmm/inference) [{where}]")
+            say(f"{name} inference {ms:7.2f} ms/graph  "
+                f"{op.nnz * n_spmm / ms / 1e6:6.3f} Gedges/s "
+                f"({n_spmm} spmm/inference) [{where}]")
             out[f"{name.strip()}_ms"] = ms
 
     if args.export:
         serve.export_serving(model, params, features, args.export,
-                             int8=args.int8, sample_x=float(np.abs(fp).max()))
+                             int8=args.int8, sample_x=sample)
         print(f"serving artifact written to {args.export} "
               f"(int8={args.int8}); load with "
               f"cnn_graph_tpu_torch.serve.load_serving")
+    if mesh is not None:
+        dist.destroy_process_group()
     return out
 
 

@@ -7,10 +7,13 @@ Counterpart of ``cnn_graph_tpu/models/common.py`` (``trunc_normal`` :125,
 ``uniform_init`` :131, ``bias_init`` :136, ``bias_act_init`` :140, ``bias_act`` :155,
 ``fc_init`` :163, ``fc_apply`` :171, ``dropout`` :176,
 ``graph_arrays`` :43, ``with_graph_arrays`` :52,
-``quantize_model_operators`` :63).  Parameter trees are the JAX
-package's: nested dicts and lists with tensors at the leaves;
-``ParamTree`` registers such a tree's leaves as an ``nn.Module``'s
-parameters.
+``quantize_model_operators`` :63, with the banded halo branch
+:90-112).  ``ShardedDraw``, ``is_sharded`` and ``node_mean`` are the
+port's: on a node-sharded operator each rank holds its rows, and a
+dropout mask or a mean over nodes needs the whole array's.  Parameter
+trees are the JAX package's: nested dicts and lists with tensors at the
+leaves; ``ParamTree`` registers such a tree's leaves as an
+``nn.Module``'s parameters.
 """
 
 from __future__ import annotations
@@ -36,6 +39,10 @@ __all__ = [
     "fc_init",
     "fc_apply",
     "dropout",
+    "ShardedDraw",
+    "shard_draw",
+    "is_sharded",
+    "node_mean",
     "graph_arrays",
     "with_graph_arrays",
     "map_operators",
@@ -160,19 +167,67 @@ def fc_apply(params, x: torch.Tensor, relu: bool = True) -> torch.Tensor:
     return torch.relu(y) if relu else y
 
 
+@dataclasses.dataclass(frozen=True)
+class ShardedDraw:
+    """A generator whose draws are those of the unsharded array, sliced
+    to this rank's part: ``slices`` holds ``(axis, lo, total)`` per
+    sharded axis.  ``dropout`` draws the whole ``total``-long mask from
+    ``generator`` on every rank and keeps ``[lo, lo + size)``, so that
+    sharded and single-device training draw the same masks."""
+
+    generator: torch.Generator
+    slices: tuple = ()
+
+
+def shard_draw(generator, axis: int, lo: int, total: int) -> ShardedDraw:
+    """``generator`` (or a ``ShardedDraw``) with one more sharded axis."""
+    if isinstance(generator, ShardedDraw):
+        return ShardedDraw(generator.generator,
+                           generator.slices + ((axis, lo, total),))
+    return ShardedDraw(generator, ((axis, lo, total),))
+
+
 def dropout(x: torch.Tensor, keep_prob: float, train: bool,
-            generator: torch.Generator | None = None) -> torch.Tensor:
+            generator=None) -> torch.Tensor:
     """Inverted dropout with a KEEP probability: kept entries are scaled
     by ``1 / keep_prob``, the rest zeroed.  Identity at ``keep_prob``
     1.0 or outside training.  The mask is drawn from ``generator``, which
-    must live on x's device; its bits are not ``jax.random``'s."""
+    must live on x's device (a ``ShardedDraw``: this rank's slice of the
+    unsharded array's mask); its bits are not ``jax.random``'s."""
     if not train or keep_prob >= 1.0:
         return x
     if generator is None:
         raise ValueError("dropout in training needs a torch.Generator")
-    keep = torch.rand(x.shape, generator=generator, device=x.device,
+    slices = ()
+    if isinstance(generator, ShardedDraw):
+        generator, slices = generator.generator, generator.slices
+    shape = list(x.shape)
+    for axis, _, total in slices:
+        shape[axis] = total
+    keep = torch.rand(shape, generator=generator, device=x.device,
                       dtype=torch.float32) < keep_prob
+    for axis, lo, _ in slices:
+        keep = keep.narrow(axis, lo, x.shape[axis])
     return torch.where(keep, x / keep_prob, 0.0)
+
+
+def is_sharded(op) -> bool:
+    """Whether ``op`` is a node-sharded operator (it carries a mesh)."""
+    return getattr(op, "mesh", None) is not None
+
+
+def node_mean(t: torch.Tensor, op, axis: int = -2) -> torch.Tensor:
+    """The mean of ``t`` over all its entries, ``axis`` being the node
+    axis.  On a node-sharded operator ``t`` holds this rank's rows: the
+    sum over its real rows, summed over the ``nodes`` axis, over the
+    global count, differentiable as every rank's global value."""
+    if not is_sharded(op):
+        return t.mean()
+    from cnn_graph_tpu_torch.parallel.mesh import node_sum
+
+    real = t.narrow(axis, 0, op.real_rows)
+    count = t.numel() // t.shape[axis] * op.m
+    return node_sum(real.sum(), op.mesh) / count
 
 
 # Model attributes holding graph data (operators, Fourier eigenbases,
@@ -232,10 +287,11 @@ def map_operators(model, fn):
 def quantize_model_operators(model, sample_x: float = 1.0,
                              headroom: float = 2.0):
     """A shallow copy of ``model`` whose graph operators are replaced by
-    their int8 twins: banded, block-sparse and dense operators are
-    quantized, an already quantized operator passes through, and any
-    other format (none has a twin in the port yet) raises rather than
-    serving unquantized."""
+    their int8 twins: banded, block-sparse, dense and banded halo
+    (sharded) operators are quantized, an already quantized operator
+    passes through, and any other format raises rather than serving
+    unquantized (the sparse halo operators' twins come with them,
+    ROADMAP queue 1 item 6b)."""
     from cnn_graph_tpu_torch.ops.laplacian import (
         BandedLaplacian,
         BlockSparseLaplacian,
@@ -247,8 +303,16 @@ def quantize_model_operators(model, sample_x: float = 1.0,
         quantize_block_sparse,
         quantize_dense,
     )
+    from cnn_graph_tpu_torch.parallel.banded_halo import (
+        BandedHaloLaplacian,
+        QuantBandedHaloLaplacian,
+        quantize_banded_halo,
+    )
 
     def q(op):
+        if isinstance(op, BandedHaloLaplacian):
+            return quantize_banded_halo(op, headroom=headroom,
+                                        sample_x=sample_x)
         if isinstance(op, BandedLaplacian):
             return quantize_banded(op, headroom=headroom, sample_x=sample_x)
         if isinstance(op, DenseLaplacian):
@@ -257,7 +321,7 @@ def quantize_model_operators(model, sample_x: float = 1.0,
             return quantize_block_sparse(op, headroom=headroom,
                                          sample_x=sample_x)
         if isinstance(op, (QuantBandedLaplacian, QuantBlockSparseLaplacian,
-                           QuantDenseLaplacian)):
+                           QuantDenseLaplacian, QuantBandedHaloLaplacian)):
             return op
         raise NotImplementedError(
             f"no int8 twin for {type(op).__name__} in cnn_graph_tpu_torch yet"

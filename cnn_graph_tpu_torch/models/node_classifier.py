@@ -79,6 +79,10 @@ class NodeClassifier(nn.Module):
         ``train`` turns dropout on, drawing from ``generator``."""
         x = features[None]
         n = len(params["convs"])
+        if train and common.is_sharded(self.op) and generator is not None:
+            # The unsharded mask, this rank's rows of it.
+            generator = common.shard_draw(generator, 1, self.op.row_range[0],
+                                          self.op.m_padded)
         for i, layer in enumerate(params["convs"]):
             h = cheby_conv(x, self.op, layer["w"],
                            input_grad=(i > 0 or self.input_grad)) + layer["b"]
@@ -97,20 +101,39 @@ class NodeClassifier(nn.Module):
              train: bool = False,
              generator: torch.Generator | None = None) -> torch.Tensor:
         """Masked mean cross-entropy: ``labels`` ``[M]`` int, ``mask``
-        ``[M]`` bool selects the labeled nodes (None: all)."""
+        ``[M]`` bool selects the labeled nodes (None: all).  On a
+        node-sharded operator the arguments are this rank's rows, and
+        the masked sum and count are summed over the ``nodes`` axis
+        before the division (the gradients are this rank's share)."""
         logp = torch.log_softmax(
             self.apply(params, features, train=train, generator=generator),
             dim=1)
         picked = logp.gather(1, labels[:, None].long())[:, 0]
-        if mask is None:
-            return -picked.mean()
-        mask = mask.to(picked.dtype)
-        return -(picked * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+        if not common.is_sharded(self.op):
+            if mask is None:
+                return -picked.mean()
+            mask = mask.to(picked.dtype)
+            return -(picked * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+        from cnn_graph_tpu_torch.parallel.mesh import node_sum
+
+        mask = (torch.ones_like(picked) if mask is None
+                else mask.to(picked.dtype))
+        total = node_sum(-(picked * mask).sum(), self.op.mesh)
+        count = self.op.mesh.all_reduce(mask.sum().detach(), "nodes")
+        return total / torch.clamp_min(count, 1.0)
 
     def accuracy(self, params, features, labels, mask=None) -> torch.Tensor:
+        """The masked share of nodes whose argmax is the label, over every
+        rank's rows of a node-sharded operator."""
         pred = self.apply(params, features).argmax(dim=1)
         correct = (pred == labels).to(torch.float32)
-        if mask is None:
-            return correct.mean()
-        mask = mask.to(torch.float32)
-        return (correct * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+        if not common.is_sharded(self.op):
+            if mask is None:
+                return correct.mean()
+            mask = mask.to(torch.float32)
+            return (correct * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+        mask = (torch.ones_like(correct) if mask is None
+                else mask.to(torch.float32))
+        pair = self.op.mesh.all_reduce(
+            torch.stack([(correct * mask).sum(), mask.sum()]), "nodes")
+        return pair[0] / torch.clamp_min(pair[1], 1.0)

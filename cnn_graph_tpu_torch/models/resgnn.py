@@ -134,6 +134,8 @@ class ResGNN(nn.Module):
     def loss(self, params, x: torch.Tensor, y: torch.Tensor, *,
              train: bool = False,
              generator: torch.Generator | None = None) -> torch.Tensor:
-        """Mean squared error (graph_model.py:253-259)."""
+        """Mean squared error (graph_model.py:253-259); on a node-sharded
+        operator ``x`` and ``y`` are this rank's rows and the mean is
+        over every rank's (``common.node_mean``)."""
         pred = self.apply(params, x, train=train, generator=generator)
-        return ((y - pred) ** 2).mean()
+        return common.node_mean((y - pred) ** 2, self.op)

@@ -4,11 +4,13 @@ Counterpart of ``cnn_graph_tpu/ops/filters.py``: ``cheby_conv`` (:323)
 with the same dispatch (:344-378) and fused-kernel eligibility rule
 ``_fused_eligible`` (:47), ``cheby_conv_banded`` (:180-320) with
 its streaming forward and fused adjoint backward, the int8 streaming
-conv ``_cheby_conv_quant_stream`` (:74) and the stacked ``cheby_basis``
-(:138) of the dense path; the Lanczos filter ``lanczos_basis_device``
-(:381) and ``lanczos_conv`` (:446), whose ``L @ v`` products go through
-the operator's ``matmul`` (a banded or BSR operator's kernel on the
-card); ``cheby_weights_from_flat`` (:466); and the Fourier filter
+conv ``_cheby_conv_quant_stream`` (:74), the stacked ``cheby_basis``
+(:138) of the dense path and, for the sharded operators, its one-call
+``cheby_chain`` and int8 ``_cheby_basis_quant`` (:106); the Lanczos
+filter ``lanczos_basis_device`` (:381) and ``lanczos_conv`` (:446),
+whose ``L @ v`` products go through the operator's ``matmul`` (a banded
+or BSR operator's kernel on the card); ``cheby_weights_from_flat``
+(:466); and the Fourier filter
 ``fourier_conv`` (:473), three dense contractions with the eigenbasis
 U, plain ``torch.einsum`` as the JAX package leaves them to XLA.
 Activations are ``[B, M, F]``, Chebyshev and Lanczos weights ``[K,
@@ -202,18 +204,70 @@ def cheby_conv_banded(x: torch.Tensor, L: BandedLaplacian, w: torch.Tensor,
     return _ccb_forward(x, L, w, keep=False)[0]
 
 
+def _basis_input(x: torch.Tensor, L) -> torch.Tensor:
+    """``x`` ``[B, M, F]`` as the recurrence's ``[rows, F*B]`` columns
+    (feature-major), zero-padded to the operator's rows.  A node-sharded
+    operator (``rows_per_shard``) takes this rank's rows, ``M =
+    rows_per_shard``; those past the graph's last node are zeroed, as
+    JAX's slice to ``M`` and zero padding leave them."""
+    B, M, F = x.shape
+    xt = x.permute(1, 2, 0).reshape(M, F * B)
+    ms = getattr(L, "rows_per_shard", None)
+    if ms is None:
+        return _pad_nodes(xt, L.m_padded)
+    if M != ms:
+        raise ValueError(f"a node-sharded operator takes this rank's "
+                         f"{ms} rows; x has {M}")
+    return _pad_nodes(xt[:L.real_rows], ms)
+
+
+def _cheby_basis_quant(x: torch.Tensor, L, K: int) -> torch.Tensor:
+    """The Chebyshev basis on int8 carries (JAX filters.py:106-131): the
+    activation scale from ``max|x|`` at run time (over every rank's rows
+    of a sharded operator, an ``all_reduce(MAX)`` over ``nodes``), one
+    quantize, K-1 int8 hops (one ``cheby_chain_q`` where the operator
+    has it), one dequantize to x's dtype."""
+    B, M, F = x.shape
+    xt = _basis_input(x, L).to(torch.float32)
+    amax = xt.abs().amax()
+    if getattr(L, "mesh", None) is not None:
+        amax = L.mesh.all_reduce(amax.reshape(1), "nodes", "max")[0]
+    s_x = torch.clamp_min(amax, 1e-30) * torch.tensor(
+        L.headroom / 127.0, dtype=torch.float32)
+    xq = L.quantize(xt, scale=s_x)
+    if hasattr(L, "cheby_chain_q"):
+        stacked = L.cheby_chain_q(xq, K)
+    else:
+        basis = [xq]
+        if K > 1:
+            basis.append(L.spmm_q(xq))
+        for _ in range(2, K):
+            basis.append(L.cheby_hop_q(basis[-1], basis[-2]))
+        stacked = torch.stack(basis)
+    stacked = L.dequantize(stacked[:, :M], x.dtype, scale=s_x)
+    return stacked.reshape(K, M, F, B).permute(0, 3, 1, 2)
+
+
 def cheby_basis(x: torch.Tensor, L, K: int) -> torch.Tensor:
     """Stacked Chebyshev basis ``T_k(L) x`` for k < K in the operator's
-    compute dtype: ``[B, M, F]`` -> ``[K, B, M, F]``."""
+    compute dtype: ``[B, M, F]`` -> ``[K, B, M, F]``.  Quantized
+    operators run the recurrence on int8 carries
+    (``_cheby_basis_quant``); sharded operators run it as one
+    ``cheby_chain`` where they have one (JAX filters.py:138-177)."""
+    if hasattr(L, "cheby_hop_q"):
+        return _cheby_basis_quant(x, L, K)
     B, M, F = x.shape
-    xt = _pad_nodes(x.permute(1, 2, 0).reshape(M, F * B),
-                    L.m_padded).to(L.compute_dtype)
-    basis = [xt]
-    if K > 1:
-        basis.append(L.matmul(xt))
-    for _ in range(2, K):
-        basis.append(L.cheby_hop(basis[-1], basis[-2]))
-    stacked = torch.stack(basis)[:, :M].reshape(K, M, F, B)
+    xt = _basis_input(x, L).to(L.compute_dtype)
+    if hasattr(L, "cheby_chain"):
+        stacked = L.cheby_chain(xt, K)
+    else:
+        basis = [xt]
+        if K > 1:
+            basis.append(L.matmul(xt))
+        for _ in range(2, K):
+            basis.append(L.cheby_hop(basis[-1], basis[-2]))
+        stacked = torch.stack(basis)
+    stacked = stacked[:, :M].reshape(K, M, F, B)
     return stacked.permute(0, 3, 1, 2)
 
 
@@ -223,7 +277,8 @@ def cheby_conv(x: torch.Tensor, L, w: torch.Tensor,
 
     ``x``: ``[B, M, Fin]``, ``w``: ``[K, Fin, Fout]`` -> ``[B, M, Fout]``.
     Banded operators take ``cheby_conv_banded``; single-chip quantized
-    operators the int8 streaming conv (inference only); dense operators
+    operators the int8 streaming conv (inference only), sharded ones the
+    stacked int8 basis of ``cheby_chain_q``; dense operators
     built with ``use_fused`` the fused kernels where ``_fused_eligible``
     holds (tile 512 for f32 operators, 256 otherwise, as in JAX);
     everything else (block-sparse operators included) the stacked basis

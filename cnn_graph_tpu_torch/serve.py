@@ -158,7 +158,20 @@ def export_serving(model, params, example_x: torch.Tensor, path: str,
     without model code.  ``int8``, ``sample_x`` and ``headroom`` as for
     ``compile_serving``.  ``platforms`` (default: ``example_x``'s device
     type) may only name that device type: the program is traced on that
-    device's kernels and runs there alone.  Returns ``path``."""
+    device's kernels and runs there alone.  A model on node-sharded
+    operators is refused, as JAX's (serve.py:145-155).  Returns
+    ``path``."""
+    sharded = [type(o).__name__ for o in _model_operators(model)
+               if getattr(o, "mesh", None) is not None]
+    if sharded:
+        raise ValueError(
+            f"model carries sharded (halo) operators {sharded}: the "
+            "export artifact is the single-chip serving unit — a "
+            "shard_map program would bake the exporting mesh's device "
+            "count into the artifact.  Shard at the serving layer by "
+            "graph partition instead, or rebuild the model with "
+            "single-chip operators before exporting."
+        )
     kind = example_x.device.type
     if platforms is not None and list(platforms) != [kind]:
         raise ValueError(

@@ -19,12 +19,15 @@ from cnn_graph_tpu_torch.models.common import tree_leaves, tree_map
 __all__ = ["adam_steps", "train_classifier"]
 
 
-def adam_steps(params, loss_of, *, steps: int, learning_rate: float):
+def adam_steps(params, loss_of, *, steps: int, learning_rate: float,
+               mesh=None):
     """Run ``steps`` adam steps on ``loss_of(params, step)``.  ``params``
     (a tree of tensors) is left untouched.  Returns ``(trained params,
     losses)``: the params in the same tree layout, detached, and a
     ``[steps]`` f32 tensor of each step's loss before its update.
-    Nothing here waits for the device."""
+    With a ``parallel.Mesh`` the gradients are made global
+    (``Mesh.sync_grads``) before each update.  Nothing here waits for
+    the device."""
     params = tree_map(lambda t: t.detach().clone().requires_grad_(), params)
     opt = torch.optim.Adam(tree_leaves(params), lr=learning_rate,
                            betas=(0.9, 0.999), eps=1e-8)
@@ -33,6 +36,8 @@ def adam_steps(params, loss_of, *, steps: int, learning_rate: float):
         opt.zero_grad(set_to_none=True)
         loss = loss_of(params, step)
         loss.backward()
+        if mesh is not None:
+            mesh.sync_grads([p.grad for p in tree_leaves(params)])
         opt.step()
         losses.append(loss.detach())
     return tree_map(torch.Tensor.detach, params), torch.stack(losses)

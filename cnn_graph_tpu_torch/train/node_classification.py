@@ -4,7 +4,9 @@ Counterpart of the loop that ``experiments/node_classification.py:146-176``
 and ``bench.py:276-297`` run with ``optax.adam``: each step takes the
 masked cross-entropy and its gradient at the current parameters, then
 one adam update.  ``train.adam_steps`` runs the update, ``optax.adam``'s, so
-the JAX trajectory is the reference.
+the JAX trajectory is the reference.  On a node-sharded operator every
+rank runs the loop on its rows, and the gradients are summed over the
+mesh's ``nodes`` axis (and averaged over ``data``) before each update.
 """
 
 from __future__ import annotations
@@ -29,4 +31,5 @@ def train_node_classifier(model, params, features, labels, mask, *,
         params,
         lambda p, _: model.loss(p, features, labels, mask, train=True,
                                 generator=generator),
-        steps=steps, learning_rate=learning_rate)
+        steps=steps, learning_rate=learning_rate,
+        mesh=getattr(model.op, "mesh", None))

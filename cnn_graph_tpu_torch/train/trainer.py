@@ -22,6 +22,19 @@ The model protocol is the port's: ``param_tree()``, ``loss(params, x, y,
 a ``torch.Generator`` on the model's device seeded with ``config.seed``,
 so they are not ``jax.random``'s.  The Trainer runs on the device of the
 model's operator (``models.common.operator_device``).
+
+``TrainConfig.mesh`` (JAX :58-67, :135-151, :257-263) is a
+``parallel.Mesh``; every rank runs ``fit`` with the same arguments.
+Each step's batch is drawn as on one device and split over ``data``
+(each rank takes its slice; the batch must divide); the parameters and
+the optimizer state start as global rank 0's; the gradients are summed
+over ``nodes`` and averaged over ``data`` (``Mesh.sync_grads``) before
+the update; dropout draws the whole batch's mask and keeps this rank's
+slice.  With ``nodes`` > 1 the model's operators are node-sharded on
+that mesh: each rank takes its rows of the node axis (axis 1) of the
+data, and of the targets, so the task must be ``regression`` (targets
+per node); predictions are gathered over ``nodes``.  Checkpoints and
+the metrics stream are written by global rank 0 alone.
 """
 
 from __future__ import annotations
@@ -66,8 +79,8 @@ class TrainConfig:
     checkpoint_dir: str | None = None  # enables periodic save + resume
     checkpoint_keep: int = 5
     log_path: str | None = None  # JSONL metrics stream
-    # Batch data parallelism over a device mesh: kept for the JAX
-    # package's signature; not ported (ROADMAP queue 1 item 6).
+    # Data x node parallelism over a parallel.Mesh (see the module's
+    # docstring).
     mesh: Any = None
 
 
@@ -85,10 +98,16 @@ class Trainer:
                  task: str = "regression"):
         if task not in TASKS:
             raise ValueError(f"unknown task {task!r}; one of {TASKS}")
-        if config.mesh is not None:
-            raise NotImplementedError(
-                "TrainConfig.mesh (batch data parallelism) is not ported to "
-                "cnn_graph_tpu_torch yet (ROADMAP queue 1 item 6)")
+        mesh = config.mesh
+        self.node_op = None
+        if mesh is not None:
+            assert "data" in mesh.axis_names, mesh
+            n_dp = mesh.shape["data"]
+            assert config.batch_size % n_dp == 0, (
+                f"batch_size {config.batch_size} not divisible by the "
+                f"mesh's data axis ({n_dp})")
+            if mesh.shape["nodes"] > 1:
+                self.node_op = _node_sharded_operator(model, mesh, task)
         self.model = model
         self.config = config
         self.task = task
@@ -111,10 +130,14 @@ class Trainer:
             lambda t: torch.as_tensor(t).detach().to(self.device).clone(),
             self.params))
         opt_state = self.optimizer.init(tree_leaves(params))
+        lead = self._lead
+        verbose = verbose and lead
 
         n = train_data.shape[0]
-        data = torch.as_tensor(np.asarray(train_data)).to(self.device)
-        labels = torch.as_tensor(np.asarray(train_labels)).to(self.device)
+        data = self._node_rows(torch.as_tensor(np.asarray(train_data)).to(
+            self.device))
+        labels = self._node_rows(torch.as_tensor(np.asarray(
+            train_labels)).to(self.device))
         num_steps = int(c.num_epochs * n / c.batch_size)
 
         ema = torch.tensor(-1.0, device=self.device)
@@ -132,7 +155,12 @@ class Trainer:
                 params, opt_state, step = mngr.restore(params, opt_state)
                 if verbose:
                     print(f"resumed from checkpoint at step {step}")
-        if c.log_path:
+        if c.mesh is not None:
+            # Every rank starts from global rank 0's state.
+            from cnn_graph_tpu_torch.parallel.mesh import replicated
+
+            replicated(c.mesh, (params, opt_state))
+        if c.log_path and lead:
             logger = MetricsLogger(c.log_path)
 
         while step < num_steps:
@@ -142,9 +170,10 @@ class Trainer:
                 [sampler.next_batch(c.batch_size) for _ in range(chunk)]
             )).to(self.device)
             for i in range(chunk):
+                rows = self._data_rows(idx[i])
                 opt_state, ema = self._train_step(
-                    params, opt_state, ema, gen, data[idx[i]],
-                    labels[idx[i]])
+                    params, opt_state, ema, self._draws(gen), data[rows],
+                    labels[rows])
             step += chunk
             if step % c.eval_frequency == 0 or step == num_steps:
                 self.params, self.opt_state = params, opt_state
@@ -157,7 +186,7 @@ class Trainer:
                     logger.log(step, loss_ema=ema_host,
                                val_metric=metrics["main"],
                                val_loss=metrics["loss"])
-                if mngr:
+                if mngr and lead:
                     mngr.save(step, params, opt_state)
                 if verbose:
                     epoch = step * c.batch_size / n
@@ -168,7 +197,7 @@ class Trainer:
                     print(f"  time: wall {time.time() - t_wall:.0f}s")
 
         self.params, self.opt_state = params, opt_state
-        if mngr:
+        if mngr and lead:
             mngr.wait()
             mngr.close()
         if logger:
@@ -188,13 +217,14 @@ class Trainer:
             end = min(begin + c.batch_size, n)
             batch = np.zeros((c.batch_size,) + data.shape[1:], data.dtype)
             batch[: end - begin] = data[begin:end]
-            xb = torch.from_numpy(batch).to(self.device)
+            xb = self._node_rows(torch.from_numpy(batch).to(self.device))
             if labels is not None:
                 yb = np.zeros((c.batch_size,) + labels.shape[1:],
                               labels.dtype)
                 yb[: end - begin] = labels[begin:end]
                 out, loss = self._eval_batch(
-                    self.params, xb, torch.from_numpy(yb).to(self.device))
+                    self.params, xb,
+                    self._node_rows(torch.from_numpy(yb).to(self.device)))
                 total_loss += float(loss)
             else:
                 out = self._eval_batch(self.params, xb)
@@ -212,6 +242,49 @@ class Trainer:
 
     # ---- internals ----
 
+    @property
+    def _lead(self) -> bool:
+        """Whether this process writes checkpoints, logs and reports:
+        global rank 0, or the only process."""
+        import torch.distributed as dist
+
+        return self.config.mesh is None or dist.get_rank() == 0
+
+    def _node_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of the node axis (axis 1) of a batch-leading
+        tensor, where the model's operators are node-sharded."""
+        if self.node_op is None:
+            return t
+        return self.node_op.local_rows(t, axis=1).contiguous()
+
+    def _gather_nodes(self, out: torch.Tensor) -> torch.Tensor:
+        """The model's outputs on every rank's rows, ``[B, m, ...]``."""
+        if self.node_op is None:
+            return out
+        full = self.config.mesh.all_gather(out.transpose(0, 1).contiguous(),
+                                           "nodes")
+        return full.transpose(0, 1)[:, :self.node_op.m]
+
+    def _data_rows(self, idx: torch.Tensor) -> torch.Tensor:
+        """This rank's slice over ``data`` of one step's batch indices."""
+        if self.config.mesh is None:
+            return idx
+        from cnn_graph_tpu_torch.parallel.mesh import data_sharding
+
+        return data_sharding(self.config.mesh, idx)
+
+    def _draws(self, gen):
+        """The step's dropout generator: over ``data``, the whole batch's
+        masks, this rank's slice of them."""
+        mesh = self.config.mesh
+        if mesh is None or mesh.shape["data"] == 1:
+            return gen
+        from cnn_graph_tpu_torch.models.common import shard_draw
+
+        b = self.config.batch_size // mesh.shape["data"]
+        return shard_draw(gen, 0, mesh.coord("data") * b,
+                          self.config.batch_size)
+
     def _train_step(self, params, opt_state, ema, gen, x, y):
         """One step on ``params`` in place: loss and gradients, the
         optimizer chain, the EMA (which takes the first loss as it is).
@@ -222,6 +295,12 @@ class Trainer:
         with torch.enable_grad():
             loss = self.model.loss(params, x, y, train=True, generator=gen)
             grads = torch.autograd.grad(loss, leaves)
+        mesh = c.mesh
+        if mesh is not None:
+            grads = mesh.sync_grads(list(grads))
+            if mesh.shape["data"] > 1:
+                loss = mesh.all_reduce(loss.detach().clone(), "data") / (
+                    mesh.shape["data"])
         with torch.no_grad(), profiled("trainer.optimizer"):
             updates, opt_state = self.optimizer.update(grads, opt_state)
             for p, u in zip(leaves, updates):
@@ -237,9 +316,10 @@ class Trainer:
             out = self.model.apply(params, x)
             if self.task == "regression":
                 out = torch.relu(out)
+            out_all = self._gather_nodes(out)
             if y is None:
-                return out
-            return out, self.model.loss(params, x, y)
+                return out_all
+            return out_all, self.model.loss(params, x, y)
 
     def _metrics(self, outputs, labels, loss):
         if self.task == "regression":
@@ -263,7 +343,8 @@ class Trainer:
                         "loss": loss, "predictions": pred_classes}
 
     def _device_batches(self, data, labels):
-        """Pad to a whole number of batches and upload once."""
+        """Pad to a whole number of batches and upload once (this rank's
+        node rows, where the operators are node-sharded)."""
         B = self.config.batch_size
         n = data.shape[0]
         nb = -(-n // B)
@@ -273,13 +354,10 @@ class Trainer:
                 [data, np.zeros((pad,) + data.shape[1:], data.dtype)])
             labels = np.concatenate(
                 [labels, np.zeros((pad,) + labels.shape[1:], labels.dtype)])
-        return (
-            torch.from_numpy(np.ascontiguousarray(
-                data.reshape((nb, B) + data.shape[1:]))).to(self.device),
-            torch.from_numpy(np.ascontiguousarray(
-                labels.reshape((nb, B) + labels.shape[1:]))).to(self.device),
-            n,
-        )
+        data, labels = (self._node_rows(torch.from_numpy(
+            np.ascontiguousarray(a)).to(self.device)) for a in (data, labels))
+        return (data.reshape((nb, B) + data.shape[1:]),
+                labels.reshape((nb, B) + labels.shape[1:]), n)
 
     def _evaluate_device(self, params, batched, labels):
         """Evaluate pre-batched device data, with one fetch."""
@@ -321,6 +399,20 @@ def _canonical(tree):
     if isinstance(tree, (list, tuple)):
         return [_canonical(v) for v in tree]
     return tree
+
+
+def _node_sharded_operator(model, mesh, task: str):
+    """The model's node-sharded operator on ``mesh``, which a ``nodes``
+    axis needs: every graph operator of the model must be one."""
+    if task != "regression":
+        raise ValueError(
+            f"a mesh with nodes > 1 shards the data's node axis: the task "
+            f"must be regression (targets per node), not {task!r}")
+    ops = getattr(model, "operators", None) or [getattr(model, "op", None)]
+    if not ops or any(getattr(o, "mesh", None) is not mesh for o in ops):
+        raise ValueError("a mesh with nodes > 1 needs the model's operators "
+                         "node-sharded on that mesh (parallel.*_laplacian)")
+    return ops[0]
 
 
 def _model_device(model) -> torch.device:

@@ -1144,3 +1144,161 @@ def test_loaded_f32_artifact_ignores_tf32(city96, cuda_device, tmp_path):
         torch.backends.cuda.matmul.allow_tf32 = old
     assert float((got - want).abs().max()) <= 1e-6 * float(
         want.abs().max())
+
+
+# ------------------------------------------------- node-sharded operators
+
+
+class _ShardView:
+    """One shard's view of a ``nodes`` mesh, with no process group: what
+    ``banded_halo_laplacian`` reads to build shard ``s`` of ``n``."""
+
+    def __init__(self, n, s, device):
+        self.shape = {"data": 1, "nodes": n}
+        self.device, self._s = device, s
+
+    def coord(self, axis):
+        return self._s if axis == "nodes" else 0
+
+
+@pytest.mark.parametrize("layout", ["dkw", "uniform", "ragged"])
+def test_band_kernels_take_a_halo_extended_x(city96, cuda_device, layout):
+    """K1, K5 and K6 on a middle shard's extended x ``[left halo | local |
+    right halo]``, its first rows' window bases inside the left halo:
+    the single-chip operator's rows, and the row walk's plain version on
+    the same extended x (bf16, one ulp)."""
+    from cnn_graph_tpu_torch.parallel import banded_halo_laplacian
+
+    n, s, G = 4, 1, 2
+    single = device_laplacian(city96, fmt="banded", dtype=torch.bfloat16,
+                              rows_per_step=G, ragged=layout != "uniform",
+                              device=cuda_device)
+    op = banded_halo_laplacian(city96, _ShardView(n, s, cuda_device),
+                               dtype=torch.bfloat16, rows_per_step=G,
+                               ragged=layout != "uniform")
+    if layout == "ragged":
+        single = dataclasses.replace(single, bands_dkw=None, sched_dkw=None)
+        op = dataclasses.replace(op, bands_dkw=None, sched_dkw=None,
+                                 sched_dkw_int=None, sched_dkw_suf=None)
+    reg = op.regions["full"]
+    assert op.halo_left > 0 and int(reg.base.min()) < op.halo_left
+    ms = op.rows_per_shard
+    x = torch.randn(op.m_padded, 64, device=cuda_device).to(torch.bfloat16)
+    x[single.m:] = 0
+    lo = s * ms - op.halo_left * 128
+    x_ext = x[lo:(s + 1) * ms + op.halo_right * 128].contiguous()
+    kernel = {"dkw": banded_dkw, "uniform": banded_uniform,
+              "ragged": banded_ragged}[layout]
+    before = kernel.launches
+    got = layout_call(reg, x_ext)
+    assert kernel.launches == before + 1
+    want = layout_call(single, x[:single.m_padded])[s * ms:(s + 1) * ms]
+    torch.testing.assert_close(got.float(), want.float(), rtol=2**-7,
+                               atol=1e-4)
+    plain = banded_rows_reference(
+        reg.bands_dkw if layout == "dkw" else (reg.band,), reg.base,
+        reg.sched_dkw if layout == "dkw" else reg.sched, reg.nz_rowptr,
+        reg.nz_win, x_ext, layout=layout,
+        levels=reg.levels or (reg.band.shape[1],), G=G)
+    torch.testing.assert_close(got.float(), plain.float(), rtol=2**-7,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("layout", ["dkw", "uniform", "ragged"])
+def test_band_kernels_take_an_index_without_nonzeros(city96, cuda_device,
+                                                     layout):
+    """A shard of padding rows alone (city96's 72 block rows in 4 shards
+    of 24): its row index is empty, whose ``nz_win`` data pointer is
+    null; the kernel launches and gives 0 for L@x and ``-x0`` for the
+    hop (the launch refused a null ``nz_win`` before)."""
+    from cnn_graph_tpu_torch.parallel import banded_halo_laplacian
+
+    op = banded_halo_laplacian(city96, _ShardView(4, 3, cuda_device),
+                               dtype=torch.bfloat16, rows_per_step=8,
+                               ragged=layout != "uniform")
+    if layout == "ragged":
+        op = dataclasses.replace(op, bands_dkw=None, sched_dkw=None,
+                                 sched_dkw_int=None, sched_dkw_suf=None)
+    assert op.real_rows == 0 and op.nz_win.numel() == 0
+    reg = op.regions["full"]
+    rows = op.rows_per_shard + (op.halo_left + op.halo_right) * 128
+    x = torch.randn(rows, 64, device=cuda_device).to(torch.bfloat16)
+    x0 = torch.randn(op.rows_per_shard, 64,
+                     device=cuda_device).to(torch.bfloat16)
+    kernel = {"dkw": banded_dkw, "uniform": banded_uniform,
+              "ragged": banded_ragged}[layout]
+    before = kernel.launches
+    assert torch.equal(layout_call(reg, x), torch.zeros_like(x0))
+    assert torch.equal(layout_call(reg, x, x0), -x0)
+    assert kernel.launches == before + 2
+
+
+_WORLD_OF_ONE = r"""
+import sys
+import torch
+from cnn_graph_tpu_torch import graphs
+from cnn_graph_tpu_torch.ops import band, device_laplacian, quantize_banded
+from cnn_graph_tpu_torch.parallel import (banded_halo_laplacian,
+    init_distributed, make_mesh, quantize_banded_halo)
+
+init_distributed(None, init_method="file://" + sys.argv[1], rank=0,
+                 world_size=1)
+mesh = make_mesh(data=1, nodes=1)
+assert mesh.backend == "nccl", mesh.backend
+L, _ = graphs.city_graph(96, k=8, seed=0)
+single = device_laplacian(L, fmt="banded", dtype=torch.bfloat16,
+                          rows_per_step=2)
+gen = torch.Generator(device="cuda").manual_seed(0)
+for fb in (0, 4):
+    h = banded_halo_laplacian(L, mesh, dtype=torch.bfloat16,
+                              rows_per_step=2, force_boundary=fb)
+    assert h.split == bool(fb) and h.m_padded == single.m_padded
+    pairs = ((single, h), (quantize_banded(single, sample_x=3.0),
+                           quantize_banded_halo(h, sample_x=3.0)))
+    for s, q in pairs:
+        i8 = s.compute_dtype == torch.int8
+        x, x0 = (torch.randn(s.m_padded, 64, generator=gen, device="cuda")
+                 for _ in range(2))
+        if i8:
+            x, x0 = s.quantize(x), s.quantize(x0)
+        else:
+            x, x0 = x.to(torch.bfloat16), x0.to(torch.bfloat16)
+        with torch.no_grad():
+            band.banded_dkw.launches = 0
+            got = [q.spmm_q(x) if i8 else q.matmul(x),
+                   (q.cheby_hop_q if i8 else q.cheby_hop)(x, x0),
+                   q.cheby_chain_q(x, 6) if i8 else q.cheby_chain(x, 6)]
+            assert band.banded_dkw.launches == (2 + 5) * (3 if fb else 1)
+            first = s.spmm_q if i8 else s.matmul
+            hop = s.cheby_hop_q if i8 else s.cheby_hop
+            chain = [x, first(x)]
+            for _ in range(4):
+                chain.append(hop(chain[-1], chain[-2]))
+            want = [first(x), hop(x, x0), torch.stack(chain)]
+        for g, w in zip(got, want):
+            if i8:
+                assert torch.equal(g, w)
+            else:
+                torch.testing.assert_close(g.float(), w.float(),
+                                           rtol=2**-7, atol=1e-4)
+torch.distributed.destroy_process_group()
+print("world of one OK")
+"""
+
+
+def test_banded_halo_at_a_world_of_one(cuda_device, tmp_path):
+    """The banded halo operator at a world of one rank (NCCL) against the
+    single-chip operator, with and without the interior/boundary split:
+    bf16 within one ulp, int8 bit-identical, 1 K1 launch per region a
+    hop.  In a child process, so that this one joins no process group."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-c", _WORLD_OF_ONE, str(tmp_path / "store")],
+        cwd=root, capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=root))
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "world of one OK" in proc.stdout

@@ -62,11 +62,39 @@ def test_driver_trains_reports_and_exports(tmp_path):
     assert f"{hits.mean():.4f}" == int8.group(1)
 
 
-@pytest.mark.parametrize("flags", [["--mesh-nodes", "4"],
-                                   ["--halo", "banded"]])
+@pytest.mark.parametrize("flags", [["--mesh-nodes", "4", "--halo", "sparse"],
+                                   ["--mesh-nodes", "2", "--halo",
+                                    "sparse-banded"]])
 def test_sharded_options_raise(flags):
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    """The sparse halo operators are not ported: refused before any
+    work.  ``--mesh-nodes`` with the banded halo runs
+    (tests/test_torch_parallel.py)."""
+    with pytest.raises(NotImplementedError, match="queue 1 item 6b"):
         driver.main(["--device", "cpu", "--nodes", "64", *flags])
+
+
+def test_parsed_defaults_match_jax():
+    """The port's driver parses the JAX driver's defaults (``--halo``
+    banded among them), read from its ``add_argument`` calls without
+    running it; the port adds ``--device``."""
+    import ast
+
+    path = os.path.join(ROOT, "experiments", "node_classification.py")
+    jax_defaults = {}
+    for node in ast.walk(ast.parse(open(path).read())):
+        if (isinstance(node, ast.Call) and isinstance(node.func,
+                                                      ast.Attribute)
+                and node.func.attr == "add_argument"):
+            kw = {k.arg: k.value for k in node.keywords}
+            dest = node.args[0].value.lstrip("-").replace("-", "_")
+            if "default" not in kw:  # a flag: store_true's default
+                assert ast.literal_eval(kw["action"]) == "store_true"
+            jax_defaults[dest] = (ast.literal_eval(kw["default"])
+                                  if "default" in kw else False)
+    ours = vars(driver.parser().parse_args([]))
+    assert ours.pop("device") is None
+    assert ours == jax_defaults
+    assert ours["halo"] == "banded"
 
 
 class _BandedConv(torch.nn.Module):

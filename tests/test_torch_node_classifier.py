@@ -222,6 +222,12 @@ class TestGuards:
             "cnn_graph_tpu_torch.utils.probes, "
             "cnn_graph_tpu_torch.utils.metrics, "
             "cnn_graph_tpu_torch.utils.logging, "
+            "cnn_graph_tpu_torch.parallel, "
+            "cnn_graph_tpu_torch.parallel.mesh, "
+            "cnn_graph_tpu_torch.parallel.node_sharded, "
+            "cnn_graph_tpu_torch.parallel.halo, "
+            "cnn_graph_tpu_torch.parallel.banded_halo, "
+            "cnn_graph_tpu_torch.parallel.dryrun, "
             "cnn_graph_tpu_torch._build, chip_smoke\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'cnn_graph_tpu', 'sklearn', 'optax', "

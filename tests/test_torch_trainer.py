@@ -18,6 +18,7 @@ import json
 import os
 import subprocess
 import sys
+import types
 
 import jax
 import jax.numpy as jnp
@@ -341,9 +342,14 @@ def test_checkpoint_retention_and_interrupted_save(tmp_path):
 
 
 def test_mesh_raises():
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    """A mesh whose data axis does not divide the batch is refused, as
+    JAX's Trainer asserts (trainer.py:135-141); the mesh itself runs
+    (tests/test_torch_parallel.py)."""
+    mesh = types.SimpleNamespace(axis_names=("data", "nodes"),
+                                 shape={"data": 3, "nodes": 1})
+    with pytest.raises(AssertionError, match="divisible"):
         Trainer(_LinearTorch(np.zeros((2, 2), np.float32), "regression"),
-                TrainConfig(mesh=object()))
+                TrainConfig(batch_size=100, mesh=mesh))
 
 
 DRIVERS = {
@@ -368,11 +374,14 @@ def test_driver_runs_on_the_cpu(name):
     assert len(line) == 1 and "accuracy: " in line[0], proc.stdout[-2000:]
 
 
-@pytest.mark.parametrize("argv,item", [(["--mesh-data", "2"], "item 6")])
+@pytest.mark.parametrize("argv,item", [(["--mesh-data", "2"],
+                                        "torch.distributed.run")])
 def test_mnist_driver_refuses_unported_flags(argv, item):
+    """``--mesh-data`` runs one process per rank: launched alone, with no
+    rendezvous to join, the driver refuses before any work."""
     from cnn_graph_tpu_torch.experiments import mnist
 
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(RuntimeError, match=item):
         mnist.main(["--device", "cpu", *argv])
 
 
