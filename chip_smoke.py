@@ -275,13 +275,37 @@ Phases, each fatal on failure (no CPU path, no fallback):
    launches per rank, halo bytes per hop beside (h_l + h_r)*128*C*
    itemsize and the exchange's ms (gloo on one card); (c) the
    node-classification driver on 4 ranks (``--mesh-nodes 4 --halo banded
-   --int8`` at its defaults): test accuracy within 0.01 of phase 25
-   (c)'s, int8 within 0.05 of its float one, the K1 launches per step
+   --int8`` at its defaults but 100 training steps): test
+   accuracy within 0.01 of phase 25 (c)'s, int8 within 0.05 of its float one, the K1 launches per step
    of every rank; (d) ``Trainer.fit`` with ``TrainConfig(mesh=
    make_mesh(data=2, nodes=2))`` on 4 ranks, phase 22's ResGNN on the
    dense halo operator, 4 steps: the parameters within 1e-4 of a
    one-process fit with the same config and data.  A rank that fails
    fails the run.
+
+27. the sparse halo operators (``parallel/sparse_halo.py``), K8 (the
+   BSR row kernel through ``bsr_csr``) and K5 on halo-extended x, and
+   the BCOO format, after phase 26, on 4 ranks sharing the card over
+   gloo: (a) the 50k city graph in ``fmt="bsr"`` and ``"banded"``: each
+   rank's rows of L@x, the hop and the K=25 chain in f32, bf16 and int8
+   against the single-chip banded operator's (f32 1e-5 of the max; bf16
+   L@x and the fused hop one ulp, the BSR format's unfused hop, JAX's,
+   one ulp of its operands against the unfused single-chip hop, the
+   chain no farther from the f32 chain than twice the single-chip bf16
+   chain; int8 bit-identical, the band scale equal), K+1 launches of the
+   format's kernel and no other, the kernel against its plain version
+   on the rank's extended x, the f32 adjoint (1e-4), H, the bytes of a
+   bf16 exchange beside n*H*C*2 and its ms (gloo, one card); (b) the
+   bench's 50k scattered graph in ``fmt="bsr"``, bf16 and int8, L@x and
+   the hop against the single-chip BSR operator's rows, taken in this
+   process while phase 10's operator exists (int8 bit-identical, bf16
+   as in (a)), the blocks per rank; then, in the same world, (d)
+   ``parallel.dryrun.dryrun_multichip``'s three parts; (c) the node-classification driver at its defaults with
+   ``--mesh-nodes 4 --int8``, ``--halo sparse`` and ``--halo
+   sparse-banded``: test accuracy within 0.01 of phase 25 (c)'s, int8
+   within 0.05, K8 or K5 launches every step on every rank; (e) one NodeClassifier request on a ``fmt="bcoo"``
+   operator (``torch.sparse.mm``, no kernel) within 1e-4 of the max of
+   the f32 banded operator's logits on the same weights.
 
 Each 50k scattered operator is freed after its phase.
 
@@ -385,6 +409,11 @@ from cnn_graph_tpu_torch.parallel import (  # noqa: E402
     init_distributed,
     make_mesh,
     quantize_banded_halo,
+    quantize_sparse_halo,
+    sparse_halo_laplacian,
+)
+from cnn_graph_tpu_torch.parallel.dryrun import (  # noqa: E402
+    dryrun_multichip,
 )
 from cnn_graph_tpu_torch.serve import (  # noqa: E402
     compile_serving,
@@ -2729,6 +2758,10 @@ HALO_RANKS = 4
 HALO_ROWS = (2, 2)  # (d)'s mesh: data x nodes
 HALO_FIT_STEPS = 4
 HALO_EXCHANGES = 10  # exchanges timed per rank
+# Phase 26 (c)'s training steps, half the driver's 200: phase 27 (c)
+# runs the same driver at its defaults twice more, and the run stays
+# near 8 minutes.
+HALO_DRIVER_STEPS = 100
 
 
 def _halo_close(got, want, what: str) -> float:
@@ -3013,10 +3046,12 @@ def halo_rank_kernels(d: str):
 
 def sharded_driver_phase(single_acc: float, gpu: str) -> dict:
     """Phase 26 (c): the node-classification driver on HALO_RANKS ranks
-    at its defaults with ``--mesh-nodes 4 --halo banded --int8``."""
+    with ``--mesh-nodes 4 --halo banded --int8``, at its defaults but
+    ``HALO_DRIVER_STEPS`` training steps."""
     out, sec = _launch_ranks(
         ["-m", "cnn_graph_tpu_torch.experiments.node_classification",
-         "--mesh-nodes", str(HALO_RANKS), "--halo", "banded", "--int8"],
+         "--mesh-nodes", str(HALO_RANKS), "--halo", "banded", "--int8",
+         "--steps", str(HALO_DRIVER_STEPS)],
         "phase 26c", 600)
     for line in out.strip().splitlines():
         print(f"  driver: {line}")
@@ -3104,8 +3139,380 @@ def halo_rank_trainer(d: str):
     torch.distributed.destroy_process_group()
 
 
+# ------------------------------------------- the sparse halo operators, 27
+
+# Phase 27: the sparse halo operators on HALO_RANKS ranks sharing the
+# card (phase 26's runner), C = FIN, K = K.  Which kernel each format's
+# products launch, by ``_launched``'s names, and its route.
+SPARSE_KERNEL = {"bsr": ("bsr_csr", "K8"), "banded": ("band_uniform", "K5")}
+SPARSE_SEED = 27
+
+
+def _sparse_inputs(m: int, dev, seed: int):
+    """Two [m, FIN] N(0, 1) inputs from a seeded generator on the card,
+    the same on every process, and their int8 copies."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    xs = [torch.randn(m, FIN, generator=gen, device=dev) for _ in range(2)]
+    return xs, [torch.clamp(torch.round(x * 40), -127, 127).to(torch.int8)
+                for x in xs]
+
+
+def _padded(x, rows):
+    return torch.cat([x, x.new_zeros(rows - x.shape[0], x.shape[1])])
+
+
+class _Unfused:
+    """A single-chip operator whose hop is JAX's unfused ``2 (L @ x) -
+    x0`` (``ChebyHopMixin``), as the BSR sparse halo operator's: in bf16
+    its L@x rounds before the hop rounds again."""
+
+    def __init__(self, op):
+        self.op, self.matmul = op, op.matmul
+
+    def cheby_hop(self, x1, x0):
+        return (2.0 * self.op.matmul(x1) - x0).to(x1.dtype)
+
+
+def _unfused_hop_close(got, y, x0, want, what: str) -> float:
+    """A bf16 hop taken unfused against the single-chip operator's
+    unfused hop from its own L@x ``y``: the two L@x differ by an ulp, so
+    the hops differ within one bf16 ulp of their operands, ``2^-7 (|2y|
+    + |x0|)``, plus 1e-4.  Returns the largest absolute difference."""
+    err = (got.float() - want.float()).abs()
+    tol = 2**-7 * (2.0 * y.float().abs() + x0.float().abs()) + 1e-4
+    check(got.shape == want.shape and bool((err <= tol).all()),
+          f"{what}: {int((err > tol).sum())} entries past one ulp of the "
+          f"operands, max_abs_err {float(err.max()):.3g}")
+    return float(err.max())
+
+
+def _bf16_chain_close(got, want, ref32, what: str) -> float:
+    """The bf16 K-term chain of a sparse halo operator against the
+    single-chip bf16 chain: the two sum each row in other orders, so a
+    one-ulp difference of an early hop feeds every later one.  Held to
+    twice the single-chip chain's own distance from the f32 chain;
+    returns the largest absolute difference from the single-chip
+    chain."""
+    err_h = float((got.float() - ref32).abs().max())
+    err_s = float((want.float() - ref32).abs().max())
+    check(err_h <= 2.0 * err_s + 1e-6, f"{what}: chain {err_h:.3g} from f32, "
+          f"the single-chip bf16 chain {err_s:.3g}")
+    return float((got.float() - want.float()).abs().max())
+
+
+def scattered_refs(single, dev) -> dict:
+    """Phase 27 (b)'s references, taken while phase 10's single-chip bf16
+    BSR operator of the scattered graph exists: its L@x and JAX's
+    unfused hop, and its int8 twin's L@x and hop, on seeded inputs, to
+    the host."""
+    singles = {"bf16": single, "int8": quantize_block_sparse(single,
+                                                             sample_x=3.0)}
+    xs, xq = _sparse_inputs(single.m, dev, SPARSE_SEED + 1)
+    refs = {}
+    with torch.no_grad():
+        for lab, s in singles.items():
+            a, b = ((xq if lab == "int8" else [x.to(torch.bfloat16)
+                                               for x in xs]))
+            a, b = _padded(a, s.m_padded), _padded(b, s.m_padded)
+            first = s.spmm_q if lab == "int8" else s.matmul
+            hop = s.cheby_hop_q if lab == "int8" else _Unfused(s).cheby_hop
+            refs[lab] = (first(a).cpu(), hop(a, b).cpu(), b.cpu())
+    return refs
+
+
+def sparse_ranks_phase(L, L_s, refs, d: str, gpu: str) -> dict:
+    """Phase 27 (a), (b) and (d): ``halo_rank_sparse`` on HALO_RANKS
+    ranks sharing the card, (b) against ``scattered_refs``; every rank
+    checks its rows and writes its record, then runs the dry run."""
+    scipy.sparse.save_npz(os.path.join(d, "L.npz"), L)
+    scipy.sparse.save_npz(os.path.join(d, "Ls.npz"), L_s)
+    torch.save(refs, os.path.join(d, "refs.pt"))
+    out, sec = _launch_ranks([os.path.join(HERE, "chip_smoke.py"),
+                              "--halo-rank", "sparse", "--halo-dir", d],
+                             "phase 27abd", 600)
+    ok = [s for s in out.splitlines() if s.startswith("dryrun_multichip OK")]
+    check(len(ok) == 1 and "'sparse_bsr'" in ok[0]
+          and "'sparse_banded'" in ok[0], f"phase 27d: {out[-2000:]}")
+    recs = [json.load(open(os.path.join(d, f"sparse{r}.json")))
+            for r in range(HALO_RANKS)]
+    for r in recs:
+        for fmt in SPARSE_KERNEL:
+            f = r[fmt]
+            print(f"  rank {r['rank']} (phase 27a) {fmt}: H {f['H']}, "
+                  f"ext_p {f['ext_p']}, {f['size']}, max_abs_err "
+                  f"{f['max_abs_err']}, kernel vs plain "
+                  f"{f['rows_max_abs_err']}, launches {f['launches']}, "
+                  f"bytes a bf16 hop {f['bytes_per_hop']} (n*H*C*2 "
+                  f"{f['bytes_want']}), exchange "
+                  f"{f['exchange_ms_gloo_one_card']:.3f} ms (gloo, one card)",
+                  flush=True)
+        s = r["scattered"]
+        print(f"  rank {r['rank']} (phase 27b) scattered bsr: H {s['H']}, "
+              f"{s['blocks']} blocks, max_abs_err {s['max_abs_err']}, "
+              f"kernel vs plain {s['rows_max_abs_err']}, launches "
+              f"{s['launches']}, bytes a bf16 hop {s['bytes_per_hop']} "
+              f"(n*H*C*2 {s['bytes_want']}), exchange "
+              f"{s['exchange_ms_gloo_one_card']:.3f} ms (gloo, one card)",
+              flush=True)
+    print(f"dryrun (phase 27d, {recs[0]['dryrun_s']:.1f} s): {ok[0]}",
+          flush=True)
+    print(f"sparse halo ranks (phase 27abd): {HALO_RANKS} ranks on one card "
+          f"over gloo, {sec:.1f} s [{gpu}]", flush=True)
+    return {"ranks": recs, "seconds": sec}
+
+
+def _sparse_rank_format(fmt, L, mesh, singles, xg, rank):
+    """Phase 27 (a) on one rank for one format: L@x, the hop and the
+    K-term chain in f32, bf16 and int8 against the single-chip banded
+    operator's rows, the kernel against its plain version on this rank's
+    extended x, the f32 adjoint, the exchange's bytes and time."""
+    dev = mesh.device
+    h32 = sparse_halo_laplacian(L, mesh, fmt=fmt)
+    hb = sparse_halo_laplacian(L, mesh, fmt=fmt, dtype=torch.bfloat16)
+    halos = {"f32": h32, "bf16": hb,
+             "int8": quantize_sparse_halo(hb, sample_x=3.0)}
+    check(halos["int8"].band_scale == singles["int8"].band_scale,
+          f"phase 27a rank {rank} {fmt}: int8 band scale")
+    name, route = SPARSE_KERNEL[fmt]
+    lo, hi = h32.row_range
+    real = h32.real_rows
+    rec = {"H": h32.halo, "ext_p": h32.ext_cols_padded,
+           "size": (f"{h32.local.blocks.shape[0]} blocks" if fmt == "bsr"
+                    else f"band {tuple(h32.local.band.shape[:2])}"),
+           "max_abs_err": {}, "rows_max_abs_err": {}, "launches": {}}
+    chains = {}
+    for lab in ("f32", "bf16", "int8"):
+        s, h = singles[lab], halos[lab]
+        q = lab == "int8"
+        xs = ([torch.clamp(torch.round(x * 40), -127, 127).to(torch.int8)
+               for x in xg] if q else [x.to(s.compute_dtype) for x in xg])
+        x_s = [_padded(x, s.m_padded) for x in xs]
+        x_h = [_padded(x, h.m_padded)[lo:hi].contiguous() for x in xs]
+        what = f"phase 27a rank {rank} {fmt} {lab}"
+        # The BSR format's float hop is JAX's unfused one: so is the
+        # reference's.
+        ref = _Unfused(s) if fmt == "bsr" and not q else s
+        with torch.no_grad():
+            library.reset_launch_counts()
+            got = [(h.spmm_q if q else h.matmul)(x_h[0]),
+                   (h.cheby_hop_q if q else h.cheby_hop)(*x_h),
+                   _chain_of(h, x_h[0], K, q)]
+            launched = rec["launches"][lab] = _launched()
+            check(set(launched) == {name} and library.launch_counts()[name]
+                  == K + 1, f"{what}: launched {launched}")
+            want = [(ref.spmm_q if q else ref.matmul)(x_s[0]),
+                    (ref.cheby_hop_q if q else ref.cheby_hop)(*x_s),
+                    _chain_of(ref, x_s[0], K, q)]
+            chains[lab] = want[2]
+            err = 0.0
+            for g, w, form in zip(got, want, ("L@x", "hop", "chain")):
+                g = g[..., :real, :] if g.dim() == 3 else g[:real]
+                w = w[:, lo:lo + real] if w.dim() == 3 else w[lo:lo + real]
+                if lab == "bf16" and form == "chain":
+                    ref32 = chains["f32"][:, lo:lo + real]
+                    err = max(err, _bf16_chain_close(g, w, ref32,
+                                                     f"{what} {form}"))
+                elif lab == "bf16" and form == "hop" and fmt == "bsr":
+                    err = max(err, _unfused_hop_close(
+                        g, want[0][lo:lo + real], x_s[1][lo:lo + real], w,
+                        f"{what} {form}"))
+                else:
+                    err = max(err, _halo_close(g, w, f"{what} {form}"))
+            rec["max_abs_err"][lab] = err
+            # The kernel against its plain version on this rank's
+            # extended x (launches for the check, not counted above).
+            x_ext = h._extended(x_h[0])
+            scale = h.band_scale if q else None
+            if fmt == "bsr":
+                k = h.local.kernel_call(x_ext, None, route, scale)
+                p = bsr_rows_reference(h.local.blocks, h.local.nz_rowptr,
+                                       h.local.nz_cols, h.local.nz_pos,
+                                       x_ext, block_scale=scale)
+            else:
+                xp = x_ext.index_select(0, h.colperm)
+                k = layout_call(h.local, xp, band_scale=scale)
+                p = rows_plain(h.local, (xp,), scale)
+            rec["rows_max_abs_err"][lab] = _check_close(
+                k, p, f"{what}: kernel vs plain on x [{x_ext.shape[0]}, "
+                f"{FIN}]")
+    # The adjoint in f32: the gradient of sum(y^2).
+    u = _padded(xg[0], h32.m_padded)[lo:hi].clone().requires_grad_()
+    (h32.matmul(u) ** 2).sum().backward()
+    v = _padded(xg[0], singles["f32"].m_padded).clone().requires_grad_()
+    (singles["f32"].matmul(v) ** 2).sum().backward()
+    want = v.grad[lo:lo + real]
+    err = float((u.grad[:real] - want).abs().max()) if real else 0.0
+    check(not real or err <= 1e-4 * float(want.abs().max()),
+          f"phase 27a rank {rank} {fmt}: the adjoint err {err:.3g}")
+    rec["max_abs_err"]["adjoint_f32"] = err
+    rec.update(_exchange_record(hb, mesh, _padded(
+        xg[0].to(torch.bfloat16), hb.m_padded)[lo:hi].contiguous()))
+    return rec
+
+
+def _exchange_record(h, mesh, x) -> dict:
+    """Bytes this rank sends in one product's exchange against ``n * H *
+    C * itemsize``, and the exchange's ms (gloo, one card)."""
+    sent = sum(mesh.traffic.values())
+    with torch.no_grad():
+        h.matmul(x)
+    got = sum(mesh.traffic.values()) - sent
+    want = HALO_RANKS * h.halo * x.shape[1] * x.element_size()
+    check(got == want, f"phase 27: {got} halo bytes a hop, want {want}")
+    torch.cuda.synchronize()
+    torch.distributed.barrier()
+    t0 = time.perf_counter()
+    for _ in range(HALO_EXCHANGES):
+        h._extended(x)
+    torch.cuda.synchronize()
+    return {"bytes_per_hop": got, "bytes_want": want,
+            "exchange_ms_gloo_one_card": ((time.perf_counter() - t0) * 1e3
+                                          / HALO_EXCHANGES)}
+
+
+def halo_rank_sparse(d: str):
+    """One rank of phase 27 (a), (b) and (d)."""
+    dev = init_distributed()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(data=1, nodes=HALO_RANKS)
+    check(mesh.backend == "gloo" and mesh.staged, "phase 27: backend")
+    rank = mesh.coord("nodes")
+    L = scipy.sparse.load_npz(os.path.join(d, "L.npz"))
+    f32 = device_laplacian(L, fmt="banded", device=dev)
+    singles = {"f32": f32, "bf16": cast_op(f32, torch.bfloat16)}
+    singles["int8"] = quantize_banded(singles["bf16"], sample_x=3.0)
+    xg, _ = _sparse_inputs(L.shape[0], dev, SPARSE_SEED)
+    rec = {"rank": rank}
+    for fmt in SPARSE_KERNEL:
+        rec[fmt] = _sparse_rank_format(fmt, L, mesh, singles, xg, rank)
+    del singles, f32
+    torch.cuda.empty_cache()
+
+    # (b): the scattered graph in bsr, bf16 and int8, L@x and the hop.
+    L_s = scipy.sparse.load_npz(os.path.join(d, "Ls.npz"))
+    refs = torch.load(os.path.join(d, "refs.pt"))
+    hb = sparse_halo_laplacian(L_s, mesh, dtype=torch.bfloat16)
+    halos = {"bf16": hb, "int8": quantize_sparse_halo(hb, sample_x=3.0)}
+    xs, xq = _sparse_inputs(L_s.shape[0], dev, SPARSE_SEED + 1)
+    lo, hi = hb.row_range
+    real = hb.real_rows
+    s = rec["scattered"] = {"H": hb.halo, "blocks": hb.local.blocks.shape[0],
+                            "max_abs_err": {}, "rows_max_abs_err": {},
+                            "launches": {}}
+    for lab, h in halos.items():
+        q = lab == "int8"
+        a, b = (_padded(v, h.m_padded)[lo:hi].contiguous() for v in (
+            xq if q else [x.to(torch.bfloat16) for x in xs]))
+        what = f"phase 27b rank {rank} scattered {lab}"
+        with torch.no_grad():
+            library.reset_launch_counts()
+            got = [(h.spmm_q if q else h.matmul)(a),
+                   (h.cheby_hop_q if q else h.cheby_hop)(a, b)]
+            launched = s["launches"][lab] = _launched()
+            check(launched == {"bsr_csr": 2}, f"{what}: launched {launched}")
+            y_s, hop_s, x0_s = (t[lo:lo + real].to(dev) for t in refs[lab])
+            s["max_abs_err"][lab] = max(
+                _halo_close(got[0][:real], y_s, f"{what} L@x"),
+                _halo_close(got[1][:real], hop_s, f"{what} hop") if q
+                else _unfused_hop_close(got[1][:real], y_s, x0_s, hop_s,
+                                        f"{what} hop"))
+            x_ext = h._extended(a)
+            scale = h.band_scale if q else None
+            s["rows_max_abs_err"][lab] = _check_close(
+                h.local.kernel_call(x_ext, None, "K8", scale),
+                bsr_rows_reference(h.local.blocks, h.local.nz_rowptr,
+                                   h.local.nz_cols, h.local.nz_pos, x_ext,
+                                   block_scale=scale),
+                f"{what}: kernel vs plain on x [{x_ext.shape[0]}, {FIN}]")
+    s.update(_exchange_record(hb, mesh, _padded(
+        xs[0].to(torch.bfloat16), hb.m_padded)[lo:hi].contiguous()))
+    del halos, hb
+    torch.cuda.empty_cache()
+
+    # (d): the dry run's three parts on this world; rank 0 prints.
+    t0 = time.perf_counter()
+    dryrun_multichip()
+    rec["dryrun_s"] = time.perf_counter() - t0
+    json.dump(rec, open(os.path.join(d, f"sparse{rank}.json"), "w"))
+    torch.distributed.destroy_process_group()
+
+
+def sparse_driver_phase(single_acc: float, gpu: str) -> dict:
+    """Phase 27 (c): the node-classification driver on HALO_RANKS ranks
+    at its defaults with ``--mesh-nodes 4 --int8``, ``--halo sparse``
+    then ``--halo sparse-banded``: test accuracy within 0.01 of phase 25
+    (c)'s one card, int8 within 0.05 of the float accuracy, the format's
+    kernel launched every step on every rank."""
+    out = {}
+    for halo, (_, route) in (("sparse", SPARSE_KERNEL["bsr"]),
+                             ("sparse-banded", SPARSE_KERNEL["banded"])):
+        text, sec = _launch_ranks(
+            ["-m", "cnn_graph_tpu_torch.experiments.node_classification",
+             "--mesh-nodes", str(HALO_RANKS), "--halo", halo, "--int8"],
+            f"phase 27c {halo}", 600)
+        for line in text.strip().splitlines():
+            print(f"  driver {halo}: {line}")
+        acc = re.search(r"train acc ([\d.]+) \| test acc ([\d.]+)", text)
+        q = re.search(r"int8 test acc ([\d.]+) \(delta vs f32 "
+                      r"([-+][\d.]+)\)", text)
+        k = re.search(rf"{route} launches per training step by rank: "
+                      r"\[([^\]]*)\]", text)
+        step = re.search(r"\(([\d.]+) ms/step\)", text)
+        check(acc and q and k and step, f"phase 27c {halo}: lines missing")
+        test_acc, delta = float(acc.group(2)), float(q.group(2))
+        per_rank = [float(v) for v in k.group(1).split(",")]
+        check(abs(test_acc - single_acc) <= 0.01,
+              f"phase 27c {halo}: test accuracy {test_acc}, one card "
+              f"{single_acc}")
+        check(abs(delta) < 0.05, f"phase 27c {halo}: int8 delta {delta}")
+        check(len(per_rank) == HALO_RANKS and all(v > 0 for v in per_rank),
+              f"phase 27c {halo}: {route} launches per step {per_rank}")
+        out[halo] = {"test_acc": test_acc, "int8_delta": delta,
+                     "launches_per_step": per_rank,
+                     "ms_per_step": float(step.group(1)), "seconds": sec}
+        print(f"sparse halo driver (phase 27c) --halo {halo}: "
+              f"{HALO_RANKS} ranks, {sec:.1f} s; test acc {test_acc} (one "
+              f"card {single_acc}), int8 delta {delta:+.4f}, {route} launches"
+              f" per step by rank {per_rank}, {float(step.group(1))} ms per "
+              f"step (gloo, one card) [{gpu}]", flush=True)
+    return out
+
+
+def bcoo_phase(L, reqs, dev, gpu: str) -> dict:
+    """Phase 27 (e): one NodeClassifier request on a ``fmt="bcoo"``
+    operator on the card (``torch.sparse.mm``, a library call: JAX's BCOO
+    has no Pallas kernel) against the f32 banded operator's logits on the
+    same weights, within 1e-4 of their max."""
+    t0 = time.perf_counter()
+    bcoo = device_laplacian(L, fmt="bcoo", device=dev)
+    band = device_laplacian(L, fmt="banded", device=dev)
+    check(bcoo.mat.is_cuda and bcoo.m_padded <= band.m_padded,
+          "phase 27e: the BCOO operator")
+    model = NodeClassifier(band, FIN, CLASSES, hidden=[], K=K,
+                           generator=torch.Generator().manual_seed(0))
+    params = model.param_tree()
+    twin = map_operators(model, lambda _: bcoo)
+    x = reqs[0][:bcoo.m_padded].float()
+    with torch.no_grad():
+        library.reset_launch_counts()
+        got = twin.apply(params, x)
+        check(not _launched(), "phase 27e: BCOO launched a kernel")
+        want = model.apply(params, _padded(x, band.m_padded))[:bcoo.m_padded]
+    err = float((got - want).abs().max())
+    top = float(want.abs().max())
+    check(err <= 1e-4 * top, f"phase 27e: BCOO logits {err:.3g} from the "
+          f"banded operator's (max {top:.3g})")
+    ms = cuda_ms(lambda: twin.apply(params, x), 3)
+    print(f"BCOO (phase 27e): {bcoo.nnz} nonzeros, one request's logits "
+          f"within {err:.3g} of the f32 banded operator's (max {top:.3g}); "
+          f"{ms:.3f} ms per request (torch.sparse.mm, f32); "
+          f"{time.perf_counter() - t0:.1f} s [{gpu}]", flush=True)
+    return {"max_abs_err": err, "ms": ms}
+
+
 HALO_RANK_TASKS = {"kernels": halo_rank_kernels,
-                   "trainer": halo_rank_trainer}
+                   "trainer": halo_rank_trainer,
+                   "sparse": halo_rank_sparse}
 
 
 def main() -> int:
@@ -3351,6 +3758,7 @@ def main() -> int:
     k4["int8"] = bsr_kernel_phase(
         quantize_block_sparse(s_bf16, sample_x=s_max), "K4", ("spmm", "hop"),
         gen, "K4 int8")
+    s_refs = scattered_refs(s_bf16, dev)  # phase 27 (b)'s
     for lab, rec in k4.items():
         print_bsr_kernel(f"{BSR_KERNEL} as K4 (bsr_colstream) {lab}", rec,
                          gpu)
@@ -3653,6 +4061,60 @@ def main() -> int:
     print(f"phase 26 (node-sharded operators): "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
+    # Phase 27: the sparse halo operators, K8 and K5 on halo-extended x,
+    # and the BCOO format.
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d27:
+        sparse_ab = sparse_ranks_phase(L, L_s, s_refs, d27, gpu)
+    del s_refs
+    sparse_c = sparse_driver_phase(art_driver["test_acc"], gpu)
+    bcoo_phase(L, reqs, dev, gpu)
+    print(f"phase 27 (sparse halo operators, BCOO): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    def sparse_keys(fmt):
+        """Phase 27's numbers for the kernel row of ``fmt``'s route:
+        launches per rank of (a) (and (b) for bsr), the errors, the
+        exchange, the driver's launches per step."""
+        ranks = sparse_ab["ranks"]
+        halo = "sparse" if fmt == "bsr" else "sparse-banded"
+        out = {
+            "sparse_halo_launches_per_rank": [
+                sum(sum(v.values()) for v in r[fmt]["launches"].values())
+                + (sum(sum(v.values()) for v in
+                       r["scattered"]["launches"].values())
+                   if fmt == "bsr" else 0) for r in ranks],
+            "sparse_halo_H": ranks[0][fmt]["H"],
+            "sparse_halo_max_abs_err": {
+                lab: max(r[fmt]["max_abs_err"][lab] for r in ranks)
+                for lab in ranks[0][fmt]["max_abs_err"]},
+            "sparse_halo_rows_max_abs_err": {
+                lab: max(r[fmt]["rows_max_abs_err"][lab] for r in ranks)
+                for lab in ranks[0][fmt]["rows_max_abs_err"]},
+            "sparse_halo_bytes_per_hop_bf16": [r[fmt]["bytes_per_hop"]
+                                               for r in ranks],
+            "sparse_halo_exchange_ms_gloo_one_card": [
+                r[fmt]["exchange_ms_gloo_one_card"] for r in ranks],
+            "sparse_halo_driver_launches_per_step": sparse_c[halo][
+                "launches_per_step"],
+            "sparse_halo_driver_ms_per_step_gloo_one_card": sparse_c[halo][
+                "ms_per_step"],
+            "sparse_halo_driver_test_acc": sparse_c[halo]["test_acc"]}
+        if fmt == "bsr":
+            sc = [r["scattered"] for r in ranks]
+            out.update({
+                "sparse_halo_scattered_H": sc[0]["H"],
+                "sparse_halo_scattered_blocks_per_rank": [
+                    r["blocks"] for r in sc],
+                "sparse_halo_scattered_max_abs_err": {
+                    lab: max(r["max_abs_err"][lab] for r in sc)
+                    for lab in sc[0]["max_abs_err"]},
+                "sparse_halo_scattered_bytes_per_hop_bf16": [
+                    r["bytes_per_hop"] for r in sc],
+                "sparse_halo_scattered_exchange_ms_gloo_one_card": [
+                    r["exchange_ms_gloo_one_card"] for r in sc]})
+        return out
+
     def halo_keys(lab):
         """Phase 26's numbers for one kernel row: ``lab`` is phase 26
         (b)'s label of the kernel and dtype."""
@@ -3829,6 +4291,7 @@ def main() -> int:
                  hop_inplace_ms=lay_checks["uniform"][lab]["hop_inplace_ms"],
                  **chain_keys("uniform", lab),
                  **(halo_keys("K5") if lab == "bf16" else {}),
+                 **(sparse_keys("banded") if lab == "bf16" else {}),
                  **({"hop_c_ms": lay_checks["uniform"][lab]["hop_c_ms"],
                      "train_launches_per_step":
                          u_train["launches"] // TRAIN_STEPS,
@@ -3930,7 +4393,8 @@ def main() -> int:
                                   else "scattered"][key.split()[1]]),
          **({"f32_" + k: v for k, v in bsr_keys(
              csr[f"{key[:2]} f32"], lib["scattered"]["f32"]).items()}
-            if f"{key[:2]} f32" in csr else {})}
+            if f"{key[:2]} f32" in csr else {}),
+         **(sparse_keys("bsr") if key == "K8 bf16" else {})}
         for key, rec in route_launches.items()
     ] + probe_rows}
     for row in record["kernels"]:

@@ -15,16 +15,18 @@ accuracy delta and the f32 and int8 inference times with Gedges/s over
 (``serve.export_serving``, int8 with ``--int8``; single chip only).
 
 ``--mesh-nodes N`` shards the operator's rows over a ``(data = world //
-N, nodes = N)`` mesh (JAX :108-111) with ``--halo banded``, the default:
-``parallel.banded_halo_laplacian``, its hops K1 on halo-extended x.
-Every rank builds the graph, keeps its rows of the features, labels and
-masks, and trains; rank 0 prints, and also the per-rank K1 launches per
-training step.  ``--halo sparse`` and ``sparse-banded`` (the sparse halo
-operators, ROADMAP queue 1 item 6b) raise.  Launch one process per rank:
+N, nodes = N)`` mesh (JAX :108-126) with ``--halo``: ``banded`` (the
+default, ``parallel.banded_halo_laplacian``, its hops K1 on
+halo-extended x), ``sparse`` (``parallel.sparse_halo_laplacian``, the
+block-sparse shard, K8) or ``sparse-banded`` (its per-shard banded
+format, K5).  Every rank builds the graph, keeps its rows of the
+features, labels and masks, and trains; rank 0 prints, and also the
+per-rank launches per training step of the operator's kernel.  Launch
+one process per rank:
 
     python -m torch.distributed.run --standalone --nproc-per-node W \\
         -m cnn_graph_tpu_torch.experiments.node_classification \\
-        --mesh-nodes N [--int8]
+        --mesh-nodes N [--halo sparse] [--int8]
 
 Each rank takes ``cuda:(LOCAL_RANK % device_count())``; ranks that share
 a card exchange over gloo (``parallel.mesh``).
@@ -130,8 +132,8 @@ def parser() -> argparse.ArgumentParser:
                    "world // N, nodes = N) mesh")
     p.add_argument("--halo", choices=["sparse", "banded", "sparse-banded"],
                    default="banded", help="the sharded operator: the "
-                   "banded ring halo (sparse and sparse-banded are not "
-                   "ported)")
+                   "banded ring halo, the block-sparse all_to_all halo or "
+                   "its per-shard banded format")
     p.add_argument("--int8", action="store_true",
                    help="after training, quantize the operator to int8 and "
                    "report the accuracy delta and inference timing")
@@ -147,10 +149,6 @@ def parser() -> argparse.ArgumentParser:
 def main(argv=None) -> dict:
     """Run the driver; returns its accuracies and times."""
     args = parser().parse_args(argv)
-    if args.mesh_nodes > 0 and args.halo != "banded":
-        raise NotImplementedError(
-            f"--halo {args.halo} (the sparse halo operators) is not ported "
-            "to cnn_graph_tpu_torch yet (ROADMAP queue 1 item 6b)")
     if args.mesh_nodes > 0 and args.export:
         raise ValueError("--export writes the single-chip artifact; it "
                          "takes no --mesh-nodes")
@@ -163,7 +161,12 @@ def main(argv=None) -> dict:
         operator_device,
         quantize_model_operators,
     )
-    from cnn_graph_tpu_torch.ops import banded_dkw, device_laplacian
+    from cnn_graph_tpu_torch.ops import (
+        banded_dkw,
+        banded_uniform,
+        bsr_csr,
+        device_laplacian,
+    )
     from cnn_graph_tpu_torch.train import train_node_classifier
 
     mesh = None
@@ -174,6 +177,7 @@ def main(argv=None) -> dict:
             banded_halo_laplacian,
             init_distributed,
             make_mesh,
+            sparse_halo_laplacian,
         )
 
         init_distributed(args.device)
@@ -190,11 +194,21 @@ def main(argv=None) -> dict:
     if mesh is None:
         op = device_laplacian(L, fmt="auto", device=args.device)
         say(f"operator: {type(op).__name__} on {operator_device(op)}")
-    else:
+    elif args.halo == "banded":
         op = banded_halo_laplacian(L, mesh)
         say(f"banded-halo operator: band {tuple(op.band.shape[1:])} /shard, "
             f"halo {op.halo_left}+{op.halo_right} block-rows, mesh "
             f"{dict(mesh.shape)}, rank 0 on {mesh.device}")
+    elif args.halo == "sparse-banded":
+        op = sparse_halo_laplacian(L, mesh, fmt="banded")
+        say(f"sparse-banded operator: band {tuple(op.band.shape[1:])} x "
+            f"{op.band.shape[0]} block-rows/shard, halo {op.halo} "
+            f"rows/peer, mesh {dict(mesh.shape)}, rank 0 on {mesh.device}")
+    else:
+        op = sparse_halo_laplacian(L, mesh)
+        say(f"sparse-halo operator: {op.blocks.shape[0]} blocks on rank 0, "
+            f"halo {op.halo} rows/peer, mesh {dict(mesh.shape)}, rank 0 on "
+            f"{mesh.device}")
     dev = operator_device(op)
     fp, yp, train, test = node_data(feats, labels, op.m_padded,
                                     args.train_frac, args.seed)
@@ -209,7 +223,13 @@ def main(argv=None) -> dict:
     model = NodeClassifier(op, args.features, args.classes,
                            hidden=args.hidden, K=args.K, dropout=0.8,
                            generator=torch.Generator().manual_seed(args.seed))
-    k1_before = banded_dkw.launches
+    # The kernel of the operator's products: K1 (the banded ring halo
+    # and a single-chip banded operator), K5 (sparse-banded) or the BSR
+    # row kernel as K8 (sparse).
+    kernel, kname = {"sparse": (bsr_csr, "K8"),
+                     "sparse-banded": (banded_uniform, "K5")}.get(
+        args.halo if mesh is not None else "", (banded_dkw, "K1"))
+    k_before = kernel.launches
     t0 = time.perf_counter()
     params, losses = train_node_classifier(
         model, model.param_tree(), features, y, train_mask,
@@ -217,7 +237,7 @@ def main(argv=None) -> dict:
         generator=torch.Generator(device=dev).manual_seed(1))
     losses = losses.tolist()  # waits for the device
     wall = time.perf_counter() - t0
-    k1_per_step = (banded_dkw.launches - k1_before) / args.steps
+    k_per_step = (kernel.launches - k_before) / args.steps
     with torch.inference_mode():
         train_acc = float(model.accuracy(params, features, y, train_mask))
         test_acc = float(model.accuracy(params, features, y, test_mask))
@@ -229,9 +249,9 @@ def main(argv=None) -> dict:
            "ms_per_step": wall / args.steps * 1e3}
     if mesh is not None:
         ranks = mesh.all_gather(torch.tensor(
-            [k1_per_step], dtype=torch.float64, device=dev), "nodes").tolist()
-        say(f"K1 launches per training step by rank: {ranks}")
-        out["k1_launches_per_step"] = ranks
+            [k_per_step], dtype=torch.float64, device=dev), "nodes").tolist()
+        say(f"{kname} launches per training step by rank: {ranks}")
+        out["kernel_launches_per_step"] = ranks
 
     if args.int8:
         qmodel = quantize_model_operators(model, sample_x=sample)

@@ -5,9 +5,9 @@ vectorize -> filter short documents -> keep the top M words -> normalize
 -> embed -> kNN word graph -> ChebNet GC32 (F=[32], K=[5], M=[C]; the
 paper's Table 4 reports 68.26% on the real corpus).  Reads the real
 corpus from scikit-learn's local cache when it is there, else falls back
-to the synthetic topic corpus.  ``--baselines`` (the classical
-baselines, which need scikit-learn) is not ported (ROADMAP queue 1
-item 9).
+to the synthetic topic corpus.  ``--baselines`` also runs the classical
+baselines (``utils.harness.baseline``, which needs scikit-learn) on the
+same split.
 
 Run:  python -m cnn_graph_tpu_torch.experiments.text20news [--synthetic]
           [--top-words 1000] [--device cpu]
@@ -34,10 +34,6 @@ def main(argv=None):
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA device)")
     args = p.parse_args(argv)
-    if args.baselines:
-        raise NotImplementedError(
-            "--baselines needs utils/harness.py baseline, not ported to "
-            "cnn_graph_tpu_torch yet (ROADMAP queue 1 item 9)")
 
     from cnn_graph_tpu_torch.data.text import (
         Text20News,
@@ -77,6 +73,11 @@ def main(argv=None):
     order = rng.permutation(n)
     X, y = X[order], y[order]
     ntr, nva = int(n * 0.7), int(n * 0.1)
+
+    if args.baselines:
+        from cnn_graph_tpu_torch.utils.harness import baseline
+
+        baseline(X[:ntr], y[:ntr], X[ntr + nva:], y[ntr + nva:])
 
     C = int(y.max()) + 1
     model = ChebNet([op], F=[32], K=[5], p=[1], M=[C], dropout=0.5,

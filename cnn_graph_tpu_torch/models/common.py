@@ -7,7 +7,7 @@ Counterpart of ``cnn_graph_tpu/models/common.py`` (``trunc_normal`` :125,
 ``uniform_init`` :131, ``bias_init`` :136, ``bias_act_init`` :140, ``bias_act`` :155,
 ``fc_init`` :163, ``fc_apply`` :171, ``dropout`` :176,
 ``graph_arrays`` :43, ``with_graph_arrays`` :52,
-``quantize_model_operators`` :63, with the banded halo branch
+``quantize_model_operators`` :63, with the sharded branches
 :90-112).  ``ShardedDraw``, ``is_sharded`` and ``node_mean`` are the
 port's: on a node-sharded operator each rank holds its rows, and a
 dropout mask or a mean over nodes needs the whole array's.  Parameter
@@ -287,13 +287,14 @@ def map_operators(model, fn):
 def quantize_model_operators(model, sample_x: float = 1.0,
                              headroom: float = 2.0):
     """A shallow copy of ``model`` whose graph operators are replaced by
-    their int8 twins: banded, block-sparse, dense and banded halo
-    (sharded) operators are quantized, an already quantized operator
-    passes through, and any other format raises rather than serving
-    unquantized (the sparse halo operators' twins come with them,
-    ROADMAP queue 1 item 6b)."""
+    their int8 twins: banded, block-sparse, dense, banded halo and sparse
+    halo (sharded) operators are quantized, an already quantized operator
+    passes through, and so does BCOO, as in JAX (common.py:78: the
+    library fallback has no twin); any other format raises rather than
+    serving unquantized."""
     from cnn_graph_tpu_torch.ops.laplacian import (
         BandedLaplacian,
+        BCOOLaplacian,
         BlockSparseLaplacian,
         DenseLaplacian,
         QuantBandedLaplacian,
@@ -308,10 +309,20 @@ def quantize_model_operators(model, sample_x: float = 1.0,
         QuantBandedHaloLaplacian,
         quantize_banded_halo,
     )
+    from cnn_graph_tpu_torch.parallel.sparse_halo import (
+        BandedSparseHaloLaplacian,
+        QuantBandedSparseHaloLaplacian,
+        QuantSparseHaloLaplacian,
+        SparseHaloLaplacian,
+        quantize_sparse_halo,
+    )
 
     def q(op):
         if isinstance(op, BandedHaloLaplacian):
             return quantize_banded_halo(op, headroom=headroom,
+                                        sample_x=sample_x)
+        if isinstance(op, (SparseHaloLaplacian, BandedSparseHaloLaplacian)):
+            return quantize_sparse_halo(op, headroom=headroom,
                                         sample_x=sample_x)
         if isinstance(op, BandedLaplacian):
             return quantize_banded(op, headroom=headroom, sample_x=sample_x)
@@ -321,7 +332,9 @@ def quantize_model_operators(model, sample_x: float = 1.0,
             return quantize_block_sparse(op, headroom=headroom,
                                          sample_x=sample_x)
         if isinstance(op, (QuantBandedLaplacian, QuantBlockSparseLaplacian,
-                           QuantDenseLaplacian, QuantBandedHaloLaplacian)):
+                           QuantDenseLaplacian, QuantBandedHaloLaplacian,
+                           QuantSparseHaloLaplacian,
+                           QuantBandedSparseHaloLaplacian, BCOOLaplacian)):
             return op
         raise NotImplementedError(
             f"no int8 twin for {type(op).__name__} in cnn_graph_tpu_torch yet"

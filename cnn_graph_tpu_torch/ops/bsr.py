@@ -69,19 +69,36 @@ def block_products(blocks, brow, bcol, x, n_rb: int, block_shape,
     """``acc[brow[b]] += blocks[b] @ x_tile[bcol[b]]`` over the blocks
     listed, as ``[n_rb, br, C]`` in ``acc_dtype``.  Each block's product
     is taken in ``compute_dtype`` (f32 products in full f32) and cast to
-    ``acc_dtype`` before it is added."""
+    ``acc_dtype`` before it is added.  A 16-bit ``acc_dtype`` adds a
+    row's blocks one at a time in their order, each sum rounded, as
+    XLA's ``segment_sum`` does in that dtype (``index_add_`` alone sums
+    a row's repeated indices otherwise)."""
     br, bc = block_shape
     mp, C = x.shape
     xb = x.reshape(mp // bc, bc, C)
     acc = torch.zeros(n_rb, br, C, dtype=acc_dtype, device=x.device)
     size = torch.empty(0, dtype=compute_dtype).element_size()
     step = max(1, _CHUNK_BYTES // (bc * max(C, 1) * size))
+    narrow = acc_dtype in (torch.bfloat16, torch.float16)
     with full_f32_matmul():
         for lo in range(0, brow.numel(), step):
             hi = lo + step
             prod = torch.bmm(blocks[lo:hi].to(compute_dtype),
                              xb.index_select(0, bcol[lo:hi]).to(compute_dtype))
-            acc.index_add_(0, brow[lo:hi], prod.to(acc_dtype))
+            rows = brow[lo:hi]
+            if not narrow:
+                acc.index_add_(0, rows, prod.to(acc_dtype))
+                continue
+            # Each block's place among its row's blocks: one pass per
+            # place, so every pass adds to a row at most once.
+            order = torch.argsort(rows, stable=True)
+            srt = rows[order]
+            place = torch.empty_like(order)
+            place[order] = (torch.arange(srt.numel(), device=x.device)
+                            - torch.searchsorted(srt, srt))
+            for j in range(int(place.max()) + 1 if place.numel() else 0):
+                sel = place == j
+                acc.index_add_(0, rows[sel], prod[sel].to(acc_dtype))
     return acc
 
 
@@ -144,8 +161,10 @@ def bsr_rows_reference(blocks, nz_rowptr, nz_cols, nz_pos, x, x0=None, *,
     ``blocks.view(-1)[nz_pos[e]] * x[nz_cols[e]]`` over its nonzeros
     ``nz_rowptr[i]:nz_rowptr[i+1]`` in f32 (float64 for int8, exact),
     then the emission, rounded once.  Rows without nonzeros (the pad
-    rows) give 0, or ``-x0`` for the hop."""
-    mp, C = x.shape
+    rows) give 0, or ``-x0`` for the hop.  The output has the index's
+    ``len(nz_rowptr) - 1`` rows; x may have more (a rectangular
+    operator's columns)."""
+    mp, C = nz_rowptr.numel() - 1, x.shape[1]
     dev = x.device
     rowptr = nz_rowptr.to(torch.int64)
     nnz = int(rowptr[-1])
@@ -197,16 +216,23 @@ def _check_rows(name, blocks, nz_rowptr, nz_cols, nz_pos, x, x0,
     if x.dim() != 2 or x.shape[0] < 1 or x.shape[1] < 1:
         raise ValueError(f"{name}: x must be [Mp, C] with Mp, C >= 1, got "
                          f"{tuple(x.shape)}")
-    if x0 is not None and (x0.dtype != x.dtype or x0.shape != x.shape):
-        raise ValueError(f"{name}: x0 must match x's shape and dtype")
+    rows = nz_rowptr.numel() - 1
+    if x0 is not None and (x0.dtype != x.dtype
+                           or tuple(x0.shape) != (rows, x.shape[1])):
+        raise ValueError(f"{name}: x0 must be [{rows}, C] in x's dtype")
     if (nz_rowptr.dtype != torch.int32 or nz_cols.dtype != torch.int32
             or nz_pos.dtype != torch.int64):
         raise TypeError(f"{name}: the row index is int32 nz_rowptr and "
                         "nz_cols and int64 nz_pos")
-    if (nz_rowptr.dim() != 1 or nz_rowptr.numel() != x.shape[0] + 1
-            or nz_cols.shape != nz_pos.shape or nz_cols.dim() != 1):
-        raise ValueError(f"{name}: nz_rowptr must hold x's {x.shape[0]} "
-                         "rows + 1 and nz_cols/nz_pos one entry per nonzero")
+    if (nz_rowptr.dim() != 1 or rows < 1 or nz_cols.shape != nz_pos.shape
+            or nz_cols.dim() != 1):
+        raise ValueError(f"{name}: nz_rowptr must hold the output rows + 1 "
+                         "and nz_cols/nz_pos one entry per nonzero")
+    if x.shape[0] < rows:
+        # A square operator's columns are its rows; a rectangular shard
+        # has more columns than rows.
+        raise ValueError(f"{name}: x has {x.shape[0]} rows, fewer than the "
+                         f"operator's {rows} output rows")
     for t in (blocks, nz_rowptr, nz_cols, nz_pos, x) + (
             () if x0 is None else (x0,)):
         if t.device != dev or not t.is_contiguous():
@@ -229,8 +255,8 @@ def _launch(blocks, nz_rowptr, nz_cols, nz_pos, x, x0, route, block_scale):
     form = "spmm" if x0 is None else "hop"
     span = (f"bsr_colstream.{form}" if route == "K4"
             else f"bsr_csr.{route}.{form}")
-    mp, C = x.shape
-    y = torch.empty_like(x)
+    mp, C = nz_rowptr.numel() - 1, x.shape[1]
+    y = x.new_empty((mp, C))
     with torch.cuda.device(x.device), record_function(span):
         rc = _lib().bsr_rows_launch(
             blocks.data_ptr(), nz_rowptr.data_ptr(), nz_cols.data_ptr(),
@@ -267,10 +293,12 @@ def bsr_colstream(blocks, nz_rowptr, nz_cols, nz_pos, x, x0=None, *,
     """K4: ``L @ x`` (``x0`` None) or the hop ``2 (L @ x) - x0`` of a
     column-streamed operator, by the row kernel over its nonzero index
     (``nz_rowptr`` int32 ``[Mp + 1]``, ``nz_cols`` int32 and ``nz_pos``
-    int64, into ``blocks`` of any layout and block shape); ``x`` and
-    ``x0`` ``[Mp, C]`` in the blocks' dtype.  ``block_scale`` (int8 only)
-    is the blocks' dequant scale; the result is then requantized int8 in
-    x's scale.  Returns ``[Mp, C]`` in x's dtype."""
+    int64, into ``blocks`` of any layout and block shape); ``x``
+    ``[Mc, C]`` (``Mc`` = ``Mp`` for a square operator, the column count
+    for a rectangular one) and ``x0`` ``[Mp, C]`` in the blocks' dtype.
+    ``block_scale`` (int8 only) is the blocks' dequant scale; the result
+    is then requantized int8 in x's scale.  Returns ``[Mp, C]`` in x's
+    dtype, ``Mp = len(nz_rowptr) - 1``."""
     return _call("bsr_colstream", blocks, nz_rowptr, nz_cols, nz_pos, x, x0,
                  block_scale, "K4")
 

@@ -21,14 +21,16 @@ Counterpart of ``cnn_graph_tpu/ops/laplacian.py``.  Ported so far:
   (:713): its int8 serving twin.
 * ``QuantDenseLaplacian`` (:575) and ``quantize_dense`` (:617): the
   dense operator's int8 serving twin.
+* ``BCOOLaplacian`` (:385): the library fallback, a torch sparse COO
+  matrix multiplied by ``torch.sparse.mm`` (JAX's is ``jax.experimental.
+  sparse`` in XLA, no Pallas kernel).
 * ``device_laplacian`` (:1200) with the JAX package's format choice and
-  its banded and BSR layouts.
+  its banded, BSR and BCOO layouts.
 
 Operators are frozen dataclasses of tensors; ``.to(device)`` returns a
 copy on another device.  ``operator_leaves`` and ``with_operator_leaves``
 take an operator's tensors out as leaves and put others in (the tables
 ``torch.export`` traces as inputs); its ints and floats stay static.
-The BCOO format is not ported: ROADMAP queue 1 item 7.
 """
 
 from __future__ import annotations
@@ -75,6 +77,7 @@ __all__ = [
     "quantize_block_sparse",
     "QuantDenseLaplacian",
     "quantize_dense",
+    "BCOOLaplacian",
     "device_laplacian",
     "operator_leaves",
     "with_operator_leaves",
@@ -83,8 +86,6 @@ __all__ = [
 # Auto-format thresholds of the JAX package (laplacian.py:1240-1277),
 # tuned on a TPU v5e and kept for parity; to be re-tuned on Hopper.
 DENSE_THRESHOLD = 2048  # nodes: dense at or below
-_UNPORTED = ("format {!r} is not ported to cnn_graph_tpu_torch yet "
-             "(ROADMAP queue 1 item 8)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -378,13 +379,14 @@ def _gather_products(op, x, compute_dtype, acc_dtype) -> torch.Tensor:
     """The JAX package's gather and segment-sum route (:240-255,
     :676-691): every real block's product with its gathered x tile in
     ``compute_dtype``, cast to ``acc_dtype`` and summed into its row.
-    ``[Mp, C]`` in ``acc_dtype``."""
+    ``[Mp, C]`` in ``acc_dtype``; x has the operator's columns (more than
+    ``Mp`` rows for a rectangular shard)."""
     nb = op.block_cols.numel()
     acc = block_products(op.blocks[:nb], op.block_rows.to(torch.int64),
                          op.block_cols.to(torch.int64), x,
                          op.m_padded // op.block_shape[0], op.block_shape,
                          compute_dtype, acc_dtype)
-    return acc.reshape(x.shape)
+    return acc.reshape(-1, x.shape[1])
 
 
 # The port's own fields of the BSR operators: the nonzero index by output
@@ -610,6 +612,43 @@ def quantize_dense(op: DenseLaplacian, headroom: float = 2.0,
         act_scale=float(sample_x) * headroom / 127.0, headroom=headroom)
 
 
+@dataclasses.dataclass(frozen=True)
+class BCOOLaplacian:
+    """Rescaled Laplacian as a coalesced torch sparse COO matrix ``[Mp,
+    Mp]``, ``Mp = round_up(m, 8)``: the JAX package's BCOO fallback
+    (:385, CPU tests and odd shapes).  ``matmul`` is one
+    ``torch.sparse.mm``, differentiable in x; JAX's BCOO product is XLA's
+    sparse dot, no Pallas kernel, so a library call is its counterpart.
+    It has no int8 twin: ``quantize_model_operators`` passes it through,
+    as JAX's does."""
+
+    mat: torch.Tensor
+    m: int
+    m_padded: int
+    nnz: int
+
+    @property
+    def compute_dtype(self):
+        return self.mat.dtype
+
+    def matmul(self, x: torch.Tensor) -> torch.Tensor:
+        """``L @ x`` for ``x`` of shape ``[Mp, C]``, in the promoted
+        dtype of L and x, returned in x's.  A 16-bit float product is
+        taken in f32 and rounded once: cuSPARSE's COO product refuses
+        bfloat16."""
+        dt = torch.promote_types(self.mat.dtype, x.dtype)
+        if dt in (torch.bfloat16, torch.float16):
+            dt = torch.float32
+        return torch.sparse.mm(self.mat.to(dt), x.to(dt)).to(x.dtype)
+
+    def cheby_hop(self, x1: torch.Tensor, x0: torch.Tensor) -> torch.Tensor:
+        """Chebyshev recurrence hop ``2 (L @ x1) - x0``."""
+        return (2.0 * self.matmul(x1) - x0).to(x1.dtype)
+
+    def to(self, device) -> BCOOLaplacian:
+        return dataclasses.replace(self, mat=self.mat.to(device))
+
+
 def _is_leaf(v) -> bool:
     return isinstance(v, torch.Tensor) or (
         isinstance(v, tuple) and len(v) > 0
@@ -683,7 +722,8 @@ def device_laplacian(L: scipy.sparse.spmatrix, lmax: float = 2.0,
     """Build a device operator for the rescaled Laplacian ``2 L / lmax - I``
     (``rescale=False``: for ``L`` as given, already rescaled).
 
-    ``fmt`` is ``dense``, ``banded``, ``bsr`` or ``auto``: dense up to
+    ``fmt`` is ``dense``, ``banded``, ``bsr``, ``bcoo`` (the library
+    fallback, never chosen by ``auto``) or ``auto``: dense up to
     ``dense_threshold`` nodes, banded for narrow, reasonably full bands,
     dense again above 1/3 block occupancy within ``dense_budget`` bytes,
     else BSR; with a ``block_size`` other than ``"auto"`` or 128, ``auto``
@@ -775,7 +815,14 @@ def device_laplacian(L: scipy.sparse.spmatrix, lmax: float = 2.0,
         return _bsr_laplacian(L, m, nnz, dtype, device, use_pallas,
                               block_size, chunked_rows, col_stream)
     if fmt == "bcoo":
-        raise NotImplementedError(_UNPORTED.format(fmt))
+        mp = _round_up(m, 8)
+        coo = L.tocoo()
+        idx = torch.from_numpy(np.stack([coo.row, coo.col]).astype(np.int64))
+        mat = torch.sparse_coo_tensor(
+            idx, torch.from_numpy(coo.data.astype(np.float32)), (mp, mp),
+            check_invariants=True).coalesce()
+        return BCOOLaplacian(mat=mat.to(device=device, dtype=dtype), m=m,
+                             m_padded=mp, nnz=nnz)
     raise ValueError(f"unknown Laplacian format {fmt!r}")
 
 

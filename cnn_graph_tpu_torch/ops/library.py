@@ -118,7 +118,7 @@ def bsr_rows(blocks: Tensor, nz_rowptr: Tensor, nz_cols: Tensor,
              nz_pos: Tensor, x: Tensor, x0: Optional[Tensor], route: str,
              block_scale: Optional[float]) -> Tensor:
     """The BSR row walk as ``route`` (``K4``, ``K7``, ``K8`` or ``K9``):
-    ``[Mp, C]`` in x's dtype.  CPU: ``bsr_rows_reference``."""
+    ``[len(nz_rowptr) - 1, C]`` in x's dtype.  CPU: ``bsr_rows_reference``."""
     return bsr.bsr_rows_reference(blocks, nz_rowptr, nz_cols, nz_pos, x, x0,
                                   block_scale=block_scale)
 
@@ -131,7 +131,7 @@ def _(blocks, nz_rowptr, nz_cols, nz_pos, x, x0, route, block_scale):
 
 @bsr_rows.register_fake
 def _(blocks, nz_rowptr, nz_cols, nz_pos, x, x0, route, block_scale):
-    return torch.empty_like(x)
+    return x.new_empty((nz_rowptr.shape[0] - 1, x.shape[1]))
 
 
 # --------------------------------------------------------------- K2, K3

@@ -1,13 +1,12 @@
 """Node-sharded operators and data x node parallelism on
 ``torch.distributed``: the mesh, the all-gather operator, the dense
-all_to_all halo and the banded ring halo with its int8 twin.
+all_to_all halo, the banded ring halo and the sparse halo operators
+(block-sparse and per-shard banded), with their int8 twins.
 
-Counterpart of ``cnn_graph_tpu/parallel/`` but for ``sparse_halo.py``
-(``SparseHaloLaplacian``, ``BandedSparseHaloLaplacian`` and their int8
-twins), which is still to be ported (ROADMAP queue 1 item 6b).  Every
-rank runs the same program on its own device; an operator holds the
-rank's rows and its products take and return them.  ``dryrun`` is the
-torch twin of ``__graft_entry__.dryrun_multichip``.
+Counterpart of ``cnn_graph_tpu/parallel/``.  Every rank runs the same
+program on its own device; an operator holds the rank's rows and its
+products take and return them.  ``dryrun`` is the torch twin of
+``__graft_entry__.dryrun_multichip``.
 """
 
 from cnn_graph_tpu_torch.parallel.banded_halo import (
@@ -34,6 +33,14 @@ from cnn_graph_tpu_torch.parallel.node_sharded import (
     NodeShardedLaplacian,
     node_sharded_laplacian,
 )
+from cnn_graph_tpu_torch.parallel.sparse_halo import (
+    BandedSparseHaloLaplacian,
+    QuantBandedSparseHaloLaplacian,
+    QuantSparseHaloLaplacian,
+    SparseHaloLaplacian,
+    quantize_sparse_halo,
+    sparse_halo_laplacian,
+)
 
 __all__ = [
     "BandedHaloLaplacian",
@@ -52,4 +59,10 @@ __all__ = [
     "replicated",
     "NodeShardedLaplacian",
     "node_sharded_laplacian",
+    "BandedSparseHaloLaplacian",
+    "QuantBandedSparseHaloLaplacian",
+    "QuantSparseHaloLaplacian",
+    "SparseHaloLaplacian",
+    "quantize_sparse_halo",
+    "sparse_halo_laplacian",
 ]

@@ -1,6 +1,5 @@
 """A dp x nodes dry run on tiny shapes: the torch twin of
-``__graft_entry__.dryrun_multichip`` (:57-130), without its sparse halo
-part (ROADMAP queue 1 item 6b).
+``__graft_entry__.dryrun_multichip`` (:57-155).
 
 Every rank of the world runs it:
 
@@ -9,9 +8,11 @@ Every rank of the world runs it:
   world): one adam step with the batch split over ``data``, each rank's
   node rows, and the gradients made global;
 * NodeClassifier on the banded halo operator over a ``(1, world)`` mesh
-  on ``city_graph(96)``: the loss and its gradients.
+  on ``city_graph(96)``: the loss and its gradients;
+* one fused hop of each sparse halo format (``bsr``, ``banded``) on the
+  same graph and mesh: ``sum |y|`` over every rank's rows.
 
-Both losses must be finite; rank 0 prints ``dryrun_multichip OK``.
+Every value must be finite; rank 0 prints ``dryrun_multichip OK``.
 
 Run:  python -m torch.distributed.run --standalone --nproc-per-node W \\
           -m cnn_graph_tpu_torch.parallel.dryrun [--device cpu]
@@ -34,8 +35,10 @@ from cnn_graph_tpu_torch.parallel.mesh import (
     data_sharding,
     init_distributed,
     make_mesh,
+    node_sum,
     replicated,
 )
+from cnn_graph_tpu_torch.parallel.sparse_halo import sparse_halo_laplacian
 from cnn_graph_tpu_torch.train.optim import Optimizer
 from cnn_graph_tpu_torch.train.trainer import TrainConfig
 
@@ -43,9 +46,10 @@ __all__ = ["dryrun_multichip"]
 
 
 def dryrun_multichip(device=None) -> dict:
-    """One sharded training step of each model on this rank (the process
-    group is joined from the environment where it is not joined yet).
-    Returns both losses."""
+    """One sharded training step of each model on this rank and one hop
+    of each sparse halo format (the process group is joined from the
+    environment where it is not joined yet).  Returns the losses and the
+    hops' ``sum |y|``."""
     if not dist.is_initialized():
         init_distributed(device)
     world = dist.get_world_size()
@@ -99,12 +103,28 @@ def dryrun_multichip(device=None) -> dict:
     if not (bool(torch.isfinite(nc_loss)) and all(
             bool(torch.isfinite(g).all()) for g in nc_grads)):
         raise RuntimeError("non-finite banded-halo loss in the dry run")
+
+    # One fused hop of each sparse halo format (JAX :138-155).
+    x1, x0 = (rng.normal(size=(bop.m_padded, 4)).astype(np.float32)
+              for _ in range(2))
+    sparse = {}
+    for fmt in ("bsr", "banded"):
+        shop = sparse_halo_laplacian(Lc, nodes_mesh, fmt=fmt)
+        a, b = (torch.from_numpy(np.ascontiguousarray(shop.local_rows(
+            v[:shop.m_padded]))).to(dev) for v in (x1, x0))
+        with torch.no_grad():
+            val = float(node_sum(shop.cheby_hop(a, b).abs().sum(),
+                                 nodes_mesh))
+        if not np.isfinite(val):
+            raise RuntimeError(f"non-finite sparse-halo[{fmt}] hop")
+        sparse[f"sparse_{fmt}"] = val
     if dist.get_rank() == 0:
         print(f"dryrun_multichip OK: world {world}, dp x nodes "
               f"{dict(mesh.shape)} loss {float(loss.detach()):.4f}, banded "
-              f"halo loss {float(nc_loss.detach()):.4f}", flush=True)
+              f"halo loss {float(nc_loss.detach()):.4f}, sparse halo hops "
+              f"{sparse}", flush=True)
     return {"loss": float(loss.detach()),
-            "banded_loss": float(nc_loss.detach())}
+            "banded_loss": float(nc_loss.detach()), **sparse}
 
 
 def main(argv=None):

@@ -50,6 +50,7 @@ from cnn_graph_tpu_torch.models import common
 # Registers the kernels' custom ops, which torch.export.load needs.
 from cnn_graph_tpu_torch.ops import library
 from cnn_graph_tpu_torch.ops.band import full_f32_matmul
+from cnn_graph_tpu_torch.ops.laplacian import BCOOLaplacian
 
 __all__ = ["InputSpec", "CompiledServing", "LoadedServing",
            "compile_serving", "export_serving", "load_serving"]
@@ -159,8 +160,9 @@ def export_serving(model, params, example_x: torch.Tensor, path: str,
     ``compile_serving``.  ``platforms`` (default: ``example_x``'s device
     type) may only name that device type: the program is traced on that
     device's kernels and runs there alone.  A model on node-sharded
-    operators is refused, as JAX's (serve.py:145-155).  Returns
-    ``path``."""
+    operators is refused, as JAX's (serve.py:145-155), and so is one on
+    a BCOO operator, whose sparse matrix ``torch.export`` cannot take as
+    a leaf.  Returns ``path``."""
     sharded = [type(o).__name__ for o in _model_operators(model)
                if getattr(o, "mesh", None) is not None]
     if sharded:
@@ -172,6 +174,12 @@ def export_serving(model, params, example_x: torch.Tensor, path: str,
             "graph partition instead, or rebuild the model with "
             "single-chip operators before exporting."
         )
+    if any(isinstance(o, BCOOLaplacian) for o in _model_operators(model)):
+        raise ValueError(
+            "model carries a BCOO operator: its torch sparse matrix cannot "
+            "be a leaf of the artifact (torch.export takes dense tensors); "
+            "build the operator with fmt='dense', 'banded' or 'bsr' to "
+            "export it")
     kind = example_x.device.type
     if platforms is not None and list(platforms) != [kind]:
         raise ValueError(

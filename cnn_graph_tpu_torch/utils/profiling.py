@@ -1,7 +1,9 @@
-"""Device timing by slope fit and the SpMM rooflines, on an NVIDIA H100.
+"""Step timers, trace capture, device timing by slope fit and the SpMM
+rooflines, on an NVIDIA H100.
 
 Counterpart of ``cnn_graph_tpu/utils/profiling.py`` (``slope_time`` :18,
-``spmm_roofline`` :117), its own copy: that module imports JAX.
+``StepTimer`` :55, ``trace`` :81, ``spmm_roofline`` :117), its own copy:
+that module imports JAX.
 ``sparse_roofline`` is the port's own: the bound of a sparse product by
 what its nonzeros need, where ``spmm_roofline`` counts a block format's
 work.  Times
@@ -13,12 +15,69 @@ measured ones.
 
 from __future__ import annotations
 
+import contextlib
 import math
+import os
+import time
 
 import torch
 
-__all__ = ["H100_BYTES_PER_S", "H100_OPS_PER_S", "slope_time",
-           "spmm_roofline", "sparse_roofline", "roofline"]
+__all__ = ["H100_BYTES_PER_S", "H100_OPS_PER_S", "StepTimer", "trace",
+           "slope_time", "spmm_roofline", "sparse_roofline", "roofline"]
+
+
+def _tensors(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+
+
+class StepTimer:
+    """Wall-clock step timer (JAX :55): ``stop(result)`` waits for the
+    card when a tensor of ``result`` lives there, so that queued work is
+    charged to the step that launched it; CPU tensors are computed by
+    the time they are returned."""
+
+    def __init__(self):
+        self.times: list[float] = []
+        self._t0 = None
+
+    def start(self):
+        self._t0 = time.perf_counter()
+
+    def stop(self, result=None):
+        devices = {t.device for t in _tensors(result) if t.is_cuda}
+        for dev in devices:
+            torch.cuda.synchronize(dev)
+        self.times.append(time.perf_counter() - self._t0)
+
+    @property
+    def mean_ms(self) -> float:
+        return 1000.0 * sum(self.times) / max(len(self.times), 1)
+
+    @property
+    def min_ms(self) -> float:
+        return 1000.0 * min(self.times) if self.times else 0.0
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Record the block with ``torch.profiler`` (the CPU, and the card
+    where there is one) and write a Chrome trace, ``log_dir/trace.json``,
+    which Perfetto and ``chrome://tracing`` open (JAX :81 writes a
+    ``jax.profiler`` trace).  Yields the profiler."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with torch.profiler.profile(activities=acts) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 H100_BYTES_PER_S = 3.35e12
 # Operations per second by the operands' type: tensor cores for bf16 and

@@ -465,7 +465,9 @@ def _task_parallel(inp, rank, world):
             out[f"dp_{name}_{i}"] = p
 
     # The torch dry run, and the export refusal of a sharded model.
-    out["dryrun"] = np.array(list(dryrun_multichip("cpu").values()))
+    dry = dryrun_multichip("cpu")
+    out["dryrun"] = np.array(list(dry.values()))
+    out["dryrun_keys"] = np.array(list(dry))
     hop = halo_sharded_laplacian(L, mesh22)
     nc = NodeClassifier(hop, 3, 2, hidden=[4], K=3)
     try:
@@ -477,8 +479,142 @@ def _task_parallel(inp, rank, world):
     return out
 
 
+def _sparse_variants(L, mesh):
+    """The sparse halo operators tests/test_torch_sparse_halo.py holds
+    against JAX's, by name: BSR at 8x8 blocks on the gather route and on
+    the row walk's plain version (``use_pallas``), BSR at 128x128, and
+    the per-shard banded format (128x128)."""
+    from cnn_graph_tpu_torch.parallel import sparse_halo_laplacian
+
+    return {
+        "bsr8": sparse_halo_laplacian(L, mesh, block_shape=(8, 8),
+                                      use_pallas=False),
+        "bsr8p": sparse_halo_laplacian(L, mesh, block_shape=(8, 8),
+                                       use_pallas=True),
+        "bsr128": sparse_halo_laplacian(L, mesh, use_pallas=False),
+        "band": sparse_halo_laplacian(L, mesh, fmt="banded",
+                                      use_pallas=False),
+    }
+
+
+def _task_sparse(inp, rank, world):
+    """The sparse halo operators over a (1, world) mesh: every case of
+    tests/test_torch_sparse_halo.py on this rank's rows."""
+    import torch
+
+    from cnn_graph_tpu_torch import serve
+    from cnn_graph_tpu_torch.models import NodeClassifier, common
+    from cnn_graph_tpu_torch.parallel import (
+        BandedSparseHaloLaplacian,
+        QuantBandedSparseHaloLaplacian,
+        QuantSparseHaloLaplacian,
+        SparseHaloLaplacian,
+        make_mesh,
+        quantize_sparse_halo,
+        sparse_halo_laplacian,
+    )
+
+    L = _csr(inp)
+    mesh = make_mesh(data=1, nodes=world, device="cpu")
+    out = {}
+    _coords(out, mesh)
+    ops = _sparse_variants(L, mesh)
+    for name, o in ops.items():
+        out[f"{name}_meta"] = np.array([o.m_padded, o.rows_per_shard,
+                                        o.halo, o.ext_cols_padded])
+        out[f"{name}_send_idx"] = _np(o.send_idx)
+        fields = (("band", "base", "colperm") if name == "band" else
+                  ("blocks", "block_rows", "block_cols"))
+        for f in fields:
+            src = o if f == "colperm" else o.local
+            out[f"{name}_{f}"] = _np(getattr(src, f))
+        loc = o.local_rows
+        x, x0, t = (_t(loc(inp[k][:o.m_padded])) for k in ("x", "x0", "t"))
+        out[f"{name}_matmul"] = _np(o.matmul(x))
+        out[f"{name}_hop"] = _np(o.cheby_hop(x, x0))
+        xg = x.clone().requires_grad_()
+        (o.matmul(xg) * t).sum().backward()
+        out[f"{name}_grad_mm"] = _np(xg.grad)
+        x1g, x0g = x.clone().requires_grad_(), x0.clone().requires_grad_()
+        (o.cheby_hop(x1g, x0g) * t).sum().backward()
+        out[f"{name}_grad_hop1"] = _np(x1g.grad)
+        out[f"{name}_grad_hop0"] = _np(x0g.grad)
+    out["kinds"] = np.array([isinstance(ops["bsr8"], SparseHaloLaplacian),
+                             isinstance(ops["band"],
+                                        BandedSparseHaloLaplacian)])
+
+    # bf16 on the gather route: JAX's per-block rounding.
+    b16 = sparse_halo_laplacian(L, mesh, block_shape=(8, 8),
+                                dtype=torch.bfloat16, use_pallas=False)
+    xb, xb0 = (_t(b16.local_rows(inp[k][:b16.m_padded])).to(torch.bfloat16)
+               for k in ("x", "x0"))
+    out["bf16_matmul"] = _np(b16.matmul(xb).float())
+    out["bf16_hop"] = _np(b16.cheby_hop(xb, xb0).float())
+
+    # The int8 chains (K = 7) and the band scale; the exchange's bytes.
+    for name in ("bsr8", "bsr8p", "band"):
+        q = quantize_sparse_halo(ops[name], sample_x=3.0)
+        out[f"{name}_band_scale"] = np.float64(q.band_scale)
+        xq = _t(q.local_rows(inp["xq"][:q.m_padded]))
+        with torch.no_grad():
+            out[f"{name}_qchain"] = _np(q.cheby_chain_q(xq, 7))
+            mesh.traffic.clear()
+            q.spmm_q(xq)
+        out[f"{name}_traffic_int8"] = np.int64(mesh.traffic["torch.int8"])
+
+    # fmt="auto" and the refusals.
+    auto_wide = sparse_halo_laplacian(L, mesh, fmt="auto", max_band_width=0)
+    auto = sparse_halo_laplacian(L, mesh, fmt="auto")
+    out["auto"] = np.array([isinstance(auto_wide, SparseHaloLaplacian),
+                            isinstance(auto, BandedSparseHaloLaplacian)])
+    refused = []
+    for kw in (dict(fmt="banded", max_band_width=0),
+               dict(fmt="banded", block_shape=(8, 8))):
+        try:
+            sparse_halo_laplacian(L, mesh, **kw)
+            refused.append("")
+        except ValueError as e:
+            refused.append(str(e))
+    out["refused"] = np.array(refused)
+
+    # NodeClassifier logits, loss and gradients; the int8 twins in
+    # quantize_model_operators; the export refusal.
+    p = _params(inp, "nc_")
+    quant = []
+    for name in ("bsr8", "band"):
+        o = ops[name]
+        f, lab, msk = (_t(o.local_rows(inp[k][:256]))
+                       for k in ("feats", "labels", "mask"))
+        nc = NodeClassifier(o, input_features=8, num_classes=4, hidden=[16],
+                            K=3)
+        leaves = [p["convs"][i][k] for i in range(2) for k in ("w", "b")]
+        for t in leaves:
+            t.requires_grad_()
+        loss = nc.loss(p, f, lab, msk)
+        grads = mesh.sync_grads(list(torch.autograd.grad(loss, leaves)))
+        out[f"{name}_nc_loss"] = _np(loss)
+        for i, g in enumerate(grads):
+            out[f"{name}_nc_grad{i}"] = _np(g)
+        with torch.no_grad():
+            out[f"{name}_nc_logits"] = _np(nc.apply(p, f))
+            qm = common.quantize_model_operators(nc, sample_x=5.0)
+            quant.append(isinstance(qm.op, QuantBandedSparseHaloLaplacian
+                                    if name == "band"
+                                    else QuantSparseHaloLaplacian))
+            quant.append(common.quantize_model_operators(
+                qm, sample_x=5.0).op is qm.op)
+            out[f"{name}_nc_qlogits"] = _np(qm.apply(p, f))
+        try:
+            serve.export_serving(nc, p, f, "unused")
+            quant.append(False)
+        except ValueError as e:
+            quant.append("single-chip serving unit" in str(e))
+    out["quant"] = np.array(quant)
+    return out
+
+
 TASKS = {"banded": _task_banded, "halo": _task_halo,
-         "parallel": _task_parallel}
+         "parallel": _task_parallel, "sparse": _task_sparse}
 
 
 def main(argv):

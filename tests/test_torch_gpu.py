@@ -1302,3 +1302,192 @@ def test_banded_halo_at_a_world_of_one(cuda_device, tmp_path):
         env=dict(os.environ, PYTHONPATH=root))
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "world of one OK" in proc.stdout
+
+
+@pytest.mark.parametrize("fmt", ["bsr", "banded"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_sparse_halo_shard_kernels_match_plain_versions(city96, cuda_device,
+                                                        fmt, dtype):
+    """A middle shard of the sparse halo operators (4 shards of city96)
+    on a random extended x ``[ext_p, C]``: the BSR shard's row kernel as
+    K8 against ``bsr_rows_reference``, the banded shard's K5 on
+    ``x_ext[colperm]`` against the row walk's and the window's plain
+    versions; L@x and the hop, int8 bit-identical."""
+    from cnn_graph_tpu_torch.parallel import (
+        quantize_sparse_halo,
+        sparse_halo_laplacian,
+    )
+
+    view = _ShardView(4, 1, cuda_device)
+    dt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    op = sparse_halo_laplacian(city96, view, fmt=fmt, dtype=dt)
+    assert op.use_pallas and op.halo > 1
+    scale = None
+    if dtype == "int8":
+        # quantize_sparse_halo's global max over one shard: a world of one.
+        view.all_reduce = lambda t, axis, op="sum": t
+        op = quantize_sparse_halo(op, sample_x=3.0)
+        scale = op.band_scale
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    x, x0 = (torch.randn(rows, 64, generator=gen, device=cuda_device)
+             for rows in (op.ext_cols_padded, op.rows_per_shard))
+    if dtype == "int8":
+        x, x0 = (torch.clamp(torch.round(t * 40), -127, 127).to(torch.int8)
+                 for t in (x, x0))
+    else:
+        x, x0 = x.to(dt), x0.to(dt)
+    loc = op.local
+    for x0_ in (None, x0):
+        if fmt == "bsr":
+            before = bsr_csr.route_launches["K8"]
+            got = loc.kernel_call(x, x0_, "K8", scale)
+            assert bsr_csr.route_launches["K8"] == before + 1
+            want = bsr_rows_reference(loc.blocks, loc.nz_rowptr, loc.nz_cols,
+                                      loc.nz_pos, x, x0_, block_scale=scale)
+        else:
+            xp = x.index_select(0, op.colperm)
+            before = banded_uniform.launches
+            got = layout_call(loc, xp, x0_, band_scale=scale)
+            assert banded_uniform.launches == before + 1
+            want = banded_rows_reference(
+                (loc.band,), loc.base, None, loc.nz_rowptr, loc.nz_win, xp,
+                x0_, layout="uniform", levels=(loc.band.shape[1],), G=1,
+                band_scale=scale)
+            window = layout_call(dataclasses.replace(loc, use_pallas=False),
+                                 xp, x0_, band_scale=scale)
+            torch.testing.assert_close(got.float(), window.float(),
+                                       rtol=2**-7, atol=1e-4)
+        assert got.shape == (op.rows_per_shard, 64) and got.dtype == x.dtype
+        if dtype == "int8":
+            assert torch.equal(got, want)
+        else:
+            torch.testing.assert_close(got.float(), want.float(),
+                                       rtol=2**-7, atol=1e-4)
+
+
+_SPARSE_WORLD_OF_ONE = r"""
+import sys
+import torch
+from cnn_graph_tpu_torch import graphs
+from cnn_graph_tpu_torch.ops import (band, bsr, device_laplacian,
+                                     quantize_banded)
+from cnn_graph_tpu_torch.parallel import (init_distributed, make_mesh,
+    quantize_sparse_halo, sparse_halo_laplacian)
+
+init_distributed(None, init_method="file://" + sys.argv[1], rank=0,
+                 world_size=1)
+mesh = make_mesh(data=1, nodes=1)
+assert mesh.backend == "nccl", mesh.backend
+L, _ = graphs.city_graph(96, k=8, seed=0)
+single = device_laplacian(L, fmt="banded", dtype=torch.bfloat16)
+gen = torch.Generator(device="cuda").manual_seed(0)
+for fmt, counter in (("bsr", lambda: bsr.bsr_csr.route_launches["K8"]),
+                     ("banded", lambda: band.banded_uniform.launches)):
+    h = sparse_halo_laplacian(L, mesh, fmt=fmt, dtype=torch.bfloat16)
+    assert h.m_padded == single.m_padded, (h.m_padded, single.m_padded)
+    pairs = ((single, h), (quantize_banded(single, sample_x=3.0),
+                           quantize_sparse_halo(h, sample_x=3.0)))
+    for s, q in pairs:
+        i8 = s.compute_dtype == torch.int8
+        if i8:
+            assert q.band_scale == s.band_scale
+        x, x0 = (torch.randn(s.m_padded, 64, generator=gen, device="cuda")
+                 for _ in range(2))
+        x[s.m:] = 0
+        if i8:
+            x, x0 = s.quantize(x), s.quantize(x0)
+        else:
+            x, x0 = x.to(torch.bfloat16), x0.to(torch.bfloat16)
+        first = (lambda o: o.spmm_q) if i8 else (lambda o: o.matmul)
+        hop = (lambda o: o.cheby_hop_q) if i8 else (lambda o: o.cheby_hop)
+        with torch.no_grad():
+            before = counter()
+            got = [first(q)(x), hop(q)(x, x0)]
+            assert counter() == before + 2, (fmt, counter() - before)
+            want = [first(s)(x), hop(s)(x, x0)]
+            if fmt == "bsr" and not i8:
+                # The BSR format's float hop is JAX's unfused one: its
+                # L@x rounds to bf16 before the hop rounds again, so it
+                # is held to the unfused single-chip hop, within one
+                # bf16 ulp of the operands.
+                want[1] = (2.0 * want[0] - x0).to(torch.bfloat16)
+                err = (got[1].float() - want[1].float()).abs()
+                tol = 2**-7 * (2.0 * want[0].float().abs()
+                               + x0.float().abs()) + 1e-4
+                assert bool((err <= tol).all()), float(err.max())
+                got, want = got[:1], want[:1]
+            if i8:
+                got.append(q.cheby_chain_q(x, 6))
+                chain = [x, first(s)(x)]
+                for _ in range(4):
+                    chain.append(hop(s)(chain[-1], chain[-2]))
+                want.append(torch.stack(chain))
+        for g, w in zip(got, want):
+            if i8:
+                assert torch.equal(g, w)
+            else:
+                torch.testing.assert_close(g.float(), w.float(),
+                                           rtol=2**-7, atol=1e-4)
+    # The adjoint in f32: dx of sum((L x)^2) is 2 L (L x).
+    h32 = sparse_halo_laplacian(L, mesh, fmt=fmt)
+    xs = torch.randn(h32.m_padded, 16, generator=gen, device="cuda")
+    xs[h32.m:] = 0
+    u = xs.clone().requires_grad_()
+    (h32.matmul(u) ** 2).sum().backward()
+    with torch.no_grad():
+        want = 2.0 * h32.matmul(h32.matmul(xs))
+    torch.testing.assert_close(u.grad, want, rtol=0, atol=1e-4)
+torch.distributed.destroy_process_group()
+print("sparse world of one OK")
+"""
+
+
+def test_sparse_halo_at_a_world_of_one(cuda_device, tmp_path):
+    """Both sparse halo formats at a world of one rank (NCCL) against
+    the single-chip banded operator: bf16 L@x and hop within one ulp
+    (the BSR format's unfused hop within one ulp of its operands), int8
+    L@x, hop and the K=6 chain bit-identical, one K8 or K5 launch a
+    product, the f32 adjoint.  In a child process, so that this one
+    joins no process group."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-c", _SPARSE_WORLD_OF_ONE, str(tmp_path / "store")],
+        cwd=root, capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=root))
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "sparse world of one OK" in proc.stdout
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bcoo_operator_on_the_card(city96, cuda_device, dtype):
+    """``fmt="bcoo"`` on the card: L@x, the hop and dx against the dense
+    operator (f32 1e-4; bf16 one ulp of the f32 result's rounding)."""
+    op = device_laplacian(city96, fmt="bcoo", dtype=dtype,
+                          device=cuda_device)
+    dense = device_laplacian(city96, fmt="dense", device=cuda_device)
+    assert op.mat.is_cuda and op.m_padded == dense.m_padded
+    x, x0 = (torch.randn(op.m_padded, 32, device=cuda_device)
+             for _ in range(2))
+    x[op.m:] = 0
+    tol = dict(rtol=2**-7, atol=1e-2) if dtype == torch.bfloat16 else dict(
+        rtol=0, atol=1e-4)
+    xd = x.to(dtype)
+    torch.testing.assert_close(op.matmul(xd).float(), dense.matmul(
+        xd.float()), **tol)
+    torch.testing.assert_close(op.cheby_hop(xd, x0.to(dtype)).float(),
+                               dense.cheby_hop(xd.float(),
+                                               x0.to(dtype).float()), **tol)
+    # dx of sum((L x)^2) for an f32 x: 2 L (L x) with L the operator's
+    # own (bf16-rounded) values.
+    ref = device_laplacian(city96, fmt="dense", dtype=dtype,
+                           device=cuda_device)
+    lm = ref.mat.float()
+    u = x.clone().requires_grad_()
+    (op.matmul(u) ** 2).sum().backward()
+    with torch.no_grad():
+        want = 2.0 * (lm @ (lm @ x))
+    torch.testing.assert_close(u.grad, want, rtol=0, atol=1e-3)

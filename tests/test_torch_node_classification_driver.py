@@ -66,10 +66,12 @@ def test_driver_trains_reports_and_exports(tmp_path):
                                    ["--mesh-nodes", "2", "--halo",
                                     "sparse-banded"]])
 def test_sharded_options_raise(flags):
-    """The sparse halo operators are not ported: refused before any
-    work.  ``--mesh-nodes`` with the banded halo runs
+    """The sharded options run one process per rank: launched alone,
+    with no rendezvous to join, the driver refuses before any work.
+    Under ``torch.distributed.run`` both sparse halo formats run
+    (tests/test_torch_sparse_halo.py), and the banded halo
     (tests/test_torch_parallel.py)."""
-    with pytest.raises(NotImplementedError, match="queue 1 item 6b"):
+    with pytest.raises(RuntimeError, match="torch.distributed.run"):
         driver.main(["--device", "cpu", "--nodes", "64", *flags])
 
 

@@ -218,15 +218,21 @@ class TestGuards:
             "cnn_graph_tpu_torch.experiments.rcv1, "
             "cnn_graph_tpu_torch.experiments.humanflow, "
             "cnn_graph_tpu_torch.experiments.node_classification, "
+            "cnn_graph_tpu_torch.experiments.usage_demo, "
+            "cnn_graph_tpu_torch.experiments.gconv_sweep, "
             "cnn_graph_tpu_torch.utils, cnn_graph_tpu_torch.utils.profiling, "
             "cnn_graph_tpu_torch.utils.probes, "
             "cnn_graph_tpu_torch.utils.metrics, "
             "cnn_graph_tpu_torch.utils.logging, "
+            "cnn_graph_tpu_torch.utils.harness, "
+            "cnn_graph_tpu_torch.utils.notify, "
+            "cnn_graph_tpu_torch.utils.plots, "
             "cnn_graph_tpu_torch.parallel, "
             "cnn_graph_tpu_torch.parallel.mesh, "
             "cnn_graph_tpu_torch.parallel.node_sharded, "
             "cnn_graph_tpu_torch.parallel.halo, "
             "cnn_graph_tpu_torch.parallel.banded_halo, "
+            "cnn_graph_tpu_torch.parallel.sparse_halo, "
             "cnn_graph_tpu_torch.parallel.dryrun, "
             "cnn_graph_tpu_torch._build, chip_smoke\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -241,9 +247,14 @@ class TestGuards:
 
     @pytest.mark.parametrize("fmt", ["bcoo"])
     def test_unported_formats_raise(self, fmt):
+        """Every format of the JAX package is ported (``fmt`` builds its
+        operator, tests/test_torch_bcoo.py); a format JAX does not have
+        raises rather than falling back."""
         L, _ = graphs.city_graph(20, k=4, seed=0)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            device_laplacian(L, fmt=fmt, device="cpu")
+        op = device_laplacian(L, fmt=fmt, device="cpu")
+        assert type(op).__name__ == "BCOOLaplacian"
+        with pytest.raises(ValueError, match="unknown Laplacian format"):
+            device_laplacian(L, fmt=fmt + "x", device="cpu")
 
     def test_auto_landing_on_bsr_builds_bsr(self):
         """A scattered (un-reordered) graph too wide for the band and over

@@ -176,6 +176,18 @@ class TestDryRunAndExport:
         for r in world.res:
             assert np.all(np.isfinite(r["dryrun"]))
 
+    def test_dryrun_runs_the_sparse_halo_hops(self, world):
+        """The dry run's third part (JAX __graft_entry__.py:138-155): one
+        fused hop of each sparse halo format, the same sum on every
+        rank."""
+        for r in world.res:
+            keys = [str(k) for k in r["dryrun_keys"]]
+            assert keys[-2:] == ["sparse_bsr", "sparse_banded"]
+            assert np.all(r["dryrun"][-2:] > 0)
+        first = world.res[0]["dryrun"][-2:]
+        for r in world.res[1:]:
+            np.testing.assert_allclose(r["dryrun"][-2:], first, rtol=1e-6)
+
     def test_export_serving_refuses_sharded_operators(self, world):
         assert all(bool(r["export_refused"]) for r in world.res)
 

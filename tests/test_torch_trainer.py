@@ -385,8 +385,13 @@ def test_mnist_driver_refuses_unported_flags(argv, item):
         mnist.main(["--device", "cpu", *argv])
 
 
-def test_text_driver_refuses_baselines():
+def test_text_driver_refuses_baselines(monkeypatch):
+    """Without scikit-learn (the card's machine has none) ``--baselines``
+    raises ``ImportError`` naming it before any training; with it the
+    baselines run (tests/test_torch_utils.py)."""
     from cnn_graph_tpu_torch.experiments import text20news
 
-    with pytest.raises(NotImplementedError, match="item 9"):
-        text20news.main(["--device", "cpu", "--baselines"])
+    monkeypatch.setitem(sys.modules, "sklearn", None)
+    with pytest.raises(ImportError, match="scikit-learn"):
+        text20news.main(["--device", "cpu", "--synthetic", "--epochs", "1",
+                         "--baselines"])
