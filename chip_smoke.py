@@ -15,7 +15,9 @@ Phases, each fatal on failure (no CPU path, no fallback):
    ``bsr_rows_kernel``, launched as K4 by ``bsr_colstream`` and as
    K7/K8/K9 by ``bsr_csr``; it shares csrc/rows.cuh with
    ``band_rows_kernel``) and the probes P1-P3 (csrc/probes.cu) from
-   source, one nvcc each, started together; print each kernel's
+   source, one nvcc each, and the host Graclus matcher
+   (``native/graph_kernels.cpp``) with g++, all started together; print
+   each kernel's
    registers and shared memory, and the tensor-core instructions
    (``HMMA``/``HGMMA``) in K2's and K3's SASS (``cuobjdump -sass``),
    which their bf16 instantiations must hold;
@@ -258,13 +260,17 @@ Phases, each fatal on failure (no CPU path, no fallback):
 
 26. the node-sharded operators (``cnn_graph_tpu_torch/parallel``), K1,
    K5 and K6 on halo-extended x, after phase 25 (c): (a) in this
-   process, a world of one rank over NCCL (a ``file://`` rendezvous):
+   process, a world of one rank over NCCL (``experiments.multichip.
+   one_rank_mesh``, a ``file://`` rendezvous):
    ``banded_halo_laplacian`` of the 50k city graph on a ``nodes=1``
    mesh in bf16 and int8, with and without ``force_boundary`` (the
    prefix, interior and suffix passes): L@x, the hop and the K=25
    chain against phase 3's single-chip operator, bf16 within one ulp
    and int8 bit-identical, each hop 1 K1 launch a region and no other
-   kernel; the chain's us per SpMM (``cuda_ms``) beside phase 14's;
+   kernel; then the multichip experiment's ``wrapper`` and ``chain`` modes
+   (``multichip.one_rank_times``, ``slope_time``): the chain's us per
+   SpMM hop by hop and through ``cheby_chain``, beside the single-chip
+   chain's and phase 14's;
    (b) 4 ranks on the card over gloo (``torch.distributed.run``), the
    same graph sharded 4 ways, C = 512: each rank's rows of L@x, the hop
    and the K=25 chain on K1 (f32 within 1e-5 of the max, bf16 one ulp,
@@ -307,6 +313,28 @@ Phases, each fatal on failure (no CPU path, no fallback):
    operator (``torch.sparse.mm``, no kernel) within 1e-4 of the max of
    the f32 banded operator's logits on the same weights.
 
+28. the banded operators at block shapes other than 128x128 and the
+   native Graclus matcher, after phase 27: (a) K1, K5 and K6 in int8,
+   bf16 and f32 against both plain versions in every form (L@x, the
+   hop, +c, in place; phase 3's tolerances, int8 bit-identical) and
+   timed beside the 128x128 kernel on the same graph and the sparse
+   bound: on the 50k city graph at 64x64 and 32x32, C = 512, and on
+   ``city_graph(40)`` at 8x8, 16x16, (32, 64), (64, 32), (24, 40) and
+   128x128;
+   (b) phases 3-5's NodeClassifier on the 50k operator at 64x64: 4
+   requests each in bf16 and int8 through K1 (24 launches a request;
+   int8 bit-identical to the plain twin), the logits against phase 4's
+   128x128 ones (expected equal: the walk's sums do not depend on the
+   block), one request each through K5 and K6, one deep bf16 training
+   step (72 K1 launches) against the plain version, and the int8
+   artifact exported and loaded in this process (bit-identical); (c) in
+   phase 27's world, the sparse-halo banded shard at 64x64 on 4 ranks
+   against the single-chip 64x64 operator (int8 bit-identical); (d)
+   Graclus over 4 levels on the MNIST grid and the 50k city graph's
+   8-NN adjacency with the native matcher (``cnn_graph_tpu_torch.
+   native``, built with g++ in phase 2) and the Python loop: equal
+   clusters, the seconds of each.
+
 Each 50k scattered operator is freed after its phase.
 
 The last three lines are the kernel record as one JSON object (each
@@ -339,7 +367,7 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from cnn_graph_tpu_torch import _build, graphs  # noqa: E402
+from cnn_graph_tpu_torch import _build, graphs, native  # noqa: E402
 from cnn_graph_tpu_torch.data import (  # noqa: E402
     HumanTraffic,
     mnist_graph_data,
@@ -348,9 +376,11 @@ from cnn_graph_tpu_torch.data import (  # noqa: E402
 )
 from cnn_graph_tpu_torch.experiments import (  # noqa: E402
     humanflow,
+    multichip,
     node_classification,
     text20news,
 )
+from cnn_graph_tpu_torch.graphs import coarsening  # noqa: E402
 from cnn_graph_tpu_torch.models import (  # noqa: E402
     ChebNet,
     GConvForecaster,
@@ -2804,16 +2834,39 @@ def _launched() -> dict:
     return {k: v for k, v in library.launch_counts().items() if v}
 
 
-def sharded_one_rank_phase(L, single, chains, dev, gpu: str,
-                           tmp: str) -> dict:
+def sharded_one_rank_phase(L, single, chains, dev, gpu: str) -> dict:
     """Phase 26 (a): the banded halo operator at a world of one rank
-    (NCCL) against phase 3's single-chip bf16 operator ``single`` and
-    its int8 twin, with and without ``force_boundary``; the chain's us
-    per SpMM beside phase 14's ``chains``."""
+    (NCCL, ``experiments.multichip.one_rank_mesh``) against phase 3's
+    single-chip bf16 operator ``single`` and its int8 twin, with and
+    without ``force_boundary``; then the multichip experiment's ``wrapper``
+    and ``chain`` timings (``multichip.one_rank_times``: the chain's us
+    per SpMM hop by hop and through ``cheby_chain``, beside the
+    single-chip chain's) and the split operator's ``cheby_chain``,
+    beside phase 14's ``chains``."""
     t0 = time.perf_counter()
-    init_distributed(dev, init_method=f"file://{tmp}/store26a", rank=0,
-                     world_size=1)
-    mesh = make_mesh(data=1, nodes=1, device=dev)
+    with multichip.one_rank_mesh(dev) as mesh:
+        rec = _one_rank_checks(L, single, mesh, dev)
+    rec["seconds"] = time.perf_counter() - t0
+    us = rec["us_per_spmm"]
+    print(f"sharded one rank (phase 26a): backend nccl, world 1; bf16 and "
+          f"int8 against phase 3's single-chip operator, max_abs_err "
+          f"{rec['max_abs_err']}, K1 launches a hop "
+          f"{rec['regions']}; K={K} chain at C={FIN} (multichip wrapper and "
+          f"chain): us per SpMM through cheby_chain "
+          + ", ".join(f"{k} {v:.2f}" for k, v in us.items())
+          + "; hop by hop " + ", ".join(
+              f"{k} {v:.2f}" for k, v in rec["hop_us_per_spmm"].items())
+          + "; single-chip hop by hop " + ", ".join(
+              f"{k} {v:.2f}" for k, v in rec["plain_us_per_spmm"].items())
+          + " (phase 14's single-chip cheby_finals: bf16 "
+          f"{chains['dkw']['bf16']['us_per_spmm']:.2f}, int8 "
+          f"{chains['dkw']['int8']['us_per_spmm']:.2f}); "
+          f"{rec['seconds']:.1f} s [{gpu}]", flush=True)
+    return rec
+
+
+def _one_rank_checks(L, single, mesh, dev) -> dict:
+    """Phase 26 (a)'s checks and timings on the one-rank ``mesh``."""
     check(mesh.backend == "nccl" and not mesh.staged,
           f"phase 26a: backend {mesh.backend}, staged {mesh.staged}")
     gen = torch.Generator(device=dev).manual_seed(26)
@@ -2824,7 +2877,8 @@ def sharded_one_rank_phase(L, single, chains, dev, gpu: str,
                                  generator=gen, device=dev,
                                  dtype=torch.int8) for _ in range(2)]}
     singles = {"bf16": single, "int8": quantize_banded(single, sample_x=3.0)}
-    rec = {"max_abs_err": {}, "us_per_spmm": {}, "regions": {}}
+    rec = {"max_abs_err": {}, "us_per_spmm": {}, "hop_us_per_spmm": {},
+           "plain_us_per_spmm": {}, "regions": {}}
     with torch.no_grad():
         want = {lab: (s.spmm_q(xs[lab][0]) if lab == "int8"
                       else s.matmul(xs[lab][0]),
@@ -2865,20 +2919,21 @@ def sharded_one_rank_phase(L, single, chains, dev, gpu: str,
                 key = f"{lab}{'_split' if fb else ''}"
                 rec["max_abs_err"][key] = err
                 rec["regions"][key] = regions
-                ms = cuda_ms(lambda h=h, x=x, q=q: h.cheby_chain_q(x, K) if q
-                             else h.cheby_chain(x, K), 3)
-                rec["us_per_spmm"][key] = ms * 1e3 / (K - 1)
-    torch.distributed.destroy_process_group()
-    rec["seconds"] = time.perf_counter() - t0
-    print(f"sharded one rank (phase 26a): backend nccl, world 1; bf16 and "
-          f"int8 against phase 3's single-chip operator, max_abs_err "
-          f"{rec['max_abs_err']}, K1 launches a hop "
-          f"{rec['regions']}; K={K} chain at C={FIN}: us per SpMM "
-          + ", ".join(f"{k} {v:.2f}" for k, v in rec["us_per_spmm"].items())
-          + " (phase 14's single-chip cheby_finals: bf16 "
-          f"{chains['dkw']['bf16']['us_per_spmm']:.2f}, int8 "
-          f"{chains['dkw']['int8']['us_per_spmm']:.2f}); "
-          f"{rec['seconds']:.1f} s [{gpu}]", flush=True)
+            x = xs["bf16"][0]
+            if fb:
+                # The split operator's whole chain, as the multichip experiment
+                # times it.
+                rec["us_per_spmm"]["bf16_split"] = 1e6 * (
+                    multichip.region_chain_seconds(hb, x, K))
+                rec["us_per_spmm"]["int8_split"] = 1e6 * (
+                    multichip.region_chain_seconds(ops["int8"], x, K))
+                continue
+            # The multichip experiment's wrapper and chain modes on this mesh.
+            t = multichip.one_rank_times(single, hb, x, region=True, K=K)
+            for lab in ("bf16", "int8"):
+                rec["us_per_spmm"][lab] = 1e6 * t[f"{lab}_region"]
+                rec["hop_us_per_spmm"][lab] = 1e6 * t[f"{lab}_halo"]
+                rec["plain_us_per_spmm"][lab] = 1e6 * t[f"{lab}_plain"]
     return rec
 
 
@@ -3254,6 +3309,16 @@ def sparse_ranks_phase(L, L_s, refs, d: str, gpu: str) -> dict:
               f"(n*H*C*2 {s['bytes_want']}), exchange "
               f"{s['exchange_ms_gloo_one_card']:.3f} ms (gloo, one card)",
               flush=True)
+    for r in recs:
+        f = r["banded64"]
+        print(f"  rank {r['rank']} (phase 28c) banded {SERVE_BLOCK}x"
+              f"{SERVE_BLOCK}: H {f['H']}, ext_p {f['ext_p']}, {f['size']}, "
+              f"max_abs_err {f['max_abs_err']} (against the single-chip "
+              f"{SERVE_BLOCK}x{SERVE_BLOCK} operator), kernel vs plain "
+              f"{f['rows_max_abs_err']}, launches {f['launches']}, bytes a "
+              f"bf16 hop {f['bytes_per_hop']}, exchange "
+              f"{f['exchange_ms_gloo_one_card']:.3f} ms (gloo, one card)",
+              flush=True)
     print(f"dryrun (phase 27d, {recs[0]['dryrun_s']:.1f} s): {ok[0]}",
           flush=True)
     print(f"sparse halo ranks (phase 27abd): {HALO_RANKS} ranks on one card "
@@ -3261,18 +3326,24 @@ def sparse_ranks_phase(L, L_s, refs, d: str, gpu: str) -> dict:
     return {"ranks": recs, "seconds": sec}
 
 
-def _sparse_rank_format(fmt, L, mesh, singles, xg, rank):
+def _sparse_rank_format(fmt, L, mesh, singles, xg, rank,
+                        block_shape=(128, 128), phase="27a"):
     """Phase 27 (a) on one rank for one format: L@x, the hop and the
     K-term chain in f32, bf16 and int8 against the single-chip banded
     operator's rows, the kernel against its plain version on this rank's
-    extended x, the f32 adjoint, the exchange's bytes and time."""
-    dev = mesh.device
-    h32 = sparse_halo_laplacian(L, mesh, fmt=fmt)
-    hb = sparse_halo_laplacian(L, mesh, fmt=fmt, dtype=torch.bfloat16)
+    extended x, the f32 adjoint, the exchange's bytes and time.  Phase 28
+    (c) runs the banded format at another ``block_shape`` against the
+    single-chip operator at that shape."""
+    h32 = sparse_halo_laplacian(L, mesh, fmt=fmt, block_shape=block_shape)
+    hb = sparse_halo_laplacian(L, mesh, fmt=fmt, dtype=torch.bfloat16,
+                               block_shape=block_shape)
     halos = {"f32": h32, "bf16": hb,
              "int8": quantize_sparse_halo(hb, sample_x=3.0)}
+    check(all(getattr(h.local, "block_shape", None) == tuple(block_shape)
+              for h in halos.values()),
+          f"phase {phase} rank {rank} {fmt}: block shape")
     check(halos["int8"].band_scale == singles["int8"].band_scale,
-          f"phase 27a rank {rank} {fmt}: int8 band scale")
+          f"phase {phase} rank {rank} {fmt}: int8 band scale")
     name, route = SPARSE_KERNEL[fmt]
     lo, hi = h32.row_range
     real = h32.real_rows
@@ -3288,7 +3359,7 @@ def _sparse_rank_format(fmt, L, mesh, singles, xg, rank):
                for x in xg] if q else [x.to(s.compute_dtype) for x in xg])
         x_s = [_padded(x, s.m_padded) for x in xs]
         x_h = [_padded(x, h.m_padded)[lo:hi].contiguous() for x in xs]
-        what = f"phase 27a rank {rank} {fmt} {lab}"
+        what = f"phase {phase} rank {rank} {fmt} {lab}"
         # The BSR format's float hop is JAX's unfused one: so is the
         # reference's.
         ref = _Unfused(s) if fmt == "bsr" and not q else s
@@ -3343,7 +3414,7 @@ def _sparse_rank_format(fmt, L, mesh, singles, xg, rank):
     want = v.grad[lo:lo + real]
     err = float((u.grad[:real] - want).abs().max()) if real else 0.0
     check(not real or err <= 1e-4 * float(want.abs().max()),
-          f"phase 27a rank {rank} {fmt}: the adjoint err {err:.3g}")
+          f"phase {phase} rank {rank} {fmt}: the adjoint err {err:.3g}")
     rec["max_abs_err"]["adjoint_f32"] = err
     rec.update(_exchange_record(hb, mesh, _padded(
         xg[0].to(torch.bfloat16), hb.m_padded)[lo:hi].contiguous()))
@@ -3385,6 +3456,18 @@ def halo_rank_sparse(d: str):
     rec = {"rank": rank}
     for fmt in SPARSE_KERNEL:
         rec[fmt] = _sparse_rank_format(fmt, L, mesh, singles, xg, rank)
+    del singles, f32
+    torch.cuda.empty_cache()
+
+    # Phase 28 (c): the banded shard at SERVE_BLOCK x SERVE_BLOCK blocks
+    # against the single-chip operator at that shape.
+    f32 = device_laplacian(L, fmt="banded", block_size=SERVE_BLOCK,
+                           device=dev)
+    singles = {"f32": f32, "bf16": cast_op(f32, torch.bfloat16)}
+    singles["int8"] = quantize_banded(singles["bf16"], sample_x=3.0)
+    rec["banded64"] = _sparse_rank_format(
+        "banded", L, mesh, singles, xg, rank,
+        block_shape=(SERVE_BLOCK, SERVE_BLOCK), phase="28c")
     del singles, f32
     torch.cuda.empty_cache()
 
@@ -3515,6 +3598,263 @@ HALO_RANK_TASKS = {"kernels": halo_rank_kernels,
                    "sparse": halo_rank_sparse}
 
 
+# -------------------------------------- other block shapes, Graclus, 28
+
+# Phase 28: the banded operators at block shapes other than 128x128 (JAX
+# builds any), (a) on the 50k city graph and on city_graph(SIDE_SMALL)
+# (1,600 nodes), its 128x128 operator timed beside them; (b) the 50k
+# NodeClassifier served and trained at SERVE_BLOCK; (c) in phase 27's
+# world; (d) Graclus with the native matcher and the Python loop.
+SHAPES_50K = ((64, 64), (32, 32))
+SIDE_SMALL = 40
+# (24, 40): block edges that are not powers of two, which the kernel
+# divides by where it shifts by the others.
+SHAPES_SMALL = ((8, 8), (16, 16), (32, 64), (64, 32), (24, 40), (128, 128))
+SERVE_BLOCK = 64
+GRACLUS_LEVELS = 4
+
+
+def _shape_tag(shape) -> str:
+    return f"{shape[0]}x{shape[1]}"
+
+
+def shape_layout_ops(L, shape, dev, sample: float) -> dict:
+    """The three layouts' operators of ``L`` at block ``shape`` in int8,
+    bf16 and f32, built as phase 13 builds them at 128x128: K1 on the
+    dkw layout, K5 on the uniform band, K6 on a ragged band built
+    without the dkw twin (quantized first) and then given
+    ``use_pallas``."""
+    def build(**kw):
+        return device_laplacian(L, fmt="banded", block_size=shape,
+                                dtype=torch.bfloat16, device=dev, **kw)
+
+    dkw, uni, rag = build(), build(ragged=False), build(use_pallas=False)
+    out = {"dkw": {"int8": quantize_banded(dkw, sample_x=sample),
+                   "bf16": dkw, "f32": cast_op(dkw)},
+           "uniform": {"int8": quantize_banded(uni, sample_x=sample),
+                       "bf16": uni, "f32": cast_op(uni)},
+           "ragged": {lab: dataclasses.replace(o, use_pallas=True)
+                      for lab, o in (
+                          ("int8", quantize_banded(rag, sample_x=sample)),
+                          ("bf16", rag), ("f32", cast_op(rag)))}}
+    for lay, by in out.items():
+        for lab, o in by.items():
+            check(layout_of(o) == lay and o.block_shape == tuple(shape),
+                  f"phase 28a {_shape_tag(shape)} {lay} {lab}: layout "
+                  f"{layout_of(o)}, block {o.block_shape}")
+    return out
+
+
+def shape_kernel_phase(L, shapes, graph: str, gen, lib, ref, dev,
+                       gpu: str) -> dict:
+    """Phase 28 (a) on one graph: at each block shape, K1, K5 and K6 in
+    int8, bf16 and f32 against both plain versions in every form (phase
+    3's ``band_kernel_check``: L@x, the hop, +c) and in place
+    (``inplace_phase``), timed; each printed beside the 128x128 kernel's
+    time on the same graph, ``ref[(layout, dtype)]``, and the sparse
+    bound.  ``lib``: the library times by dtype (None: timed here on
+    each shape's padding).  Records by ``(shape, layout, dtype)``."""
+    recs = {}
+    for shape in shapes:
+        t0 = time.perf_counter()
+        ops = shape_layout_ops(L, shape, dev, 3.0)
+        bf = ops["dkw"]["bf16"]
+        lib_s = lib if lib is not None else library_phase(
+            csr_operand(L, bf.m_padded, dev), gen,
+            f"{graph} {_shape_tag(shape)}", gpu)
+        n_blocks = sum(b.shape[0] * b.shape[2] // shape[1]
+                       for b in bf.bands_dkw)
+        uni = ops["uniform"]["bf16"]
+        print(f"phase 28a {graph} {_shape_tag(shape)}: W {uni.band_width}, "
+              f"levels {bf.levels}, {n_blocks} dkw blocks, "
+              f"{bf.band.shape[0]} ragged, "
+              f"{uni.band.shape[0] * uni.band_width} uniform; set-up "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        del uni
+        for lay, by in ops.items():
+            for lab, o in by.items():
+                what = f"{KERNEL_ID[lay]} {lab} {graph} {_shape_tag(shape)}"
+                rec = {**band_kernel_check(o, gen, what, lib_s),
+                       **inplace_phase(o, gen, what), "graph": graph,
+                       "ms_128": ref.get((lay, lab))}
+                recs[(shape, lay, lab)] = rec
+                base = ref.get((lay, lab))
+                beside = ("" if base is None else
+                          f" (128x128 on this graph: {base:.4f} ms)")
+                print_band_kernel(
+                    f"band_{lay} ({KERNEL_ID[lay]}) {lab} {graph} "
+                    f"{_shape_tag(shape)}{beside}", rec, gpu)
+        del ops
+        torch.cuda.empty_cache()
+        print(f"phase 28a {graph} {_shape_tag(shape)}: "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return recs
+
+
+def shape_model_phase(L, nc_data, reqs, k1_logits, tmp: str,
+                      gpu: str) -> dict:
+    """Phase 28 (b): phases 3-5's NodeClassifier (K=K, Fin=FIN, CLASSES
+    classes, the same seed) on the 50k operator at SERVE_BLOCK x
+    SERVE_BLOCK blocks: N_REQUESTS requests each in bf16 and int8 through
+    K1 (K-1 launches a request), the int8 logits equal to the plain
+    twin's; the served logits against phase 4's 128x128 ones
+    (``k1_logits``: the kernel's sums do not depend on the block, so
+    they are expected equal); one request each through K5 and K6; one
+    deep bf16 training step (3 (K-1) launches) against the plain
+    version; the int8 artifact exported and loaded in this process."""
+    t0 = time.perf_counter()
+    dev = reqs[0].device
+    shape = (SERVE_BLOCK, SERVE_BLOCK)
+
+    def build(**kw):
+        return device_laplacian(L, fmt="banded", block_size=SERVE_BLOCK,
+                                dtype=torch.bfloat16, device=dev, **kw)
+
+    op = build()
+    check(layout_of(op) == "dkw" and op.block_shape == shape,
+          f"phase 28b: layout {layout_of(op)}, block {op.block_shape}")
+    setup = time.perf_counter() - t0
+    model = NodeClassifier(op, FIN, CLASSES, hidden=[], K=K,
+                           generator=torch.Generator().manual_seed(0))
+    params = model.param_tree()
+    served = {"bf16": compile_serving(model, params, reqs[0], int8=False),
+              "int8": compile_serving(model, params, reqs[0], int8=True)}
+    n = N_REQUESTS
+    by_mode = {"bf16": reqs[:n], "int8": reqs[n:]}
+    sv = banded_serve_phase(served, by_mode, banded_dkw,
+                            f"serve {_shape_tag(shape)}", gpu)
+    rec = {"launches": dict(sv["launches"]), "same_as_128": {},
+           "diff_from_128": {}}
+    twin = compile_serving(map_operators(served["int8"].model, _plain_twin),
+                           params, reqs[0], int8=False)
+    for y, x in zip(sv["logits"]["int8"], by_mode["int8"]):
+        check(torch.equal(y, twin(x)), "phase 28b int8: served logits not "
+              "bit-identical to the plain twin's")
+    for mode in ("bf16", "int8"):
+        diffs = [float((a - b).abs().max()) for a, b in
+                 zip(sv["logits"][mode], k1_logits[mode])]
+        rec["diff_from_128"][mode] = max(diffs)
+        rec["same_as_128"][mode] = all(torch.equal(a, b) for a, b in
+                                       zip(sv["logits"][mode],
+                                           k1_logits[mode]))
+    rec["request_ms"] = {mode: cuda_ms(lambda s=srv: s(reqs[0]), 5)
+                         for mode, srv in served.items()}
+
+    # One request each through K5 and K6 at the same block.
+    uni, rag = build(ragged=False), build(use_pallas=False)
+    lay_ops = {"uniform": {"bf16": uni,
+                           "int8": quantize_banded(uni, sample_x=float(
+                               max(x.abs().max() for x in reqs)))},
+               "ragged": {lab: dataclasses.replace(o, use_pallas=True)
+                          for lab, o in (("bf16", rag), (
+                              "int8", quantize_banded(rag, sample_x=float(
+                                  max(x.abs().max() for x in reqs)))))}}
+    for lay, by in lay_ops.items():
+        srv = {mode: compile_serving(map_operators(model, lambda _, o=o: o),
+                                     params, reqs[0], int8=False)
+               for mode, o in by.items()}
+        r = banded_serve_phase(srv, {"bf16": reqs[:1],
+                                     "int8": reqs[n:n + 1]},
+                               LAYOUT_KERNELS[lay],
+                               f"{lay} serve {_shape_tag(shape)}", gpu)
+        rec[f"{lay}_launches"] = dict(r["launches"])
+        rec[f"{lay}_request_ms"] = {
+            mode: cuda_ms(lambda s=s: s(reqs[0]), 5)
+            for mode, s in srv.items()}
+        for mode, ys in r["logits"].items():
+            rec["diff_from_128"][f"{lay}_{mode}"] = float(
+                (ys[0] - k1_logits[mode][0]).abs().max())
+    del lay_ops, uni, rag
+
+    # One deep bf16 training step on K1.
+    deep = NodeClassifier(op, FIN, CLASSES, hidden=[FIN], K=K, dropout=1.0,
+                          generator=torch.Generator().manual_seed(0))
+    dparams = _on(deep.param_tree(), dev)
+
+    def step(m=deep):
+        return train_node_classifier(
+            m, dparams, *nc_data, steps=1, learning_rate=LEARNING_RATE,
+            generator=torch.Generator(device=dev).manual_seed(0))
+
+    reset_band_launches()
+    _, losses = step()
+    torch.cuda.synchronize()
+    forms = dict(banded_dkw.form_launches)
+    rec["train_launches"] = banded_dkw.launches
+    check(rec["train_launches"] == 3 * (K - 1) and forms == STEP_FORMS
+          and sum(band_launches().values()) == rec["train_launches"],
+          f"phase 28b train: launches {band_launches()} {forms}")
+    check(bool(torch.isfinite(losses).all()), "phase 28b train: loss")
+    dtwin = copy.copy(deep)
+    dtwin.op = _plain_twin(op)
+    rec["train_loss_rel_err"], rec["train_grad_rel_err"] = check_step(
+        deep, dtwin, dparams, nc_data, 2e-2, "phase 28b train",
+        lambda: banded_dkw.launches)
+    rec["train_ms"] = cuda_ms(step, 2)
+
+    # The int8 artifact, exported and loaded in this process.
+    rec["artifact"] = artifact_phase(
+        model, params, reqs[0], by_mode["int8"], served["int8"], "band_dkw",
+        K - 1, True, f"int8 {_shape_tag(shape)}", tmp, gpu)
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"phase 28b {_shape_tag(shape)}: operator set-up {setup:.1f} s; "
+          f"requests {rec['request_ms']} ms, K1 launches "
+          f"{rec['launches']}, served logits equal to phase 4's 128x128 "
+          f"{rec['same_as_128']} (max diff {rec['diff_from_128']}); K5 "
+          f"{rec['uniform_launches']} {rec['uniform_request_ms']} ms, K6 "
+          f"{rec['ragged_launches']} {rec['ragged_request_ms']} ms; one "
+          f"deep bf16 step: {rec['train_launches']} K1 launches "
+          f"{forms}, loss rel err {rec['train_loss_rel_err']:.3g}, "
+          f"gradient err {rec['train_grad_rel_err']:.3g} of max, "
+          f"{rec['train_ms']:.3f} ms; artifact "
+          f"{rec['artifact']['launches']} launches, bit-identical; "
+          f"{rec['seconds']:.1f} s [{gpu}]", flush=True)
+    return rec
+
+
+@contextlib.contextmanager
+def _python_matcher():
+    """``graphs.coarsen`` with the Python loop as its matcher."""
+    fn = native.graclus_one_level
+    native.graclus_one_level = coarsening.graclus_pairing
+    try:
+        yield
+    finally:
+        native.graclus_one_level = fn
+
+
+def graclus_phase(positions_50k, gpu: str) -> dict:
+    """Phase 28 (d): Graclus over GRACLUS_LEVELS levels with the native
+    matcher and with the Python loop, on the MNIST grid graph (8-NN) and
+    the 50k city graph's 8-NN adjacency: equal clusters and coarse
+    graphs; the seconds of each (host)."""
+    rec = {}
+    # The grid's kNN as mnist_graph_data builds it (dense); the 50k
+    # graph's through the k-d tree (the dense route would take minutes).
+    for name, z, algorithm in (("mnist", graphs.grid(28), "dense"),
+                               ("city50k", positions_50k, "kd_tree")):
+        A = graphs.adjacency(*graphs.knn(np.asarray(z, np.float64), k=KNN,
+                                         algorithm=algorithm))
+        t0 = time.perf_counter()
+        gn, pn = graphs.graclus(A, GRACLUS_LEVELS, seed=0)
+        t_native = time.perf_counter() - t0
+        with _python_matcher():
+            t0 = time.perf_counter()
+            gp, pp = graphs.graclus(A, GRACLUS_LEVELS, seed=0)
+            t_loop = time.perf_counter() - t0
+        check(all(np.array_equal(a, b) for a, b in zip(pn, pp))
+              and all((a != b).nnz == 0 for a, b in zip(gn, gp)),
+              f"phase 28d {name}: the matchers' clusters differ")
+        rec[name] = {"nodes": A.shape[0], "native_s": t_native,
+                     "python_s": t_loop,
+                     "levels": [g.shape[0] for g in gn]}
+        print(f"graclus (phase 28d) {name}: {A.shape[0]} nodes, levels "
+              f"{rec[name]['levels']}, equal clusters; native "
+              f"{t_native:.3f} s, Python loop {t_loop:.3f} s (host) [{gpu}]",
+              flush=True)
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile-dir", help="also trace requests and training "
@@ -3535,13 +3875,17 @@ def main() -> int:
     gpu = card()
     print(f"card: {gpu}", flush=True)
 
-    # Phase 2: one nvcc per source, all started together.
+    # Phase 2: one nvcc per source and g++ for the host matcher, all
+    # started together.
     t0 = time.perf_counter()
     sources = ("band", "cheby_fused", "bsr", "probes")
-    with ThreadPoolExecutor(len(sources)) as pool:
+    with ThreadPoolExecutor(len(sources) + 1) as pool:
+        host = pool.submit(_build.build_host, "graph_kernels")
         logs = dict(zip(sources, pool.map(_build.build, sources)))
-    print(f"build: {', '.join(f'{n}.cu' for n in sources)} in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+        host.result()
+    print(f"build: {', '.join(f'{n}.cu' for n in sources)} and "
+          f"native/graph_kernels.cpp in {time.perf_counter() - t0:.1f} s",
+          flush=True)
     for name, (_, log) in logs.items():
         for line in log.splitlines():
             if ("registers" in line or "Compiling entry" in line
@@ -4054,7 +4398,7 @@ def main() -> int:
     # Phase 26: the node-sharded operators, K1/K5/K6 on halo-extended x.
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as d26:
-        halo_a = sharded_one_rank_phase(L, op, chains, dev, gpu, d26)
+        halo_a = sharded_one_rank_phase(L, op, chains, dev, gpu)
         halo_b = sharded_ranks_phase(L, d26, gpu)
         halo_c = sharded_driver_phase(art_driver["test_acc"], gpu)
         halo_d = sharded_trainer_phase(flow26, dev, d26, gpu)
@@ -4071,6 +4415,76 @@ def main() -> int:
     bcoo_phase(L, reqs, dev, gpu)
     print(f"phase 27 (sparse halo operators, BCOO): "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # Phase 28: the banded operators at other block shapes; Graclus.  Its
+    # plain versions gather windows of several GB (a 32x32 int8 window in
+    # float64): the cached blocks of the earlier phases go first.
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    ref50 = {("dkw", lab): checks[lab]["ms"] for lab in checks}
+    ref50.update({(lay, lab): rec["ms"] for lay, by in lay_checks.items()
+                  for lab, rec in by.items()})
+    shape_a = shape_kernel_phase(L, SHAPES_50K, "50k", gen, lib["city"],
+                                 ref50, dev, gpu)
+    L40, _ = graphs.city_graph(SIDE_SMALL, k=KNN, seed=0)
+    small = shape_kernel_phase(L40, SHAPES_SMALL, f"city{SIDE_SMALL}", gen,
+                               None, {}, dev, gpu)
+    ref40 = {(lay, lab): small[((128, 128), lay, lab)]["ms"]
+             for _, lay, lab in small}
+    for (shape, lay, lab), rec in small.items():
+        rec["ms_128"] = ref40[(lay, lab)]
+    shape_a.update({k: v for k, v in small.items() if k[0] != (128, 128)})
+    t_a = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as d28:
+        shape_b = shape_model_phase(L, nc_data, reqs, logits, d28, gpu)
+    graclus_phase(positions, gpu)
+    print(f"phase 28 (a): {t_a:.1f} s", flush=True)
+    print(f"phase 28 (other block shapes, Graclus): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    SHAPE_B = (SERVE_BLOCK, SERVE_BLOCK)
+
+    def shape_b_launches(lay, lab):
+        """Phase 28 (b)'s launches of ``lay``'s kernel in ``lab``: the
+        requests, and for K1 bf16 the training step."""
+        if lay != "dkw":
+            return shape_b[f"{lay}_launches"][lab]
+        return shape_b["launches"][lab] + (
+            shape_b["train_launches"] if lab == "bf16" else 0)
+
+    def sparse64_keys():
+        """Phase 28 (c): the banded sparse-halo shard at SHAPE_B."""
+        ranks = [r["banded64"] for r in sparse_ab["ranks"]]
+        return {"sparse_halo_64_launches_per_rank": [
+                    sum(sum(v.values()) for v in r["launches"].values())
+                    for r in ranks],
+                "sparse_halo_64_H": ranks[0]["H"],
+                "sparse_halo_64_max_abs_err": {
+                    lab: max(r["max_abs_err"][lab] for r in ranks)
+                    for lab in ranks[0]["max_abs_err"]},
+                "sparse_halo_64_rows_max_abs_err": {
+                    lab: max(r["rows_max_abs_err"][lab] for r in ranks)
+                    for lab in ranks[0]["rows_max_abs_err"]},
+                "sparse_halo_64_exchange_ms_gloo_one_card": [
+                    r["exchange_ms_gloo_one_card"] for r in ranks]}
+
+    def shape_keys(lay, lab):
+        """Phase 28 (a)'s numbers of one layout and dtype at every other
+        block shape, by shape (the 50k graph's first), beside the
+        128x128 time on the same graph."""
+        out = {}
+        for (shape, ly, lb), r in shape_a.items():
+            if (ly, lb) != (lay, lab):
+                continue
+            out[f"{r['graph']}_{_shape_tag(shape)}"] = {
+                "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "hop_ms": r["hop_ms"], "max_abs_err": r["max_abs_err"],
+                "rows_max_abs_err": r["rows_max_abs_err"],
+                "bound_ms": r["roofline"]["bound_us"] / 1e3,
+                "bound_by": r["roofline"]["bound_by"],
+                "hop_inplace_ms": r["hop_inplace_ms"],
+                "library_ms": r["library_ms"], "ms_128": r["ms_128"]}
+        return {"other_block_shapes": out}
 
     def sparse_keys(fmt):
         """Phase 27's numbers for the kernel row of ``fmt``'s route:
@@ -4132,6 +4546,10 @@ def main() -> int:
         if lab in halo_a["us_per_spmm"]:
             out.update({
                 "halo_one_rank_chain_us_per_spmm": halo_a["us_per_spmm"][lab],
+                "halo_one_rank_hop_us_per_spmm":
+                    halo_a["hop_us_per_spmm"][lab],
+                "halo_one_rank_single_chip_us_per_spmm":
+                    halo_a["plain_us_per_spmm"][lab],
                 "halo_one_rank_split_chain_us_per_spmm":
                     halo_a["us_per_spmm"][lab + "_split"],
                 "halo_one_rank_max_abs_err": max(
@@ -4312,6 +4730,32 @@ def main() -> int:
                      **f32_keys(lay_checks["ragged"]["f32"])}
                     if lab == "bf16" else {}))
         for lab in ("int8", "bf16")
+    ] + [
+        band_row(f"band_{lay}_{_shape_tag(SHAPE_B)}_{lab}", lay, lab,
+                 shape_a[(SHAPE_B, lay, lab)], shape_b_launches(lay, lab),
+                 block_shape=list(SHAPE_B),
+                 ms_128=shape_a[(SHAPE_B, lay, lab)]["ms_128"],
+                 hop_inplace_ms=shape_a[(SHAPE_B, lay, lab)][
+                     "hop_inplace_ms"],
+                 request_ms=(shape_b["request_ms"] if lay == "dkw" else
+                             shape_b[f"{lay}_request_ms"])[lab],
+                 logits_equal_to_128=shape_b["same_as_128"].get(
+                     lab if lay == "dkw" else f"{lay}_{lab}"),
+                 logits_max_diff_from_128=shape_b["diff_from_128"][
+                     lab if lay == "dkw" else f"{lay}_{lab}"],
+                 **shape_keys(lay, lab),
+                 **({"artifact_launches": shape_b["artifact"]["launches"],
+                     "loaded_request_ms": shape_b["artifact"]["ms"]}
+                    if (lay, lab) == ("dkw", "int8") else {}),
+                 **({"train_launches_per_step": shape_b["train_launches"],
+                     "train_ms_per_step": shape_b["train_ms"],
+                     **f32_keys(shape_a[(SHAPE_B, lay, "f32")])}
+                    if (lay, lab) == ("dkw", "bf16") else
+                    {**f32_keys(shape_a[(SHAPE_B, lay, "f32")]),
+                     **sparse64_keys()} if (lay, lab) == ("uniform", "bf16")
+                    else {**f32_keys(shape_a[(SHAPE_B, lay, "f32")])}
+                    if lab == "bf16" else {}))
+        for lay in LAYOUT_KERNELS for lab in ("int8", "bf16")
     ] + [
         {"name": f"cheby_conv_fused_{lab}", "route": "cuda",
          "source": CHEB_SOURCE, "kernel": "cheby_conv_kernel<kConvTap>",

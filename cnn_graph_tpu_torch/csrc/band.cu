@@ -16,18 +16,21 @@
 // is written by the lane that read its x0 element just before, and no
 // warp reads another's rows of x0.  x must not overlap x0 or y.
 //
-// Layouts.  Block-row r (128 rows of L) has the band operand [128, W*128]
-// over the contiguous x window rows [base[r]*128, (base[r]+W)*128).
+// Layouts.  The blocks are br x bc, both given at run time (the TPU
+// kernels read them from the band's shape; 128 x 128 by default, any shape
+// ops/packing.py packs).  Block-row r (br rows of L) has the band operand
+// [br, W*bc] over the contiguous x window rows [base[r]*bc,
+// (base[r]+W)*bc).
 //   dkw:     step s = r / G has level li = sched[1][s]; the operand is
-//            row sched[0][s] + r % G of bands[li] ([n_rows, 128, W_l*128]),
+//            row sched[0][s] + r % G of bands[li] ([n_rows, br, W_l*bc]),
 //            its blocks side by side along the contraction axis.
-//   uniform: band [n_rows, W, 128, 128]; the operand is band[r], W taps.
-//   ragged:  one flat band [total, 128, 128]; step s has width
+//   uniform: band [n_rows, W, br, bc]; the operand is band[r], W taps.
+//   ragged:  one flat band [total, br, bc]; step s has width
 //            W_s = levels[sched[1][s]] and row r = s*G + g takes the W_s
 //            blocks from sched[0][s] + g*W_s on.
 // For the two tap layouts element (i, k) of the operand is at block
-// k / 128, row i, column k % 128: in the flat ragged band that is
-// ((sched[0][s] + g*W_s + k/128)*128 + i)*128 + k % 128.  x may have more
+// k / bc, row i, column k % bc: in the flat ragged band that is
+// ((sched[0][s] + g*W_s + k/bc)*br + i)*bc + k % bc.  x may have more
 // rows than the output (x_rows): base indexes x's block rows, as the
 // sharded halo operators feed [left halo | local | right halo].  Window
 // rows past x_rows read as zero.  The TPU kernels' VMEM x ring, its mirror
@@ -39,11 +42,13 @@
 // walk over the band's nonzeros row by row, csrc/rows.cuh's scheme (one
 // warp per output row, 8 rows per 256-thread CTA).  The walk reads the
 // operator's row index (ops/packing.py band_row_index): nz_rowptr
-// [n_rows*128 + 1] and, per nonzero in row order, its offset k in its
+// [n_rows*br + 1] and, per nonzero in row order, its offset k in its
 // block-row's window (int16).  The warp loads base[r] and the block-row's
 // band pointer once (row_setup); each lane reads one k and its value
 // band[band_off(i, k)] from the layout's own band, where the TPU kernel
-// would read it, and x row base[r]*128 + k is gathered by the whole warp.
+// would read it, and x row base[r]*bc + k is gathered by the whole warp.
+// The walk's order, the nonzeros of a row by column, does not depend on
+// the block shape, so one graph gives the same sums at every shape.
 // An x row at or past x_rows adds nothing (one compare per nonzero), so
 // the index, which holds window offsets and no x rows, stays right when
 // the bases shift.  The index holds no values, so an int8 or cast band
@@ -81,7 +86,6 @@
 
 namespace {
 
-constexpr int kBlock = 128;   // ops/packing.py BLOCK: band block edge
 constexpr int kThreads = 256;
 constexpr int kRowsPerCta = kThreads / 32;  // the row walk's warps
 constexpr int kMaxLevels = 4;  // ops/packing.py MAX_LEVELS
@@ -96,27 +100,41 @@ struct Args {
   int width[kMaxLevels];         // dkw, ragged: W per level; uniform: W
   const int* base;               // [n_block_rows]
   const int* sched;              // [3, nsb]: row or block offset, level
-  const int* nz_rowptr;          // [n_block_rows*128 + 1]
+  const int* nz_rowptr;          // [n_rows + 1]
   const int16_t* nz_win;         // [nnz]: window offset k of each nonzero
   int nsb;
   int G;
+  int br;          // block rows
+  int bc;          // block columns
+  int br_shift;    // log2(br) where br is a power of two, else -1
+  int bc_shift;    // log2(bc) likewise
+  int n_rows;      // output rows, n_block_rows * br
   const void* x;   // [x_rows, C]
-  const void* x0;  // [n_block_rows*128, C] or nullptr
-  const void* c;   // [n_block_rows*128, C] or nullptr (needs x0)
-  void* y;         // [n_block_rows*128, C], may be x0
+  const void* x0;  // [n_rows, C] or nullptr
+  const void* c;   // [n_rows, C] or nullptr (needs x0)
+  void* y;         // [n_rows, C], may be x0
   int x_rows;
   int C;
   float band_scale;  // int8 only
 };
 
+// n / d for d = 1 << shift where shift >= 0: a shift, as a fixed block
+// edge compiled to, instead of an integer division (about 20 instructions,
+// once a row and once a nonzero of the tap layouts, measurable on rows of
+// ~9 nonzeros).  The branch is the same for every thread of a launch.
+__device__ __forceinline__ int div_by(int n, int d, int shift) {
+  return shift >= 0 ? n >> shift : n / d;
+}
+
 // Offset of operand element (row, k) from the block-row's band pointer.
 template <int L>
-__device__ __forceinline__ size_t band_off(int row, int k, int K) {
+__device__ __forceinline__ size_t band_off(const Args& a, int row, int k,
+                                           int K) {
   if constexpr (L == kDkw) {
     return (size_t)row * K + k;
   } else {
-    return (size_t)(k / kBlock) * (kBlock * kBlock) + (size_t)row * kBlock +
-           (k % kBlock);
+    const int t = div_by(k, a.bc, a.bc_shift);
+    return ((size_t)t * a.br + row) * a.bc + (k - t * a.bc);
   }
 }
 
@@ -125,10 +143,10 @@ template <int L, typename T>
 __device__ __forceinline__ void row_setup(const Args& a, int r,
                                           const T*& band, int& K,
                                           int& xrow0) {
-  xrow0 = a.base[r] * kBlock;
+  xrow0 = a.base[r] * a.bc;
   if constexpr (L == kUniform) {
-    K = a.width[0] * kBlock;
-    band = static_cast<const T*>(a.band[0]) + (size_t)r * kBlock * K;
+    K = a.width[0] * a.bc;
+    band = static_cast<const T*>(a.band[0]) + (size_t)r * a.br * K;
   } else {
     const int s = r / a.G;
     const int li = a.sched[a.nsb + s];
@@ -137,13 +155,13 @@ __device__ __forceinline__ void row_setup(const Args& a, int r,
     if (li == 1) { w = a.width[1]; b = a.band[1]; }
     if (li == 2) { w = a.width[2]; b = a.band[2]; }
     if (li == 3) { w = a.width[3]; b = a.band[3]; }
-    K = w * kBlock;
+    K = w * a.bc;
     if constexpr (L == kDkw) {
       band = static_cast<const T*>(b) +
-             (size_t)(a.sched[s] + r % a.G) * kBlock * K;
+             (size_t)(a.sched[s] + r % a.G) * a.br * K;
     } else {
       band = static_cast<const T*>(a.band[0]) +
-             (size_t)(a.sched[s] + (r % a.G) * w) * kBlock * kBlock;
+             (size_t)(a.sched[s] + (r % a.G) * w) * a.br * a.bc;
     }
   }
 }
@@ -155,7 +173,10 @@ __global__ void __launch_bounds__(kThreads) band_rows_kernel(Args a) {
   using Acc = typename E::Acc;
   const int lane = threadIdx.x % 32;
   const int row = blockIdx.x * kRowsPerCta + threadIdx.x / 32;
-  const int r = row / kBlock, i = row % kBlock;
+  // The last CTA's warps past the output (n_rows not a multiple of 8)
+  // leave whole: every lane of a warp shares its row.
+  if (row >= a.n_rows) return;
+  const int r = div_by(row, a.br, a.br_shift), i = row - r * a.br;
   const T* band;
   int K, xrow0;
   row_setup<L>(a, r, band, K, xrow0);
@@ -164,7 +185,7 @@ __global__ void __launch_bounds__(kThreads) band_rows_kernel(Args a) {
   const auto entry = [&](int e, int& xrow, Acc& val) {
     const int k = __ldg(a.nz_win + e);
     xrow = xrow0 + k < a.x_rows ? xrow0 + k : -1;
-    val = E::value(band, (long long)band_off<L>(i, k, K));
+    val = E::value(band, (long long)band_off<L>(a, i, k, K));
   };
   for (int c0 = 0; c0 < a.C; c0 += rows::kPassCols) {
     Acc acc[rows::kLaneCols];
@@ -175,8 +196,8 @@ __global__ void __launch_bounds__(kThreads) band_rows_kernel(Args a) {
 }
 
 template <int L, typename T>
-void start_rows(const Args& a, int n_block_rows, cudaStream_t s) {
-  const dim3 grid(n_block_rows * (kBlock / kRowsPerCta));
+void start_rows(const Args& a, cudaStream_t s) {
+  const dim3 grid((a.n_rows + kRowsPerCta - 1) / kRowsPerCta);
   if (a.C % (16 / sizeof(T)) == 0) {
     band_rows_kernel<L, T, true><<<grid, kThreads, 0, s>>>(a);
   } else {
@@ -185,7 +206,7 @@ void start_rows(const Args& a, int n_block_rows, cudaStream_t s) {
 }
 
 template <int L>
-int launch_rows(const Args& a, int n_block_rows, int dtype, cudaStream_t s) {
+int launch_rows(const Args& a, int dtype, cudaStream_t s) {
   // nz_win may be null: an index without a nonzero (a block of padding
   // rows, as the last shard of a sharded operator can hold) is an empty
   // tensor, whose data pointer is null, and the walk then never reads it.
@@ -194,18 +215,26 @@ int launch_rows(const Args& a, int n_block_rows, int dtype, cudaStream_t s) {
   }
   switch (dtype) {
     case 0:
-      start_rows<L, float>(a, n_block_rows, s);
+      start_rows<L, float>(a, s);
       break;
     case 1:
-      start_rows<L, __nv_bfloat16>(a, n_block_rows, s);
+      start_rows<L, __nv_bfloat16>(a, s);
       break;
     case 2:
-      start_rows<L, int8_t>(a, n_block_rows, s);
+      start_rows<L, int8_t>(a, s);
       break;
     default:
       return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// log2(v) where v is a power of two, else -1.
+int exact_log2(int v) {
+  if (v <= 0 || (v & (v - 1)) != 0) return -1;
+  int s = 0;
+  while ((1 << s) != v) ++s;
+  return s;
 }
 
 }  // namespace
@@ -214,19 +243,20 @@ int launch_rows(const Args& a, int n_block_rows, int dtype, cudaStream_t s) {
 // 2 int8.  Unused band slots take a null pointer and width 0 (uniform and
 // ragged pass one band; uniform one width, W).  nz_rowptr (int32) and
 // nz_win (int16) are the row index that every layout walks (nz_win null
-// when the index holds no nonzero).  The output
-// has n_block_rows * 128 rows; y may equal x0.  c needs x0 and a float
-// dtype.  Launches on `stream` and
+// when the index holds no nonzero).  br x bc is the block shape.  The
+// output has n_block_rows * br rows; y may equal x0.  c needs x0 and a
+// float dtype.  Launches on `stream` and
 // returns cudaGetLastError() (cudaErrorInvalidValue for bad arguments).
 extern "C" int band_launch(int layout, const void* band0, const void* band1,
                            const void* band2, const void* band3, int w0,
                            int w1, int w2, int w3, const void* base,
                            const void* sched, const void* nz_rowptr,
                            const void* nz_win, int n_block_rows, int nsb,
-                           int G, const void* x, int x_rows, const void* x0,
-                           const void* c, void* y, int C, float band_scale,
-                           int dtype, void* stream) {
-  if (n_block_rows < 1 || C < 1 ||
+                           int G, int br, int bc, const void* x, int x_rows,
+                           const void* x0, const void* c, void* y, int C,
+                           float band_scale, int dtype, void* stream) {
+  if (n_block_rows < 1 || C < 1 || br < 1 || bc < 1 ||
+      (long long)n_block_rows * br > 0x7fffffffLL ||
       (c != nullptr && (x0 == nullptr || dtype == 2))) {
     return (int)cudaErrorInvalidValue;
   }
@@ -245,6 +275,11 @@ extern "C" int band_launch(int layout, const void* band0, const void* band1,
   a.nz_win = static_cast<const int16_t*>(nz_win);
   a.nsb = nsb;
   a.G = G;
+  a.br = br;
+  a.bc = bc;
+  a.br_shift = exact_log2(br);
+  a.bc_shift = exact_log2(bc);
+  a.n_rows = n_block_rows * br;
   a.x = x;
   a.x0 = x0;
   a.c = c;
@@ -255,11 +290,11 @@ extern "C" int band_launch(int layout, const void* band0, const void* band1,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (layout) {
     case kDkw:
-      return launch_rows<kDkw>(a, n_block_rows, dtype, s);
+      return launch_rows<kDkw>(a, dtype, s);
     case kUniform:
-      return launch_rows<kUniform>(a, n_block_rows, dtype, s);
+      return launch_rows<kUniform>(a, dtype, s);
     case kRagged:
-      return launch_rows<kRagged>(a, n_block_rows, dtype, s);
+      return launch_rows<kRagged>(a, dtype, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -7,6 +7,7 @@
     python -m cnn_graph_tpu_torch.experiments.node_classification
     python -m cnn_graph_tpu_torch.experiments.usage_demo
     python -m cnn_graph_tpu_torch.experiments.gconv_sweep
+    python -m cnn_graph_tpu_torch.experiments.multichip {wrapper,chain,comm}
 
 Each is the JAX package's driver of the same name (``experiments/``)
 on the port, on the card unless ``--device cpu`` is given.

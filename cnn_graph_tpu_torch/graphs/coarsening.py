@@ -7,16 +7,20 @@ per-level Laplacians of ``models.ChebNet`` and ``perm`` reorders level-0
 signals so that pooling by ``p`` is a reduction over ``p`` consecutive
 nodes (``ops.pooling``).
 
-The matching runs the Python loop; the JAX package prefers its native
-C++ twin of the same algorithm, which gives the same clusters.  The
-visit order at level 0 is ``np.random.default_rng(seed).permutation``,
-as in the JAX package.
+Each level's matching runs the native C++ matcher
+(``cnn_graph_tpu_torch.native.graclus_one_level``), as the JAX package's
+does; ``graclus_pairing`` is its plain Python version, which gives the
+same clusters.  Where JAX falls back to the loop without a compiler,
+the port raises.  The visit order at level 0 is
+``np.random.default_rng(seed).permutation``, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import scipy.sparse
+
+from cnn_graph_tpu_torch import native
 
 __all__ = [
     "coarsen",
@@ -63,8 +67,8 @@ def graclus(W: scipy.sparse.spmatrix, levels: int,
     degree = np.asarray(W.sum(axis=0)).ravel() - W.diagonal()
     for _ in range(levels):
         csr = W.tocsr()
-        cluster = graclus_pairing(csr.indptr, csr.indices, csr.data, rid,
-                                  np.asarray(degree).ravel())
+        cluster = native.graclus_one_level(csr.indptr, csr.indices, csr.data,
+                                           rid, np.asarray(degree).ravel())
         parents.append(cluster)
         # Coarse graph: edge weights summed over cluster pairs.
         coo = W.tocoo()

@@ -6,11 +6,15 @@ Counterpart of ``cnn_graph_tpu/ops/pallas_band.py``.  One CUDA source,
 wrapper, plain PyTorch version and launch counts:
 
 * ``banded_dkw`` (K1, ``banded_call_dkw`` :568): the deep-K-window
-  layout, one array ``[n_rows_l, 128, W_l*128]`` per width level;
+  layout, one array ``[n_rows_l, br, W_l*bc]`` per width level;
 * ``banded_uniform`` (K5, ``banded_call`` :730): the uniform band
-  ``[n_rows, W, 128, 128]``, W taps per block-row;
+  ``[n_rows, W, br, bc]``, W taps per block-row;
 * ``banded_ragged`` (K6, ``banded_call_ragged`` :314): the flat ragged
-  band ``[total, 128, 128]``, ``W_s`` taps per G-row step.
+  band ``[total, br, bc]``, ``W_s`` taps per G-row step.
+
+The block shape ``(br, bc)`` is read from the band's shape
+(``block_shape_of``), as the TPU kernels read it (``total, br, bc =
+band.shape``): 128x128 by default, any shape the packers take.
 
 All three launch one walk over the band's nonzeros row by row (one warp
 per output row, ``csrc/rows.cuh``): they take the operator's row index
@@ -30,8 +34,8 @@ kernel as one node.  ``launches`` counts kernel launches,
 ``form_launches`` the same launches by form (``spmm``, ``hop``,
 ``hop_c``); the CUDA implementation adds to both where it launches.
 ``x`` may have more rows than the output (the sharded halo operators'
-extended columns): the output has ``128 * len(base)`` rows and ``base``
-indexes x's block rows.  ``donate_x0``
+extended columns): the output has ``br * len(base)`` rows and ``base``
+indexes x's block columns.  ``donate_x0``
 writes the hop's output over ``x0`` and returns ``x0``: the in-place
 form that ``cheby_finals`` uses.  It is inference-only, like the raw
 calls themselves.
@@ -63,8 +67,8 @@ __all__ = ["banded_dkw", "banded_dkw_reference", "banded_uniform",
            "banded_uniform_reference", "banded_ragged",
            "banded_ragged_reference", "banded_rows_reference", "layout_call",
            "band_spmm", "band_cheby_hop", "band_cheby_hop_c",
-           "check_band_index", "check_band_tables", "full_f32_matmul",
-           "profiled"]
+           "block_shape_of", "check_band_index", "check_band_tables",
+           "full_f32_matmul", "profiled"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 # csrc/band.cu's layout codes; each launches the row walk band_rows_kernel.
@@ -93,6 +97,17 @@ def profiled(name: str):
     if torch._C._autograd._profiler_enabled():
         return record_function(name)
     return contextlib.nullcontext()
+
+
+def block_shape_of(layout: str, bands, levels) -> tuple:
+    """``(br, bc)`` of the band ``bands`` (as the layout's wrapper takes
+    them) in ``layout``, read from its shape."""
+    b = bands[0]
+    if layout == "uniform":
+        return int(b.shape[2]), int(b.shape[3])
+    if layout == "dkw":
+        return int(b.shape[1]), int(b.shape[2]) // levels[0]
+    return int(b.shape[1]), int(b.shape[2])
 
 
 def _emit(acc: torch.Tensor, x0, c, band_scale, out_dtype) -> torch.Tensor:
@@ -148,35 +163,38 @@ def _check_no_grad(*ts):
         )
 
 
-def _windows_reference(x, base, parts, x0, c, band_scale, donate_x0):
+def _windows_reference(x, base, parts, x0, c, band_scale, donate_x0,
+                       block_shape):
     """The plain version shared by the three layouts.  ``parts`` yields
-    ``(rows, operand, W)``: block-rows ``rows`` multiply their ``[n, 128,
-    W*128]`` band operands by their x windows (rows past the end of x
-    read as zero) in one batched product; then the emission.  The row
-    lists' lengths are their shapes, never their values, so that
-    ``torch.export`` traces this with the operator's tables as inputs.
+    ``(rows, operand, W)``: block-rows ``rows`` multiply their ``[n, br,
+    W*bc]`` band operands by their x windows (x rows ``base*bc`` on; rows
+    past the end of x read as zero) in one batched product; then the
+    emission.  The row lists' lengths are their shapes, never their
+    values, so that ``torch.export`` traces this with the operator's
+    tables as inputs.
 
     Float bands accumulate in f32.  Int8 accumulates in float64, which is
-    exact here (|acc| <= 127^2 * W*128 << 2^53) on every device, unlike
+    exact here (|acc| <= 127^2 * W*bc << 2^53) on every device, unlike
     int8 ``matmul`` (wraps) or f32 (inexact above 2^24)."""
     _check_c(x0, c, band_scale)
     if donate_x0:
         _check_donate(x, x0, c)
+    br, bc = block_shape
     x_rows, C = x.shape
     nbr = base.numel()
     acc_dtype = torch.float64 if band_scale is not None else torch.float32
-    acc = torch.zeros(nbr, BLOCK, C, dtype=acc_dtype, device=x.device)
+    acc = torch.zeros(nbr, br, C, dtype=acc_dtype, device=x.device)
     xa = x.to(acc_dtype)
     with full_f32_matmul():
         for rows, operand, w in parts:
             if rows.numel() == 0:
                 continue
-            idx = (base[rows].to(torch.int64)[:, None] * BLOCK
-                   + torch.arange(w * BLOCK, device=x.device)[None, :])
+            idx = (base[rows].to(torch.int64)[:, None] * bc
+                   + torch.arange(w * bc, device=x.device)[None, :])
             inside = (idx < x_rows).to(acc_dtype)[..., None]
-            win = xa[idx.clamp(max=x_rows - 1)] * inside  # [n, w*128, C]
+            win = xa[idx.clamp(max=x_rows - 1)] * inside  # [n, w*bc, C]
             acc[rows] = torch.bmm(operand.to(acc_dtype), win)
-    y = _emit(acc.reshape(nbr * BLOCK, C), x0, c, band_scale, x.dtype)
+    y = _emit(acc.reshape(nbr * br, C), x0, c, band_scale, x.dtype)
     if donate_x0:
         return x0.copy_(y)
     return y
@@ -207,9 +225,9 @@ def _level_rows(level_rows, sched, nbr, G, n_levels):
 
 
 def _taps(blocks: torch.Tensor) -> torch.Tensor:
-    """``[n, W, 128, 128]`` taps side by side: ``[n, 128, W*128]``."""
-    n, w = blocks.shape[:2]
-    return blocks.permute(0, 2, 1, 3).reshape(n, BLOCK, w * BLOCK)
+    """``[n, W, br, bc]`` taps side by side: ``[n, br, W*bc]``."""
+    n, w, br, bc = blocks.shape
+    return blocks.permute(0, 2, 1, 3).reshape(n, br, w * bc)
 
 
 def banded_dkw_reference(bands, base, sched, x, x0=None, c=None, *, levels,
@@ -226,17 +244,19 @@ def banded_dkw_reference(bands, base, sched, x, x0=None, c=None, *, levels,
     for li, (w, sel) in enumerate(zip(levels, _level_rows(
             level_rows, sched, base.numel(), G, len(levels)))):
         parts.append((sel, bands[li][local[sel]], w))
-    return _windows_reference(x, base, parts, x0, c, band_scale, donate_x0)
+    return _windows_reference(x, base, parts, x0, c, band_scale, donate_x0,
+                              block_shape_of("dkw", bands, levels))
 
 
 def banded_uniform_reference(band, base, x, x0=None, c=None, *,
                              band_scale=None,
                              donate_x0=False) -> torch.Tensor:
     """Plain PyTorch version of ``banded_uniform``: every block-row's W
-    taps as one ``[128, W*128]`` operand against its window."""
+    taps as one ``[br, W*bc]`` operand against its window."""
     rows = torch.arange(base.numel(), device=x.device)
     return _windows_reference(x, base, [(rows, _taps(band), band.shape[1])],
-                              x0, c, band_scale, donate_x0)
+                              x0, c, band_scale, donate_x0,
+                              block_shape_of("uniform", (band,), ()))
 
 
 def banded_ragged_reference(band, base, sched, x, x0=None, c=None, *,
@@ -252,14 +272,15 @@ def banded_ragged_reference(band, base, sched, x, x0=None, c=None, *,
         first = off[sel] + (sel % G) * w
         idx = first[:, None] + torch.arange(w, device=x.device)[None, :]
         parts.append((sel, _taps(band[idx]), w))
-    return _windows_reference(x, base, parts, x0, c, band_scale, donate_x0)
+    return _windows_reference(x, base, parts, x0, c, band_scale, donate_x0,
+                              block_shape_of("ragged", (band,), levels))
 
 
 def banded_rows_reference(bands, base, sched, nz_rowptr, nz_win, x, x0=None,
                           c=None, *, layout, levels, G,
                           band_scale=None) -> torch.Tensor:
     """Plain PyTorch version of the row walk that K1, K5 and K6 launch:
-    output row ``r*128 + i`` sums ``v * x[base[r]*128 + k]`` over its
+    output row ``r*br + i`` sums ``v * x[base[r]*bc + k]`` over its
     nonzeros ``nz_rowptr[row]:nz_rowptr[row+1]``, where ``k =
     nz_win[e]`` and ``v`` is element ``(i, k)`` of block-row r's band
     operand in ``layout`` (``dkw``, ``uniform`` or ``ragged``; ``bands``,
@@ -272,41 +293,42 @@ def banded_rows_reference(bands, base, sched, nz_rowptr, nz_win, x, x0=None,
     if layout not in _LAYOUT_CODE:
         raise ValueError(f"banded_rows_reference: unknown layout {layout!r}")
     _check_c(x0, c, band_scale)
+    br, bc = block_shape_of(layout, bands, levels)
     x_rows, C = x.shape
     dev = x.device
     nbr = base.numel()
     nnz = int(nz_rowptr[-1])
-    row = torch.repeat_interleave(torch.arange(nbr * BLOCK, device=dev),
+    row = torch.repeat_interleave(torch.arange(nbr * br, device=dev),
                                   nz_rowptr.to(torch.int64).diff())
-    r, i = row // BLOCK, row % BLOCK
+    r, i = row // br, row % br
     k = nz_win[:nnz].to(torch.int64)
     if layout == "uniform":
         (band,) = bands
         w = band.shape[1]
-        flat = [((r * w + k // BLOCK) * BLOCK + i) * BLOCK + k % BLOCK]
+        flat = [((r * w + k // bc) * br + i) * bc + k % bc]
         sources, lvl = (band,), torch.zeros_like(k)
     else:
         _, lvl_r, off_r = _step_rows(sched, nbr, G, dev)
         lvl, off = lvl_r[r], off_r[r]
         if layout == "dkw":
-            flat = [((off + r % G) * BLOCK + i) * (w * BLOCK) + k
+            flat = [((off + r % G) * br + i) * (w * bc) + k
                     for w in levels]
             sources = bands
         else:
-            # One flat band: block sched[0, s] + g*W_s + k // 128 of it.
-            flat = [((off + (r % G) * w + k // BLOCK) * BLOCK + i) * BLOCK
-                    + k % BLOCK for w in levels]
+            # One flat band: block sched[0, s] + g*W_s + k // bc of it.
+            flat = [((off + (r % G) * w + k // bc) * br + i) * bc
+                    + k % bc for w in levels]
             sources = bands * len(levels)
     acc_dt = torch.float64 if band_scale is not None else torch.float32
     vals = torch.zeros(nnz, dtype=acc_dt, device=dev)
     for li, (src, fl) in enumerate(zip(sources, flat)):
         sel = lvl == li
         vals[sel] = src.reshape(-1)[fl[sel]].to(acc_dt)
-    xrow = base.to(torch.int64)[r] * BLOCK + k
+    xrow = base.to(torch.int64)[r] * bc + k
     inside = xrow < x_rows
     vals = vals * inside
     xrow = xrow.clamp(max=x_rows - 1)
-    acc = torch.zeros(nbr * BLOCK, C, dtype=acc_dt, device=dev)
+    acc = torch.zeros(nbr * br, C, dtype=acc_dt, device=dev)
     step = max(1, _CHUNK_BYTES // (max(C, 1) * 8))
     for lo in range(0, nnz, step):
         hi = lo + step
@@ -320,8 +342,8 @@ def _launcher():
     fn = _build.load("band").band_launch
     p, i = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = ([i] + [p] * MAX_LEVELS + [i] * MAX_LEVELS
-                   + [p, p, p, p, i, i, i, p, i, p, p, p, i, ctypes.c_float,
-                      i, p])
+                   + [p, p, p, p, i, i, i, i, i, p, i, p, p, p, i,
+                      ctypes.c_float, i, p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -352,11 +374,12 @@ def check_band_tables(bands, base, sched, levels, G, layout="dkw"):
                          "its band array")
 
 
-def check_band_index(nz_rowptr, nz_win, base, sched, levels, G):
+def check_band_index(nz_rowptr, nz_win, base, sched, levels, G,
+                     block_shape=(BLOCK, BLOCK)):
     """The row index's values, which the row walk takes on trust:
-    ``nz_rowptr`` int32 ``[128 * len(base) + 1]`` from 0, monotone and
+    ``nz_rowptr`` int32 ``[br * len(base) + 1]`` from 0, monotone and
     ending at ``len(nz_win)``; every window offset in ``nz_win`` (int16)
-    inside its block-row's band, ``0 <= k < W * 128`` with ``W`` the
+    inside its block-row's band, ``0 <= k < W * bc`` with ``W`` the
     row's level width (``levels[sched[1, r // G]]``; ``sched`` None and
     ``levels`` ``(W,)`` for the uniform band).  Reads the index on the
     host, one device sync, so the banded operators run it once where they
@@ -366,20 +389,21 @@ def check_band_index(nz_rowptr, nz_win, base, sched, levels, G):
     if nz_rowptr.dtype != torch.int32 or nz_win.dtype != torch.int16:
         raise TypeError("banded row index: nz_rowptr int32 and nz_win int16 "
                         f"wanted, got {nz_rowptr.dtype} and {nz_win.dtype}")
+    br, bc = block_shape
     rowptr = nz_rowptr.cpu().to(torch.int64)
     win = nz_win.cpu().to(torch.int64)
     nbr = base.numel()
-    if (rowptr.dim() != 1 or rowptr.numel() != nbr * BLOCK + 1
+    if (rowptr.dim() != 1 or rowptr.numel() != nbr * br + 1
             or int(rowptr[0]) != 0 or int(rowptr[-1]) != win.numel()
             or bool((rowptr.diff() < 0).any())):
         raise ValueError(f"banded row index: nz_rowptr must rise from 0 to "
-                         f"{win.numel()} over {nbr * BLOCK} rows")
+                         f"{win.numel()} over {nbr * br} rows")
     if sched is None:
         width = torch.full((nbr,), levels[0], dtype=torch.int64)
     else:
         step = torch.arange(nbr) // G
         width = torch.tensor(levels)[sched[1].cpu().to(torch.int64)[step]]
-    limit = torch.repeat_interleave(width, rowptr[::BLOCK].diff()) * BLOCK
+    limit = torch.repeat_interleave(width, rowptr[::br].diff()) * bc
     if win.numel() and (int(win.min()) < 0 or bool((win >= limit).any())):
         raise ValueError("banded row index: a window offset lies outside "
                          "its block-row's band")
@@ -405,8 +429,10 @@ def _check_kernel_shapes(bands, base, sched, x, x0, c, levels, G,
     metadata alone, so also while ``torch.export`` traces.  ``bands``:
     the dkw layout's arrays, or ``(band,)`` for the tap layouts;
     ``levels``: the uniform layout's ``(W,)``; ``index``: the row walk's
-    ``(nz_rowptr, nz_win)``.  Returns the number of G-row steps (the
-    block rows for the uniform layout)."""
+    ``(nz_rowptr, nz_win)``.  The block shape ``(br, bc)`` is the
+    band's (``block_shape_of``); every band of the layout must share it.
+    Returns the number of G-row steps (the block rows for the uniform
+    layout)."""
     dev = x.device
     x_rows, C = x.shape
     if x.dtype not in _DTYPE_CODE:
@@ -416,14 +442,19 @@ def _check_kernel_shapes(bands, base, sched, x, x0, c, levels, G,
                          "and only for int8")
     if not 1 <= len(levels) <= MAX_LEVELS:
         raise ValueError(f"banded kernel: 1..{MAX_LEVELS} width levels")
+    if bands[0].dim() != (4 if layout == "uniform" else 3):
+        raise ValueError(f"banded kernel: {layout} band "
+                         f"{tuple(bands[0].shape)}")
+    br, bc = block_shape_of(layout, bands, levels)
     nbr = base.numel()
-    if base.dim() != 1 or nbr < 1 or x_rows % BLOCK or C < 1:
-        raise ValueError(f"banded kernel: base {tuple(base.shape)} or x "
-                         f"rows {x_rows} (a multiple of 128 wanted)")
+    if (base.dim() != 1 or nbr < 1 or br < 1 or bc < 1 or x_rows % bc
+            or C < 1):
+        raise ValueError(f"banded kernel: base {tuple(base.shape)}, block "
+                         f"({br}, {bc}) or x rows {x_rows} (a multiple of "
+                         f"{bc} wanted)")
     if layout == "uniform":
         (band,) = bands
-        if band.dim() != 4 or band.shape[0] != nbr or band.shape[2:] != (
-                BLOCK, BLOCK) or (band.shape[1],) != tuple(levels):
+        if band.shape[0] != nbr or (band.shape[1],) != tuple(levels):
             raise ValueError(f"banded kernel: uniform band "
                              f"{tuple(band.shape)} for {nbr} block rows")
         nsb, tables = nbr, [base]
@@ -436,14 +467,12 @@ def _check_kernel_shapes(bands, base, sched, x, x0, c, levels, G,
             if len(bands) != len(levels):
                 raise ValueError("banded kernel: one dkw band per level")
             for b, w in zip(bands, levels):
-                if b.dim() != 3 or b.shape[1:] != (BLOCK, w * BLOCK):
+                if b.dim() != 3 or b.shape[1:] != (br, w * bc):
                     raise ValueError(f"banded kernel: band {tuple(b.shape)}"
-                                     f" does not match level width {w}")
-        else:
-            (band,) = bands
-            if band.dim() != 3 or band.shape[1:] != (BLOCK, BLOCK):
-                raise ValueError(f"banded kernel: flat ragged band "
-                                 f"{tuple(band.shape)}")
+                                     f" does not match level width {w} of "
+                                     f"({br}, {bc}) blocks")
+        elif len(bands) != 1:
+            raise ValueError("banded kernel: one flat ragged band")
         if tuple(sched.shape) != (3, nsb):
             raise ValueError("banded kernel: sched does not match base")
         tables = [base, sched]
@@ -454,10 +483,10 @@ def _check_kernel_shapes(bands, base, sched, x, x0, c, levels, G,
         if nz_rowptr.dtype != torch.int32 or nz_win.dtype != torch.int16:
             raise TypeError("banded kernel: nz_rowptr must be int32 and "
                             "nz_win int16")
-        if (tuple(nz_rowptr.shape) != (nbr * BLOCK + 1,)
+        if (tuple(nz_rowptr.shape) != (nbr * br + 1,)
                 or nz_win.dim() != 1):
             raise ValueError(f"banded kernel: nz_rowptr must be "
-                             f"[{nbr * BLOCK + 1}] and nz_win 1-D")
+                             f"[{nbr * br + 1}] and nz_win 1-D")
         tables = tables + [nz_rowptr, nz_win]
     _check_c(x0, c, band_scale)
     rows = [t for t in (x, x0, c) if t is not None]
@@ -470,8 +499,8 @@ def _check_kernel_shapes(bands, base, sched, x, x0, c, levels, G,
             raise TypeError(f"banded kernel: band {b.dtype} vs x {x.dtype}")
     for name, t in (("x0", x0), ("c", c)):
         if t is not None and (t.dtype != x.dtype
-                              or tuple(t.shape) != (nbr * BLOCK, C)):
-            raise ValueError(f"banded kernel: {name} must be [{nbr * BLOCK},"
+                              or tuple(t.shape) != (nbr * br, C)):
+            raise ValueError(f"banded kernel: {name} must be [{nbr * br},"
                              f" {C}] in x's dtype")
     return nsb
 
@@ -496,6 +525,7 @@ def _launch(layout, bands, widths, base, sched, index, x, x0, c, G,
     _check_alignment(bands, x, x0, c)
     nbr = base.numel()
     nsb = nbr if layout == "uniform" else nbr // G
+    br, bc = block_shape_of(layout, bands, widths)
     x_rows, C = x.shape
     ptrs = [b.data_ptr() for b in bands] + [None] * (MAX_LEVELS - len(bands))
     widths = list(widths) + [0] * (MAX_LEVELS - len(widths))
@@ -506,7 +536,7 @@ def _launch(layout, bands, widths, base, sched, index, x, x0, c, G,
         rc = _launcher()(
             _LAYOUT_CODE[layout], *ptrs, *widths, base.data_ptr(),
             None if sched is None else sched.data_ptr(),
-            *(t.data_ptr() for t in index), nbr, nsb, G,
+            *(t.data_ptr() for t in index), nbr, nsb, G, br, bc,
             x.data_ptr(), x_rows, None if x0 is None else x0.data_ptr(),
             None if c is None else c.data_ptr(), y.data_ptr(), C,
             0.0 if band_scale is None else float(band_scale),
@@ -566,14 +596,14 @@ def banded_dkw(bands, base, sched, x, x0=None, c=None, *, levels, G,
                nz_win=None) -> torch.Tensor:
     """``L @ x`` (``x0`` None), the hop ``2 (L @ x) - x0``, or the adjoint
     hop ``2 (L @ x) - x0 + c`` on the dkw layout (K1).  ``bands``: one
-    ``[n_rows_l, 128, W_l*128]`` array per level; ``base`` int32
+    ``[n_rows_l, br, W_l*bc]`` array per level; ``base`` int32
     ``[nbr]``; ``sched`` int32 ``[3, nbr/G]`` (row offset, level index,
-    column high-water); ``x``: ``[x_rows, C]``; ``x0``, ``c``: ``[nbr*128,
+    column high-water); ``x``: ``[x_rows, C]``; ``x0``, ``c``: ``[nbr*br,
     C]``, all in the band dtype.  ``band_scale`` (int8 only, no ``c``) is
     the band's dequant scale; the result is then requantized int8 in x's
     scale.  ``nz_rowptr``/``nz_win``: the operator's row index, which the
     kernel walks (required for a CUDA x, unread on the CPU).  Returns
-    ``[nbr*128, C]`` in x's dtype."""
+    ``[nbr*br, C]`` in x's dtype."""
     return _call("banded_dkw", "dkw", bands, levels, base, sched, x, x0, c,
                  G, band_scale, donate_x0, (nz_rowptr, nz_win))
 
@@ -581,7 +611,7 @@ def banded_dkw(bands, base, sched, x, x0=None, c=None, *, levels, G,
 def banded_uniform(band, base, x, x0=None, c=None, *, band_scale=None,
                    donate_x0=False, nz_rowptr=None,
                    nz_win=None) -> torch.Tensor:
-    """``banded_dkw``'s forms on the uniform band ``[nbr, W, 128, 128]``
+    """``banded_dkw``'s forms on the uniform band ``[nbr, W, br, bc]``
     (K5): block-row r multiplies ``band[r, d]`` by x block-row ``base[r] +
     d`` for d < W.  The row index as for ``banded_dkw``."""
     return _call("banded_uniform", "uniform", (band,), (band.shape[1],),
@@ -592,7 +622,7 @@ def banded_uniform(band, base, x, x0=None, c=None, *, band_scale=None,
 def banded_ragged(band, base, sched, x, x0=None, c=None, *, levels, G,
                   band_scale=None, donate_x0=False, nz_rowptr=None,
                   nz_win=None) -> torch.Tensor:
-    """``banded_dkw``'s forms on the flat ragged band ``[total, 128, 128]``
+    """``banded_dkw``'s forms on the flat ragged band ``[total, br, bc]``
     (K6): block-row r = s*G + g multiplies ``band[sched[0, s] + g*W_s +
     d]``, ``W_s = levels[sched[1, s]]``, by x block-row ``base[r] + d``.
     The row index as for ``banded_dkw``."""

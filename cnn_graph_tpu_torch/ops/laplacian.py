@@ -147,7 +147,7 @@ class _BandedMixin:
         if self.nz_rowptr is not None:
             check_band_index(self.nz_rowptr, self.nz_win, self.base,
                              self.sched, self.levels or (self.band_width,),
-                             self.rows_per_step)
+                             self.rows_per_step, self.block_shape)
         # Not a field: derived from sched, so every build recomputes it.
         object.__setattr__(self, "level_rows", None if (
             not self.levels or self.sched.is_meta) else level_rows_of(
@@ -172,18 +172,21 @@ class BandedLaplacian(_BandedMixin):
     """Rescaled Laplacian as a block band with monotone window bases
     ``base`` (JAX :291-376), in one of three layouts:
 
-    * uniform (``levels`` empty): ``band`` is ``[nbr, W, 128, 128]``;
+    * uniform (``levels`` empty): ``band`` is ``[nbr, W, br, bc]``;
       ``band[i, d]`` is the block at block coordinates ``(i, base[i] +
       d)``.  Products run K5 (``ops.band.banded_uniform``).
-    * flat ragged (``levels`` set): ``band`` is ``[total, 128, 128]``;
+    * flat ragged (``levels`` set): ``band`` is ``[total, br, bc]``;
       each G-row step s stores ``W_s = levels[sched[1, s]]`` blocks per
       row from ``sched[0, s]`` on.  Products run K6 (``banded_ragged``).
       ``sched`` is int32 ``[3, nsb]`` on the band's device; rows 0-1 are
       what the GPU reads, row 2 (the TPU's column high-water) is kept for
       parity.
     * deep-K window (``bands_dkw`` set, beside the flat band): one array
-      ``[n_rows_l, 128, W_l*128]`` per level, ``sched_dkw`` with each
+      ``[n_rows_l, br, W_l*bc]`` per level, ``sched_dkw`` with each
       step's row offset.  Products run K1 (``banded_dkw``).
+
+    ``block_shape`` is ``(br, bc)``, JAX's field: 128x128 by default, any
+    shape ``device_laplacian(block_size=...)`` packs.
 
     Beside JAX's fields the operator carries the nonzero index by output
     row, ``nz_rowptr`` (int32 ``[m_padded + 1]``) and ``nz_win`` (int16,
@@ -212,6 +215,7 @@ class BandedLaplacian(_BandedMixin):
     sched_dkw: torch.Tensor | None = None
     nz_rowptr: torch.Tensor | None = None
     nz_win: torch.Tensor | None = None
+    block_shape: tuple = (packing.BLOCK, packing.BLOCK)
 
     @property
     def compute_dtype(self):
@@ -297,6 +301,7 @@ class QuantBandedLaplacian(_BandedMixin, QuantOpMixin):
     sched_dkw: torch.Tensor | None = None
     nz_rowptr: torch.Tensor | None = None
     nz_win: torch.Tensor | None = None
+    block_shape: tuple = (packing.BLOCK, packing.BLOCK)
 
     def _call(self, x_q, x0_q, donate=False):
         return layout_call(self, x_q, x0_q, band_scale=self.band_scale,
@@ -325,7 +330,8 @@ def quantize_banded(op: BandedLaplacian, headroom: float = 2.0,
     bands_dkw = sched_dkw = None
     if op.use_pallas and op.levels:
         bd, sd = packing.pack_dkw_from_ragged(
-            band_q, op.sched.cpu().numpy(), op.levels, op.rows_per_step)
+            band_q, op.sched.cpu().numpy(), op.levels, op.rows_per_step,
+            op.block_shape)
         bands_dkw = tuple(_tensor(b, dev) for b in bd)
         sched_dkw = _tensor(sd, dev)
     return QuantBandedLaplacian(
@@ -335,6 +341,7 @@ def quantize_banded(op: BandedLaplacian, headroom: float = 2.0,
         act_scale=float(sample_x) * headroom / 127.0, headroom=headroom,
         sched=op.sched, levels=op.levels, bands_dkw=bands_dkw,
         sched_dkw=sched_dkw, nz_rowptr=op.nz_rowptr, nz_win=op.nz_win,
+        block_shape=op.block_shape,
     )
 
 
@@ -730,9 +737,10 @@ def device_laplacian(L: scipy.sparse.spmatrix, lmax: float = 2.0,
     goes to BSR straight away (laplacian.py:1240-1277).  These thresholds
     are the JAX package's, tuned on a TPU v5e; they are kept word for word
     for parity and are to be re-tuned on Hopper.  ``rows_per_step`` is the
-    banded layout's G (default ``min(8, block rows)``).  The banded
-    layouts hold 128x128 blocks only, the one shape the CUDA kernels
-    take: ``fmt="banded"`` with another ``block_size`` raises.
+    banded layout's G (default ``min(8, block rows)``).  ``block_size``
+    sets the banded operator's block shape too: ``"auto"`` is 128x128,
+    an int square blocks, ``(br, bc)`` any other shape; every layout and
+    the kernels K1, K5 and K6 take it.
 
     ``device`` (default: the CUDA device) is where the operator lives;
     without CUDA, ``device=None`` raises, and CPU use asks for
@@ -799,17 +807,11 @@ def device_laplacian(L: scipy.sparse.spmatrix, lmax: float = 2.0,
         )
 
     if fmt == "banded":
-        shape = (tuple(block_size) if isinstance(block_size, (list, tuple))
-                 else block_size)
-        if shape not in ("auto", packing.BLOCK,
-                         (packing.BLOCK, packing.BLOCK)):
-            raise ValueError(
-                f"banded block_size {block_size!r}: the banded CUDA kernels "
-                f"take {packing.BLOCK}x{packing.BLOCK} blocks only (pass "
-                f"'auto', {packing.BLOCK} or ({packing.BLOCK}, "
-                f"{packing.BLOCK}))")
+        block_shape = ((packing.BLOCK, packing.BLOCK) if block_size == "auto"
+                       else (block_size, block_size)
+                       if isinstance(block_size, int) else tuple(block_size))
         return _banded_laplacian(L, m, nnz, dtype, device, use_pallas,
-                                 rows_per_step, ragged, stats)
+                                 rows_per_step, ragged, stats, block_shape)
 
     if fmt == "bsr":
         return _bsr_laplacian(L, m, nnz, dtype, device, use_pallas,
@@ -827,7 +829,7 @@ def device_laplacian(L: scipy.sparse.spmatrix, lmax: float = 2.0,
 
 
 def _banded_laplacian(L, m, nnz, dtype, device, use_pallas, rows_per_step,
-                      ragged, stats) -> BandedLaplacian:
+                      ragged, stats, block_shape) -> BandedLaplacian:
     """The ``fmt="banded"`` branch of ``device_laplacian`` (JAX
     :1292-1339)."""
     if use_pallas is None:
@@ -835,22 +837,25 @@ def _banded_laplacian(L, m, nnz, dtype, device, use_pallas, rows_per_step,
     sched, levels = None, ()
     if ragged:
         band, base, sched, levels, G, mp = packing.pack_banded_ragged(
-            L, G=rows_per_step, stats=stats)
+            L, G=rows_per_step, stats=stats, block_shape=block_shape)
     else:
         band, base, G, mp = packing.pack_banded(
-            L, rows_per_step=rows_per_step, stats=stats)
+            L, rows_per_step=rows_per_step, stats=stats,
+            block_shape=block_shape)
     bands_dkw = sched_dkw = None
     if use_pallas and levels:
-        bd, sd = packing.pack_dkw_from_ragged(band, sched, levels, G)
+        bd, sd = packing.pack_dkw_from_ragged(band, sched, levels, G,
+                                              block_shape)
         bands_dkw = tuple(_tensor(b, device, dtype) for b in bd)
         sched_dkw = _tensor(sd, device)
-    nz_rowptr, nz_win = packing.band_row_index(L, base, mp)
+    nz_rowptr, nz_win = packing.band_row_index(L, base, mp, block_shape)
     return BandedLaplacian(
         band=_tensor(band, device, dtype), base=_tensor(base, device), m=m,
         m_padded=mp, nnz=nnz, rows_per_step=G, use_pallas=bool(use_pallas),
         sched=None if sched is None else _tensor(sched, device),
         levels=levels, bands_dkw=bands_dkw, sched_dkw=sched_dkw,
-        nz_rowptr=_tensor(nz_rowptr, device), nz_win=_tensor(nz_win, device))
+        nz_rowptr=_tensor(nz_rowptr, device), nz_win=_tensor(nz_win, device),
+        block_shape=block_shape)
 
 
 def _bsr_laplacian(L, m, nnz, dtype, device, use_pallas, block_size,

@@ -8,8 +8,9 @@ launches the same kernels:
 
 * ``band_rows``: K1, K5 and K6 (``csrc/band.cu band_rows_kernel``), the
   layout an argument; every form (``L@x``, ``2L@x - x0``, ``+c``) in
-  f32, bf16 and int8 (with ``band_scale``).  ``band_rows_`` is the
-  in-place form, which writes its output over ``x0``
+  f32, bf16 and int8 (with ``band_scale``), at any block shape, which
+  each implementation reads from the band (``band.block_shape_of``).
+  ``band_rows_`` is the in-place form, which writes its output over ``x0``
   (``mutates_args=("x0",)``) and returns nothing.
 * ``bsr_rows``: K4, K7, K8 and K9 (``csrc/bsr.cu bsr_rows_kernel``),
   the route an argument.
@@ -41,7 +42,6 @@ from typing import Optional
 import torch
 
 from cnn_graph_tpu_torch.ops import band, bsr, cheby
-from cnn_graph_tpu_torch.ops.packing import BLOCK
 
 __all__ = ["NAMESPACE", "launch_counts", "reset_launch_counts"]
 
@@ -52,6 +52,11 @@ Tensor = torch.Tensor
 # ----------------------------------------------------------- K1, K5, K6
 
 
+def _block_rows(layout, bands, levels) -> int:
+    """The band's block rows: the output has ``len(base)`` times as many."""
+    return band.block_shape_of(layout, bands, levels)[0]
+
+
 @torch.library.custom_op(f"{NAMESPACE}::band_rows", mutates_args=(),
                          device_types="cpu")
 def band_rows(bands: list[Tensor], base: Tensor, sched: Optional[Tensor],
@@ -60,8 +65,8 @@ def band_rows(bands: list[Tensor], base: Tensor, sched: Optional[Tensor],
               layout: str, levels: list[int], G: int,
               band_scale: Optional[float]) -> Tensor:
     """The banded product in ``layout`` (``dkw``, ``uniform`` or
-    ``ragged``): ``[len(base) * 128, C]`` in x's dtype.  CPU: the
-    layout's plain window version."""
+    ``ragged``): ``[len(base) * br, C]`` in x's dtype, ``br`` the band's
+    block rows.  CPU: the layout's plain window version."""
     return band.window_reference(layout, bands, base, sched, x, x0, c,
                                  levels, G, band_scale)
 
@@ -69,7 +74,8 @@ def band_rows(bands: list[Tensor], base: Tensor, sched: Optional[Tensor],
 @band_rows.register_kernel("cuda")
 def _(bands, base, sched, nz_rowptr, nz_win, x, x0, c, layout, levels, G,
       band_scale):
-    y = x.new_empty((base.shape[0] * BLOCK, x.shape[1]))
+    y = x.new_empty((base.shape[0] * _block_rows(layout, bands, levels),
+                     x.shape[1]))
     band._launch(layout, bands, levels, base, sched, (nz_rowptr, nz_win),
                  x, x0, c, G, band_scale, y)
     return y
@@ -78,7 +84,8 @@ def _(bands, base, sched, nz_rowptr, nz_win, x, x0, c, layout, levels, G,
 @band_rows.register_fake
 def _(bands, base, sched, nz_rowptr, nz_win, x, x0, c, layout, levels, G,
       band_scale):
-    return x.new_empty((base.shape[0] * BLOCK, x.shape[1]))
+    return x.new_empty((base.shape[0] * _block_rows(layout, bands, levels),
+                        x.shape[1]))
 
 
 @torch.library.custom_op(f"{NAMESPACE}::band_rows_", mutates_args=("x0",),

@@ -20,6 +20,11 @@ port's own: the nonzero index by output row that the GPU's row walks
 take through the BSR operators (``ops/bsr.py``) and the banded
 operators' dkw and uniform layouts (``ops/band.py``).
 
+Every banded packer takes ``block_shape=(br, bc)``, default 128x128, as
+the JAX packers do: rows and columns pad to ``lcm(G*br, bc)``, block-row
+r holds rows ``[r*br, (r+1)*br)`` and its window starts at column
+``base[r]*bc``.
+
 Left out: the TPU VMEM models (``auto_rows_per_step``, ``ring_span``)
 that size G and the x ring, so ``pack_banded`` returns no ring size.  G
 defaults to ``min(8, block rows)``, which is what the VMEM model picks
@@ -59,58 +64,65 @@ __all__ = [
     "choose_bsr_row_group",
 ]
 
-# The layout's geometry, fixed by the kernel (csrc/band.cu kBlock,
-# kMaxLevels): square 128x128 blocks and at most 4 width levels.
+# The default block edge (JAX's MXU_TILE) and the most width levels the
+# kernel takes (csrc/band.cu kMaxLevels).
 BLOCK = 128
 MAX_LEVELS = 4
 ROWS_PER_STEP = 8  # default G: block-rows per schedule step
-# The widest band the packers take, in blocks: band_row_index's window
-# offsets (< MAX_BAND_WIDTH * BLOCK = 6,144) fit int16.
+# The widest band the packers take, in blocks.  band_row_index's window
+# offsets lie below MAX_BAND_WIDTH * bc, which must fit int16 (bc <= 682).
 MAX_BAND_WIDTH = 48
+_INT16_LIMIT = 1 << 15
 
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def band_stats(L: scipy.sparse.spmatrix):
+def band_stats(L: scipy.sparse.spmatrix,
+               block_shape: tuple = (BLOCK, BLOCK)):
     """Per-block-row monotone window bases (suffix-min of the first nonzero
     block column), the band width W covering every row's span, the number
-    of occupied blocks, and the padded size.  Returns
+    of occupied blocks, and the size padded to ``lcm(br, bc)``.  Returns
     ``(base, W, n_blocks, m_padded)``."""
-    mp = _round_up(L.shape[0], BLOCK)
-    n_b = mp // BLOCK
+    br, bc = block_shape
+    mp = _round_up(L.shape[0], int(np.lcm(br, bc)))
+    n_rb, n_cb = mp // br, mp // bc
     coo = L.tocoo()
-    brow = coo.row // BLOCK
-    bcol = coo.col // BLOCK
-    n_blocks = len(np.unique(brow.astype(np.int64) * n_b + bcol))
+    brow = coo.row // br
+    bcol = coo.col // bc
+    n_blocks = len(np.unique(brow.astype(np.int64) * n_cb + bcol))
 
-    lo = np.full(n_b, n_b, np.int64)
-    hi = np.full(n_b, -1, np.int64)
+    lo = np.full(n_rb, n_cb, np.int64)
+    hi = np.full(n_rb, -1, np.int64)
     np.minimum.at(lo, brow, bcol)
     np.maximum.at(hi, brow, bcol)
 
     base = np.minimum.accumulate(lo[::-1])[::-1]
-    W = min(int(max((hi - base).max() + 1, 1)), n_b)
-    base = np.clip(base, 0, n_b - W).astype(np.int32)
+    W = min(int(max((hi - base).max() + 1, 1)), n_cb)
+    base = np.clip(base, 0, n_cb - W).astype(np.int32)
     return base, W, n_blocks, mp
 
 
 def pack_banded(L: scipy.sparse.spmatrix,
                 max_band_width: int = MAX_BAND_WIDTH,
                 rows_per_step: int | None = None, stats: tuple | None = None,
-                row_multiple: int | None = None, band_dtype=np.float32):
-    """Pack a block-banded matrix into the uniform band ``[n_rb, W, 128,
-    128]`` with monotone window bases: ``band[i, d]`` is the block at
+                row_multiple: int | None = None, band_dtype=np.float32,
+                block_shape: tuple = (BLOCK, BLOCK)):
+    """Pack a block-banded matrix into the uniform band ``[n_rb, W, br,
+    bc]`` with monotone window bases: ``band[i, d]`` is the block at
     block coordinates ``(i, base[i] + d)``.
 
-    The row count is padded to a multiple of ``rows_per_step`` (G,
-    default ``min(8, block rows)``), or of ``row_multiple`` where given
-    (the sharded packer needs whole steps per shard): zero band rows,
-    base held at its last value.  ``band_dtype`` is the host staging
-    dtype.  Returns ``(band, base, G, m_padded)``.  Raises ``ValueError``
-    when the band is wider than ``max_band_width`` blocks."""
-    base, W, _, mp = stats if stats is not None else band_stats(L)
+    The rows are padded to a multiple of ``lcm(G*br, bc)`` with G =
+    ``rows_per_step`` (default ``min(8, block rows)``), or
+    ``row_multiple`` where given (the sharded packer needs whole steps
+    per shard): zero band rows, base held at its last value.
+    ``band_dtype`` is the host staging dtype.  Returns ``(band, base, G,
+    m_padded)``.  Raises ``ValueError`` when the band is wider than
+    ``max_band_width`` blocks."""
+    br, bc = block_shape
+    base, W, _, mp = stats if stats is not None else band_stats(
+        L, block_shape)
     if W > max_band_width:
         raise ValueError(
             f"band width {W} blocks exceeds {max_band_width}; "
@@ -118,16 +130,16 @@ def pack_banded(L: scipy.sparse.spmatrix,
         )
     G = min(ROWS_PER_STEP, len(base)) if rows_per_step is None \
         else rows_per_step
-    mp = _round_up(mp, (row_multiple or G) * BLOCK)
-    n_rb = mp // BLOCK
+    mp = _round_up(mp, int(np.lcm((row_multiple or G) * br, bc)))
+    n_rb = mp // br
     base = np.concatenate(
         [base, np.full(n_rb - len(base), base[-1], np.int32)]
     )
-    band = np.zeros((n_rb, W, BLOCK, BLOCK), np.dtype(band_dtype))
+    band = np.zeros((n_rb, W, br, bc), np.dtype(band_dtype))
     coo = L.tocoo()
-    brow = coo.row // BLOCK
-    band[brow, coo.col // BLOCK - base[brow], coo.row % BLOCK,
-         coo.col % BLOCK] = coo.data.astype(band.dtype)
+    brow = coo.row // br
+    band[brow, coo.col // bc - base[brow], coo.row % br,
+         coo.col % bc] = coo.data.astype(band.dtype)
     return band, base, G, mp
 
 
@@ -150,18 +162,21 @@ def choose_band_levels(ws) -> tuple:
 
 def pack_banded_ragged(L: scipy.sparse.spmatrix, G: int | None = None,
                        max_band_width: int = MAX_BAND_WIDTH,
-                       stats: tuple | None = None):
+                       stats: tuple | None = None,
+                       block_shape: tuple = (BLOCK, BLOCK)):
     """Pack a block-banded matrix with one width per G-block-row step.
 
     Each step stores ``W_s`` = its widest row span, rounded up to one of at
     most ``MAX_LEVELS`` width levels, laid out flat.  Returns
     ``(band_flat, base, sched, levels, G, m_padded)``: ``band_flat`` is
-    ``[sum_s G*W_s, 128, 128]`` float32 (the device dtype is set when the
+    ``[sum_s G*W_s, br, bc]`` float32 (the device dtype is set when the
     operator is built), ``sched`` int32 ``[3, nsb]`` holds each
     step's block offset, level index and column high-water mark.
     Raises ``ValueError`` when the band is wider than ``max_band_width``.
     """
-    base, W, _, mp = stats if stats is not None else band_stats(L)
+    br, bc = block_shape
+    base, W, _, mp = stats if stats is not None else band_stats(
+        L, block_shape)
     if W > max_band_width:
         raise ValueError(
             f"band width {W} blocks exceeds {max_band_width}; "
@@ -169,16 +184,16 @@ def pack_banded_ragged(L: scipy.sparse.spmatrix, G: int | None = None,
         )
     if G is None:
         G = min(ROWS_PER_STEP, len(base))
-    mp = _round_up(mp, G * BLOCK)
-    n_rb = mp // BLOCK
+    mp = _round_up(mp, int(np.lcm(G * br, bc)))
+    n_rb, n_cb = mp // br, mp // bc
     base = np.concatenate(
         [base, np.full(n_rb - len(base), base[-1], np.int32)]
     )
     nsb = n_rb // G
 
     coo = L.tocoo()
-    brow = coo.row // BLOCK
-    bcol = coo.col // BLOCK
+    brow = coo.row // br
+    bcol = coo.col // bc
     hi = np.full(n_rb, -1, np.int64)
     np.maximum.at(hi, brow, bcol)
     span = np.maximum(hi - base.astype(np.int64) + 1, 1)
@@ -190,24 +205,26 @@ def pack_banded_ragged(L: scipy.sparse.spmatrix, G: int | None = None,
     offs[1:] = np.cumsum(G * wl)[:-1]
     total = int((G * wl).sum())
 
-    band = np.zeros((total, BLOCK, BLOCK), np.float32)
+    band = np.zeros((total, br, bc), np.float32)
     s_of_row = brow // G
     pos = (offs[s_of_row] + (brow % G) * wl[s_of_row]
            + (bcol - base[brow]))
-    band[pos, coo.row % BLOCK, coo.col % BLOCK] = coo.data.astype(band.dtype)
+    band[pos, coo.row % br, coo.col % bc] = coo.data.astype(band.dtype)
 
     step_hi = base[(np.arange(nsb) + 1) * G - 1].astype(np.int64) + wl
-    hw = np.minimum(np.maximum.accumulate(step_hi), n_rb)
+    hw = np.minimum(np.maximum.accumulate(step_hi), n_cb)
     sched = np.stack([offs, lvl_idx, hw]).astype(np.int32)
     return band, base, sched, levels, G, mp
 
 
-def pack_dkw_from_ragged(band_flat, sched, levels, G: int):
+def pack_dkw_from_ragged(band_flat, sched, levels, G: int,
+                         block_shape: tuple = (BLOCK, BLOCK)):
     """Repack the flat ragged band into the deep-K-window layout: one array
-    per width level, ``[n_rows_l, 128, W_l*128]``, each block-row's W_l
+    per width level, ``[n_rows_l, br, W_l*bc]``, each block-row's W_l
     blocks side by side along the contraction axis, rows ordered by step.
     Returns ``(bands, sched_dkw)``; ``sched_dkw`` row 0 holds each step's
     ROW offset into its level's array (rows 1-2 as in ``sched``)."""
+    br, bc = block_shape
     offs, lvl_idx, hw = (np.asarray(v, np.int64) for v in sched)
     nsb = len(offs)
     counts = np.zeros(len(levels), np.int64)
@@ -217,7 +234,7 @@ def pack_dkw_from_ragged(band_flat, sched, levels, G: int):
         row_off[s] = counts[li]
         counts[li] += G
     bands = [
-        np.zeros((max(int(counts[i]), G), BLOCK, levels[i] * BLOCK),
+        np.zeros((max(int(counts[i]), G), br, levels[i] * bc),
                  band_flat.dtype)
         for i in range(len(levels))
     ]
@@ -225,43 +242,47 @@ def pack_dkw_from_ragged(band_flat, sched, levels, G: int):
         li = int(lvl_idx[s])
         w = levels[li]
         blk = band_flat[int(offs[s]): int(offs[s]) + G * w]
-        blk = blk.reshape(G, w, BLOCK, BLOCK).transpose(0, 2, 1, 3)
+        blk = blk.reshape(G, w, br, bc).transpose(0, 2, 1, 3)
         bands[li][int(row_off[s]): int(row_off[s]) + G] = (
-            blk.reshape(G, BLOCK, w * BLOCK)
+            blk.reshape(G, br, w * bc)
         )
     sched_dkw = np.stack([row_off, lvl_idx, hw]).astype(np.int32)
     return bands, sched_dkw
 
 
-def band_row_index(L: scipy.sparse.spmatrix, base, m_padded: int):
+def band_row_index(L: scipy.sparse.spmatrix, base, m_padded: int,
+                   block_shape: tuple = (BLOCK, BLOCK)):
     """The banded operators' nonzero index by output row: ``(rowptr,
     win)`` with ``rowptr`` int32 ``[m_padded + 1]`` and, for each nonzero
     of ``L`` (once per position, in row order, columns sorted), ``win``
-    (int16), its offset in its block-row's window, ``col - 128 *
-    base[row // 128]``.  A value's place follows from (row, offset) and
+    (int16), its offset in its block-row's window, ``col - bc *
+    base[row // br]``.  A value's place follows from (row, offset) and
     the block-row's band in each layout (csrc/band.cu ``band_off``), so
     the index holds no positions and serves the dkw, uniform and flat
     ragged bands that K1, K5 and K6 walk, their int8 twins and bases
     shifted for an extended-column x.
-    Raises ``ValueError`` on a nonzero before its window, an offset that
-    does not fit int16 (past ``MAX_BAND_WIDTH`` blocks) or a row past
-    ``m_padded`` or ``base``."""
+    Raises ``ValueError`` on a nonzero before its window, an offset past
+    ``MAX_BAND_WIDTH`` blocks or past int16, or a row past ``m_padded``
+    or ``base``."""
+    br, bc = block_shape
     coo = L.tocoo()
     n = max(L.shape[1], 1)
     key = np.unique(coo.row.astype(np.int64) * n + coo.col)
     rows, cols = key // n, key % n
     base = np.asarray(base, np.int64)
     if len(rows) and (rows[-1] >= m_padded
-                      or rows[-1] // BLOCK >= len(base)):
+                      or rows[-1] // br >= len(base)):
         raise ValueError(f"band_row_index: a row past m_padded {m_padded} "
                          f"or the {len(base)} block-row bases")
-    k = cols - BLOCK * base[rows // BLOCK]
+    k = cols - bc * base[rows // br]
     if len(k) and int(k.min()) < 0:
         raise ValueError("band_row_index: a nonzero lies before its row's "
                          "window")
-    if len(k) and int(k.max()) >= MAX_BAND_WIDTH * BLOCK:
+    limit = min(MAX_BAND_WIDTH * bc, _INT16_LIMIT)
+    if len(k) and int(k.max()) >= limit:
         raise ValueError(f"band_row_index: a window offset {int(k.max())} "
-                         f"past {MAX_BAND_WIDTH} blocks does not fit int16")
+                         f"past {MAX_BAND_WIDTH} blocks of {bc} columns or "
+                         "past int16")
     rowptr = np.searchsorted(rows, np.arange(m_padded + 1)).astype(np.int32)
     return rowptr, k.astype(np.int16)
 

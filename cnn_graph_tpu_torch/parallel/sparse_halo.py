@@ -29,7 +29,8 @@ ext_p]`` and runs its products through that operator's kernel:
   the most for one SPMD program).  The hop is JAX's unfused
   ``2 (L @ x1) - x0``.
 * ``BandedSparseHaloLaplacian``: a uniform ``BandedLaplacian`` (band
-  ``[nbr_s, W, 128, 128]``, its bases and row index) over a private
+  ``[nbr_s, W, br, bc]`` at the caller's ``block_shape``, its bases and
+  row index) over a private
   column order of the shard (``colperm``, by mean nonzero row), which
   pulls the halo slots it reads into band position.  Each product
   gathers ``x_ext[colperm]`` and runs ``ops.band.layout_call``: K5 on
@@ -132,16 +133,17 @@ def _pack_local_banded(block, ms: int, ext_p: int, block_shape):
     return rows, new_cols, block.data, base, W, order
 
 
-def _banded_shard(packed, W: int, ms: int, ext_p: int):
-    """A shard's uniform band ``[nbr_s, W, 128, 128]`` at the width of
+def _banded_shard(packed, W: int, ms: int, ext_p: int, block_shape):
+    """A shard's uniform band ``[nbr_s, W, br, bc]`` at the width of
     every shard, its bases clipped into the extended columns (JAX
     :334-341), and ``colperm``."""
+    br, bc = block_shape
     rows, cols, data, base, _, order = packed
-    nbr, n_cb = ms // BLOCK, ext_p // BLOCK
+    nbr, n_cb = ms // br, ext_p // bc
     base = np.clip(base, 0, max(n_cb - W, 0)).astype(np.int64)
-    band = np.zeros((nbr, W, BLOCK, BLOCK), np.float32)
-    brow = rows // BLOCK
-    band[brow, cols // BLOCK - base[brow], rows % BLOCK, cols % BLOCK] = (
+    band = np.zeros((nbr, W, br, bc), np.float32)
+    brow = rows // br
+    band[brow, cols // bc - base[brow], rows % br, cols % bc] = (
         data.astype(np.float32))
     return band, base.astype(np.int32), order.astype(np.int64)
 
@@ -260,7 +262,7 @@ class SparseHaloLaplacian(_SparseHaloMixin):
 class BandedSparseHaloLaplacian(_SparseHaloMixin):
     """This rank's shard as a uniform banded operator over its private
     column order: ``local`` a ``BandedLaplacian`` with band ``[nbr_s, W,
-    128, 128]`` (``ragged`` off), ``colperm`` ``[ext_p]`` (new position
+    br, bc]`` (``ragged`` off), ``colperm`` ``[ext_p]`` (new position
     -> extended column) and ``send_idx`` ``[n, H]``.  Products run K5 on
     the gathered ``x_ext[colperm]``; the hop is one fused pass."""
 
@@ -371,7 +373,8 @@ def quantize_sparse_halo(op, headroom: float = 2.0, sample_x: float = 1.0):
             band=q, base=lo.base, m=lo.m, m_padded=lo.m_padded, nnz=lo.nnz,
             rows_per_step=lo.rows_per_step, use_pallas=lo.use_pallas,
             band_scale=s_b, act_scale=act, headroom=headroom,
-            nz_rowptr=lo.nz_rowptr, nz_win=lo.nz_win)
+            nz_rowptr=lo.nz_rowptr, nz_win=lo.nz_win,
+            block_shape=lo.block_shape)
         cls = QuantBandedSparseHaloLaplacian
     else:
         lo = {f.name: getattr(op.local, f.name)
@@ -408,21 +411,16 @@ def sparse_halo_laplacian(
 
     ``fmt``: ``"bsr"`` (block-CSR shard, the row kernel as K8),
     ``"banded"`` (the shard in its private column order as a uniform
-    band, K5; raises ``ValueError`` when any shard's band is wider than
-    ``max_band_width`` blocks) or ``"auto"`` (banded where every shard
-    fits, else bsr).  The banded shard holds 128x128 blocks only, the one
-    shape the banded CUDA kernel takes: ``fmt="banded"`` with another
-    ``block_shape`` raises, and ``"auto"`` takes bsr.  ``use_pallas``
+    band of ``block_shape`` blocks, K5; raises ``ValueError`` when any
+    shard's band is wider than ``max_band_width`` blocks) or ``"auto"``
+    (banded where every shard fits, else bsr), as JAX's :592-604.
+    ``use_pallas``
     (default: wherever CUDA is available) runs the shard's kernel, else
     the gather route (bsr) or the kernel's plain version (banded)."""
     if fmt not in ("bsr", "banded", "auto"):
         raise ValueError(f"unknown sparse halo format {fmt!r}")
     block_shape = tuple(block_shape)
-    square = block_shape == (BLOCK, BLOCK)
-    if fmt == "banded" and not square:
-        raise ValueError(
-            f"banded block_shape {block_shape}: the banded CUDA kernels take "
-            f"{BLOCK}x{BLOCK} blocks only")
+    br = block_shape[0]
     if rescale:
         L = rescale_laplacian(L, lmax=lmax)
     L = L.tocsr()
@@ -431,7 +429,7 @@ def sparse_halo_laplacian(
     if use_pallas is None:
         use_pallas = torch.cuda.is_available()
     use_pallas = bool(use_pallas)
-    banded = fmt == "banded" or (fmt == "auto" and square)
+    banded = fmt in ("banded", "auto")
     mp, ms, H, ext_p, send_idx, locals_ = _extended_plan(
         L, n, block_shape, range(n) if banded else (s,))
     dev = mesh.device
@@ -444,18 +442,21 @@ def sparse_halo_laplacian(
                   for t in range(n)]
         W = max(p[4] for p in packed)
         if W <= max_band_width:
-            band, base, colperm = _banded_shard(packed[s], W, ms, ext_p)
+            band, base, colperm = _banded_shard(packed[s], W, ms, ext_p,
+                                                block_shape)
             rows, cols, data = packed[s][:3]
             perm = scipy.sparse.csr_matrix((data, (rows, cols)),
                                            shape=(ms, ext_p))
-            nz_rowptr, nz_win = packing.band_row_index(perm, base, ms)
+            nz_rowptr, nz_win = packing.band_row_index(perm, base, ms,
+                                                       block_shape)
             local = BandedLaplacian(
                 band=torch.from_numpy(band).to(device=dev, dtype=dtype),
                 base=torch.from_numpy(base).to(dev), m=ms, m_padded=ms,
-                nnz=int(len(data)), rows_per_step=_rows_per_step(ms // BLOCK),
+                nnz=int(len(data)), rows_per_step=_rows_per_step(ms // br),
                 use_pallas=use_pallas,
                 nz_rowptr=torch.from_numpy(nz_rowptr).to(dev),
-                nz_win=torch.from_numpy(nz_win).to(dev))
+                nz_win=torch.from_numpy(nz_win).to(dev),
+                block_shape=block_shape)
             return BandedSparseHaloLaplacian(
                 local=local, colperm=torch.from_numpy(colperm).to(dev),
                 **common)

@@ -130,9 +130,10 @@ def _operator_blocks(op):
     uniform band, the BSR blocks without their zero tails, or the whole
     dense matrix as one block."""
     if getattr(op, "bands_dkw", None) is not None:
-        return (sum(b.shape[0] * (b.shape[2] // b.shape[1])
-                    for b in op.bands_dkw), op.bands_dkw[0].shape[1],
-                op.bands_dkw[0].shape[1])
+        # Square blocks where the operator names no shape (the halo ones).
+        br, bc = getattr(op, "block_shape", (op.bands_dkw[0].shape[1],) * 2)
+        return (sum(b.shape[0] * (b.shape[2] // bc) for b in op.bands_dkw),
+                br, bc)
     if getattr(op, "band", None) is not None:
         if op.band.dim() == 3:  # flat ragged
             return op.band.shape[0], op.band.shape[1], op.band.shape[2]

@@ -483,7 +483,8 @@ def _sparse_variants(L, mesh):
     """The sparse halo operators tests/test_torch_sparse_halo.py holds
     against JAX's, by name: BSR at 8x8 blocks on the gather route and on
     the row walk's plain version (``use_pallas``), BSR at 128x128, and
-    the per-shard banded format (128x128)."""
+    the per-shard banded format at 128x128 and at 8x8 (JAX's test
+    shape)."""
     from cnn_graph_tpu_torch.parallel import sparse_halo_laplacian
 
     return {
@@ -494,6 +495,8 @@ def _sparse_variants(L, mesh):
         "bsr128": sparse_halo_laplacian(L, mesh, use_pallas=False),
         "band": sparse_halo_laplacian(L, mesh, fmt="banded",
                                       use_pallas=False),
+        "band8": sparse_halo_laplacian(L, mesh, fmt="banded",
+                                       block_shape=(8, 8), use_pallas=False),
     }
 
 
@@ -523,8 +526,8 @@ def _task_sparse(inp, rank, world):
         out[f"{name}_meta"] = np.array([o.m_padded, o.rows_per_shard,
                                         o.halo, o.ext_cols_padded])
         out[f"{name}_send_idx"] = _np(o.send_idx)
-        fields = (("band", "base", "colperm") if name == "band" else
-                  ("blocks", "block_rows", "block_cols"))
+        fields = (("band", "base", "colperm") if name.startswith("band")
+                  else ("blocks", "block_rows", "block_cols"))
         for f in fields:
             src = o if f == "colperm" else o.local
             out[f"{name}_{f}"] = _np(getattr(src, f))
@@ -541,6 +544,8 @@ def _task_sparse(inp, rank, world):
         out[f"{name}_grad_hop0"] = _np(x0g.grad)
     out["kinds"] = np.array([isinstance(ops["bsr8"], SparseHaloLaplacian),
                              isinstance(ops["band"],
+                                        BandedSparseHaloLaplacian),
+                             isinstance(ops["band8"],
                                         BandedSparseHaloLaplacian)])
 
     # bf16 on the gather route: JAX's per-block rounding.
@@ -552,7 +557,7 @@ def _task_sparse(inp, rank, world):
     out["bf16_hop"] = _np(b16.cheby_hop(xb, xb0).float())
 
     # The int8 chains (K = 7) and the band scale; the exchange's bytes.
-    for name in ("bsr8", "bsr8p", "band"):
+    for name in ("bsr8", "bsr8p", "band", "band8"):
         q = quantize_sparse_halo(ops[name], sample_x=3.0)
         out[f"{name}_band_scale"] = np.float64(q.band_scale)
         xq = _t(q.local_rows(inp["xq"][:q.m_padded]))
@@ -562,14 +567,17 @@ def _task_sparse(inp, rank, world):
             q.spmm_q(xq)
         out[f"{name}_traffic_int8"] = np.int64(mesh.traffic["torch.int8"])
 
-    # fmt="auto" and the refusals.
+    # fmt="auto" (banded wherever every shard fits, at any block shape)
+    # and the refusal.
     auto_wide = sparse_halo_laplacian(L, mesh, fmt="auto", max_band_width=0)
     auto = sparse_halo_laplacian(L, mesh, fmt="auto")
+    auto8 = sparse_halo_laplacian(L, mesh, fmt="auto", block_shape=(8, 8))
     out["auto"] = np.array([isinstance(auto_wide, SparseHaloLaplacian),
-                            isinstance(auto, BandedSparseHaloLaplacian)])
+                            isinstance(auto, BandedSparseHaloLaplacian),
+                            isinstance(auto8, BandedSparseHaloLaplacian)
+                            and auto8.local.block_shape == (8, 8)])
     refused = []
-    for kw in (dict(fmt="banded", max_band_width=0),
-               dict(fmt="banded", block_shape=(8, 8))):
+    for kw in (dict(fmt="banded", max_band_width=0),):
         try:
             sparse_halo_laplacian(L, mesh, **kw)
             refused.append("")

@@ -1491,3 +1491,98 @@ def test_bcoo_operator_on_the_card(city96, cuda_device, dtype):
     with torch.no_grad():
         want = 2.0 * (lm @ (lm @ x))
     torch.testing.assert_close(u.grad, want, rtol=0, atol=1e-3)
+
+
+# ------------------------------------------------- other block shapes
+
+# (24, 40): edges that are not powers of two, which the kernel divides by
+# where it shifts by the others.
+BLOCK_SHAPES = [(8, 8), (16, 16), (32, 64), (64, 32), (64, 64), (24, 40)]
+
+
+def _shape_operator(L, shape, layout, dtype, device, G=2):
+    """``_layout_operator`` at ``block_size=shape``."""
+    dt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    op = device_laplacian(L, fmt="banded", dtype=dt, rows_per_step=G,
+                          device=device, block_size=shape,
+                          ragged=layout != "uniform",
+                          use_pallas=layout != "ragged")
+    if dtype == "int8":
+        op = quantize_banded(op, sample_x=3.0)
+    return dataclasses.replace(op, use_pallas=True)
+
+
+@pytest.mark.parametrize("dtype,form", [
+    (d, f) for d in ("float32", "bfloat16", "int8")
+    for f in ("spmm", "hop", "hop_c") if (d, f) != ("int8", "hop_c")])
+@pytest.mark.parametrize("layout", ["dkw", "uniform", "ragged"])
+@pytest.mark.parametrize("shape", BLOCK_SHAPES,
+                         ids=[f"{a}x{b}" for a, b in BLOCK_SHAPES])
+def test_layout_kernels_at_other_block_shapes(city48, cuda_device, shape,
+                                              layout, dtype, form):
+    """K1, K5 and K6 at a block shape other than 128x128 against the
+    window and row-walk plain versions (C = 136 takes the vector loads,
+    the int8 hop its scalar ones at C = 37)."""
+    op = _shape_operator(city48, shape, layout, dtype, cuda_device)
+    assert op.block_shape == shape
+    C = 37 if (dtype, form) == ("int8", "hop") else 136
+    x, x0, c, scale = _layout_inputs(op, C, cuda_device, 3)
+    args = (x, None, None) if form == "spmm" else (
+        x, x0, c if form == "hop_c" else None)
+    kernel = _COUNTED[layout]
+    before = kernel.form_launches[form]
+    got = layout_call(op, *args, band_scale=scale)
+    torch.cuda.synchronize()
+    assert kernel.form_launches[form] == before + 1
+    assert got.shape == (op.m_padded, C)
+    want = layout_call(dataclasses.replace(op, use_pallas=False), *args,
+                       band_scale=scale)
+    _assert_kernel_close(got, want)
+    _assert_kernel_close(got, _rows_reference(op, layout, *args,
+                                              scale=scale))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("layout", ["dkw", "uniform", "ragged"])
+def test_block_shape_keeps_the_kernels_sums(city48, cuda_device, layout,
+                                            dtype):
+    """The walk adds a row's nonzeros in column order whatever the block,
+    and the values and the int8 scale are the same: the hop at 64x64 and
+    at (32, 64) is the 128x128 one bit for bit on the graph's rows."""
+    ops = {s: _shape_operator(city48, s, layout, dtype, cuda_device)
+           for s in ((128, 128), (64, 64), (32, 64))}
+    rows = max(o.m_padded for o in ops.values())
+    m = city48.shape[0]
+    x, x0, _, scale = _layout_inputs(ops[(128, 128)], 136, cuda_device, 8,
+                                     rows=rows)
+    x0 = torch.cat([x0, x0.new_zeros(rows - x0.shape[0], 136)])
+    x[m:] = 0
+    out = {s: layout_call(o, x[:o.m_padded].contiguous(),
+                          x0[:o.m_padded].contiguous(), band_scale=scale)
+           for s, o in ops.items()}
+    torch.cuda.synchronize()
+    for s in ((64, 64), (32, 64)):
+        assert torch.equal(out[s][:m], out[(128, 128)][:m]), s
+
+
+@pytest.mark.parametrize("shape", [(64, 64), (32, 64)])
+def test_other_block_shape_serving_through_kernel(city48, cuda_device,
+                                                  shape):
+    """The int8 NodeClassifier on K1 at another block shape: K-1
+    launches a request, logits against the same operator's plain version
+    on the CPU (identical carries; the f32 taps sum in another order)."""
+    op = device_laplacian(city48, fmt="banded", block_size=shape,
+                          device=cuda_device)
+    model = NodeClassifier(op, 16, 4, hidden=[], K=5,
+                           generator=torch.Generator().manual_seed(0))
+    feats = torch.from_numpy(
+        np.random.default_rng(1).normal(size=(op.m, 16)).astype(np.float32))
+    serving = compile_serving(model, model.param_tree(),
+                              feats.to(cuda_device), int8=True)
+    assert serving.model.op.block_shape == shape
+    before = banded_dkw.launches
+    got = serving(feats.to(cuda_device)).cpu()
+    assert banded_dkw.launches == before + 4
+    plain = compile_serving(serving.model, model.param_tree(), feats,
+                            int8=False)
+    torch.testing.assert_close(got, plain(feats), rtol=1e-4, atol=1e-4)

@@ -103,11 +103,29 @@ class TestDeviceLaplacianArguments:
         assert port_laplacian._resolve_device(None) == torch.device("cuda")
 
     @pytest.mark.parametrize("block_size", [64, (128, 64), (64, 64), 256])
-    def test_banded_refuses_other_block_shapes(self, block_size):
+    def test_banded_takes_other_block_shapes(self, block_size):
+        """``fmt="banded"`` builds at any block shape, as JAX's does: the
+        same layout, bases, schedule and block shape, and the same
+        product."""
         L, _ = graphs.city_graph(20, k=4, seed=0)
-        with pytest.raises(ValueError, match="128x128"):
-            device_laplacian(L, fmt="banded", block_size=block_size,
-                             device="cpu")
+        op = device_laplacian(L, fmt="banded", block_size=block_size,
+                              device="cpu", use_pallas=False)
+        op_j = jax_device_laplacian(L, fmt="banded", block_size=block_size,
+                                    use_pallas=False)
+        want = ((block_size, block_size) if isinstance(block_size, int)
+                else block_size)
+        assert op.block_shape == tuple(op_j.block_shape) == want
+        assert (op.m_padded, op.rows_per_step, op.levels) == (
+            op_j.m_padded, op_j.rows_per_step, op_j.levels)
+        np.testing.assert_array_equal(op.band.numpy(), np.asarray(op_j.band))
+        np.testing.assert_array_equal(op.base.numpy(), np.asarray(op_j.base))
+        np.testing.assert_array_equal(op.sched.numpy(),
+                                      np.asarray(op_j.sched))
+        x = np.random.default_rng(3).normal(
+            size=(op.m_padded, 8)).astype(np.float32)
+        np.testing.assert_allclose(
+            op.matmul(torch.from_numpy(x)).numpy(),
+            np.asarray(op_j.matmul(jnp.asarray(x))), rtol=0, atol=1e-5)
 
     @pytest.mark.parametrize("block_size", ["auto", 128, (128, 128)])
     def test_banded_takes_128_blocks(self, block_size):

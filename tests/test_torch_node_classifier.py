@@ -220,6 +220,8 @@ class TestGuards:
             "cnn_graph_tpu_torch.experiments.node_classification, "
             "cnn_graph_tpu_torch.experiments.usage_demo, "
             "cnn_graph_tpu_torch.experiments.gconv_sweep, "
+            "cnn_graph_tpu_torch.experiments.multichip, "
+            "cnn_graph_tpu_torch.native, "
             "cnn_graph_tpu_torch.utils, cnn_graph_tpu_torch.utils.profiling, "
             "cnn_graph_tpu_torch.utils.probes, "
             "cnn_graph_tpu_torch.utils.metrics, "

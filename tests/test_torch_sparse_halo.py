@@ -10,8 +10,8 @@ sparse`` and ``sparse-banded`` on two ranks.
 
 The port runs in gloo worker processes on the CPU (``tests/
 _torch_dist.py``, one world of 2 and one of 4 ranks); JAX runs here.
-BSR is held at 8x8 blocks (JAX's test shape) and at 128x128, the banded
-format at 128x128, the one block shape the port's banded kernel takes.
+BSR and the banded format are each held at 8x8 blocks (JAX's test
+shape, tests/test_node_classification.py:214-260) and at 128x128.
 """
 
 import os
@@ -93,7 +93,9 @@ def world(request, tmp_path_factory):
     mesh = make_mesh(data=8 // n, nodes=n)
     jops = {"bsr8": sparse_halo_laplacian(L, mesh, block_shape=(8, 8)),
             "bsr128": sparse_halo_laplacian(L, mesh),
-            "band": sparse_halo_laplacian(L, mesh, fmt="banded")}
+            "band": sparse_halo_laplacian(L, mesh, fmt="banded"),
+            "band8": sparse_halo_laplacian(L, mesh, fmt="banded",
+                                           block_shape=(8, 8))}
     jops["bsr8p"] = jops["bsr8"]
     return types.SimpleNamespace(
         n=n, L=L, mesh=mesh, jops=jops, inp=inp, res=res, params=params,
@@ -111,7 +113,7 @@ def _close(got, want, rel):
                                atol=rel * np.abs(want).max())
 
 
-FORMATS = ["bsr8", "bsr8p", "bsr128", "band"]
+FORMATS = ["bsr8", "bsr8p", "bsr128", "band", "band8"]
 
 
 class TestHostPlan:
@@ -127,10 +129,10 @@ class TestHostPlan:
                     jop.ext_cols_padded])
                 np.testing.assert_array_equal(
                     r[f"{name}_send_idx"], np.asarray(jop.send_idx)[s])
-                if name == "band":
+                if name.startswith("band"):
                     for f in ("band", "base", "colperm"):
                         np.testing.assert_array_equal(
-                            r[f"band_{f}"], np.asarray(getattr(jop, f))[s])
+                            r[f"{name}_{f}"], np.asarray(getattr(jop, f))[s])
                     continue
                 nb = r[f"{name}_blocks"].shape[0]
                 blocks = np.asarray(jop.blocks)[s]
@@ -166,13 +168,14 @@ class TestHostPlan:
             np.testing.assert_array_equal(locals_[s].row, block.row)
             assert locals_[s].shape == (ms, ext_p)
 
-    def test_pack_local_banded_matches_jax(self, world):
+    @pytest.mark.parametrize("block_shape", [(128, 128), (8, 8)])
+    def test_pack_local_banded_matches_jax(self, world, block_shape):
         L = gc.rescale_laplacian(world.L).tocsr()
         _, ms, _, ext_p, _, locals_ = port_sh._extended_plan(
-            L, world.n, (128, 128), range(world.n))
+            L, world.n, block_shape, range(world.n))
         for loc in locals_.values():
-            got = port_sh._pack_local_banded(loc, ms, ext_p, (128, 128))
-            want = jax_sh._pack_local_banded(loc, ms, ext_p, (128, 128))
+            got = port_sh._pack_local_banded(loc, ms, ext_p, block_shape)
+            want = jax_sh._pack_local_banded(loc, ms, ext_p, block_shape)
             assert got[4] == want[4]
             for a, b in zip(got[:4] + got[5:], want[:4] + want[5:]):
                 np.testing.assert_array_equal(a, b)
@@ -220,7 +223,7 @@ class TestProducts:
 
 
 class TestQuant:
-    @pytest.mark.parametrize("name", ["bsr8", "bsr8p", "band"])
+    @pytest.mark.parametrize("name", ["bsr8", "bsr8p", "band", "band8"])
     def test_chain_bitexact_vs_jax_and_single_chip(self, world, name):
         jop = world.jops[name]
         q = quantize_sparse_halo(jop, sample_x=3.0)
@@ -254,10 +257,10 @@ class TestConstruction:
     def test_kinds_auto_fallback_and_refusals(self, world):
         for r in world.res:
             assert r["kinds"].all()
-            assert r["auto"].all(), "auto: bsr past the width, else banded"
-            wide, shape = (str(v) for v in r["refused"])
+            assert r["auto"].all(), ("auto: bsr past the width, else "
+                                     "banded, at 8x8 blocks too")
+            (wide,) = (str(v) for v in r["refused"])
             assert "band width" in wide and "exceeds 0" in wide
-            assert "128x128 blocks only" in shape
 
 
 class TestNodeClassifier:
