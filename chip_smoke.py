@@ -461,6 +461,7 @@ from cnn_graph_tpu_torch.train.checkpoint import (  # noqa: E402
 )
 from cnn_graph_tpu_torch.utils import (  # noqa: E402
     probes,
+    profiling,
     roofline,
     slope_time,
     sparse_roofline,
@@ -1073,8 +1074,8 @@ def _trace(fn, n: int, out_dir: str, mode: str):
     """``key_averages()`` of ``n`` calls of ``fn`` under torch.profiler,
     its table written to ``out_dir/profile_<mode>.txt``."""
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                 ) as prof, profiling.recording(ranges=True):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
@@ -1116,26 +1117,26 @@ def profile_phase(served: dict, x: torch.Tensor, lat: dict, out_dir: str,
 
 
 def train_parts(layout: str = "dkw") -> tuple:
-    """Parts of a banded training step by the profiler range that holds
-    them; casts are the aten conversions, which sit outside every other
-    range.  The kernel's ranges are read from their device-side spans
-    (one kernel each): a kernel launched through ctypes is not linked to
-    the host-side event."""
+    """Parts of a banded training step by the span that holds them (the
+    recorder's, ``utils/profiling.py``); the taps, dW and injections hold
+    their operands' casts.  The kernel's spans are read from their
+    device-side spans (one kernel each): a kernel launched through ctypes
+    is not linked to the host-side event."""
     k = KERNEL_ID[layout]
     return (
         (f"{k} L@x", f"band_{layout}.spmm"),
         (f"{k} hop", f"band_{layout}.hop"),
         (f"{k} +c", f"band_{layout}.hop_c"),
-        ("taps", "cheby_conv_banded.taps"), ("dW", "cheby_conv_banded.dW"),
-        ("injections", "cheby_conv_banded.injections"),
-        ("casts", "aten::_to_copy"), ("adam", "Optimizer.step#Adam.step"),
+        ("taps", "conv.taps"), ("dW", "conv.dW"),
+        ("injections", "conv.injections"),
+        ("adam", "Optimizer.step#Adam.step"),
     )
 
 
 # The same for the scattered graph's BSR training step.
 BSR_TRAIN_PARTS = (
     ("K4 L@x", "bsr_colstream.spmm"), ("K4 hop", "bsr_colstream.hop"),
-    ("taps (forward)", "cheby_conv.taps"),
+    ("taps (forward)", "conv.taps"),
     ("casts", "aten::_to_copy"), ("adam", "Optimizer.step#Adam.step"),
 )
 
@@ -1215,7 +1216,7 @@ def chebnet_profile_phase(run, step_ms: float, out_dir: str, gpu: str,
         ("K2/K3 layout copies", cpu_ms("cheby_conv_fused.forward",
                                        "cheby_conv_fused.dx",
                                        "cheby_conv_fused.dW") - fold),
-        (stacked, cpu_ms("cheby_conv.stacked")),
+        (stacked, cpu_ms("conv.stacked")),
         ("fc forward", cpu_ms("fc")),
         (optimizer[0], cpu_ms(optimizer[1])),
     )
@@ -1808,8 +1809,8 @@ def _kernel_counts(fn) -> tuple:
     ones included), from torch.profiler."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                 ) as prof, profiling.recording(ranges=True):
         fn()
         torch.cuda.synchronize()
     avg = prof.key_averages()
@@ -4345,11 +4346,11 @@ def main() -> int:
         chebnet_profile_phase(trainer_rec["run"], trainer_rec["ms"],
                               args.profile_dir, gpu,
                               mode="trainer_chebnet_f32",
-                              optimizer=("optax chain", "trainer.optimizer"))
+                              optimizer=("optax chain", "train.optimizer"))
         chebnet_profile_phase(flow_rec["resgnn"]["run"],
                               flow_rec["resgnn"]["ms"], args.profile_dir,
                               gpu, mode="trainer_resgnn_f32",
-                              optimizer=("optax chain", "trainer.optimizer"),
+                              optimizer=("optax chain", "train.optimizer"),
                               k2_forward=RESGNN_FWD_K2,
                               stacked="conv_init, conv_out (stacked)")
         profile_phase({f"scattered_{m}": r["serving"]

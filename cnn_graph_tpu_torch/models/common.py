@@ -24,9 +24,9 @@ import math
 
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from cnn_graph_tpu_torch.ops.band import full_f32_matmul
+from cnn_graph_tpu_torch.utils.profiling import span
 
 __all__ = [
     "ParamTree",
@@ -162,7 +162,7 @@ def fc_init(m_in: int, m_out: int, *, generator=None, device=None) -> dict:
 
 
 def fc_apply(params, x: torch.Tensor, relu: bool = True) -> torch.Tensor:
-    with full_f32_matmul(), record_function("fc"):
+    with full_f32_matmul(), span("fc"):
         y = torch.matmul(x, params["w"]) + params["b"]
     return torch.relu(y) if relu else y
 

@@ -32,7 +32,9 @@ whose CPU implementation is the layout's plain window version
 So a program that ``torch.export`` traced through a wrapper keeps the
 kernel as one node.  ``launches`` counts kernel launches,
 ``form_launches`` the same launches by form (``spmm``, ``hop``,
-``hop_c``); the CUDA implementation adds to both where it launches.
+``hop_c``): views of the recorder's counters (``utils/profiling.py
+Counted``), to which the CUDA implementation adds where it launches,
+inside the span ``band_<layout>.<form>``.
 ``x`` may have more rows than the output (the sharded halo operators'
 extended columns): the output has ``br * len(base)`` rows and ``base``
 indexes x's block columns.  ``donate_x0``
@@ -51,24 +53,23 @@ path.
 
 from __future__ import annotations
 
-import collections
 import contextlib
 import ctypes
 import functools
 
 import torch
 from torch.autograd.function import once_differentiable
-from torch.profiler import record_function
 
 from cnn_graph_tpu_torch import _build
 from cnn_graph_tpu_torch.ops.packing import BLOCK, MAX_LEVELS
+from cnn_graph_tpu_torch.utils import profiling
 
 __all__ = ["banded_dkw", "banded_dkw_reference", "banded_uniform",
            "banded_uniform_reference", "banded_ragged",
            "banded_ragged_reference", "banded_rows_reference", "layout_call",
            "band_spmm", "band_cheby_hop", "band_cheby_hop_c",
            "block_shape_of", "check_band_index", "check_band_tables",
-           "full_f32_matmul", "profiled"]
+           "full_f32_matmul"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 # csrc/band.cu's layout codes; each launches the row walk band_rows_kernel.
@@ -88,15 +89,6 @@ def full_f32_matmul():
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = old
-
-
-def profiled(name: str):
-    """A ``record_function`` range called ``name`` while a profiler
-    records, else a no-op: the range costs host time on every call even
-    with no profiler, about as much as the rest of a row-walk launch."""
-    if torch._C._autograd._profiler_enabled():
-        return record_function(name)
-    return contextlib.nullcontext()
 
 
 def block_shape_of(layout: str, bands, levels) -> tuple:
@@ -530,8 +522,9 @@ def _launch(layout, bands, widths, base, sched, index, x, x0, c, G,
     ptrs = [b.data_ptr() for b in bands] + [None] * (MAX_LEVELS - len(bands))
     widths = list(widths) + [0] * (MAX_LEVELS - len(widths))
     form = "spmm" if x0 is None else "hop" if c is None else "hop_c"
-    # The range names the kernel and form in a torch.profiler trace.
-    with torch.cuda.device(x.device), profiled(f"band_{layout}.{form}"):
+    # The span names the kernel and form in a torch.profiler trace.
+    with torch.cuda.device(x.device), profiling.span(
+            f"band_{layout}.{form}"):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _launcher()(
             _LAYOUT_CODE[layout], *ptrs, *widths, base.data_ptr(),
@@ -545,9 +538,7 @@ def _launch(layout, bands, widths, base, sched, index, x, x0, c, G,
     if rc != 0:
         raise RuntimeError(f"band_{layout} kernel launch failed: CUDA "
                            f"error {rc}")
-    fn = _WRAPPERS[layout]
-    fn.launches += 1
-    fn.form_launches[form] += 1
+    _WRAPPERS[layout].launched(form)
 
 
 def window_reference(layout, bands, base, sched, x, x0, c, levels, G,
@@ -591,6 +582,7 @@ def _call(name, layout, bands, widths, base, sched, x, x0, c, G,
     return torch.ops.cnn_graph_torch.band_rows(*args, x0, c, *static)
 
 
+@profiling.counted("band_dkw")
 def banded_dkw(bands, base, sched, x, x0=None, c=None, *, levels, G,
                band_scale=None, donate_x0=False, nz_rowptr=None,
                nz_win=None) -> torch.Tensor:
@@ -608,6 +600,7 @@ def banded_dkw(bands, base, sched, x, x0=None, c=None, *, levels, G,
                  G, band_scale, donate_x0, (nz_rowptr, nz_win))
 
 
+@profiling.counted("band_uniform")
 def banded_uniform(band, base, x, x0=None, c=None, *, band_scale=None,
                    donate_x0=False, nz_rowptr=None,
                    nz_win=None) -> torch.Tensor:
@@ -619,6 +612,7 @@ def banded_uniform(band, base, x, x0=None, c=None, *, band_scale=None,
                  (nz_rowptr, nz_win))
 
 
+@profiling.counted("band_ragged")
 def banded_ragged(band, base, sched, x, x0=None, c=None, *, levels, G,
                   band_scale=None, donate_x0=False, nz_rowptr=None,
                   nz_win=None) -> torch.Tensor:
@@ -630,9 +624,6 @@ def banded_ragged(band, base, sched, x, x0=None, c=None, *, levels, G,
                  x0, c, G, band_scale, donate_x0, (nz_rowptr, nz_win))
 
 
-for _fn in (banded_dkw, banded_uniform, banded_ragged):
-    _fn.launches = 0
-    _fn.form_launches = collections.Counter()
 _WRAPPERS = {"dkw": banded_dkw, "uniform": banded_uniform,
              "ragged": banded_ragged}
 

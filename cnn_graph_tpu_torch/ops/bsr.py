@@ -23,8 +23,10 @@ plain versions of the block walks the TPU kernels do,
 CPU tests hold against the Pallas kernels in interpret mode, and as a
 second check of the kernel on the card.  ``launches`` counts kernel
 launches, ``form_launches`` the same by form (``spmm``, ``hop``) and, on
-``bsr_csr``, ``route_launches`` by route (``K7``, ``K8``, ``K9``); the
-CUDA implementation adds to them where it launches.
+``bsr_csr``, ``route_launches`` by route (``K7``, ``K8``, ``K9``): views
+of the recorder's counters (``utils/profiling.py Counted``), to which the
+CUDA implementation adds where it launches, inside the span
+``bsr_colstream.<form>`` or ``bsr_csr.<route>.<form>``.
 
 The operator-level wrappers route as the JAX package does: ``bsr_spmm``
 (:580, backward ``dx = L g``) takes K4 for a column-streamed layout, K7
@@ -35,17 +37,16 @@ int8 ``bsr_call_quant`` (:436, inference only) take K4 or K7.
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
 
 import torch
 from torch.autograd.function import once_differentiable
-from torch.profiler import record_function
 
 from cnn_graph_tpu_torch import _build
 from cnn_graph_tpu_torch.ops.band import _CHUNK_BYTES, _emit, full_f32_matmul
 from cnn_graph_tpu_torch.ops.packing import BLOCK
+from cnn_graph_tpu_torch.utils import profiling
 
 __all__ = [
     "bsr_colstream",
@@ -257,7 +258,7 @@ def _launch(blocks, nz_rowptr, nz_cols, nz_pos, x, x0, route, block_scale):
             else f"bsr_csr.{route}.{form}")
     mp, C = nz_rowptr.numel() - 1, x.shape[1]
     y = x.new_empty((mp, C))
-    with torch.cuda.device(x.device), record_function(span):
+    with torch.cuda.device(x.device), profiling.span(span):
         rc = _lib().bsr_rows_launch(
             blocks.data_ptr(), nz_rowptr.data_ptr(), nz_cols.data_ptr(),
             nz_pos.data_ptr(), mp, x.data_ptr(),
@@ -266,11 +267,10 @@ def _launch(blocks, nz_rowptr, nz_cols, nz_pos, x, x0, route, block_scale):
             _DTYPE_CODE[x.dtype], torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-    fn = bsr_colstream if route == "K4" else bsr_csr
-    fn.launches += 1
-    fn.form_launches[form] += 1
-    if route != "K4":
-        fn.route_launches[route] += 1
+    if route == "K4":
+        bsr_colstream.launched(form)
+    else:
+        bsr_csr.launched(form, route)
     return y
 
 
@@ -288,6 +288,7 @@ def _call(name, blocks, nz_rowptr, nz_cols, nz_pos, x, x0, block_scale,
         blocks, nz_rowptr, nz_cols, nz_pos, x, x0, route, block_scale)
 
 
+@profiling.counted("bsr_colstream")
 def bsr_colstream(blocks, nz_rowptr, nz_cols, nz_pos, x, x0=None, *,
                   block_scale=None):
     """K4: ``L @ x`` (``x0`` None) or the hop ``2 (L @ x) - x0`` of a
@@ -303,10 +304,7 @@ def bsr_colstream(blocks, nz_rowptr, nz_cols, nz_pos, x, x0=None, *,
                  block_scale, "K4")
 
 
-bsr_colstream.launches = 0
-bsr_colstream.form_launches = collections.Counter()
-
-
+@profiling.counted("bsr_csr")
 def bsr_csr(blocks, nz_rowptr, nz_cols, nz_pos, x, x0=None, *,
             block_scale=None, route="K8"):
     """K7, K8 or K9 (``route``, for the counts): the same product as
@@ -316,11 +314,6 @@ def bsr_csr(blocks, nz_rowptr, nz_cols, nz_pos, x, x0=None, *,
         raise ValueError(f"bsr_csr: route {route!r} not in {_ROUTES}")
     return _call("bsr_csr", blocks, nz_rowptr, nz_cols, nz_pos, x, x0,
                  block_scale, route)
-
-
-bsr_csr.launches = 0
-bsr_csr.form_launches = collections.Counter()
-bsr_csr.route_launches = collections.Counter()
 
 
 # ------------------------------------------------------- operator wrappers

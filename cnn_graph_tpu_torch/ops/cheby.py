@@ -27,9 +27,11 @@ The wrappers check their arguments and call the custom ops
 ``cnn_graph_torch::cheby_conv`` and ``cheby_dw`` (``ops/library.py``) on
 the operator's matrix: their CUDA implementations launch the kernel and
 count it on ``cheby_conv_fused.launches`` and
-``cheby_dw_fused.launches``, their CPU implementations are the plain
-versions.  The operator's ``fused_filter`` and ``fused_dw`` methods call
-the wrappers, so an operator may substitute either.
+``cheby_dw_fused.launches`` (views of the recorder's counters,
+``utils/profiling.py Counted``) inside the spans ``cheby_fused.K2`` and
+``cheby_fused.K3``, their CPU implementations are the plain versions.
+The operator's ``fused_filter`` and ``fused_dw`` methods call the
+wrappers, so an operator may substitute either.
 
 Both wrappers lay the columns out by cluster (``conv_geometry``: groups
 of ``128 // F`` samples).  K2's expands each ``W_k`` block-diagonally
@@ -48,10 +50,10 @@ import types
 import torch
 import torch.nn.functional as nnf
 from torch.autograd.function import once_differentiable
-from torch.profiler import record_function
 
 from cnn_graph_tpu_torch import _build
 from cnn_graph_tpu_torch.ops.band import full_f32_matmul
+from cnn_graph_tpu_torch.utils.profiling import counted, span
 
 __all__ = [
     "cheby_conv_fused",
@@ -289,7 +291,7 @@ def _launch_conv(L, x: torch.Tensor, w: torch.Tensor,
     y = torch.empty(G, mp, nop, dtype=torch.float32, device=x.device)
     carry = torch.empty(G, 2, mp, np_, dtype=torch.float32, device=x.device)
     carryc = torch.empty_like(carry, dtype=dt)  # f32: [G, 2, np, mp]
-    with torch.cuda.device(x.device), record_function("cheby_fused.K2"):
+    with torch.cuda.device(x.device), span("cheby_fused.K2"):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _lib().cheby_conv_launch(
             mat.data_ptr(), xg.data_ptr(), xc.data_ptr(), wbd.data_ptr(),
@@ -326,7 +328,7 @@ def _launch_dw(L, x: torch.Tensor, g: torch.Tensor, K: int,
         carryc = torch.empty_like(carry, dtype=dt)
     parts = torch.empty(G, geo["cluster"], K, S, O, F, dtype=torch.float32,
                         device=x.device)
-    with torch.cuda.device(x.device), record_function("cheby_fused.K3"):
+    with torch.cuda.device(x.device), span("cheby_fused.K3"):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _lib().cheby_dw_launch(
             _hop_operator(L).data_ptr(), xg.data_ptr(),
@@ -378,7 +380,7 @@ def conv_kernel(mat, x, w) -> torch.Tensor:
     """K2's launch, counted: the CUDA implementation of
     ``cnn_graph_torch::cheby_conv``."""
     y = _launch_conv(dense_view(mat), x, w)
-    cheby_conv_fused.launches += 1
+    cheby_conv_fused.launched()
     return y.to(x.dtype)
 
 
@@ -386,8 +388,8 @@ def dw_kernel(mat, x, g, K: int) -> torch.Tensor:
     """K3's launch, counted, and its fold: the CUDA implementation of
     ``cnn_graph_torch::cheby_dw``."""
     parts = _launch_dw(dense_view(mat), x, g, K)
-    cheby_dw_fused.launches += 1
-    with record_function("cheby_fused.K3.fold"):
+    cheby_dw_fused.launched()
+    with span("cheby_fused.K3.fold"):
         return _fold_dw_partials(parts, mat.dtype)
 
 
@@ -400,6 +402,7 @@ def fused_filter(x: torch.Tensor, L, w: torch.Tensor) -> torch.Tensor:
     return torch.ops.cnn_graph_torch.cheby_conv(L.mat, x, w)
 
 
+@counted("cheby_dw_fused")
 def cheby_dw_fused(x: torch.Tensor, L, g: torch.Tensor,
                    K: int) -> torch.Tensor:
     """K3: ``dW[k, f, o] = sum_{b, m} (T_k x)[b, m, f] g[b, m, o]`` as f32
@@ -407,9 +410,6 @@ def cheby_dw_fused(x: torch.Tensor, L, g: torch.Tensor,
     tensors, the plain version for CPU ones.  No backward."""
     _check_call("cheby_dw_fused", x, g=g)
     return torch.ops.cnn_graph_torch.cheby_dw(L.mat, x, g, K)
-
-
-cheby_dw_fused.launches = 0
 
 
 class _ChebyConvFused(torch.autograd.Function):
@@ -420,7 +420,7 @@ class _ChebyConvFused(torch.autograd.Function):
     def forward(ctx, x, L, w):
         ctx.save_for_backward(x, w)
         ctx.L = L
-        with record_function("cheby_conv_fused.forward"):
+        with span("cheby_conv_fused.forward"):
             return L.fused_filter(x, w)
 
     @staticmethod
@@ -431,11 +431,11 @@ class _ChebyConvFused(torch.autograd.Function):
         K, F, O = w.shape
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            with record_function("cheby_conv_fused.dx"):
+            with span("cheby_conv_fused.dx"):
                 dx = L.fused_filter(g, w.transpose(1, 2).contiguous()).to(
                     x.dtype)
         if ctx.needs_input_grad[2]:
-            with record_function("cheby_conv_fused.dW"):
+            with span("cheby_conv_fused.dW"):
                 if _dw_eligible(F, O):
                     dw = L.fused_dw(x, g, K)
                 else:
@@ -450,6 +450,7 @@ class _ChebyConvFused(torch.autograd.Function):
         return dx, None, dw
 
 
+@counted("cheby_conv_fused")
 def cheby_conv_fused(x: torch.Tensor, L, w: torch.Tensor) -> torch.Tensor:
     """Fused Chebyshev conv on a DenseLaplacian: ``x`` ``[B, M, F]``, ``w``
     ``[K, F, O]`` -> ``[B, M, O]``, differentiable in ``x`` and ``w``.
@@ -458,8 +459,5 @@ def cheby_conv_fused(x: torch.Tensor, L, w: torch.Tensor) -> torch.Tensor:
     keeps a tile width."""
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return _ChebyConvFused.apply(x, L, w)
-    with record_function("cheby_conv_fused.forward"):
+    with span("cheby_conv_fused.forward"):
         return L.fused_filter(x, w)
-
-
-cheby_conv_fused.launches = 0

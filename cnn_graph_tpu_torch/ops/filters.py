@@ -20,17 +20,23 @@ The per-tap products ``T_k x W_k`` and dW are plain ``torch.matmul``s on
 f32-upcast operands, accumulated in f32, as the JAX package's taps
 accumulate in f32; the backward's injections ``g W_k^T`` run in the
 operator's compute dtype, as in JAX.
+
+Spans (``utils/profiling.py``): ``cheby_conv`` opens ``conv.<route>``
+(``banded``, ``quant_stream``, ``fused``, ``stacked``); the tap work is
+timed on the card in ``conv.taps`` (each hop's tap with its operand's
+cast and the sum into y, or the stacked contraction), ``conv.dW`` (the
+banded backward's dW) and ``conv.injections`` (its ``g W_k^T``).
 """
 
 from __future__ import annotations
 
 import torch
 from torch.autograd.function import once_differentiable
-from torch.profiler import record_function
 
-from cnn_graph_tpu_torch.ops.band import full_f32_matmul, profiled
+from cnn_graph_tpu_torch.ops.band import full_f32_matmul
 from cnn_graph_tpu_torch.ops.cheby import cheby_conv_fused, fused_vmem_ok
 from cnn_graph_tpu_torch.ops.laplacian import BandedLaplacian
+from cnn_graph_tpu_torch.utils.profiling import span
 
 __all__ = ["cheby_basis", "cheby_conv", "cheby_conv_banded",
            "cheby_weights_from_flat", "fourier_conv", "lanczos_basis_device",
@@ -86,7 +92,9 @@ def _cheby_conv_quant_stream(x: torch.Tensor, L, w: torch.Tensor):
             elif k >= 2:
                 q_prev, q = q, L.cheby_hop_q(q, q_prev)
             dq = L.dequantize(q[:M], torch.float32, scale=s_x)
-            y = y + torch.einsum("mfb,fo->bmo", dq.reshape(M, F, B), wc[k])
+            with span("conv.taps", device=True):
+                y = y + torch.einsum("mfb,fo->bmo", dq.reshape(M, F, B),
+                                     wc[k])
     return y.to(x.dtype)
 
 
@@ -112,8 +120,8 @@ def _ccb_forward(x: torch.Tensor, L, w: torch.Tensor, keep: bool):
             prev, cur = cur, L.cheby_hop(cur, prev)
         if keep:
             carries.append(cur)
-        tap = cur[:M].reshape(M, B, F).to(torch.float32)
-        with full_f32_matmul(), profiled("cheby_conv_banded.taps"):
+        with full_f32_matmul(), span("conv.taps", device=True):
+            tap = cur[:M].reshape(M, B, F).to(torch.float32)
             y = y + torch.einsum("mbf,fo->bmo", tap, wc[k])
     return y.to(x.dtype), carries
 
@@ -138,13 +146,13 @@ class _ChebyConvBanded(torch.autograd.Function):
         dx = dw = None
         if ctx.needs_input_grad[2]:
             # dW[k, f, o] = sum_{b, m} S[k, m, b, f] g[b, m, o], per hop.
-            gc = g.to(torch.float32)
-            dws = []
-            for k in range(K):
-                tap = S[k][:M].reshape(M, B, Fin).to(torch.float32)
-                with full_f32_matmul(), profiled("cheby_conv_banded.dW"):
+            with full_f32_matmul(), span("conv.dW", device=True):
+                gc = g.to(torch.float32)
+                dws = []
+                for k in range(K):
+                    tap = S[k][:M].reshape(M, B, Fin).to(torch.float32)
                     dws.append(torch.einsum("mbf,bmo->fo", tap, gc))
-            dw = torch.stack(dws).to(w.dtype)
+                dw = torch.stack(dws).to(w.dtype)
         if ctx.input_grad and ctx.needs_input_grad[0]:
             dx = _ccb_adjoint(ctx.L, g, w).reshape(M, B, Fin).permute(
                 1, 0, 2).to(ctx.x_dtype)
@@ -163,14 +171,10 @@ def _ccb_adjoint(L, g, w):
     K, Fin, _ = w.shape
     B, M, _ = g.shape
     cdt = L.compute_dtype
-    gcd, wcd = g.to(cdt), w.to(cdt)
-
-    def c_inj(k):
-        with full_f32_matmul(), profiled("cheby_conv_banded.injections"):
-            ck = torch.einsum("bmo,fo->mbf", gcd, wcd[k]).reshape(M, B * Fin)
-        return _pad_nodes(ck, L.m_padded)
-
-    C = [c_inj(k) for k in range(K)]
+    with full_f32_matmul(), span("conv.injections", device=True):
+        gcd, wcd = g.to(cdt), w.to(cdt)
+        C = [_pad_nodes(torch.einsum("bmo,fo->mbf", gcd, wcd[k]).reshape(
+            M, B * Fin), L.m_padded) for k in range(K)]
     if K == 1:
         s0 = C[0]
     elif K == 2:
@@ -291,16 +295,19 @@ def cheby_conv(x: torch.Tensor, L, w: torch.Tensor,
     if F != Fin:
         raise ValueError(f"feature mismatch: x has {F}, w expects {Fin}")
     if isinstance(L, BandedLaplacian):
-        return cheby_conv_banded(x, L, w, input_grad)
+        with span("conv.banded"):
+            return cheby_conv_banded(x, L, w, input_grad)
     if hasattr(L, "cheby_hop_q") and not hasattr(L, "cheby_chain_q"):
-        return _cheby_conv_quant_stream(x, L, w)
+        with span("conv.quant_stream"):
+            return _cheby_conv_quant_stream(x, L, w)
     fused_tile = 512 if L.compute_dtype == torch.float32 else 256
     if getattr(L, "use_fused", False) and _fused_eligible(
             L, Fin, Fout, col_tile=fused_tile):
-        return cheby_conv_fused(x, L, w)
-    with record_function("cheby_conv.stacked"):
+        with span("conv.fused"):
+            return cheby_conv_fused(x, L, w)
+    with span("conv.stacked"):
         basis = cheby_basis(x, L, K)
-        with full_f32_matmul(), record_function("cheby_conv.taps"):
+        with full_f32_matmul(), span("conv.taps", device=True):
             return stacked_taps(basis, w, x.dtype)
 
 

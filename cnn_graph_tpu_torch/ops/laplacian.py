@@ -64,6 +64,7 @@ from cnn_graph_tpu_torch.ops.bsr import (
     kernel_call,
 )
 from cnn_graph_tpu_torch.ops.cheby import cheby_dw_fused, fused_filter
+from cnn_graph_tpu_torch.utils.profiling import count, span
 
 __all__ = [
     "DENSE_THRESHOLD",
@@ -245,7 +246,10 @@ class QuantOpMixin:
     kernel: callers may pass a run-time scale to ``quantize``/
     ``dequantize``.  Inference only, as the JAX int8 operators are:
     ``quantize`` raises when a gradient would be needed through it.
-    Subclasses carry ``act_scale`` and implement ``_call(x_q, x0_q)``."""
+    Subclasses carry ``act_scale`` and implement ``_call(x_q, x0_q)``.
+    Each ``quantize`` and ``dequantize`` is a span timed on the card and
+    counts the bytes its elements need at least (``quant_bytes``: 4 read
+    and 1 written, ``dequant_bytes``: 1 read and 4 written)."""
 
     @property
     def compute_dtype(self):
@@ -257,12 +261,16 @@ class QuantOpMixin:
                 f"{type(self).__name__} is inference-only (no backward "
                 "through int8): run under torch.no_grad()/inference_mode()")
         s = self.act_scale if scale is None else scale
-        return torch.clamp(torch.round(x / s), -127, 127).to(torch.int8)
+        count("quant_bytes", 5 * x.numel())
+        with span("quantize", device=True):
+            return torch.clamp(torch.round(x / s), -127, 127).to(torch.int8)
 
     def dequantize(self, q: torch.Tensor, dtype=torch.float32,
                    scale=None) -> torch.Tensor:
         s = self.act_scale if scale is None else scale
-        return (q.to(torch.float32) * s).to(dtype)
+        count("dequant_bytes", 5 * q.numel())
+        with span("dequantize", device=True):
+            return (q.to(torch.float32) * s).to(dtype)
 
     def matmul(self, x: torch.Tensor) -> torch.Tensor:
         """Float view: quantize -> int8 SpMM -> dequantize."""

@@ -21,7 +21,8 @@ launches the same kernels:
 Each op has three implementations: CUDA, the ``ctypes`` launch of
 ``ops/band.py``, ``ops/bsr.py`` or ``ops/cheby.py``, which counts the
 launch on its wrapper (``launches``, ``form_launches``,
-``route_launches``) and names it in a profiler range, so a loaded
+``route_launches``, views of the recorder's counters) and names it in a
+span of the recorder (``utils/profiling.py``), so a loaded
 program counts and names its launches as the eager path does; CPU, the
 kernel's plain PyTorch version; and a fake one that gives the output's
 shape and dtype (int8 in, int8 out) and counts nothing.  There is no
@@ -202,7 +203,4 @@ def launch_counts() -> dict:
 def reset_launch_counts():
     """Set every launch count, by form and route too, to 0."""
     for fn in _COUNTED.values():
-        fn.launches = 0
-        for attr in ("form_launches", "route_launches"):
-            if hasattr(fn, attr):
-                getattr(fn, attr).clear()
+        fn.reset()

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from cnn_graph_tpu_torch.utils.profiling import span
+
 __all__ = ["max_pool", "avg_pool"]
 
 
@@ -23,9 +25,15 @@ def _groups(x: torch.Tensor, p: int) -> torch.Tensor:
 
 def max_pool(x: torch.Tensor, p: int) -> torch.Tensor:
     """Max over groups of ``p`` nodes: ``[B, M, F]`` -> ``[B, M/p, F]``."""
-    return x if p <= 1 else _groups(x, p).amax(dim=2)
+    if p <= 1:
+        return x
+    with span("pool"):
+        return _groups(x, p).amax(dim=2)
 
 
 def avg_pool(x: torch.Tensor, p: int) -> torch.Tensor:
     """Mean over groups of ``p`` nodes."""
-    return x if p <= 1 else _groups(x, p).mean(dim=2)
+    if p <= 1:
+        return x
+    with span("pool"):
+        return _groups(x, p).mean(dim=2)

@@ -51,6 +51,7 @@ from cnn_graph_tpu_torch.models import common
 from cnn_graph_tpu_torch.ops import library
 from cnn_graph_tpu_torch.ops.band import full_f32_matmul
 from cnn_graph_tpu_torch.ops.laplacian import BCOOLaplacian
+from cnn_graph_tpu_torch.utils.profiling import span
 
 __all__ = ["InputSpec", "CompiledServing", "LoadedServing",
            "compile_serving", "export_serving", "load_serving"]
@@ -86,9 +87,10 @@ class CompiledServing:
         self.input_spec = input_spec
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        _check_input(self.input_spec, x)
-        with torch.inference_mode(), full_f32_matmul():
-            return self.model.apply(self.params, x)
+        with span("serve.request", unit=True):
+            _check_input(self.input_spec, x)
+            with torch.inference_mode(), full_f32_matmul():
+                return self.model.apply(self.params, x)
 
 
 def _model_operators(model) -> list:
@@ -239,9 +241,10 @@ class LoadedServing:
                                     device)
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        _check_input(self.input_spec, x)
-        with torch.inference_mode(), full_f32_matmul():
-            return self._fn(self._leaves, x)
+        with span("serve.request", unit=True):
+            _check_input(self.input_spec, x)
+            with torch.inference_mode(), full_f32_matmul():
+                return self._fn(self._leaves, x)
 
 
 def load_serving(path: str) -> LoadedServing:

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from cnn_graph_tpu_torch.models.common import tree_leaves, tree_map
+from cnn_graph_tpu_torch.utils.profiling import span
 
 __all__ = ["adam_steps", "train_classifier"]
 
@@ -27,19 +28,22 @@ def adam_steps(params, loss_of, *, steps: int, learning_rate: float,
     ``[steps]`` f32 tensor of each step's loss before its update.
     With a ``parallel.Mesh`` the gradients are made global
     (``Mesh.sync_grads``) before each update.  Nothing here waits for
-    the device."""
+    the device.  Each step is the unit span ``train.step``, its update
+    the span ``train.optimizer``, timed on the card."""
     params = tree_map(lambda t: t.detach().clone().requires_grad_(), params)
     opt = torch.optim.Adam(tree_leaves(params), lr=learning_rate,
                            betas=(0.9, 0.999), eps=1e-8)
     losses = []
     for step in range(steps):
-        opt.zero_grad(set_to_none=True)
-        loss = loss_of(params, step)
-        loss.backward()
-        if mesh is not None:
-            mesh.sync_grads([p.grad for p in tree_leaves(params)])
-        opt.step()
-        losses.append(loss.detach())
+        with span("train.step", unit=True):
+            opt.zero_grad(set_to_none=True)
+            loss = loss_of(params, step)
+            loss.backward()
+            if mesh is not None:
+                mesh.sync_grads([p.grad for p in tree_leaves(params)])
+            with span("train.optimizer", device=True):
+                opt.step()
+            losses.append(loss.detach())
     return tree_map(torch.Tensor.detach, params), torch.stack(losses)
 
 

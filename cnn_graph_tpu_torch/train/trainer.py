@@ -51,11 +51,11 @@ from cnn_graph_tpu_torch.models.common import (
     tree_leaves,
     tree_map,
 )
-from cnn_graph_tpu_torch.ops.band import profiled
 from cnn_graph_tpu_torch.train.checkpoint import CheckpointManager
 from cnn_graph_tpu_torch.train.optim import Optimizer
 from cnn_graph_tpu_torch.utils.logging import MetricsLogger
 from cnn_graph_tpu_torch.utils.metrics import weighted_f1
+from cnn_graph_tpu_torch.utils.profiling import span
 
 __all__ = ["TrainConfig", "Trainer"]
 
@@ -289,26 +289,29 @@ class Trainer:
         """One step on ``params`` in place: loss and gradients, the
         optimizer chain, the EMA (which takes the first loss as it is).
         Returns the new ``(opt_state, ema)``; nothing waits for the
-        device."""
-        c = self.config
-        leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
-        with torch.enable_grad():
-            loss = self.model.loss(params, x, y, train=True, generator=gen)
-            grads = torch.autograd.grad(loss, leaves)
-        mesh = c.mesh
-        if mesh is not None:
-            grads = mesh.sync_grads(list(grads))
-            if mesh.shape["data"] > 1:
-                loss = mesh.all_reduce(loss.detach().clone(), "data") / (
-                    mesh.shape["data"])
-        with torch.no_grad(), profiled("trainer.optimizer"):
-            updates, opt_state = self.optimizer.update(grads, opt_state)
-            for p, u in zip(leaves, updates):
-                p.add_(u)
-            loss = loss.detach()
-            ema = torch.where(ema < 0, loss, c.loss_ema_decay * ema
-                              + (1 - c.loss_ema_decay) * loss)
-        return opt_state, ema
+        device.  The step is the unit span ``train.step``, the chain and
+        EMA the span ``train.optimizer``, timed on the card."""
+        with span("train.step", unit=True):
+            c = self.config
+            leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+            with torch.enable_grad():
+                loss = self.model.loss(params, x, y, train=True,
+                                       generator=gen)
+                grads = torch.autograd.grad(loss, leaves)
+            mesh = c.mesh
+            if mesh is not None:
+                grads = mesh.sync_grads(list(grads))
+                if mesh.shape["data"] > 1:
+                    loss = mesh.all_reduce(loss.detach().clone(), "data") / (
+                        mesh.shape["data"])
+            with torch.no_grad(), span("train.optimizer", device=True):
+                updates, opt_state = self.optimizer.update(grads, opt_state)
+                for p, u in zip(leaves, updates):
+                    p.add_(u)
+                loss = loss.detach()
+                ema = torch.where(ema < 0, loss, c.loss_ema_decay * ema
+                                  + (1 - c.loss_ema_decay) * loss)
+            return opt_state, ema
 
     def _eval_batch(self, params, x, y=None):
         """The prediction head on one batch and, given labels, the loss."""
@@ -360,14 +363,16 @@ class Trainer:
                 labels.reshape((nb, B) + labels.shape[1:]), n)
 
     def _evaluate_device(self, params, batched, labels):
-        """Evaluate pre-batched device data, with one fetch."""
+        """Evaluate pre-batched device data, with one fetch (the span
+        ``train.evaluate``)."""
         data_b, labels_b, n = batched
-        outs = [self._eval_batch(params, x, y) for x, y in zip(data_b,
-                                                                labels_b)]
-        preds = torch.stack([o for o, _ in outs])
-        losses = torch.stack([l.to(preds.dtype) for _, l in outs])
-        shape, size = tuple(preds.shape), preds.numel()
-        flat = torch.cat([preds.reshape(-1), losses]).cpu().numpy()
+        with span("train.evaluate"):
+            outs = [self._eval_batch(params, x, y)
+                    for x, y in zip(data_b, labels_b)]
+            preds = torch.stack([o for o, _ in outs])
+            losses = torch.stack([l.to(preds.dtype) for _, l in outs])
+            shape, size = tuple(preds.shape), preds.numel()
+            flat = torch.cat([preds.reshape(-1), losses]).cpu().numpy()
         outputs = flat[:size].reshape((-1,) + shape[2:])[:n]
         loss = float(flat[size:].sum()) * self.config.batch_size / n
         return self._metrics(outputs, labels, loss)

@@ -24,7 +24,8 @@ The three probe kernels live in ``csrc/probes.cu`` and run only on a CUDA
 device: a CPU tensor raises, nothing falls back.  Each has its plain
 PyTorch version (``*_reference``), which computes the same function on any
 device and is what the kernels are held against.  ``launches`` on each
-probe counts its kernel launches.  The Pallas probes compute their
+probe counts its kernel launches (a view of the recorder's counter,
+``utils/profiling.py Counted``).  The Pallas probes compute their
 functions with every operand resident in VMEM; ``csrc/probes.cu`` says
 how the CUDA ones keep theirs in L2 and walk them through the wmma CTA
 tile of the banded tile kernels that the row walks replaced.
@@ -43,6 +44,7 @@ from cnn_graph_tpu_torch import _build
 from cnn_graph_tpu_torch.ops.band import full_f32_matmul
 from cnn_graph_tpu_torch.utils.profiling import (
     H100_OPS_PER_S,
+    counted,
     roofline,
     slope_time,
 )
@@ -281,6 +283,7 @@ def _run(name: str, rc: int):
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
+@counted("mxu_probe")
 def mxu_probe(a: torch.Tensor, b: torch.Tensor, iters: int, taps: int,
               replicas: int = 1):
     """P1 on the card: ``replicas`` copies of ``mxu_reference``'s chain,
@@ -306,10 +309,11 @@ def mxu_probe(a: torch.Tensor, b: torch.Tensor, iters: int, taps: int,
             a.data_ptr(), b.data_ptr(), out.data_ptr(), extra.data_ptr(), m,
             taps * kd, n, taps, iters, replicas, _DTYPE_CODE[a.dtype],
             stream))
-    mxu_probe.launches += 1
+    mxu_probe.launched()
     return out, extra
 
 
+@counted("pred_probe")
 def pred_probe(widths: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                iters: int, cond: bool = True,
                replicas: int = 1) -> torch.Tensor:
@@ -334,10 +338,11 @@ def pred_probe(widths: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         _run("pred_probe", _lib().probe_pred_launch(
             widths.data_ptr(), widths.numel(), a.data_ptr(), b.data_ptr(),
             out.data_ptr(), taps, n, iters, int(cond), replicas, stream))
-    pred_probe.launches += 1
+    pred_probe.launched()
     return out
 
 
+@counted("loopcost_probe")
 def loopcost_probe(seed: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                    n_dots: int, unroll: int) -> torch.Tensor:
     """P3 on the card: ``loopcost_reference`` in one launch, the unroll a
@@ -359,12 +364,8 @@ def loopcost_probe(seed: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         _run("loopcost_probe", _lib().probe_loopcost_launch(
             seed.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(), T,
             seed.shape[2], n_dots, unroll, seed.shape[0], stream))
-    loopcost_probe.launches += 1
+    loopcost_probe.launched()
     return out
-
-
-for _fn in (mxu_probe, pred_probe, loopcost_probe):
-    _fn.launches = 0
 
 
 # -------------------------------------------------------------- operands

@@ -50,7 +50,7 @@ from cnn_graph_tpu_torch.ops import (
 )
 from cnn_graph_tpu_torch.ops.band import layout_call
 from cnn_graph_tpu_torch.serve import compile_serving
-from cnn_graph_tpu_torch.utils import probes, slope_time
+from cnn_graph_tpu_torch.utils import probes, profiling, slope_time
 
 pytestmark = pytest.mark.gpu
 
@@ -1586,3 +1586,44 @@ def test_other_block_shape_serving_through_kernel(city48, cuda_device,
     plain = compile_serving(serving.model, model.param_tree(), feats,
                             int8=False)
     torch.testing.assert_close(got, plain(feats), rtol=1e-4, atol=1e-4)
+
+
+def test_recorder_spans_on_the_profilers_clock(city96, cuda_device):
+    """The recorder on the card: in a CPU and CUDA trace each span's
+    ``time.time_ns()`` stamps bracket the runtime call that launched K1
+    inside it, the trace's ``cudaEventRecord`` of each CUDA event it
+    records starts inside the host interval it stamped around the call,
+    to 50 us (one record a unit anchor, two a timed span), and a timed
+    span's events hold the kernel's device time."""
+    op = _operator(city96, "bfloat16", cuda_device)
+    x = torch.randn(op.m_padded, 128, device=cuda_device).to(torch.bfloat16)
+    layout_call(op, x)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof, \
+            profiling.recording() as rec:
+        for _ in range(4):
+            with profiling.span("serve.request", unit=True):
+                with profiling.span("probe", device=True):
+                    layout_call(op, x)
+        torch.cuda.synchronize()
+    events = prof.profiler.kineto_results.events()
+    launches = [e.start_ns() for e in events
+                if e.name().startswith(("cudaLaunch", "cuLaunch"))]
+    records = sorted(e.start_ns() for e in events
+                     if e.name().startswith("cudaEventRecord"))
+    kernels = sorted((e.start_ns(), e.duration_ns()) for e in events
+                     if "band_rows_kernel" in e.name()
+                     and not e.is_user_annotation())
+    spans = [s for s in rec.spans if s.name == "probe"]
+    assert len(spans) == 4 and len(kernels) == 4
+    for s in spans:
+        assert sum(s.start_ns <= t <= s.end_ns for t in launches) == 1
+    assert len(records) == len(rec.stamps) == 4 * 3
+    # Within the 50 us that benchmark/harness/spans.py allows.
+    assert all(a - 50_000 <= r <= b + 50_000
+               for r, (a, b) in zip(records, rec.stamps)), (records,
+                                                            rec.stamps)
+    for s, (_, dur) in zip(spans, kernels):
+        assert s.device_ms() * 1e6 >= 0.9 * dur
