@@ -14,8 +14,8 @@ Phases, each fatal on failure (no CPU path, no fallback):
    the BSR operators' row-sparse gather kernel (csrc/bsr.cu,
    ``bsr_rows_kernel``, launched as K4 by ``bsr_colstream`` and as
    K7/K8/K9 by ``bsr_csr``; it shares csrc/rows.cuh with
-   ``band_rows_kernel``) and the probes P1-P3 (csrc/probes.cu) from
-   source, one nvcc each, and the host Graclus matcher
+   ``band_rows_kernel``), the probes P1-P3 (csrc/probes.cu) and the int8
+   conversions (csrc/quant.cu) from source, one nvcc each, and the host Graclus matcher
    (``native/graph_kernels.cpp``) with g++, all started together; print
    each kernel's
    registers and shared memory, and the tensor-core instructions
@@ -35,7 +35,11 @@ Phases, each fatal on failure (no CPU path, no fallback):
    city_graph(224, k=8) through compile_serving: 4 requests in bf16 and
    4 in int8, each with its own features; check 24 kernel launches per
    request, finite [50176, 16] logits, and the served logits against the
-   same requests run through the plain version on the card;
+   same requests run through the plain version on the card (its int8
+   conversions the plain expressions too); in int8 one quantisation and
+   K dequantisations a conv and request (``csrc/quant.cu``, counted on
+   ``quant.quantize_int8`` and ``quant.dequantize_int8``, reset just
+   before the requests);
 5. train the bench's deep NodeClassifier (K=25, Fin=512, hidden=[512],
    16 classes; bench.py:243-321) for 4 adam steps through
    train_node_classifier on label-correlated features: on the bf16
@@ -335,6 +339,19 @@ Phases, each fatal on failure (no CPU path, no fallback):
    native``, built with g++ in phase 2) and the Python loop: equal
    clusters, the seconds of each.
 
+29. the int8 twins' activation conversions (``csrc/quant.cu``:
+   ``quant_kernel``, ``dequant_kernel``), right after phase 6, at the 50k
+   request's carries (50,176 x 512): ``quant.quantize_int8`` from f32 and
+   bf16 and ``quant.dequantize_int8`` to f32 and bf16, each with a
+   device scale (a 0-d f32 tensor, as the int8 convs pass it) and a
+   Python float (the operator's ``act_scale``), bit-equal
+   (``torch.equal``) to ``quant.quantize_reference`` /
+   ``dequantize_reference`` called directly, one launch a call, values
+   past +-127 included; each timed by device work beside the plain
+   expression, the bytes bound at 3.35 TB/s and, for the
+   dequantisation, the one library call of the same bits,
+   ``torch.mul(q, s)``.
+
 Each 50k scattered operator is freed after its phase.
 
 The last three lines are the kernel record as one JSON object (each
@@ -427,7 +444,7 @@ from cnn_graph_tpu_torch.ops import (  # noqa: E402
     quantize_block_sparse,
     quantize_dense,
 )
-from cnn_graph_tpu_torch.ops import library  # noqa: E402
+from cnn_graph_tpu_torch.ops import library, quant  # noqa: E402
 from cnn_graph_tpu_torch.ops.band import layout_call  # noqa: E402
 from cnn_graph_tpu_torch.ops.cheby import (  # noqa: E402
     _fold_dw_partials,
@@ -899,18 +916,29 @@ def banded_serve_phase(served: dict, reqs: list, kernel, what: str,
     """Serve ``reqs`` through each handle of ``served``: K-1 launches of
     ``kernel`` per request and no other banded kernel, finite [m, 16]
     logits, and each request's logits against the same request through
-    the plain version on the card (phase 4's checks)."""
-    launches, logits = {}, {}
+    the plain version on the card (phase 4's checks); in int8 also one
+    ``quant_kernel`` and K ``dequant_kernel`` launches a conv and request,
+    none in a float mode (``conversions``: (quantize, dequantize) by
+    mode)."""
+    launches, logits, conversions = {}, {}, {}
     for mode, serving in served.items():
         op = serving.model.op
         reset_band_launches()
+        reset_quant_launches()
         logits[mode] = [serving(x) for x in reqs[mode]]
         torch.cuda.synchronize()
         launches[mode] = kernel.launches
+        conversions[mode] = quant_launches()
         n = len(reqs[mode])
         check(launches[mode] == n * (K - 1)
               and sum(band_launches().values()) == launches[mode],
               f"{what} {mode}: {band_launches()} launches for {n} requests")
+        convs = len(serving.params["convs"])
+        want = ((n * convs, n * convs * K)
+                if op.compute_dtype == torch.int8 else (0, 0))
+        check(conversions[mode] == want, f"{what} {mode}: int8 conversion "
+              f"launches {conversions[mode]} for {n} requests of {convs} "
+              f"conv(s), want {want}")
         for y in logits[mode]:
             check(tuple(y.shape) == (op.m, CLASSES) and bool(
                 torch.isfinite(y).all()), f"{what} {mode}: bad logits")
@@ -931,10 +959,12 @@ def banded_serve_phase(served: dict, reqs: list, kernel, what: str,
             check(e <= tol, f"{what} {mode}: served logits off the plain "
                   f"version by {e:.3g} (limit {tol:.3g})")
         print(f"{what} {mode}: {n} requests, {launches[mode]} "
-              f"{KERNEL_ID[layout_of(op)]} launches, logits "
+              f"{KERNEL_ID[layout_of(op)]} launches, int8 conversions "
+              f"(quantize, dequantize) {conversions[mode]}, logits "
               f"{tuple(logits[mode][0].shape)}, max |served - plain| "
               f"{err:.3g}", flush=True)
-    return {"launches": launches, "logits": logits}
+    return {"launches": launches, "logits": logits,
+            "conversions": conversions}
 
 
 def csr_operand(L, m_padded: int, dev):
@@ -1008,9 +1038,31 @@ def request_features(positions, n: int, seed: int = 1):
             np.float32)) for _ in range(n)]
 
 
+class _PlainConversions:
+    """An int8 twin's activation conversions on their plain expressions,
+    called directly, so that a check against the twin does not run
+    ``csrc/quant.cu`` on both sides."""
+
+    def quantize(self, x, scale=None):
+        return quant.quantize_reference(
+            x, self.act_scale if scale is None else scale)
+
+    def dequantize(self, q, dtype=torch.float32, scale=None):
+        return quant.dequantize_reference(
+            q, self.act_scale if scale is None else scale, dtype)
+
+
+class _PlainQuantBanded(_PlainConversions, QuantBandedLaplacian):
+    pass
+
+
 def _plain_banded(op):
     """A banded operator (float or int8, any layout) whose products run
-    its layout kernel's plain version."""
+    its layout kernel's plain version, an int8 one's conversions too."""
+    if isinstance(op, QuantBandedLaplacian):
+        return _PlainQuantBanded(**{
+            **{f.name: getattr(op, f.name) for f in dataclasses.fields(op)},
+            "use_pallas": False})
     return dataclasses.replace(op, use_pallas=False)
 
 
@@ -1033,13 +1085,14 @@ class _PlainBsr(_PlainBsrMixin, BlockSparseLaplacian):
     pass
 
 
-class _PlainQuantBsr(_PlainBsrMixin, QuantBlockSparseLaplacian):
+class _PlainQuantBsr(_PlainConversions, _PlainBsrMixin,
+                     QuantBlockSparseLaplacian):
     pass
 
 
-class _PlainQuantDense(QuantDenseLaplacian):
+class _PlainQuantDense(_PlainConversions, QuantDenseLaplacian):
     """The dense int8 twin with its float64 accumulator, the route that
-    the int32 ``_int_mm`` replaced."""
+    the int32 ``_int_mm`` replaced, and the plain conversions."""
 
     def _acc(self, x_q):
         return self._acc_f64(x_q)
@@ -2629,6 +2682,88 @@ def bsr_chain_phase(op, X, what: str, gpu: str, lib_ms=None) -> dict:
     return rec
 
 
+# ------------------------------------------- the int8 conversions, phase 29
+
+QUANT_SOURCE = "cnn_graph_tpu_torch/csrc/quant.cu"
+# What the JAX package has in their place: the int8 twins' conversions,
+# left to XLA, which fuses them into their neighbours (no kernel).
+QUANT_REPLACES = "cnn_graph_tpu/ops/laplacian.py:95 (QuantOpMixin, XLA)"
+QUANT_ROWS, QUANT_COLS = 50_176, FIN  # the 50k request's carries
+
+
+def quant_launches() -> tuple:
+    return quant.quantize_int8.launches, quant.dequantize_int8.launches
+
+
+def reset_quant_launches():
+    torch.cuda.synchronize()
+    quant.quantize_int8.launches = quant.dequantize_int8.launches = 0
+
+
+def conversion_phase(dev, gpu: str) -> dict:
+    """Phase 29: each conversion bit-equal to its plain expression called
+    directly, one launch a call, then timed.  Keys ``quant_<x dtype>_
+    <scale>`` and ``dequant_<out dtype>_<scale>``, scale ``device`` or
+    ``float``: ``ms``, ``plain_ms``, ``bound_ms`` (the bytes of its
+    elements at 3.35 TB/s: the int8 side 1 B, the float side 4 or 2) and,
+    for the dequantisation, ``library_ms`` (``torch.mul(q, s)``, into a
+    bf16 ``out`` for bf16)."""
+    gen = torch.Generator(device=dev).manual_seed(29)
+    x32 = 3.0 * torch.randn(QUANT_ROWS, QUANT_COLS, generator=gen,
+                            device=dev)
+    # A device scale that sends the tails past +-127, as the int8 convs
+    # compute theirs on the card; a float one that sends more past it.
+    scales = {"device": torch.clamp_min(x32.abs().amax(), 1e-30)
+              * torch.tensor(0.5 / 127.0, device=dev), "float": 0.05}
+    n, out = x32.numel(), {}
+
+    def one(name, kernel, plain, library, nbytes):
+        got, want = kernel(), plain()
+        check(torch.equal(got, want) and got.dtype == want.dtype,
+              f"{name}: kernel differs from the plain expression")
+        before = sum(quant_launches())
+        kernel()
+        torch.cuda.synchronize()
+        check(sum(quant_launches()) - before == 1,
+              f"{name}: {sum(quant_launches()) - before} launches a call")
+        rec = {"ms": device_ms(kernel, 50), "plain_ms": device_ms(plain, 50),
+               "bound_ms": nbytes / profiling.H100_BYTES_PER_S * 1e3,
+               "bound_by": "bytes"}
+        if library is not None:
+            check(torch.equal(library(), want),
+                  f"{name}: the library call differs from the plain one")
+            rec["library_ms"] = device_ms(library, 50)
+        out[name] = rec
+        print(f"kernel {name} [{QUANT_ROWS}, {QUANT_COLS}]: "
+              f"{rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f}, "
+              + (f"torch.mul {rec['library_ms']:.4f}, "
+                 if library is not None else "")
+              + f"bound {rec['bound_ms']:.4f} by bytes, "
+              f"{rec['bound_ms'] / rec['ms']:.3f} of it); bit-equal "
+              f"[{gpu}]", flush=True)
+
+    q = quant.quantize_reference(x32, scales["device"])
+    check(int(q.abs().max()) == 127 and bool(
+        ((x32 / scales["device"]).abs() > 127.5).any()),
+          "conversions: no value past +-127 at the device scale")
+    for lab, dt in DTYPES.items():
+        x = x32.to(dt)
+        size = torch.finfo(dt).bits // 8
+        y = torch.empty(q.shape, dtype=dt, device=dev)
+        for kind, sc in scales.items():
+            one(f"quant_{lab}_{kind}",
+                lambda x=x, sc=sc: quant.quantize_int8(x, sc),
+                lambda x=x, sc=sc: quant.quantize_reference(x, sc),
+                None, (size + 1) * n)
+            one(f"dequant_{lab}_{kind}",
+                lambda dt=dt, sc=sc: quant.dequantize_int8(q, sc, dt),
+                lambda dt=dt, sc=sc: quant.dequantize_reference(q, sc, dt),
+                (lambda sc=sc: torch.mul(q, sc)) if dt == torch.float32
+                else (lambda sc=sc, y=y: torch.mul(q, sc, out=y)),
+                (size + 1) * n)
+    return out
+
+
 # ------------------------------------------------------- the probes P1-P3
 
 
@@ -3879,7 +4014,7 @@ def main() -> int:
     # Phase 2: one nvcc per source and g++ for the host matcher, all
     # started together.
     t0 = time.perf_counter()
-    sources = ("band", "cheby_fused", "bsr", "probes")
+    sources = ("band", "cheby_fused", "bsr", "probes", "quant")
     with ThreadPoolExecutor(len(sources) + 1) as pool:
         host = pool.submit(_build.build_host, "graph_kernels")
         logs = dict(zip(sources, pool.map(_build.build, sources)))
@@ -3965,6 +4100,10 @@ def main() -> int:
     for mode, ms in lat.items():
         print(f"request latency {mode}: {ms:.3f} ms "
               f"({K - 1} SpMMs, {op.m} nodes, Fin {FIN}) [{gpu}]")
+
+    # Phase 29: the int8 conversions at the 50k request's carries.
+    conv_rec = conversion_phase(dev, gpu)
+    conv_launches = served_k1["conversions"]["int8"]
 
     # Phase 25 (a): the int8 request as a serving artifact, loaded and
     # served in a fresh process.
@@ -4841,6 +4980,24 @@ def main() -> int:
             if f"{key[:2]} f32" in csr else {}),
          **(sparse_keys("bsr") if key == "K8 bf16" else {})}
         for key, rec in route_launches.items()
+    ] + [
+        {"name": kernel, "route": "cuda", "source": QUANT_SOURCE,
+         "kernel": kernel, "replaces": QUANT_REPLACES,
+         "wrapper": f"{side}_int8",
+         # Phase 4's 4 int8 requests of one conv: 1 and K a request.
+         "launches": conv_launches[side == "dequantize"],
+         "max_abs_err": 0.0,
+         **{k: conv_rec[f"{pre}_f32_device"][k]
+            for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+         "library_ms": conv_rec[f"{pre}_f32_device"].get("library_ms"),
+         **{f"{k}_{lab}_{kind}": conv_rec[f"{pre}_{lab}_{kind}"][k]
+            for lab in DTYPES for kind in ("device", "float")
+            for k in ("ms", "plain_ms", "bound_ms", "library_ms")
+            if (lab, kind) != ("f32", "device")
+            and k in conv_rec[f"{pre}_{lab}_{kind}"]}}
+        for side, pre, kernel in (("quantize", "quant", "quant_kernel"),
+                                  ("dequantize", "dequant",
+                                   "dequant_kernel"))
     ] + probe_rows}
     for row in record["kernels"]:
         check(row["launches"] > 0, f"{row['name']}: no launch on its path")

@@ -44,7 +44,7 @@ import scipy.sparse
 import torch
 
 from cnn_graph_tpu_torch.graphs import rescale_laplacian
-from cnn_graph_tpu_torch.ops import packing
+from cnn_graph_tpu_torch.ops import packing, quant
 from cnn_graph_tpu_torch.ops.packing import _round_up
 from cnn_graph_tpu_torch.ops.band import (
     _emit,
@@ -247,9 +247,11 @@ class QuantOpMixin:
     ``dequantize``.  Inference only, as the JAX int8 operators are:
     ``quantize`` raises when a gradient would be needed through it.
     Subclasses carry ``act_scale`` and implement ``_call(x_q, x0_q)``.
-    Each ``quantize`` and ``dequantize`` is a span timed on the card and
-    counts the bytes its elements need at least (``quant_bytes``: 4 read
-    and 1 written, ``dequant_bytes``: 1 read and 4 written)."""
+    Each ``quantize`` and ``dequantize`` is one launch of
+    ``csrc/quant.cu`` on the card, the plain expression on the CPU
+    (``ops/quant.py``), in a span timed on the card, and counts the bytes
+    its elements need at least (``quant_bytes``: 4 read and 1 written,
+    ``dequant_bytes``: 1 read and 4 written)."""
 
     @property
     def compute_dtype(self):
@@ -263,14 +265,14 @@ class QuantOpMixin:
         s = self.act_scale if scale is None else scale
         count("quant_bytes", 5 * x.numel())
         with span("quantize", device=True):
-            return torch.clamp(torch.round(x / s), -127, 127).to(torch.int8)
+            return quant.quantize_int8(x, s)
 
     def dequantize(self, q: torch.Tensor, dtype=torch.float32,
                    scale=None) -> torch.Tensor:
         s = self.act_scale if scale is None else scale
         count("dequant_bytes", 5 * q.numel())
         with span("dequantize", device=True):
-            return (q.to(torch.float32) * s).to(dtype)
+            return quant.dequantize_int8(q, s, dtype)
 
     def matmul(self, x: torch.Tensor) -> torch.Tensor:
         """Float view: quantize -> int8 SpMM -> dequantize."""

@@ -17,19 +17,22 @@ launches the same kernels:
 * ``cheby_conv``: K2 (``csrc/cheby_fused.cu``), on the dense operator's
   matrix.
 * ``cheby_dw``: K3 and its fold, on K2's launch template.
+* ``quantize_int8`` and ``dequantize_int8``: the int8 twins' activation
+  conversions (``csrc/quant.cu``), a scale tensor or a float.
 
 Each op has three implementations: CUDA, the ``ctypes`` launch of
-``ops/band.py``, ``ops/bsr.py`` or ``ops/cheby.py``, which counts the
-launch on its wrapper (``launches``, ``form_launches``,
-``route_launches``, views of the recorder's counters) and names it in a
-span of the recorder (``utils/profiling.py``), so a loaded
-program counts and names its launches as the eager path does; CPU, the
-kernel's plain PyTorch version; and a fake one that gives the output's
-shape and dtype (int8 in, int8 out) and counts nothing.  There is no
-fallback: a CUDA op that cannot build or launch raises.  The wrappers
-(``banded_dkw``, ``bsr_colstream``, ``fused_filter``, ...) check their
-arguments' shapes before they call an op, so the checks run while
-``torch.export`` traces too.
+``ops/band.py``, ``ops/bsr.py``, ``ops/cheby.py`` or ``ops/quant.py``,
+which counts the launch on its wrapper (``launches``, ``form_launches``,
+``route_launches``, views of the recorder's counters) and, but for the
+conversions, whose spans are their callers', names it in a span of the
+recorder (``utils/profiling.py``), so a loaded program counts and names
+its launches as the eager path does; CPU, the kernel's plain PyTorch
+version; and a fake one that gives the output's shape and dtype (int8
+in, int8 out; the conversions' int8 or ``dtype``) and counts nothing.
+There is no fallback: a CUDA op that cannot build or launch raises.  The
+wrappers (``banded_dkw``, ``bsr_colstream``, ``fused_filter``,
+``quantize_int8``, ...) check their arguments' shapes before they call
+an op, so the checks run while ``torch.export`` traces too.
 
 Importing ``cnn_graph_tpu_torch.ops`` imports this module, which
 registers the ops; ``serve.load_serving`` needs them registered before
@@ -42,7 +45,7 @@ from typing import Optional
 
 import torch
 
-from cnn_graph_tpu_torch.ops import band, bsr, cheby
+from cnn_graph_tpu_torch.ops import band, bsr, cheby, quant
 
 __all__ = ["NAMESPACE", "launch_counts", "reset_launch_counts"]
 
@@ -186,6 +189,53 @@ def _(mat, x, g, K):
     return x.new_empty((K, x.shape[2], g.shape[2]), dtype=torch.float32)
 
 
+# ---------------------------------------------------- int8 conversions
+
+
+@torch.library.custom_op(f"{NAMESPACE}::quantize_int8", mutates_args=(),
+                         device_types="cpu")
+def quantize_int8(x: Tensor, scale: Optional[Tensor],
+                  scale_value: float) -> Tensor:
+    """``clamp(round(x / s), -127, 127)`` in int8, ``s`` the tensor
+    ``scale`` where given, else ``scale_value``.  CPU:
+    ``quant.quantize_reference``, in the kernel's output layout."""
+    s = scale_value if scale is None else scale
+    return quant.out_like(x, torch.int8).copy_(
+        quant.quantize_reference(x, s))
+
+
+@quantize_int8.register_kernel("cuda")
+def _(x, scale, scale_value):
+    return quant.quant_kernel(x, scale, scale_value)
+
+
+@quantize_int8.register_fake
+def _(x, scale, scale_value):
+    return quant.out_like(x, torch.int8)
+
+
+@torch.library.custom_op(f"{NAMESPACE}::dequantize_int8", mutates_args=(),
+                         device_types="cpu")
+def dequantize_int8(q: Tensor, scale: Optional[Tensor], scale_value: float,
+                    dtype: torch.dtype) -> Tensor:
+    """``float32(q) * s`` in ``dtype``, ``s`` as for ``quantize_int8``.
+    CPU: ``quant.dequantize_reference``, in the kernel's output
+    layout."""
+    s = scale_value if scale is None else scale
+    return quant.out_like(q, dtype).copy_(
+        quant.dequantize_reference(q, s, dtype))
+
+
+@dequantize_int8.register_kernel("cuda")
+def _(q, scale, scale_value, dtype):
+    return quant.dequant_kernel(q, scale, scale_value, dtype)
+
+
+@dequantize_int8.register_fake
+def _(q, scale, scale_value, dtype):
+    return quant.out_like(q, dtype)
+
+
 # ------------------------------------------------------------ the counts
 
 _COUNTED = {"band_dkw": band.banded_dkw, "band_uniform": band.banded_uniform,
@@ -196,7 +246,9 @@ _COUNTED = {"band_dkw": band.banded_dkw, "band_uniform": band.banded_uniform,
 
 
 def launch_counts() -> dict:
-    """Every kernel wrapper's launch count, by wrapper."""
+    """Every graph-operator kernel wrapper's launch count, by wrapper
+    (the int8 conversions count on ``quant.quantize_int8`` and
+    ``quant.dequantize_int8``)."""
     return {name: fn.launches for name, fn in _COUNTED.items()}
 
 
