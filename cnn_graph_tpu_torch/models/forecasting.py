@@ -12,6 +12,11 @@ the JAX package's, which documents two deliberate deviations from the
 fork that hold here too: ``glstm_period_no_expand`` returns the head's
 output (the fork returns the pre-head tensor), and
 ``glstm_period_expand_gconv2``'s stray input transpose is dropped.
+
+Spans (``utils/profiling.py``, untimed, forward only: autograd runs the
+backward outside them): ``forecast.branch`` around each gLSTM branch of
+``apply`` (one a timescale in the ``*period_expand*`` variants) and
+``forecast.stack`` around each residual gconv stack (``_conv_stack``).
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from cnn_graph_tpu_torch.models.gconv_lstm import (
     glstm_stack_init,
 )
 from cnn_graph_tpu_torch.ops.filters import cheby_conv, fourier_conv
+from cnn_graph_tpu_torch.utils.profiling import span
 
 __all__ = ["GConvForecaster", "FORECAST_VARIANTS"]
 
@@ -144,14 +150,15 @@ class GConvForecaster(nn.Module):
     def _glstm_branch(self, params, x_window, T, *, train, generator):
         """``x_window`` ``[B, M, Fin*T]`` -> the last gLSTM output ``[B, M,
         H]``; the channels reshape to (Fin, T), the in/out series as
-        feature rows over T steps."""
-        B, M, C = x_window.shape
-        fin = C // T
-        x_seq = x_window.reshape(B, M, fin, T).permute(3, 0, 1, 2)
-        out_seq = glstm_stack_apply(params, self._cells(fin), x_seq,
-                                    train=train, generator=generator,
-                                    output_keep_prob=self.keep)
-        return out_seq[-1]
+        feature rows over T steps.  The span ``forecast.branch``."""
+        with span("forecast.branch"):
+            B, M, C = x_window.shape
+            fin = C // T
+            x_seq = x_window.reshape(B, M, fin, T).permute(3, 0, 1, 2)
+            out_seq = glstm_stack_apply(params, self._cells(fin), x_seq,
+                                        train=train, generator=generator,
+                                        output_keep_prob=self.keep)
+            return out_seq[-1]
 
     def _conv_stack_init(self, fin, hidden):
         return {"init": self._gconv_init(fin, hidden),
@@ -160,14 +167,16 @@ class GConvForecaster(nn.Module):
                         for _ in range(self.n_conv)]}
 
     def _conv_stack(self, params, x, init_act, res_act):
-        """init conv + residual gconv layers (gconv_lstm.py:642-658)."""
-        x = _ACTS[init_act](self._gconv(params["init"], x))
-        act = _ACTS[res_act]
-        for blk in params["res"]:
-            identity = x
-            x = act(self._gconv(blk["w1"], x))
-            x = act(self._gconv(blk["w2"], x) + identity)
-        return x
+        """init conv + residual gconv layers (gconv_lstm.py:642-658); the
+        span ``forecast.stack``."""
+        with span("forecast.stack"):
+            x = _ACTS[init_act](self._gconv(params["init"], x))
+            act = _ACTS[res_act]
+            for blk in params["res"]:
+                identity = x
+                x = act(self._gconv(blk["w1"], x))
+                x = act(self._gconv(blk["w2"], x) + identity)
+            return x
 
     def _splits(self):
         """Channel ranges of the closeness, period and trend windows."""

@@ -15,6 +15,14 @@ package's deliberate fixes of the fork hold here too: gate z uses tanh
 so that x and h each take one filter pass of width 4H, as JAX does: on a
 dense operator with H = 64 the h-conv is K2 at (64 -> 256), its dx K2 at
 (256 -> 64) and its dW K3 at (64, 256), where the fused rule admits them.
+
+Spans (``utils/profiling.py``): each ``step`` is the span ``glstm.step``;
+inside it ``glstm.gates``, timed on the card, holds the sum of the two
+filters' outputs and the bias, the four gates and the ``(c, h)`` update,
+and the counter ``glstm_gate_bytes`` adds the least f32 traffic of that
+math, ``44 H`` bytes a node and sample (read both filter outputs, 4H
+wide each, and c; write c and h).  Both cover the forward alone: autograd
+runs the backward outside them.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ import torch
 
 from cnn_graph_tpu_torch.models import common
 from cnn_graph_tpu_torch.ops.filters import cheby_conv, fourier_conv
+from cnn_graph_tpu_torch.utils.profiling import count, span
 
 __all__ = ["GConvLSTMCell", "glstm_stack_init", "glstm_stack_apply"]
 
@@ -87,21 +96,28 @@ class GConvLSTMCell:
     def step(self, params, carry, x):
         """One time step: ``carry = (c, h)``, ``x`` ``[B, M, feat_in]``.
         Returns ``((c, h), h)``.  The gates' weights are concatenated
-        along the output features, one filter pass for x and one for h."""
-        c, h = carry
-        H = self.num_units
-        axis = -1 if self.filter_type == "cheby_conv" else 1
-        wx = torch.cat([params[f"W{g}x"] for g in _GATES], axis)
-        wh = torch.cat([params[f"W{g}h"] for g in _GATES], axis)
-        b = torch.cat([params[f"b{g}"] for g in _GATES], -1)
-        pre = self._filter(x, wx) + self._filter(h, wh) + b
-        z = torch.tanh(pre[..., :H])
-        i = torch.sigmoid(pre[..., H:2 * H])
-        f = torch.sigmoid(pre[..., 2 * H:3 * H] + self.forget_bias)
-        o = torch.sigmoid(pre[..., 3 * H:])
-        new_c = f * c + i * z
-        new_h = o * torch.tanh(new_c)
-        return (new_c, new_h), new_h
+        along the output features, one filter pass for x and one for h.
+        The spans ``glstm.step`` and ``glstm.gates`` (timed) and the
+        counter ``glstm_gate_bytes`` cover the forward only."""
+        with span("glstm.step"):
+            c, h = carry
+            H = self.num_units
+            axis = -1 if self.filter_type == "cheby_conv" else 1
+            wx = torch.cat([params[f"W{g}x"] for g in _GATES], axis)
+            wh = torch.cat([params[f"W{g}h"] for g in _GATES], axis)
+            b = torch.cat([params[f"b{g}"] for g in _GATES], -1)
+            fx, fh = self._filter(x, wx), self._filter(h, wh)
+            with span("glstm.gates", device=True):
+                count("glstm_gate_bytes", 44 * H * c.shape[0] * c.shape[1])
+                pre = fx + fh + b
+                del fx, fh  # freed before the gates, as in one expression
+                z = torch.tanh(pre[..., :H])
+                i = torch.sigmoid(pre[..., H:2 * H])
+                f = torch.sigmoid(pre[..., 2 * H:3 * H] + self.forget_bias)
+                o = torch.sigmoid(pre[..., 3 * H:])
+                new_c = f * c + i * z
+                new_h = o * torch.tanh(new_c)
+            return (new_c, new_h), new_h
 
 
 def glstm_stack_init(cells: list[GConvLSTMCell], *,
