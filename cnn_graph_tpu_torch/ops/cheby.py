@@ -90,12 +90,46 @@ def _dw_eligible(F: int, O: int, col_tile: int = 256) -> bool:
     return (s * F) % 128 == 0 and (s * O) % 128 == 0
 
 
-def _columns(x: torch.Tensor, m_padded: int) -> torch.Tensor:
-    """``[B, M, F]`` -> f32 ``[Mp, B*F]``, batch-major columns, the node
-    axis zero-padded to the operator's size."""
+def _rows(x: torch.Tensor, L=None) -> torch.Tensor:
+    """``[B, M, F]`` as every Chebyshev recurrence lays its carries out:
+    ``[rows, B*F]``, batch-major columns (column ``b*F + f``).  With an
+    operator ``L`` the node axis is zero-padded to its ``m_padded`` rows
+    (by ``torch.cat``, which writes each byte once); a node-sharded
+    operator (``rows_per_shard``) takes this rank's rows, ``M =
+    rows_per_shard``, and those past the graph's last node are zeroed,
+    as JAX's slice to ``M`` and zero padding leave them.  A view of
+    ``x`` where nothing moves (``B`` or ``F`` is 1 and no row is
+    padded).  ``_unrows`` is its inverse."""
     B, M, F = x.shape
-    xt = x.permute(1, 0, 2).reshape(M, B * F).to(torch.float32)
-    return nnf.pad(xt, (0, 0, 0, m_padded - M)).contiguous()
+    rows = M
+    if L is not None:
+        rows = getattr(L, "rows_per_shard", None)
+        if rows is None:
+            rows = L.m_padded
+        elif M != rows:
+            raise ValueError(f"a node-sharded operator takes this rank's "
+                             f"{rows} rows; x has {M}")
+        else:
+            x = x[:, :L.real_rows]
+    xt = x.permute(1, 0, 2).reshape(x.shape[1], B * F)
+    if xt.shape[0] == rows:
+        return xt
+    return torch.cat([xt, xt.new_zeros((rows - xt.shape[0], B * F))])
+
+
+def _unrows(t: torch.Tensor, B: int, M: int, F: int) -> torch.Tensor:
+    """``_rows``'s inverse, a view: ``[..., rows, B*F]`` -> ``[..., B, M,
+    F]``."""
+    return t[..., :M, :].unflatten(-1, (B, F)).transpose(-3, -2)
+
+
+def _columns(x: torch.Tensor, m_padded: int) -> torch.Tensor:
+    """``_rows`` of ``x`` as a contiguous f32 ``[Mp, B*F]``, the fused
+    kernels' input and their plain versions'.  Padded by ``nnf.pad``:
+    on the card its copy of the contiguous rows is a memcpy, not a
+    kernel launch."""
+    xt = _rows(x).to(torch.float32)
+    return nnf.pad(xt, (0, 0, 0, m_padded - xt.shape[0])).contiguous()
 
 
 def _hops(L, t0: torch.Tensor, K: int):

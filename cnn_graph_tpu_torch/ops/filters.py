@@ -4,13 +4,12 @@ Counterpart of ``cnn_graph_tpu/ops/filters.py``: ``cheby_conv`` (:323)
 with the same dispatch (:344-378) and fused-kernel eligibility rule
 ``_fused_eligible`` (:47), ``cheby_conv_banded`` (:180-320) with
 its streaming forward and fused adjoint backward, the int8 streaming
-conv ``_cheby_conv_quant_stream`` (:74), the stacked ``cheby_basis``
-(:138) of the dense path and, for the sharded operators, its one-call
-``cheby_chain`` and int8 ``_cheby_basis_quant`` (:106); the Lanczos
-filter ``lanczos_basis_device`` (:381) and ``lanczos_conv`` (:446),
-whose ``L @ v`` products go through the operator's ``matmul`` (a banded
-or BSR operator's kernel on the card); ``cheby_weights_from_flat``
-(:466); and the Fourier filter
+conv (:74), the stacked ``cheby_basis`` (:138) of the dense path and,
+for the sharded operators, its one-call ``cheby_chain`` and int8 basis
+(:106); the Lanczos filter ``lanczos_basis_device`` (:381) and
+``lanczos_conv`` (:446), whose ``L @ v`` products go through the
+operator's ``matmul`` (a banded or BSR operator's kernel on the card);
+``cheby_weights_from_flat`` (:466); and the Fourier filter
 ``fourier_conv`` (:473), three dense contractions with the eigenbasis
 U, plain ``torch.einsum`` as the JAX package leaves them to XLA.
 Activations are ``[B, M, F]``, Chebyshev and Lanczos weights ``[K,
@@ -20,6 +19,13 @@ The per-tap products ``T_k x W_k`` and dW are plain ``torch.matmul``s on
 f32-upcast operands, accumulated in f32, as the JAX package's taps
 accumulate in f32; the backward's injections ``g W_k^T`` run in the
 operator's compute dtype, as in JAX.
+
+Every Chebyshev recurrence here holds its carries in one layout,
+``ops/cheby.py _rows``'s batch-major ``[rows, B*F]`` columns, and in one
+codec chosen once per conv from the operator (``_carries``): float
+carries in its compute dtype, or int8 carries on one run-time scale.
+One streaming loop (``_ccb_forward``) and one stacked basis
+(``cheby_basis``) serve both kinds.
 
 Spans (``utils/profiling.py``): ``cheby_conv`` opens ``conv.<route>``
 (``banded``, ``quant_stream``, ``fused``, ``stacked``); the tap work is
@@ -34,7 +40,12 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from cnn_graph_tpu_torch.ops.band import full_f32_matmul
-from cnn_graph_tpu_torch.ops.cheby import cheby_conv_fused, fused_vmem_ok
+from cnn_graph_tpu_torch.ops.cheby import (
+    _rows,
+    _unrows,
+    cheby_conv_fused,
+    fused_vmem_ok,
+)
 from cnn_graph_tpu_torch.ops.laplacian import BandedLaplacian
 from cnn_graph_tpu_torch.utils.profiling import span
 
@@ -60,69 +71,86 @@ def _fused_eligible(L, fin: int, fout: int, col_tile: int = 512) -> bool:
     return True
 
 
-def _pad_nodes(x: torch.Tensor, m_padded: int) -> torch.Tensor:
-    """Zero-pad the node axis of ``[M, ...]`` to the operator's size."""
-    m = x.shape[0]
-    if m == m_padded:
-        return x
-    pad = x.new_zeros((m_padded - m,) + tuple(x.shape[1:]))
-    return torch.cat([x, pad], dim=0)
+class _FloatCarries:
+    """Float carries in the operator's compute dtype: ``first`` is ``L
+    x``, ``hop`` ``2 L x1 - x0``, ``chain`` the operator's one-call
+    stacked basis (or None).  ``decode`` reads a carry as it is; whoever
+    reads it casts it."""
+
+    def __init__(self, L):
+        self.dtype = L.compute_dtype
+        self.first, self.hop = L.matmul, L.cheby_hop
+        self.chain = getattr(L, "cheby_chain", None)
+
+    def encode(self, xt: torch.Tensor) -> torch.Tensor:
+        return xt.to(self.dtype)
+
+    def decode(self, c: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        return c
 
 
-def _cheby_conv_quant_stream(x: torch.Tensor, L, w: torch.Tensor):
-    """Int8-carry Chebyshev conv with per-hop streamed taps.  Columns are
-    feature-major (``c = f*B + b``); the activation scale ``s_x`` is taken
-    from ``max|x|`` at run time, so no calibration pass is needed.  Only
-    the two rolling int8 carries stay live."""
-    K, Fin, Fout = w.shape
-    B, M, F = x.shape
-    xt = _pad_nodes(x.permute(1, 2, 0).reshape(M, F * B),
-                    L.m_padded).to(torch.float32)
-    s_x = torch.clamp_min(xt.abs().amax(), 1e-30) * torch.tensor(
-        L.headroom / 127.0, dtype=torch.float32)
-    wc = w.to(torch.float32)
+class _Int8Carries:
+    """Int8 carries (JAX filters.py:74-131) on one activation scale from
+    ``max|x|`` at run time, so no calibration pass is needed; over every
+    rank's rows of a sharded operator, an ``all_reduce(MAX)`` over
+    ``nodes``.  ``encode`` quantizes, ``decode`` dequantizes to
+    ``dtype``; ``first``, ``hop`` and ``chain`` are the operator's int8
+    products.  Inference only: ``quantize`` raises under a gradient."""
 
-    y = torch.zeros((B, M, Fout), dtype=torch.float32, device=x.device)
-    q_prev = None
-    q = L.quantize(xt, scale=s_x)
-    with full_f32_matmul():
-        for k in range(K):
-            if k == 1:
-                q_prev, q = q, L.spmm_q(q)
-            elif k >= 2:
-                q_prev, q = q, L.cheby_hop_q(q, q_prev)
-            dq = L.dequantize(q[:M], torch.float32, scale=s_x)
-            with span("conv.taps", device=True):
-                y = y + torch.einsum("mfb,fo->bmo", dq.reshape(M, F, B),
-                                     wc[k])
-    return y.to(x.dtype)
+    def __init__(self, L):
+        self.L = L
+        self.first, self.hop = L.spmm_q, L.cheby_hop_q
+        self.chain = getattr(L, "cheby_chain_q", None)
+
+    def encode(self, xt: torch.Tensor) -> torch.Tensor:
+        L = self.L
+        xt = xt.to(torch.float32)
+        amax = xt.abs().amax()
+        if getattr(L, "mesh", None) is not None:
+            amax = L.mesh.all_reduce(amax.reshape(1), "nodes", "max")[0]
+        self.scale = torch.clamp_min(amax, 1e-30) * torch.tensor(
+            L.headroom / 127.0, dtype=torch.float32)
+        return L.quantize(xt, scale=self.scale)
+
+    def decode(self, q: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        return self.L.dequantize(q, dtype, scale=self.scale)
+
+
+def _carries(L):
+    """The carry codec of one conv on ``L``: int8 where the operator has
+    ``cheby_hop_q``, else float."""
+    return (_Int8Carries if hasattr(L, "cheby_hop_q") else _FloatCarries)(L)
 
 
 def _ccb_forward(x: torch.Tensor, L, w: torch.Tensor, keep: bool):
-    """Streaming taps ``y += T_k x W_k`` over the recurrence, in the
-    kernel's batch-major ``[Mp, B*F]`` columns.  ``keep``: also return
-    the K carries as a list (for the backward; a ``torch.stack`` would
-    copy them all), else only two rolling carries stay live."""
+    """Streaming taps ``y += T_k x W_k`` over the recurrence, in ``_rows``'
+    ``[Mp, B*F]`` columns, on the float banded operator or any single-chip
+    int8 one.  Each hop's tap reads its carry in f32: an int8 carry
+    dequantized (its own span) before ``conv.taps``, a float one cast
+    inside it.  ``keep``: also return the K carries as a list (for the
+    backward; a ``torch.stack`` would copy them all), else only two
+    rolling carries stay live."""
     K, Fin, Fout = w.shape
     B, M, F = x.shape
     if F != Fin:
         raise ValueError(f"feature mismatch: x has {F}, w expects {Fin}")
-    xt = _pad_nodes(x.permute(1, 0, 2).reshape(M, B * F),
-                    L.m_padded).to(L.compute_dtype)
+    codec = _carries(L)
+    prev, cur = None, codec.encode(_rows(x, L))
     wc = w.to(torch.float32)
     y = torch.zeros((B, M, Fout), dtype=torch.float32, device=x.device)
     carries = []
-    prev, cur = None, xt
-    for k in range(K):
-        if k == 1:
-            prev, cur = cur, L.matmul(cur)
-        elif k >= 2:
-            prev, cur = cur, L.cheby_hop(cur, prev)
-        if keep:
-            carries.append(cur)
-        with full_f32_matmul(), span("conv.taps", device=True):
-            tap = cur[:M].reshape(M, B, F).to(torch.float32)
-            y = y + torch.einsum("mbf,fo->bmo", tap, wc[k])
+    with full_f32_matmul():
+        for k in range(K):
+            if k == 1:
+                prev, cur = cur, codec.first(cur)
+            elif k >= 2:
+                prev, cur = cur, codec.hop(cur, prev)
+            if keep:
+                carries.append(cur)
+            tap = codec.decode(cur[:M], torch.float32)
+            with span("conv.taps", device=True):
+                tap = tap.reshape(M, B, F).to(torch.float32)
+                y = y + torch.einsum("mbf,fo->bmo", tap, wc[k])
     return y.to(x.dtype), carries
 
 
@@ -154,8 +182,8 @@ class _ChebyConvBanded(torch.autograd.Function):
                     dws.append(torch.einsum("mbf,bmo->fo", tap, gc))
                 dw = torch.stack(dws).to(w.dtype)
         if ctx.input_grad and ctx.needs_input_grad[0]:
-            dx = _ccb_adjoint(ctx.L, g, w).reshape(M, B, Fin).permute(
-                1, 0, 2).to(ctx.x_dtype)
+            dx = _unrows(_ccb_adjoint(ctx.L, g, w), B, M, Fin).to(
+                ctx.x_dtype)
         return dx, None, dw, None
 
 
@@ -173,8 +201,9 @@ def _ccb_adjoint(L, g, w):
     cdt = L.compute_dtype
     with full_f32_matmul(), span("conv.injections", device=True):
         gcd, wcd = g.to(cdt), w.to(cdt)
-        C = [_pad_nodes(torch.einsum("bmo,fo->mbf", gcd, wcd[k]).reshape(
-            M, B * Fin), L.m_padded) for k in range(K)]
+        # Each c_k made node-major, so that _rows' permutation is a view.
+        C = [_rows(torch.einsum("bmo,fo->mbf", gcd, wcd[k]).transpose(0, 1),
+                   L) for k in range(K)]
     if K == 1:
         s0 = C[0]
     elif K == 2:
@@ -208,71 +237,25 @@ def cheby_conv_banded(x: torch.Tensor, L: BandedLaplacian, w: torch.Tensor,
     return _ccb_forward(x, L, w, keep=False)[0]
 
 
-def _basis_input(x: torch.Tensor, L) -> torch.Tensor:
-    """``x`` ``[B, M, F]`` as the recurrence's ``[rows, F*B]`` columns
-    (feature-major), zero-padded to the operator's rows.  A node-sharded
-    operator (``rows_per_shard``) takes this rank's rows, ``M =
-    rows_per_shard``; those past the graph's last node are zeroed, as
-    JAX's slice to ``M`` and zero padding leave them."""
-    B, M, F = x.shape
-    xt = x.permute(1, 2, 0).reshape(M, F * B)
-    ms = getattr(L, "rows_per_shard", None)
-    if ms is None:
-        return _pad_nodes(xt, L.m_padded)
-    if M != ms:
-        raise ValueError(f"a node-sharded operator takes this rank's "
-                         f"{ms} rows; x has {M}")
-    return _pad_nodes(xt[:L.real_rows], ms)
-
-
-def _cheby_basis_quant(x: torch.Tensor, L, K: int) -> torch.Tensor:
-    """The Chebyshev basis on int8 carries (JAX filters.py:106-131): the
-    activation scale from ``max|x|`` at run time (over every rank's rows
-    of a sharded operator, an ``all_reduce(MAX)`` over ``nodes``), one
-    quantize, K-1 int8 hops (one ``cheby_chain_q`` where the operator
-    has it), one dequantize to x's dtype."""
-    B, M, F = x.shape
-    xt = _basis_input(x, L).to(torch.float32)
-    amax = xt.abs().amax()
-    if getattr(L, "mesh", None) is not None:
-        amax = L.mesh.all_reduce(amax.reshape(1), "nodes", "max")[0]
-    s_x = torch.clamp_min(amax, 1e-30) * torch.tensor(
-        L.headroom / 127.0, dtype=torch.float32)
-    xq = L.quantize(xt, scale=s_x)
-    if hasattr(L, "cheby_chain_q"):
-        stacked = L.cheby_chain_q(xq, K)
-    else:
-        basis = [xq]
-        if K > 1:
-            basis.append(L.spmm_q(xq))
-        for _ in range(2, K):
-            basis.append(L.cheby_hop_q(basis[-1], basis[-2]))
-        stacked = torch.stack(basis)
-    stacked = L.dequantize(stacked[:, :M], x.dtype, scale=s_x)
-    return stacked.reshape(K, M, F, B).permute(0, 3, 1, 2)
-
-
 def cheby_basis(x: torch.Tensor, L, K: int) -> torch.Tensor:
-    """Stacked Chebyshev basis ``T_k(L) x`` for k < K in the operator's
-    compute dtype: ``[B, M, F]`` -> ``[K, B, M, F]``.  Quantized
-    operators run the recurrence on int8 carries
-    (``_cheby_basis_quant``); sharded operators run it as one
-    ``cheby_chain`` where they have one (JAX filters.py:138-177)."""
-    if hasattr(L, "cheby_hop_q"):
-        return _cheby_basis_quant(x, L, K)
+    """Stacked Chebyshev basis ``T_k(L) x`` for k < K: ``[B, M, F]`` ->
+    ``[K, B, M, F]``, in the operator's compute dtype, or, on int8 carries
+    (JAX filters.py:106-131), dequantized once to x's dtype.  Sharded
+    operators run it as one ``cheby_chain`` (``cheby_chain_q``) where they
+    have one (JAX filters.py:138-177)."""
     B, M, F = x.shape
-    xt = _basis_input(x, L).to(L.compute_dtype)
-    if hasattr(L, "cheby_chain"):
-        stacked = L.cheby_chain(xt, K)
+    codec = _carries(L)
+    t0 = codec.encode(_rows(x, L))
+    if codec.chain is not None:
+        stacked = codec.chain(t0, K)
     else:
-        basis = [xt]
+        basis = [t0]
         if K > 1:
-            basis.append(L.matmul(xt))
+            basis.append(codec.first(t0))
         for _ in range(2, K):
-            basis.append(L.cheby_hop(basis[-1], basis[-2]))
+            basis.append(codec.hop(basis[-1], basis[-2]))
         stacked = torch.stack(basis)
-    stacked = stacked[:, :M].reshape(K, M, F, B)
-    return stacked.permute(0, 3, 1, 2)
+    return _unrows(codec.decode(stacked[:, :M], x.dtype), B, M, F)
 
 
 def cheby_conv(x: torch.Tensor, L, w: torch.Tensor,
@@ -281,10 +264,11 @@ def cheby_conv(x: torch.Tensor, L, w: torch.Tensor,
 
     ``x``: ``[B, M, Fin]``, ``w``: ``[K, Fin, Fout]`` -> ``[B, M, Fout]``.
     Banded operators take ``cheby_conv_banded``; single-chip quantized
-    operators the int8 streaming conv (inference only), sharded ones the
-    stacked int8 basis of ``cheby_chain_q``; dense operators
-    built with ``use_fused`` the fused kernels where ``_fused_eligible``
-    holds (tile 512 for f32 operators, 256 otherwise, as in JAX);
+    operators the same streaming loop on int8 carries (inference only),
+    sharded ones the stacked int8 basis of ``cheby_chain_q``; dense
+    operators built with ``use_fused`` the fused kernels where
+    ``_fused_eligible`` holds (tile 512 for f32 operators, 256 otherwise,
+    as in JAX);
     everything else (block-sparse operators included) the stacked basis
     and one tap contraction, differentiated by torch.
     ``input_grad=False`` declares that no gradient for ``x`` is consumed;
@@ -299,7 +283,7 @@ def cheby_conv(x: torch.Tensor, L, w: torch.Tensor,
             return cheby_conv_banded(x, L, w, input_grad)
     if hasattr(L, "cheby_hop_q") and not hasattr(L, "cheby_chain_q"):
         with span("conv.quant_stream"):
-            return _cheby_conv_quant_stream(x, L, w)
+            return _ccb_forward(x, L, w, keep=False)[0]
     fused_tile = 512 if L.compute_dtype == torch.float32 else 256
     if getattr(L, "use_fused", False) and _fused_eligible(
             L, Fin, Fout, col_tile=fused_tile):
@@ -380,8 +364,9 @@ class _NarrowTaps(torch.autograd.Function):
 def lanczos_basis_device(x: torch.Tensor, L, K: int,
                          eps: float = 1e-12) -> torch.Tensor:
     """Per-signal K-step Lanczos basis, ``[B, M, F]`` -> ``[K, B, M, F]``:
-    K-step Lanczos on every signal column (the ``F*B`` columns, one wide
-    ``L @ V`` product per step through the operator's ``matmul``), one
+    K-step Lanczos on every signal column (``_rows``' ``B*F`` columns,
+    one wide ``L @ V`` product per step through the operator's
+    ``matmul``), one
     batched ``torch.linalg.eigh`` of the N tridiagonal ``K x K``
     matrices, and the rotation back.  The orthogonalisation runs in f32,
     the products in the operator's compute dtype.  A breakdown (``b_k <=
@@ -391,9 +376,8 @@ def lanczos_basis_device(x: torch.Tensor, L, K: int,
     as in JAX."""
     B, M, F = x.shape
     cdt = getattr(L, "compute_dtype", x.dtype)
-    xt = _pad_nodes(x.permute(1, 2, 0).reshape(M, F * B),
-                    L.m_padded).to(torch.float32)
-    N = F * B
+    xt = _rows(x, L).to(torch.float32)
+    N = B * F
 
     def lmul(v):
         return L.matmul(v.to(cdt)).to(torch.float32)
@@ -418,8 +402,7 @@ def lanczos_basis_device(x: torch.Tensor, L, K: int,
     with full_f32_matmul():
         Xt = torch.einsum("njk,jmn->kmn", Q, torch.stack(V))
     Xt = Xt * Q[:, 0, :].t()[:, None, :] * norms
-    Xt = Xt[:, :M].reshape(K, M, F, B)
-    return Xt.permute(0, 3, 1, 2).to(x.dtype)
+    return _unrows(Xt, B, M, F).to(x.dtype)
 
 
 def lanczos_conv(x: torch.Tensor, L, w: torch.Tensor) -> torch.Tensor:

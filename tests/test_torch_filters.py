@@ -11,7 +11,11 @@ another order); ``lanczos_basis_device``/``lanczos_conv`` on a dense and
 a banded operator (JAX's without Pallas, the port's banded operator on
 its kernel's plain version), values and gradients within 1e-4 of the
 largest entry (a K-step Krylov recurrence and a batched ``eigh`` in f32,
-each package's own LAPACK call); the ChebNet with each filter on a
+each package's own LAPACK call); ``cheby_conv`` at B = 3 and Fin = 4
+on every route whose carries take ``_rows``' batch-major columns (int8
+banded, BSR and dense, float banded and the stacked dense route): f32
+values and gradients rtol=atol=1e-4, int8 values atol=1e-4, and the
+int8 stacked basis equal to JAX's; the ChebNet with each filter on a
 12x12 grid's coarsened graphs, carried weights: logits rtol=atol=1e-4,
 loss rtol 1e-5, gradients within 1e-4 of each leaf's largest entry
 (Lanczos: 1e-3, its gradient passes through ``eigh``'s)."""
@@ -32,18 +36,27 @@ from cnn_graph_tpu.models import ChebNet as JaxChebNet
 from cnn_graph_tpu.models import bspline_basis as jax_bspline_basis
 from cnn_graph_tpu.ops import device_laplacian as jax_device_laplacian
 from cnn_graph_tpu.ops import filters as jax_filters
+from cnn_graph_tpu.ops import quantize_banded as jax_quantize_banded
+from cnn_graph_tpu.ops import quantize_block_sparse as jax_quantize_bsr
+from cnn_graph_tpu.ops import quantize_dense as jax_quantize_dense
 from cnn_graph_tpu_torch import graphs
 from cnn_graph_tpu_torch.convert import chebnet_params_from_jax
 from cnn_graph_tpu_torch.data import load_mnist
 from cnn_graph_tpu_torch.models import ChebNet, bspline_basis
 from cnn_graph_tpu_torch.models.common import tree_map
 from cnn_graph_tpu_torch.ops import (
+    cheby_basis,
+    cheby_conv,
     cheby_weights_from_flat,
     device_laplacian,
     fourier_conv,
     lanczos_basis_device,
     lanczos_conv,
+    quantize_banded,
+    quantize_block_sparse,
+    quantize_dense,
 )
+from cnn_graph_tpu_torch.utils import profiling
 
 
 @pytest.fixture(scope="module")
@@ -52,6 +65,25 @@ def grid_graph():
     W = graphs.knn_graph(graphs.grid(8), k=8)
     L = graphs.laplacian(W, normalized=True)
     return W, L, graphs.rescale_laplacian(L)
+
+
+QUANTIZE = {"banded": (quantize_banded, jax_quantize_banded),
+            "bsr": (quantize_block_sparse, jax_quantize_bsr),
+            "dense": (quantize_dense, jax_quantize_dense)}
+
+
+def _op_pair(L, fmt, int8):
+    """The port's and JAX's operator of one format for the RCM-ordered
+    Laplacian (JAX's without Pallas), int8 twins with ``sample_x=3``."""
+    perm = graphs.bandwidth_reducing_permutation(L)
+    L = L[perm][:, perm].tocsr()
+    kw = {"block_size": 16} if fmt == "bsr" else {}
+    op = device_laplacian(L, fmt=fmt, device="cpu", **kw)
+    op_j = jax_device_laplacian(L, fmt=fmt, use_pallas=False, **kw)
+    if int8:
+        quant, jax_quant = QUANTIZE[fmt]
+        op, op_j = quant(op, sample_x=3.0), jax_quant(op_j, sample_x=3.0)
+    return op, op_j
 
 
 def _close_rel(got, want, tol):
@@ -204,9 +236,70 @@ class TestDeviceFilters:
         _close_rel(xt.grad.numpy(), gx_j, 1e-4)
         _close_rel(wt.grad.numpy(), gw_j, 1e-4)
 
+    @pytest.mark.parametrize("route,fmt,int8", [
+        ("quant_stream", "banded", True),
+        ("quant_stream", "bsr", True),
+        ("quant_stream", "dense", True),
+        ("banded", "banded", False),
+        ("stacked", "dense", False),
+    ], ids=["int8-banded", "int8-bsr", "int8-dense", "banded", "stacked"])
+    def test_cheby_conv_routes_match_jax(self, grid_graph, route, fmt,
+                                         int8):
+        """Each route whose carries are batch-major columns, at B = 3 and
+        Fin = 4 so that no layout coincides with another: int8 values
+        (inference) within 1e-4, float values and gradients (x and w)
+        rtol=atol=1e-4 of JAX's ``cheby_conv``."""
+        _, L, _ = grid_graph
+        op, op_j = _op_pair(L, fmt, int8)
+        K = 5
+        rng = np.random.default_rng(6)
+        x = rng.normal(size=(3, 64, 4)).astype(np.float32)
+        w = (0.3 * rng.normal(size=(K, 4, 5))).astype(np.float32)
+        r = rng.normal(size=(3, 64, 5)).astype(np.float32)
+        y_j = jax.jit(jax_filters.cheby_conv)(jnp.asarray(x), op_j,
+                                              jnp.asarray(w))
+        if int8:
+            with torch.no_grad(), profiling.recording() as rec:
+                y = cheby_conv(torch.from_numpy(x), op, torch.from_numpy(w))
+            assert rec.spans[0].name == f"conv.{route}"
+            np.testing.assert_allclose(y.numpy(), np.asarray(y_j), rtol=0,
+                                       atol=1e-4)
+            return
+
+        def f_j(x, w):
+            return jnp.sum(jax_filters.cheby_conv(x, op_j, w) * r)
+
+        gx_j, gw_j = jax.jit(jax.grad(f_j, argnums=(0, 1)))(jnp.asarray(x),
+                                                            jnp.asarray(w))
+        xt = torch.from_numpy(x).requires_grad_()
+        wt = torch.from_numpy(w).requires_grad_()
+        with profiling.recording() as rec:
+            y = cheby_conv(xt, op, wt)
+        assert rec.spans[0].name == f"conv.{route}"
+        (y * torch.from_numpy(r)).sum().backward()
+        for a, b in ((y.detach(), y_j), (xt.grad, gx_j), (wt.grad, gw_j)):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4,
+                                       atol=1e-4)
+
+    @pytest.mark.parametrize("fmt", ["banded", "bsr", "dense"])
+    def test_int8_cheby_basis_matches_jax(self, grid_graph, fmt):
+        """The stacked basis on int8 carries with B > 1 and F > 1, one
+        dequantisation of JAX's carries to x's dtype: equal."""
+        _, L, _ = grid_graph
+        op, op_j = _op_pair(L, fmt, int8=True)
+        x = np.random.default_rng(7).normal(size=(3, 64, 4)).astype(
+            np.float32)
+        with torch.no_grad():
+            got = cheby_basis(torch.from_numpy(x), op, 5)
+        want = jax_filters.cheby_basis(jnp.asarray(x), op_j, 5)
+        assert got.shape == (5, 3, 64, 4)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
     def test_lanczos_basis_matches_the_host_oracle(self, grid_graph):
-        """The device basis is the host oracle's (signs cancel), x's
-        columns laid out feature-major as ``cheby_basis`` does."""
+        """The device basis is the host oracle's (signs cancel), with
+        the oracle's columns laid out feature-major (each column is its
+        own signal, so the device's batch-major order gives the same
+        basis)."""
         *_, Lr = grid_graph
         x = np.random.default_rng(5).normal(size=(2, 64, 3))
         op = device_laplacian(graphs.laplacian(grid_graph[0]), fmt="dense",

@@ -36,8 +36,9 @@ def cuda_device():
 
 
 def _scale(kind, value, device):
-    """The scale as ``_cheby_conv_quant_stream`` computes it on the card
-    (a 0-d CUDA tensor), or as the operators' ``act_scale`` (a float)."""
+    """The scale as ``ops/filters.py _Int8Carries.encode`` computes it on
+    the card (a 0-d CUDA tensor), or as the operators' ``act_scale`` (a
+    float)."""
     if kind == "float":
         return value
     return torch.clamp_min(torch.tensor(value, device=device), 1e-30)

@@ -41,6 +41,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 import chip_smoke as smoke  # noqa: E402
+from cnn_graph_tpu_torch.ops.cheby import _unrows  # noqa: E402
 from cnn_graph_tpu_torch.ops.filters import stacked_taps  # noqa: E402
 
 K, B, M, MP, FIN, OUT = 25, 1, 50000, 50048, 512, 16
@@ -75,11 +76,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     gpu = smoke.card()
     gen = torch.Generator(device=dev).manual_seed(0)
-    # cheby_basis's layout: the stacked [K, Mp, Fin*B] carries, sliced to
+    # cheby_basis's layout: the stacked [K, Mp, B*Fin] carries, sliced to
     # M rows and viewed as [K, B, M, Fin].
-    stacked = torch.randn(K, MP, FIN * B, generator=gen, device=dev).to(
+    stacked = torch.randn(K, MP, B * FIN, generator=gen, device=dev).to(
         torch.bfloat16)
-    basis = stacked[:, :M].reshape(K, M, FIN, B).permute(0, 3, 1, 2)
+    basis = _unrows(stacked, B, M, FIN)
     w = 0.05 * torch.randn(K, FIN, OUT, generator=gen, device=dev)
     ways = _ways(basis, w)
     want = ways["upcast"]()
